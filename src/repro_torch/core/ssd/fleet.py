@@ -1,0 +1,107 @@
+"""Fleet simulation: every cell of one (composition, mode) group in one
+launch — port of the reference package's `core/ssd/fleet.py`.
+
+A fleet is a stacked `(C, T)` op tensor with per-cell `CellParams`
+((C,) tensors). On a CUDA device `run_fleet` is one launch of the
+`ssd_step` kernel, one thread block per cell; on the CPU it loops the
+kernel's plain version over the cells. Either way cell i equals
+`sim.run_trace` on that cell with the same parameters, bit for bit.
+
+Memory: each cell's carry is dominated by its residency maps (`loc`
+int8 + `loc_ep` int16 over 2^16 logical pages, 192 KB), which the kernel
+holds in shared memory for the whole run.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.ssd.policies.registry import resolve_spec
+from repro_torch.core.ssd.policies.state import (CellParams, SimState,
+                                                 init_state)
+from repro_torch.core.ssd.sim import flush_cache, summarize
+from repro_torch.kernels.ssd_step import ops as ssd_step
+from repro_torch.workloads.compress import TRIM_QUANTUM
+
+__all__ = ["stack_params", "stack_ops", "run_fleet", "flush_fleet",
+           "summarize_fleet"]
+
+
+def stack_params(params: Sequence[CellParams]) -> CellParams:
+    """Stack per-cell CellParams into one CellParams of (C,) tensors."""
+    return CellParams(*(torch.stack(xs) for xs in zip(*params)))
+
+
+def stack_ops(traces: Sequence[dict], device="cuda") -> dict:
+    """Stack padded traces into (C, T) op tensors (all traces share one
+    padded length; `sweep.runner` groups cells by it)."""
+    lens = {len(t["arrival_ms"]) for t in traces}
+    if len(lens) != 1:
+        raise ValueError(f"traces must share a padded length, got {lens}")
+
+    def stack(key, dtype):
+        return torch.as_tensor(
+            np.stack([np.asarray(t[key], dtype) for t in traces]),
+            device=device)
+
+    return {"arrival_ms": stack("arrival_ms", np.float32),
+            "lba": stack("lba", np.int32),
+            "is_write": stack("is_write", np.int32)}
+
+
+def _trim_len(is_write: np.ndarray, quantum: int = TRIM_QUANTUM) -> int:
+    """Shared scannable prefix of a stacked (C, T) fleet: the largest
+    per-cell live count, rounded up to `quantum` (the reference's
+    choice, kept so the scanned lengths match its records). Beyond it
+    every cell holds only its identical tail pads."""
+    live = is_write >= 0
+    t_len = is_write.shape[1]
+    any_live = live.any(axis=1)
+    last = t_len - np.argmax(live[:, ::-1], axis=1)
+    n_live = int(np.max(np.where(any_live, last, 0), initial=1))
+    return min(-(-n_live // quantum) * quantum, t_len)
+
+
+def run_fleet(cfg, policy, ops: dict, params: CellParams, *,
+              closed_loop: bool, n_logical: int, trim_pads: bool = False,
+              packed: bool = False):
+    """Simulate a whole (composition, mode) fleet.
+
+    ops: (C, T) op tensors from `stack_ops`; params: (C,)-stacked
+    CellParams on the same device. Returns (latency (C, T), final
+    SimState with leading C). `trim_pads` scans only the shared live
+    prefix and replays each cell's identical pad tail to its exact fixed
+    point inside the same launch; `packed` carries int16 plane fields
+    (gate on `policies.state.can_pack`). Results are identical either
+    way."""
+    spec = resolve_spec(policy)
+    n_cells, t_len = ops["lba"].shape
+    device = ops["lba"].device
+    t_scan = t_len
+    if trim_pads:
+        t_scan = _trim_len(ops["is_write"].cpu().numpy())
+    n_pad = t_len - t_scan
+    segs = {k: v[:, :t_scan].reshape(n_cells, t_scan, 1).contiguous()
+            for k, v in ops.items()}
+    pad_t = ops["arrival_ms"][:, t_scan].contiguous() if n_pad else None
+    state0 = init_state(cfg, n_logical, packed=packed, n_cells=n_cells,
+                        device=device)
+    lat, final = ssd_step.run_stream(cfg, spec, segs, state0,
+                                     closed_loop=closed_loop, params=params,
+                                     n_pad=n_pad, pad_t=pad_t)
+    latency = torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
+                                      (0, n_pad))
+    return latency, final
+
+
+def flush_fleet(cfg, states: SimState, policy) -> SimState:
+    """End-of-workload flush (`sim.flush_cache`) over the C axis."""
+    return flush_cache(cfg, states, policy)
+
+
+def summarize_fleet(latency, is_write, states: SimState) -> dict:
+    """Per-cell summaries: dict of (C,) tensors (same keys as
+    `sim.summarize`)."""
+    return summarize(latency, is_write, states)

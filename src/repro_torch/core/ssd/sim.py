@@ -1,0 +1,192 @@
+"""Workload-driven hybrid-SSD simulator for one cell — port of the
+reference package's `core/ssd/sim.py`.
+
+A policy is a static composition of mechanisms (`policies.registry`);
+the per-op recurrence is the engine's core. On a CUDA device every run
+goes through the `ssd_step` kernel (one launch); on the CPU through the
+kernel's plain version. Modes: closed_loop=True is the paper's bursty
+scenario (no idle, latency = program time + conflicts); closed_loop=False
+replays arrival times (daily scenario, queueing + idle work modeled).
+
+Pad tails. Traces are padded with identical tail ops (`ir.pad_ops`):
+constant arrival, lba 0, is_write -1. The step is a deterministic
+function of (state, op), so once one pad leaves the reduced carry
+unchanged every further pad would too. `run_trace` and `run_compressed`
+therefore scan only the live prefix and replay the tail to that exact
+fixed point (`replay_pads`); pads emit latency 0.0 and write their
+residency entry back unchanged, so the result equals scanning every op.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ssd.policies.engine import Reduced
+from repro_torch.core.ssd.policies.registry import resolve_spec
+from repro_torch.core.ssd.policies.spec import tracked_region
+from repro_torch.core.ssd.policies.state import (CTR, CellParams, SimState,
+                                                 ceil_div, default_cell,
+                                                 init_state)
+from repro_torch.kernels.ssd_step import ops as ssd_step
+
+__all__ = ["default_params", "run_trace", "replay_pads", "run_compressed",
+           "flush_cache", "summarize", "as_ops", "scan_len"]
+
+_F32 = torch.float32
+
+
+def default_params(cfg, policy, waste_p: float = 0.0, *,
+                   device="cuda") -> CellParams:
+    """CellParams matching the static config for one policy."""
+    return default_cell(cfg, resolve_spec(policy), waste_p, device=device)
+
+
+def as_ops(trace, device="cuda") -> dict:
+    """The op arrays of one padded trace as tensors (f32, i32, i32)."""
+    return {"arrival_ms": torch.as_tensor(
+                np.asarray(trace["arrival_ms"], np.float32), device=device),
+            "lba": torch.as_tensor(np.asarray(trace["lba"], np.int32),
+                                   device=device),
+            "is_write": torch.as_tensor(
+                np.asarray(trace["is_write"], np.int32), device=device)}
+
+
+def scan_len(trace) -> int:
+    """How many leading ops must be scanned: the live prefix when the
+    rest is an `ir.pad_ops` tail of identical pads, else every op."""
+    is_write = np.asarray(trace["is_write"])
+    live = np.nonzero(is_write >= 0)[0]
+    n_live = int(live[-1]) + 1 if live.size else 0
+    arrival = np.asarray(trace["arrival_ms"], np.float32)[n_live:]
+    lba = np.asarray(trace["lba"])[n_live:]
+    if arrival.size and (np.any(arrival != arrival[0]) or np.any(lba != 0)):
+        return len(is_write)
+    return n_live
+
+
+def _one(x):
+    return x.reshape(1, *x.shape)
+
+
+def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
+              waste_p: float = 0.0, params: CellParams | None = None,
+              packed: bool = False, device="cuda"):
+    """Simulate one padded trace. Returns (per-op latency (T,), final
+    SimState). `packed` carries the integer plane fields as int16
+    (gate on `policies.state.can_pack`); results are identical."""
+    if params is None:
+        params = default_params(cfg, policy, waste_p, device=device)
+    t_len = len(trace["lba"])
+    n_scan = scan_len(trace)
+    ops = as_ops({k: np.asarray(trace[k])[:n_scan]
+                  for k in ("arrival_ms", "lba", "is_write")}, device)
+    pad_t = torch.as_tensor(
+        np.asarray(trace["arrival_ms"], np.float32)[n_scan:n_scan + 1],
+        device=device)
+    lat, final = ssd_step.run_stream(
+        cfg, policy, {k: v.reshape(1, n_scan, 1) for k, v in ops.items()},
+        init_state(cfg, n_logical, packed=packed, n_cells=1, device=device),
+        closed_loop=closed_loop, params=CellParams(*map(_one, params)),
+        n_pad=t_len - n_scan, pad_t=pad_t if n_scan < t_len else None)
+    latency = torch.cat([lat.reshape(-1),
+                         torch.zeros(t_len - n_scan, dtype=_F32,
+                                     device=lat.device)])
+    return latency, SimState(*(x[0] for x in final))
+
+
+def _tree_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def replay_pads(core, red: Reduced, old0, ep0, pad_t, n_pad: int):
+    """Apply the trimmed all-pad tail to convergence.
+
+    The tail ops are identical (arrival `pad_t`, lba 0, is_write -1) and
+    the core is a deterministic function of (carry, op), so once one
+    application leaves the carry unchanged every remaining one would
+    too: the loop stops at that exact fixed point and still equals
+    applying all `n_pad` pads. (Pads are not no-ops before it: migrate
+    overrun reclamation drains an above-watermark plane a batch per
+    pad.)"""
+    dev = red.busy.device
+    op = {"arrival_ms": torch.as_tensor(pad_t, dtype=_F32, device=dev),
+          "lba": torch.zeros((), dtype=torch.int32, device=dev),
+          "is_write": torch.full((), -1, dtype=torch.int32, device=dev)}
+    i, changed = 0, n_pad > 0
+    while i < n_pad and changed:
+        red_n, _ = core(red, op, old0, ep0)
+        changed = not _tree_equal(red_n, red)
+        red, i = red_n, i + 1
+    return red
+
+
+def run_compressed(cfg, policy, comp, *, closed_loop: bool, n_logical: int,
+                   waste_p: float = 0.0, params: CellParams | None = None,
+                   packed: bool = False, device="cuda"):
+    """Simulate one compressed trace (`workloads.compress.compress_ops`):
+    the (S, K) segment stream, then the pad tail. Returns (per-op latency
+    over the original padded length, final SimState) — identical to
+    `run_trace` on the uncompressed trace, leaf for leaf."""
+    if params is None:
+        params = default_params(cfg, policy, waste_p, device=device)
+    segs = {k: torch.as_tensor(v, device=device).unsqueeze(0)
+            for k, v in comp.segs.items()}
+    lat, final = ssd_step.run_stream(
+        cfg, policy, segs,
+        init_state(cfg, n_logical, packed=packed, n_cells=1, device=device),
+        closed_loop=closed_loop, params=CellParams(*map(_one, params)),
+        n_pad=comp.n_pad,
+        pad_t=torch.tensor([comp.pad_t], dtype=_F32, device=device))
+    latency = torch.cat([lat.reshape(-1),
+                         torch.zeros(comp.n_pad, dtype=_F32,
+                                     device=lat.device)])
+    return latency, SimState(*(x[0] for x in final))
+
+
+def flush_cache(cfg, state: SimState, policy="baseline") -> SimState:
+    """End-of-workload flush (paper §III/V): data remaining in the
+    migratable region (`policies.tracked_region`) is migrated to TLC and
+    its blocks erased. Analytic; works on one cell or a fleet."""
+    region = tracked_region(resolve_spec(policy))
+    if region is None:
+        return state
+    ctr = state.counters.clone()
+    mig = state.valid_mig.to(torch.int64).sum(-1).to(_F32)
+    used = state.trad_used if region == "trad" else state.slc_used
+    blocks = ceil_div(used.to(torch.int64), cfg.pages_per_slc_block).sum(-1)
+    ctr[..., CTR["mig_w"]] += mig
+    ctr[..., CTR["erases"]] += blocks.to(_F32)
+    return state._replace(counters=ctr)
+
+
+def summarize(latency, is_write, state: SimState) -> dict:
+    """Write-latency stats + write amplification from counters, for one
+    cell ((T,) latency) or a fleet ((C, T)). The mean's float32 sum is
+    accumulated in float64 and rounded once, so it does not depend on
+    the reduction order of the device."""
+    is_w = torch.as_tensor(is_write, device=latency.device) == 1
+    lat_w = torch.where(is_w, latency, 0.0)
+    n_w = torch.clamp_min(is_w.sum(-1), 1)
+    mean_lat = lat_w.sum(-1, dtype=torch.float64).to(_F32) / n_w.to(_F32)
+    c = state.counters
+
+    def ctr(name):
+        return c[..., CTR[name]]
+
+    host = torch.clamp_min(ctr("host_w"), 1.0)
+    extra_paper = ctr("mig_w") + ctr("rp_trad") + ctr("agc_waste")
+    extra_raw = ctr("mig_w") + ctr("rp_trad") + ctr("rp_agc")
+    return {
+        "mean_write_latency_ms": mean_lat,
+        "wa_paper": 1.0 + extra_paper / host,
+        "wa_raw": 1.0 + extra_raw / host,
+        "slc_writes": ctr("slc_w"),
+        "tlc_writes": ctr("tlc_w"),
+        "reprogram_host": ctr("rp_host"),
+        "reprogram_agc": ctr("rp_agc"),
+        "reprogram_trad": ctr("rp_trad"),
+        "migrations": ctr("mig_w"),
+        "erases": ctr("erases"),
+        "host_pages": ctr("host_w"),
+        "conflict_ms": ctr("conflict_ms"),
+    }

@@ -1,0 +1,79 @@
+"""State carried across from the reference package.
+
+The simulator has no weights; what one implementation hands the other is
+its carry. `state_from_jax` and `params_from_jax` take the leaves of the
+reference's `SimState` / `CellParams` as numpy arrays — in field order,
+absent optional fields skipped, as `jax.tree.leaves` lists them — and
+return the port's tensors, dtype for dtype. Nothing here imports JAX:
+the caller converts (`[np.asarray(x) for x in jax.tree.leaves(state)]`).
+
+A carry may be one cell's or a fleet's (a leading cell axis on every
+leaf). Optional carries the port does not hold yet (wear, telemetry,
+host tier) show up as extra leaves and are refused.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.ssd.policies.state import CellParams, SimState
+
+__all__ = ["state_from_jax", "params_from_jax"]
+
+_PLANE_INT = ("int32", "int16")
+_STATE_DTYPES = {
+    "busy": ("float32",), "slc_used": _PLANE_INT, "rp_done": _PLANE_INT,
+    "trad_used": _PLANE_INT, "valid_mig": _PLANE_INT, "epoch": _PLANE_INT,
+    "loc": ("int8",), "loc_ep": ("int16",), "counters": ("float32",),
+    "prev_t": ("float32",), "idle_cum": ("float32",),
+    "idle_seen": ("float32",)}
+_PARAM_DTYPES = {"cap_basic": "int32", "cap_trad": "int32",
+                 "idle_thr": "float32", "waste_p": "float32",
+                 "cap_boost": "int32"}
+
+
+def _tensor(name, x, dtypes, device):
+    arr = np.asarray(x)
+    if arr.dtype.name not in dtypes:
+        raise TypeError(f"{name}: dtype {arr.dtype.name}, expected "
+                        f"{' or '.join(dtypes)}")
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+
+def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
+    """The reference's SimState leaves (numpy, field order) as a port
+    SimState. Exactly the 12 base fields: a carry with wear, timeline or
+    host-tier leaves is refused."""
+    leaves = list(leaves)
+    if len(leaves) != len(SimState._fields):
+        raise ValueError(
+            f"expected the {len(SimState._fields)} base SimState leaves "
+            f"{SimState._fields}, got {len(leaves)}: the port carries no "
+            "wear, telemetry or host-tier state yet")
+    state = SimState(*(_tensor(f, x, _STATE_DTYPES[f], device)
+                       for f, x in zip(SimState._fields, leaves)))
+    plane = {state.slc_used.dtype, state.rp_done.dtype,
+             state.trad_used.dtype, state.valid_mig.dtype,
+             state.epoch.dtype}
+    if len(plane) != 1:
+        raise TypeError("integer plane fields mix packed and unpacked "
+                        f"dtypes: {sorted(map(str, plane))}")
+    return state
+
+
+def params_from_jax(leaves: Sequence, *, device="cuda") -> CellParams:
+    """The reference's CellParams leaves (numpy, field order) as a port
+    CellParams. Four leaves mean `cap_boost` was None (read as 0); more
+    than five mean endurance or host-tier knobs, which are refused."""
+    leaves = list(leaves)
+    if len(leaves) == 4:
+        leaves.append(np.zeros_like(np.asarray(leaves[0]), np.int32))
+    if len(leaves) != len(CellParams._fields):
+        raise ValueError(
+            f"expected the CellParams leaves {CellParams._fields}, got "
+            f"{len(leaves)}: the port takes no endurance or host-tier "
+            "knobs yet")
+    return CellParams(*(_tensor(f, x, (_PARAM_DTYPES[f],), device)
+                        for f, x in zip(CellParams._fields, leaves)))

@@ -1,0 +1,66 @@
+"""Shared fixtures of the port's equivalence tests (tests/test_torch_*.py).
+
+Both implementations get the same inputs: op arrays made with numpy by
+the reference's `workloads.build_ops` (`hm_0`, `proj_0` at the paper's
+128-plane scale, truncated to MAX_OPS ops, plus an `ir.pad_ops`-contract
+pad tail of TRIM_QUANTUM ops). JAX stays on the CPU; results are compared
+as numpy arrays, value and dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+import repro.workloads as jwl
+from repro.configs.ssd_paper import PAPER_SSD as J_PAPER_SSD
+from repro.workloads.compress import TRIM_QUANTUM
+from repro_torch.configs.ssd_paper import PAPER_SSD as T_PAPER_SSD
+
+CFG_J = J_PAPER_SSD.scaled(128)
+CFG_T = T_PAPER_SSD.scaled(128)
+N_LOGICAL = min(CFG_J.total_pages, 1 << 16)
+MAX_OPS = 2048
+PAPER_POLICIES = ("baseline", "ips", "ips_agc", "coop")
+MODES = ("daily", "bursty")
+
+
+def with_pad_tail(ops: dict, n_pad: int) -> dict:
+    """Append `n_pad` identical tail pads (last arrival, lba 0,
+    is_write -1), as `ir.pad_ops` does."""
+    out = dict(ops)
+    out["arrival_ms"] = np.concatenate(
+        [ops["arrival_ms"],
+         np.full(n_pad, ops["arrival_ms"][-1], np.float32)])
+    out["lba"] = np.concatenate([ops["lba"], np.zeros(n_pad, np.int32)])
+    out["is_write"] = np.concatenate(
+        [ops["is_write"], np.full(n_pad, -1, ops["is_write"].dtype)])
+    return out
+
+
+def fixture_ops(name: str, max_ops: int = MAX_OPS,
+                n_pad: int = TRIM_QUANTUM) -> dict:
+    ops = jwl.build_ops(name, N_LOGICAL, capacity_pages=CFG_J.total_pages)
+    return with_pad_tail(jwl.truncate_trace(ops, max_ops), n_pad)
+
+
+def assert_leaf_equal(ref, got, label: str) -> None:
+    """`got` (a torch tensor) equals `ref` (a JAX or numpy array) in value
+    and dtype; on a mismatch name the first differing flat index."""
+    ref = np.asarray(ref)
+    got = got.detach().cpu().numpy()
+    assert got.dtype == ref.dtype, f"{label}: dtype {got.dtype} != {ref.dtype}"
+    assert got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}"
+    if not np.array_equal(got, ref):
+        bad = np.flatnonzero(got.reshape(-1) != ref.reshape(-1))
+        i = int(bad[0])
+        raise AssertionError(
+            f"{label}: {bad.size} element(s) differ, first at flat index "
+            f"{i}: port {got.reshape(-1)[i]!r} vs reference "
+            f"{ref.reshape(-1)[i]!r}")
+
+
+def assert_state_equal(ref_state, got_state, label: str) -> None:
+    """Every leaf of the port's SimState (or Reduced) equals the
+    reference's field of the same name."""
+    for field in got_state._fields:
+        assert_leaf_equal(getattr(ref_state, field),
+                          getattr(got_state, field), f"{label}: {field}")
