@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the
-CUDA toolkit (`nvcc`). It builds every kernel of the port's main path
-from the sources in the checkout, then:
+CUDA toolkit (`nvcc`). It builds every kernel of the port's main paths
+from the sources in the checkout (one nvcc per source, all at once),
+then:
 
 1. device — prints the card's name and power limit as
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
-   them, and the build time;
+   them, and the `ssd_step` build;
 2. kernel vs plain version — the `ssd_step` kernel on the card against
    its plain PyTorch version on the CPU, on the same inputs: the paper's
    4 policies x 2 modes on `hm_0` and `proj_0` (4096 ops plus an
@@ -17,22 +18,52 @@ from the sources in the checkout, then:
    pages), in the per-op form (K = 1) and the compressed form (K = 32).
    Every carry leaf and every latency must be equal (tolerance 0: the
    port is bit-exact);
-3. main path — the full 102-cell `paper` grid through
+3. the sweep path — the full 102-cell `paper` grid through
    `repro_torch.sweep.runner.run_sweep` on the card, untruncated, held
    against the committed `BENCH_sweep_paper.json` of the reference
    package: counters, `wa_paper` and `wa_raw` exact, mean write latency
    within rtol 1e-6 (the reference sums float32 latencies in its own
    order). The kernel's launch count is zeroed just before and read
    just after: it must equal the number of (composition, mode, length)
-   groups.
+   groups;
+4. build — the serving path's three kernels (`ips_repack`,
+   `tiered_decode`, `flash_fwd`): build seconds, ptxas registers and
+   spills;
+5. kernel vs plain version at the serving shapes, both on the card, same
+   inputs: the repack's tier form (gemma-2b's prefill fill, feat 256)
+   and arena form (the TPU kernel's default page, 256 x 1024), bytes
+   exact; the tiered partials at B 4, Hkv 1, G 8, hd 256 over the
+   serving dense tier with dense_len 0, a partial block and full, in
+   both dequantized forms, within 2e-4; flash at B 4, S 2048, H 8,
+   Hkv 1, hd 256 in bf16 (within 1e-2), in float32 (2e-5) and at a
+   ragged S. Each kernel's time (CUDA events), its plain version's, its
+   bound, and for flash PyTorch's `scaled_dot_product_attention` on the
+   same inputs as a yardstick the port never calls;
+6. the serving path — gemma-2b at full width and depth (random weights
+   from a seed), a batch of 4 prompts of 2048 tokens prefilled and 128
+   tokens decoded greedily under each of the four cache policies, with
+   the engine's tier defaults (hot window 1024, page 256, group 64).
+   Each policy runs with the kernels (the counts zeroed just before and
+   read just after; no CUDA events, so its host-clock times are the
+   path's own), again with each launch timed by CUDA events, then
+   teacher-forced on the same tokens with each kernel's wrapper replaced
+   by its plain version: logits within 2e-2 of their range at the
+   prefill and every step, or within twice the plain versions' own
+   difference under another summation order (run beside them);
+   `dense_len`, `total_len` and the five traffic metrics exact, and equal
+   to a closed-form count of the policy's plan; launch counts equal to
+   what the path implies (flash 18 per prefill, tiered 18 per step,
+   repack 2 per fill or repack). Under IPS, faults planted in the tiered
+   kernel's call show how far that logits check sees a wrong kernel.
 
-Each phase prints one JSON line and any mismatch fails the run. The line
+Each phase prints JSON lines and any mismatch fails the run. The line
 before the last is the kernel table (`{"kernels": [...]}`); the last is
 `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
 checkout, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -44,6 +75,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM bf16 dense tensor cores
 # float32 operations one op of the per-op core does on the heaviest
 # composition (coop, daily), counted in csrc/ssd_step.cu and rounded up;
 # the pad ops replayed in the kernel are not counted
@@ -73,9 +105,12 @@ def stream_bytes(c_cnt: int, n_ops: int, plan: bool, n_planes: int,
     return c_cnt * (n_ops * per_op + 2 * carry + params)
 
 
-def bound_ms(bytes_moved: int, ops: int):
+def bound_ms(bytes_moved: int, ops: int, ops_per_s: float = F32_OPS_PER_S):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type.
+    Returns (ms, "bytes" or "operations")."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -101,6 +136,665 @@ def leaves_equal(label, got, want) -> float:
     return err
 
 
+# ---------------------------------------------------------------------------
+# the serving path (phases 4-6)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "gemma-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 128
+SERVE_SEED = 0
+GROUP = 64
+TIMED = 20                      # launches per kernel timing
+PLAIN_TIMED = 3                 # calls per plain-version timing
+# Logits of the kernel run vs the plain run, at every step: within 2e-2
+# of the logits' range (max |logit|), or within twice the floor — the
+# plain versions' own difference when only the prefill's softmax chunk
+# changes, run beside them. Elementwise 2e-2 holds at 2 layers
+# (tests/test_torch_serve.py), not at 18: bf16 activations through 18
+# random layers turn last-bit differences into some 0.1 of logit, and
+# the plain versions differ from themselves by as much.
+LOGITS_TOL = 2e-2
+
+
+def serving_libraries():
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    return [("ips_repack", repack.LIB), ("tiered_decode", tiered.LIB),
+            ("flash_fwd", flash.LIB)]
+
+
+def _launchers():
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    return {"ips_repack": repack.LAUNCHER, "tiered_decode": tiered.LAUNCHER,
+            "flash_fwd": flash.LAUNCHER}
+
+
+def time_ms(fn, n: int) -> float:
+    """Mean ms of fn() over n calls after one warm-up (CUDA events around
+    the run; host time between launches included)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def kernel_ms(launcher, fn, n: int = TIMED) -> float:
+    """Mean ms per launch of the kernel alone: CUDA events around each
+    launch on its stream, after one warm-up."""
+    fn()
+    launcher.reset()
+    launcher.record = True
+    try:
+        for _ in range(n):
+            fn()
+        times = launcher.ms()
+    finally:
+        launcher.record = False
+        launcher.reset()
+    return sum(times) / len(times)
+
+
+def repack_bound(rows: int, feat: int):
+    """Tier form: read rows x feat bf16, write the packed bytes and the
+    float32 scales; some 7 float32 operations a value."""
+    moved = rows * feat * 2 + rows * feat // 2 + rows * (feat // GROUP) * 4
+    return bound_ms(moved, 7 * rows * feat)
+
+
+def tiered_bound(b, hkv, g, hd, dense_len):
+    """k4 and v4 bytes and bf16 scales of dense_len tokens, q in, (m, l,
+    acc) out; 4 operations per (query head, token, feature)."""
+    moved = (b * hkv * dense_len * (hd + 2 * (hd // GROUP) * 2)
+             + b * hkv * g * hd * 4 + b * hkv * g * (hd + 2) * 4)
+    return bound_ms(moved, 4 * b * hkv * g * dense_len * hd)
+
+
+def flash_bound(b, s, h, hkv, hd, itemsize):
+    """q, k, v read once, out (float32) and lse written once; the causal
+    half of the two products at the inputs' type (bf16 tensor cores)."""
+    moved = ((b * s * h * hd + 2 * b * s * hkv * hd) * itemsize
+             + b * h * s * hd * 4 + b * h * s * 4)
+    ops = 4 * b * h * s * s * hd // 2
+    return bound_ms(moved, ops, BF16_OPS_PER_S if itemsize == 2
+                    else F32_OPS_PER_S)
+
+
+def _within(label, got, want, tol) -> float:
+    """|got - want| <= tol + tol*|want| everywhere; returns the largest
+    absolute difference."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: {got.dtype}{tuple(got.shape)} vs plain version "
+             f"{want.dtype}{tuple(want.shape)}")
+    diff = (got - want).abs()
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite values")
+    if bool((diff > tol + tol * want.abs()).any()):
+        fail(f"{label}: differs from the plain version by "
+             f"{float(diff.max())} (tolerance {tol})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _logits_close(label, got, want, floor_run):
+    """The kernel run's logits `got` against the plain run's `want`:
+    max |got - want| <= max(LOGITS_TOL * max |want|, 2 * floor), where
+    the floor is max |floor_run - want|, the plain versions' difference
+    from themselves under another summation order. Returns (error,
+    floor, limit)."""
+    import torch
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite logits")
+    err = float((got - want).abs().max())
+    floor = float((floor_run - want).abs().max())
+    limit = max(LOGITS_TOL * float(want.abs().max()), 2.0 * floor)
+    if err > limit:
+        fail(f"{label}: logits differ from the plain run's by {err} "
+             f"(limit {limit}; floor {floor})")
+    return err, floor, limit
+
+
+def serve_kernels_vs_plain(cuda) -> dict:
+    """Phase 5: each serving kernel against its plain version on the card,
+    at the serving shapes; returns the kernel-table fields of each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ips_repack.ref import (page_layout,
+                                                    quantize_rows_ref,
+                                                    repack_ref)
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    from repro_torch.kernels.tiered_attention.ref import (
+        dense_tier_partial_ref)
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SERVE_SEED + 5)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)).to(
+            dtype)
+
+    launchers = _launchers()
+    for launcher in launchers.values():
+        launcher.reset()
+    out = {}
+
+    # -- ips_repack: tier form at gemma-2b's prefill fill (18 layers x 4 x
+    #    1024 tokens x 1 KV head, feat 256) and at the TPU default feat
+    #    1024; arena form at the TPU default page (256 x 1024, group 64)
+    fill_rows = 18 * SERVE_BATCH * 1024
+    cases = []
+    for rows, feat in ((fill_rows, 256), (16 * 256, 1024)):
+        x = randn(rows, feat, scale=3.0, dtype=torch.bfloat16)
+        x[::97] = 0.0                                   # all-zero groups
+        got, want = repack.quantize_rows(x, GROUP), quantize_rows_ref(x, GROUP)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"ips_repack tier form {rows}x{feat}: bytes or scales "
+                 "differ from the plain version")
+        cases.append(f"tier {rows}x{feat}")
+    tokens, feat, pages = 256, 1024, 16
+    _, packed_b, scale_b = page_layout(tokens, feat, GROUP)
+    page_bytes = tokens * feat * 2 + 4096               # a stale tail too
+    arena = torch.randint(0, 256, (pages, page_bytes), dtype=torch.uint8,
+                          generator=gen, device=cuda)
+    arena[:, :tokens * feat * 2] = randn(
+        pages, tokens * feat, scale=2.0, dtype=torch.bfloat16).view(
+        torch.uint8)
+    before = arena.clone()
+    want = repack_ref(before, tokens, feat, GROUP)
+    repack.repack_arena(arena, tokens=tokens, feat=feat, group=GROUP)
+    if not torch.equal(arena, want):
+        fail("ips_repack arena form: bytes differ from the plain version")
+    if not torch.equal(arena[:, packed_b + scale_b:],
+                       before[:, packed_b + scale_b:]):
+        fail("ips_repack arena form: the stale tail was written")
+    cases.append(f"arena {pages}x{tokens}x{feat}")
+    x = randn(fill_rows, 256, scale=3.0, dtype=torch.bfloat16)
+    ms = kernel_ms(launchers["ips_repack"],
+                   lambda: repack.quantize_rows(x, GROUP))
+    plain = time_ms(lambda: quantize_rows_ref(x, GROUP), PLAIN_TIMED)
+    bnd, by = repack_bound(fill_rows, 256)
+    out["ips_repack"] = {
+        "name": "ips_repack", "route": "cuda",
+        "source": "src/repro_torch/kernels/ips_repack/csrc/ips_repack.cu",
+        "replaces": "src/repro/kernels/ips_repack/kernel.py:28",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": by, "library_ms": None,
+        "timed_shape": f"tier form {fill_rows}x256 bf16, group {GROUP}"}
+    emit({"phase": "kernel_vs_plain", "kernel": "ips_repack",
+          "cases": cases, "equal": True, **out["ips_repack"]})
+
+    # -- tiered_decode: B 4, Hkv 1, G 8, hd 256 over the serving dense tier
+    b, hkv, g, hd = SERVE_BATCH, 1, 8, 256
+    s_dense = SERVE_PROMPT + SERVE_STEPS + 1024
+    k4, ksc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
+                                      dtype=torch.bfloat16), GROUP)
+    v4, vsc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
+                                      dtype=torch.bfloat16), GROUP)
+    k4, v4 = (t.reshape(b, s_dense, hkv, hd // 2) for t in (k4, v4))
+    ksc, vsc = (t.reshape(b, s_dense, hkv, hd // GROUP) for t in (ksc, vsc))
+    q = randn(b, hkv, g, hd)
+    err, cases = 0.0, []
+    for form, deq, sc_dtype in (("float32", torch.float32, torch.float32),
+                                ("bf16", torch.bfloat16, torch.bfloat16)):
+        ks, vs = ksc.to(sc_dtype), vsc.to(sc_dtype)
+        for dense_len in (0, 1000, s_dense):
+            got = tiered.dense_tier_partial(q, k4, ks, v4, vs, dense_len,
+                                            group=GROUP, deq_dtype=deq)
+            want = dense_tier_partial_ref(q, k4, ks, v4, vs, dense_len,
+                                          GROUP, deq)
+            for name, a, w in zip(("m", "l", "acc"), got, want):
+                err = max(err, _within(f"tiered {form} dense_len "
+                                       f"{dense_len} {name}", a, w, 2e-4))
+            if dense_len == 0 and not (bool((got[0] == -1e30).all())
+                                       and bool((got[1] == 0).all())
+                                       and bool((got[2] == 0).all())):
+                fail("tiered: an empty tier must give m -1e30, l 0, acc 0")
+            cases.append(f"{form} dense_len {dense_len}")
+    ks, vs = ksc.to(torch.bfloat16), vsc.to(torch.bfloat16)
+    timed_len = 2048
+    ms = kernel_ms(launchers["tiered_decode"],
+                   lambda: tiered.dense_tier_partial(
+                       q, k4, ks, v4, vs, timed_len, group=GROUP,
+                       deq_dtype=torch.bfloat16))
+    plain = time_ms(lambda: dense_tier_partial_ref(
+        q, k4, ks, v4, vs, timed_len, GROUP, torch.bfloat16), PLAIN_TIMED)
+    bnd, by = tiered_bound(b, hkv, g, hd, timed_len)
+    out["tiered_decode"] = {
+        "name": "tiered_decode", "route": "cuda",
+        "source": ("src/repro_torch/kernels/tiered_attention/csrc/"
+                   "tiered_decode.cu"),
+        "replaces": "src/repro/kernels/tiered_attention/kernel.py:37",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+        "bound_by": by, "library_ms": None,
+        "timed_shape": (f"B {b}, Hkv {hkv}, G {g}, hd {hd}, S {s_dense}, "
+                        f"dense_len {timed_len}, bf16 form"),
+        "blocks": b * hkv}
+    emit({"phase": "kernel_vs_plain", "kernel": "tiered_decode",
+          "cases": cases, "tolerance": 2e-4, **out["tiered_decode"]})
+
+    # -- flash_fwd: the prefill's shape in bf16, float32, and ragged S
+    err_bf16 = err_f32 = 0.0
+    cases = []
+    for b_, s_, h_, hkv_, hd_, dt, tol in (
+            (SERVE_BATCH, SERVE_PROMPT, 8, 1, 256, torch.bfloat16, 1e-2),
+            (1, 512, 8, 1, 256, torch.float32, 2e-5),
+            (2, 1000, 8, 1, 256, torch.bfloat16, 1e-2),
+            (2, 333, 6, 2, 64, torch.float32, 2e-5)):
+        qf = randn(b_, s_, h_, hd_, dtype=dt)
+        kf = randn(b_, s_, hkv_, hd_, dtype=dt)
+        vf = randn(b_, s_, hkv_, hd_, dtype=dt)
+        got = flash.flash_fwd(qf, kf, vf)
+        want = flash_ref(qf, kf, vf, chunk=512)
+        e = max(_within(f"flash {tuple(qf.shape)} {dt} {n}", a, w, tol)
+                for n, a, w in zip(("out", "lse"), got, want))
+        if dt == torch.bfloat16:
+            err_bf16 = max(err_bf16, e)
+        else:
+            err_f32 = max(err_f32, e)
+        cases.append(f"{dt} B{b_} S{s_} H{h_} Hkv{hkv_} hd{hd_}")
+    b, s, h, hkv, hd = SERVE_BATCH, SERVE_PROMPT, 8, 1, 256
+    qf = randn(b, s, h, hd, dtype=torch.bfloat16)
+    kf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
+    vf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
+    ms = kernel_ms(launchers["flash_fwd"], lambda: flash.flash_fwd(qf, kf, vf))
+    plain = time_ms(lambda: flash_ref(qf, kf, vf, chunk=512), PLAIN_TIMED)
+    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+    library = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), TIMED)
+    bnd, by = flash_bound(b, s, h, hkv, hd, 2)
+    f32_bound, _ = bound_ms(0, 4 * b * h * s * s * hd // 2)
+    out["flash_fwd"] = {
+        "name": "flash_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "max_abs_err": err_bf16, "max_abs_err_f32": err_f32, "ms": ms,
+        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+        "library_ms": library,
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "bound_ms_f32_cores": f32_bound,
+        "timed_shape": f"B {b}, S {s}, H {h}, Hkv {hkv}, hd {hd}, bf16"}
+    emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": cases,
+          "tolerance": {"bf16": 1e-2, "float32": 2e-5}, **out["flash_fwd"]})
+    return out
+
+
+def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd):
+    """Closed-form count of a policy's plan with integers (`plan_for`):
+    the dense_len each decode step attends over, the repack events, the
+    final watermarks, the metrics added in float32 in the engine's order,
+    and their exact integer totals."""
+    import numpy as np
+    from repro_torch.core.tiercache.layout import split_for_prefill
+    from repro_torch.core.tiercache.manager import METRICS
+    from repro_torch.core.tiercache.policy import plan_for
+    plan = plan_for(policy, spec.hot_window, spec.page_tokens)
+    per_tok = n_layers * b * hkv
+    hot_b = per_tok * hd * 2                        # one channel, bf16
+    dense_b = per_tok * (hd // 2 + (hd // spec.group) * 2)
+    dense, _ = split_for_prefill(prompt, spec)
+    fill = dense > 0
+    total = prompt
+    f32 = {k: np.float32(0.0) for k in METRICS}
+    exact = {k: 0 for k in METRICS}
+    attended, events = [], []
+
+    def add(key, value):
+        f32[key] = np.float32(f32[key] + np.float32(float(value)))
+        exact[key] += value
+
+    for _ in range(steps):
+        attended.append(dense)
+        for pages, staged, sync in ((plan.bg_pages, False, False),
+                                    (plan.sync_pages, plan.staging_copy,
+                                     True)):
+            if not pages:
+                continue
+            t = pages * spec.page_tokens
+            due = (total - dense + 1 > spec.hot_window if sync
+                   else total - dense >= t + 1)
+            if not due:
+                continue
+            events.append(t)
+            add("hbm_read_bytes", 2 * t * hot_b)
+            add("hbm_write_bytes", 2 * t * dense_b * (2 if staged else 1))
+            add("repack_tokens", t)
+            if sync:
+                add("stall_events", 1)
+            dense += t
+        add("hbm_write_bytes", 2 * per_tok * hd * 2)
+        add("appended_tokens", 1)
+        total += 1
+    return {"attended": attended, "events": events, "fill": fill,
+            "dense_len": dense, "total_len": total, "metrics": f32,
+            "exact": exact}
+
+
+@contextlib.contextmanager
+def _replaced(*swaps):
+    """Set module attributes, (module, name, value), for the duration."""
+    saved = [(module, name, getattr(module, name)) for module, name, _ in swaps]
+    for module, name, value in swaps:
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+
+
+def plain_versions():
+    """The serving path with each kernel's wrapper replaced by its plain
+    version (`ref.py`) on the same tensors on the card: phase 6's
+    comparison run. The path looks each wrapper up on its module at every
+    call, so this reaches every call site."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    return _replaced(
+        (flash, "flash_fwd", flash.ref.flash_ref),
+        (repack, "quantize_rows", repack.ref.quantize_rows_ref),
+        (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref))
+
+
+def planted_faults():
+    """Wrong forms of the tiered kernel's call, each still launching the
+    kernel, to read how far the logits check sees a wrong kernel:
+    (name, context, whether the check must catch it). Dropping the last
+    256 tokens (a page) of the dense tier must be caught at some step.
+    Dropping 32, and the float32 dequantized form in place of the bf16
+    one, are read only: on an H100 they stay under the limit (PERF.md
+    §6), and phase 5 holds the kernel to its plain version at 2e-4."""
+    import torch
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    kernel = tiered.dense_tier_partial
+
+    def short(drop):
+        def call(q, k4, k4_sc, v4, v4_sc, dense_len, **kw):
+            return kernel(q, k4, k4_sc, v4, v4_sc,
+                          max(int(dense_len) - drop, 0), **kw)
+        return call
+
+    def float32_form(*args, **kw):
+        return kernel(*args, **{**kw, "deq_dtype": torch.float32})
+
+    return [(f"tiered dense_len - {drop}",
+             _replaced((tiered, "dense_tier_partial", short(drop))),
+             drop == 256) for drop in (32, 256)] + [
+            ("tiered float32 dequant",
+             _replaced((tiered, "dense_tier_partial", float32_form)), False)]
+
+
+def _rms(x) -> float:
+    return float(x.double().square().mean().sqrt())
+
+
+def _decode_run(bundle, params, cache, prefill_logits, spec, policy,
+                steps, inputs=None, forced=False, out=None):
+    """`steps` decode steps from a prefill's cache: greedy, writing each
+    step's input token into `inputs` (steps, B, 1) when it is given, or
+    teacher-forced on `inputs`. Writes each step's logits into `out` when
+    it is given. Returns (cache, metrics, last token)."""
+    import torch
+    from repro_torch.core.tiercache.manager import zero_metrics
+    from repro_torch.serve.engine import make_serve_step
+    step = make_serve_step(bundle, spec, policy)
+    metrics = zero_metrics()
+    token = torch.argmax(prefill_logits, -1).to(torch.int32)[:, None]
+    for i in range(steps):
+        if forced:
+            token = inputs[i]
+        elif inputs is not None:
+            inputs[i] = token
+        token, logits, cache, metrics = step(params, cache, token, metrics)
+        if out is not None:
+            out[i] = logits
+    return cache, metrics, token
+
+
+def serve_main_path(cuda) -> dict:
+    """Phase 6: gemma-2b served under each policy, with the kernels and
+    then teacher-forced with the plain versions; returns each kernel's
+    main-path launches, time and bound."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tiercache.manager import METRICS, zero_metrics
+    from repro_torch.core.tiercache.policy import Policy
+    from repro_torch.models.model_zoo import build_model, make_train_batch
+    from repro_torch.serve.engine import make_serve_step, make_tier_spec
+
+    cfg = get_arch(SERVE_ARCH)
+    n_layers, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    g = cfg.num_heads // hkv
+    b, prompt, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SERVE_SEED)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=cuda)
+    # the floor: the plain versions with the prefill's online softmax in
+    # chunks of 256 instead of 512
+    floor_model = build_model(cfg, attn_chunk=256, device=cuda)
+    params = model.init(gen)
+    batch = make_train_batch(cfg, b, prompt, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launchers = _launchers()
+    totals = {name: {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
+              for name in launchers}
+    flash_b, _ = flash_bound(b, prompt, cfg.num_heads, hkv, hd, 2)
+    inputs = torch.empty((steps, b, 1), dtype=torch.int32, device=cuda)
+    logits = torch.empty((steps, b, cfg.vocab_size), dtype=torch.float32,
+                         device=cuda)
+    plain_logits = torch.empty_like(logits)
+    faults = []
+
+    def run(**kw):
+        cache, prefill_logits = model.prefill(params, batch, spec)
+        return _decode_run(model, params, cache, prefill_logits, spec,
+                           policy, steps, **kw)
+
+    for policy in Policy:
+        spec = make_tier_spec(model, prompt + steps, policy)
+        trace = plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd)
+        expect = {"flash_fwd": n_layers,
+                  "tiered_decode": n_layers * steps,
+                  "ips_repack": 2 * (int(trace["fill"])
+                                     + len(trace["events"]))}
+
+        # -- with the kernels, timed on the host clock with no CUDA events
+        #    recorded: the counts zeroed just before, read just after
+        torch.cuda.reset_peak_memory_stats(cuda)
+        for launcher in launchers.values():
+            launcher.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache, prefill_logits = model.prefill(params, batch, spec)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        cache, metrics, token = _decode_run(model, params, cache,
+                                            prefill_logits, spec, policy,
+                                            steps, inputs=inputs, out=logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+        counts = {n: launcher.launches for n, launcher in launchers.items()}
+        peak = torch.cuda.max_memory_allocated(cuda)
+        if counts != expect:
+            fail(f"{policy.name}: launches {counts}, the path implies "
+                 f"{expect}")
+        fast_cache, fast_metrics = cache, metrics
+        if fast_cache["dense_len"] != trace["dense_len"] or (
+                fast_cache["total_len"] != trace["total_len"]):
+            fail(f"{policy.name}: watermarks ({fast_cache['dense_len']}, "
+                 f"{fast_cache['total_len']}), the plan's "
+                 f"({trace['dense_len']}, {trace['total_len']})")
+        for k in METRICS:
+            if np.float32(fast_metrics[k]) != trace["metrics"][k]:
+                fail(f"{policy.name}: {k} = {fast_metrics[k]!r}, the plan "
+                     f"counts {trace['metrics'][k]!r}")
+        del cache, fast_cache
+
+        # -- the same run with each launch timed by CUDA events, the counts
+        #    zeroed just before and read just after
+        for launcher in launchers.values():
+            launcher.reset()
+            launcher.record = True
+        run()
+        timed_counts = {n: launcher.launches
+                        for n, launcher in launchers.items()}
+        per_launch = {n: launcher.ms() for n, launcher in launchers.items()}
+        for launcher in launchers.values():
+            launcher.record = False
+            launcher.reset()
+        if timed_counts != expect:
+            fail(f"{policy.name}: the timed run launched {timed_counts}")
+
+        # -- teacher-forced with the plain versions (no kernel launches),
+        #    beside the floor
+        with plain_versions():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache, plain_prefill = model.prefill(params, batch, spec)
+            torch.cuda.synchronize()
+            plain_prefill_ms = (time.perf_counter() - t1) * 1e3
+            cache_f, floor_prefill = floor_model.prefill(params, batch, spec)
+            err, floor, _ = _logits_close(f"{policy.name} prefill",
+                                          prefill_logits, plain_prefill,
+                                          floor_prefill)
+            step = make_serve_step(model, spec, policy)
+            step_f = make_serve_step(floor_model, spec, policy)
+            metrics, metrics_f = zero_metrics(), zero_metrics()
+            agree, limits, floor_rms, err_rms = 0, [], [], 0.0
+            over_limit = over_floor_rms = 0.0
+            for i in range(steps):
+                nxt, lg, cache, metrics = step(params, cache, inputs[i],
+                                               metrics)
+                _, lg_f, cache_f, metrics_f = step_f(params, cache_f,
+                                                     inputs[i], metrics_f)
+                e, f, lim = _logits_close(f"{policy.name} step {i}",
+                                          logits[i], lg, lg_f)
+                err, floor = max(err, e), max(floor, f)
+                limits.append(lim)
+                floor_rms.append(_rms(lg_f - lg))
+                err_rms = max(err_rms, _rms(logits[i] - lg))
+                over_limit = max(over_limit, e / lim)
+                over_floor_rms = max(over_floor_rms, _rms(logits[i] - lg)
+                                     / max(floor_rms[-1], 1e-30))
+                plain_logits[i] = lg
+                chosen = inputs[i + 1] if i + 1 < steps else token
+                agree += int((nxt == chosen).sum())
+            torch.cuda.synchronize()
+        del cache_f
+        if any(launcher.launches for launcher in launchers.values()):
+            fail(f"{policy.name}: the plain run launched a kernel")
+        if (cache["dense_len"], cache["total_len"]) != (
+                trace["dense_len"], trace["total_len"]):
+            fail(f"{policy.name}: the plain run's watermarks differ")
+        for k in METRICS:
+            if np.float32(metrics[k]) != np.float32(fast_metrics[k]):
+                fail(f"{policy.name}: plain run's {k} differs")
+        del cache
+
+        # -- planted faults (IPS: a dense tier at every step), teacher-
+        #    forced on the same tokens, against the plain run's logits
+        if policy is Policy.IPS:
+            for name, context, must_catch in planted_faults():
+                with context:
+                    run(inputs=inputs, forced=True, out=logits)
+                errs = [float((logits[i] - plain_logits[i]).abs().max())
+                        for i in range(steps)]
+                rms = [_rms(logits[i] - plain_logits[i])
+                       for i in range(steps)]
+                caught = sum(e > lim for e, lim in zip(errs, limits))
+                faults.append({"fault": name, "policy": policy.name,
+                               "logits_max_abs_err": max(errs),
+                               "max_err_over_limit": max(
+                                   e / lim for e, lim in zip(errs, limits)),
+                               "min_err_over_limit": min(
+                                   e / lim for e, lim in zip(errs, limits)),
+                               "logits_rms_err": max(rms),
+                               "min_rms_over_floor_rms": min(
+                                   r / max(f, 1e-30)
+                                   for r, f in zip(rms, floor_rms)),
+                               "steps_caught": caught, "steps": steps,
+                               "must_catch": must_catch})
+                emit({"phase": "serve_planted_fault", **faults[-1]})
+                if must_catch and not caught:
+                    fail(f"planted fault '{name}' passed the logits check "
+                         f"(max error {max(errs)}, limits "
+                         f"{min(limits)}-{max(limits)})")
+
+        # rows per repack launch: the prefill fill's w0 tokens, then each
+        # event's; two channels (k, v) each
+        rows = ([n_layers * b * hkv * trace["attended"][0]] if trace["fill"]
+                else []) + [n_layers * b * hkv * t for t in trace["events"]]
+        bounds = {"flash_fwd": [flash_b] * n_layers,
+                  "tiered_decode": [tiered_bound(b, hkv, g, hd, d)[0]
+                                    for d in trace["attended"]
+                                    for _ in range(n_layers)],
+                  "ips_repack": [repack_bound(r, hd)[0] for r in rows
+                                 for _ in range(2)]}
+        for name in launchers:
+            totals[name]["launches"] += counts[name]
+            totals[name]["ms"] += sum(per_launch[name])
+            totals[name]["bound_ms"] += sum(bounds[name])
+        emit({"phase": "serve", "arch": SERVE_ARCH, "policy": policy.name,
+              "batch": b, "prompt": prompt, "steps": steps,
+              "tier_spec": {"s_max": spec.s_max,
+                            "hot_window": spec.hot_window,
+                            "page_tokens": spec.page_tokens,
+                            "group": spec.group},
+              "prefill_ms": prefill_ms,
+              "decode_ms_per_step": decode_s * 1e3 / steps,
+              "decode_tok_s": b * steps / decode_s,
+              "peak_memory_gib": peak / 2 ** 30,
+              "launches": counts,
+              "kernel_ms_per_launch": {
+                  n: sum(v) / len(v) if v else None
+                  for n, v in per_launch.items()},
+              "kernel_bound_ms_per_launch": {
+                  n: sum(v) / len(v) if v else None
+                  for n, v in bounds.items()},
+              "kernel_ms_total": {n: sum(v) for n, v in per_launch.items()},
+              "plain_prefill_ms": plain_prefill_ms,
+              "logits_max_abs_err": err,
+              "logits_floor_max_abs": floor,
+              "logits_rms_err": err_rms,
+              "logits_floor_rms": max(floor_rms),
+              "logits_max_err_over_limit": over_limit,
+              "logits_max_rms_over_floor_rms": over_floor_rms,
+              "logits_limit_min": min(limits),
+              "logits_tolerance": (f"{LOGITS_TOL} of max |logit|, or twice "
+                                   "the floor"),
+              "argmax_agree": agree / (b * steps),
+              "distinct_tokens_per_row": [
+                  int(torch.unique(inputs[:, r]).numel()) for r in range(b)],
+              "dense_len": trace["dense_len"],
+              "total_len": trace["total_len"],
+              "repack_events": len(trace["events"]),
+              "metrics": {k: float(fast_metrics[k]) for k in METRICS},
+              "metrics_exact_integers": trace["exact"]})
+    emit({"phase": "serve_summary", "init_s": init_s,
+          "main_path": totals, "planted_faults": faults})
+    return {"kernels": {n: {"launches": v["launches"],
+                            "main_path_ms": v["ms"],
+                            "main_path_bound_ms": v["bound_ms"]}
+                        for n, v in totals.items()}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -113,6 +807,7 @@ def main() -> int:
 
     from repro_torch.configs.ssd_paper import PAPER_SSD
     from repro_torch.core.ssd.policies.registry import PAPER_POLICIES
+    from repro_torch.kernels._build import build_all
     from repro_torch.core.ssd.policies.state import CellParams, init_state
     from repro_torch.core.ssd.sim import default_params
     from repro_torch.kernels.ssd_step import ops as ssd_step
@@ -127,19 +822,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    serve_libs = serving_libraries()
     t0 = time.perf_counter()
-    lib = ssd_step.build()
-    build_s = time.perf_counter() - t0
-    log = ssd_step.build_log.splitlines()
-    regs = sorted({int(ln.split("Used ")[1].split()[0])
-                   for ln in log if "registers" in ln})
-    spills = max((int(ln.split("bytes spill stores")[0].split(",")[-1])
-                  for ln in log if "bytes spill stores" in ln), default=0)
+    paths = build_all([ssd_step.LIB] + [lib for _, lib in serve_libs])
+    build_wall = time.perf_counter() - t0
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "library": os.path.relpath(lib, ROOT),
-          "ptxas_registers": regs, "ptxas_max_spill_store_bytes": spills})
+          "build_wall_s": build_wall, "build_s": ssd_step.LIB.build_s,
+          "library": os.path.relpath(paths[0], ROOT),
+          **ssd_step.LIB.ptxas()})
 
     cfg = PAPER_SSD.scaled(128)
     n_logical = min(cfg.total_pages, 1 << 16)
@@ -217,7 +909,7 @@ def main() -> int:
           "launches": smoke_launches, "kernel_ms_k1": kernel_ms,
           "plain_ms_k1": plain_s * 1e3, "bound_ms_k1": smoke_bound})
 
-    # ---- 3. the main path: the paper grid on the card ----
+    # ---- 3. the sweep path: the paper grid on the card ----
     with open(bench_path) as f:
         bench = json.load(f)
     points = paper_grid()
@@ -275,8 +967,17 @@ def main() -> int:
                                "kernel_ms": g["kernel_ms"]}
                               for g in timings]})
 
+    # ---- 4.-6. the serving path ----
+    emit({"phase": "serve_build",
+          "libraries": {name: {"build_s": lib.build_s,
+                               "library": os.path.relpath(lib.path(), ROOT),
+                               **lib.ptxas()}
+                        for name, lib in serve_libs}})
+    kernels = serve_kernels_vs_plain(cuda)
+    served = serve_main_path(cuda)
+
     # ---- the kernel table, then the contract's last line ----
-    emit({"kernels": [{
+    table = [{
         "name": "ssd_step", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_step/csrc/ssd_step.cu",
         "replaces": "src/repro/kernels/ssd_step/kernel.py:46",
@@ -285,9 +986,14 @@ def main() -> int:
         # launches, which the CPU plain version can also run
         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_s * 1e3,
         "bound_ms": smoke_bound, "bound_by": smoke_by, "library_ms": None,
-        # the main path: all of the paper grid's launches
+        # the sweep path: all of the paper grid's launches
         "main_path_ms": grid_ms, "main_path_bound_ms": grid_bound,
-        "main_path_bound_by": grid_by}]})
+        "main_path_bound_by": grid_by}]
+    for name in ("ips_repack", "tiered_decode", "flash_fwd"):
+        row = dict(kernels[name])
+        row.update(served["kernels"][name])
+        table.append(row)
+    emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

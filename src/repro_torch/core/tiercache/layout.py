@@ -1,0 +1,96 @@
+"""Tiered KV-cache arena layout (the port of the reference's
+`repro/core/tiercache/layout.py`, GQA channels).
+
+Two tiers per cache channel (k, v):
+
+* dense tier — packed int4 + groupwise bf16 scales, absolute-indexed
+  positions [0, dense_len). The TLC analogue.
+* hot tier — bf16 sliding window holding positions
+  [dense_len, total_len), slot j = position dense_len + j. The SLC
+  analogue.
+
+An "in-place switch" (repack) converts the oldest hot pages to int4 at
+the dense watermark and slides the hot window (manager.py). All state is
+a flat dict of tensors with a leading layer dimension, plus the scalars
+`dense_len` / `total_len`, which the port keeps on the host as ints.
+The MLA and encoder-decoder channels wait for their slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.tiercache.quant import quantize_int4
+
+__all__ = ["TierSpec", "QUANT_CHANNELS", "RAW_CHANNELS", "gqa_layer_zeros",
+           "split_for_prefill", "fill_quant_channel"]
+
+
+@dataclass(frozen=True)
+class TierSpec:
+    s_max: int                  # max logical tokens (cache capacity target)
+    hot_window: int = 1024      # bf16 tail capacity (tokens)
+    page_tokens: int = 256      # repack granularity ("two layers" analogue)
+    group: int = 64             # int4 quant group along the feature axis
+
+    @property
+    def s_dense(self) -> int:   # dense tier capacity
+        return self.s_max + self.hot_window
+
+    def __post_init__(self):
+        assert self.hot_window % self.page_tokens == 0
+
+
+# channel schemas per cache kind: (packed, scales, hot) names for quantized
+# channels; single-buffer names for raw channels.
+QUANT_CHANNELS = {
+    "gqa": (("k4", "k4_sc", "kh"), ("v4", "v4_sc", "vh")),
+}
+RAW_CHANNELS = {
+    "gqa": (),
+}
+
+
+def gqa_layer_zeros(n_slots, b, spec: TierSpec, hkv, hd,
+                    sc_dtype=torch.bfloat16, device="cuda"):
+    g = spec.group
+
+    def z(s, f, dt):
+        return torch.zeros((n_slots, b, s, hkv, f), dtype=dt, device=device)
+
+    return {"k4": z(spec.s_dense, hd // 2, torch.uint8),
+            "k4_sc": z(spec.s_dense, hd // g, sc_dtype),
+            "v4": z(spec.s_dense, hd // 2, torch.uint8),
+            "v4_sc": z(spec.s_dense, hd // g, sc_dtype),
+            "kh": z(spec.hot_window, hd, torch.bfloat16),
+            "vh": z(spec.hot_window, hd, torch.bfloat16)}
+
+
+def split_for_prefill(s: int, spec: TierSpec):
+    """How a bulk write of s tokens splits into (dense_prefix, hot_tail)."""
+    w0 = max(0, s - spec.hot_window)
+    w0 = (w0 + spec.page_tokens - 1) // spec.page_tokens * spec.page_tokens
+    w0 = min(w0, s)
+    return w0, s - w0
+
+
+def fill_quant_channel(buffers, packed_name, sc_name, hot_name, values,
+                       spec: TierSpec):
+    """values: (n_slots, B, S, ...feat) bf16 bulk write -> tier buffers.
+    Writes into the given buffers in place (the reference returns updated
+    copies) and returns (buffers, w0)."""
+    s = values.shape[2]
+    w0, tail = split_for_prefill(s, spec)
+    if w0 > buffers[packed_name].shape[2] or tail > buffers[hot_name].shape[2]:
+        raise ValueError(f"a prefill of {s} tokens does not fit the tiers "
+                         f"({buffers[packed_name].shape[2]} dense, "
+                         f"{buffers[hot_name].shape[2]} hot)")
+    if w0:
+        pk, sc = quantize_int4(values[:, :, :w0], spec.group)
+        buffers[packed_name][:, :, :w0] = pk
+        buffers[sc_name][:, :, :w0] = sc.to(buffers[sc_name].dtype)
+    if tail:
+        buffers[hot_name][:, :, :tail] = values[:, :, w0:].to(
+            buffers[hot_name].dtype)
+    return buffers, w0

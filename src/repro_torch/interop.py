@@ -1,4 +1,4 @@
-"""State carried across from the reference package.
+"""State and weights carried across from the reference package.
 
 The simulator has no weights; what one implementation hands the other is
 its carry. `state_from_jax` and `params_from_jax` take the leaves of the
@@ -10,6 +10,12 @@ the caller converts (`[np.asarray(x) for x in jax.tree.leaves(state)]`).
 A carry may be one cell's or a fleet's (a leading cell axis on every
 leaf). Optional carries the port does not hold yet (wear, telemetry,
 host tier) show up as extra leaves and are refused.
+
+The serving path's model parameters and tiered caches cross as nested
+dicts of numpy arrays (`jax.tree.map(np.asarray, params)`):
+`model_params_from_jax` and `cache_from_jax` return the port's trees,
+dtype for dtype (bf16 arrives as ml_dtypes' `bfloat16` and crosses by
+its bits), and refuse a leaf they do not know.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import torch
 
 from repro_torch.core.ssd.policies.state import CellParams, SimState
 
-__all__ = ["state_from_jax", "params_from_jax"]
+__all__ = ["state_from_jax", "params_from_jax", "model_params_from_jax",
+           "cache_from_jax"]
 
 _PLANE_INT = ("int32", "int16")
 _STATE_DTYPES = {
@@ -35,11 +42,17 @@ _PARAM_DTYPES = {"cap_basic": "int32", "cap_trad": "int32",
 
 
 def _tensor(name, x, dtypes, device):
+    """A numpy leaf as a tensor of the same dtype on `device`; bf16
+    (ml_dtypes' `bfloat16`) crosses by its bits."""
     arr = np.asarray(x)
     if arr.dtype.name not in dtypes:
         raise TypeError(f"{name}: dtype {arr.dtype.name}, expected "
                         f"{' or '.join(dtypes)}")
-    return torch.from_numpy(np.array(arr, order="C")).to(device)
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
@@ -77,3 +90,53 @@ def params_from_jax(leaves: Sequence, *, device="cuda") -> CellParams:
             "knobs yet")
     return CellParams(*(_tensor(f, x, (_PARAM_DTYPES[f],), device)
                         for f, x in zip(CellParams._fields, leaves)))
+
+
+# the dense family's parameter tree: leaf name -> dtypes it may have
+_MODEL_LEAVES = {
+    "embed": ("bfloat16", "float32"), "final_norm": ("bfloat16", "float32"),
+    "unembed": ("bfloat16", "float32"),
+    "layers": {"ln1": ("bfloat16", "float32"), "ln2": ("bfloat16", "float32"),
+               "attn": {k: ("bfloat16", "float32")
+                        for k in ("wq", "wk", "wv", "wo")},
+               "mlp": {k: ("bfloat16", "float32")
+                       for k in ("w_gate", "w_up", "w_down")}}}
+_CACHE_LEAVES = {"k4": ("uint8",), "v4": ("uint8",),
+                 "k4_sc": ("bfloat16", "float32"),
+                 "v4_sc": ("bfloat16", "float32"),
+                 "kh": ("bfloat16",), "vh": ("bfloat16",)}
+
+
+def _tree(name, tree, schema, device):
+    if not isinstance(tree, dict):
+        raise TypeError(f"{name}: expected a dict of arrays")
+    out = {}
+    for key, x in tree.items():
+        path = f"{name}/{key}" if name else key
+        if key not in schema:
+            raise ValueError(f"{path}: the port does not hold this leaf "
+                             "(only the dense family crosses yet)")
+        if isinstance(schema[key], dict):
+            out[key] = _tree(path, x, schema[key], device)
+        else:
+            out[key] = _tensor(path, x, schema[key], device)
+    return out
+
+
+def model_params_from_jax(tree, *, device="cuda"):
+    """The reference's dense-family parameter tree (numpy leaves) as the
+    port's tree of tensors on `device`."""
+    return _tree("", tree, _MODEL_LEAVES, device)
+
+
+def cache_from_jax(tree, *, device="cuda"):
+    """A reference tiered cache ({"layers": {...}, "dense_len",
+    "total_len"}, numpy leaves) as the port's: tensors on `device`, the
+    watermarks as ints."""
+    unknown = set(tree) - {"layers", "dense_len", "total_len"}
+    if unknown:
+        raise ValueError(f"cache leaves {sorted(unknown)}: the port holds "
+                         "only the gqa tiers yet")
+    return {"layers": _tree("layers", tree["layers"], _CACHE_LEAVES, device),
+            "dense_len": int(np.asarray(tree["dense_len"])),
+            "total_len": int(np.asarray(tree["total_len"]))}

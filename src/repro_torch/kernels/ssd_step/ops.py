@@ -1,5 +1,5 @@
 """Wrapper of the `ssd_step` CUDA kernel (`csrc/ssd_step.cu`): build,
-load, argument checks, launch, launch count.
+load, argument checks, launch, launch count and CUDA events.
 
 `run_stream` runs a fleet's op streams — the per-op form (K = 1, no
 hazard plan) or the (S, K) segment form — and each cell's pad-tail
@@ -7,19 +7,14 @@ replay. For tensors on a CUDA device it launches the kernel (one launch
 for the whole fleet) or raises; tensors on the CPU go to the plain
 version, `ref.run_stream_ref`. Nothing falls back.
 
-The kernel is built at first use with `nvcc` into `build/kernels/` at
-the root of the checkout, from the source in this package only, and
-loaded with ctypes. The library's name carries a hash of the source and
-the flags, so an edited source is rebuilt.
+The kernel is built at first use by `kernels._build` (nvcc into
+`build/kernels/`, loaded with ctypes), with `-fmad=false`: the kernel
+fuses exactly the reference's multiply-adds itself (ROADMAP §C).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 
 import numpy as np
 import torch
@@ -30,28 +25,19 @@ from repro_torch.core.ssd.policies.engine import (check_composition,
 from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.state import (CTR, OVERRUN_PAGES,
                                                  SimState)
+from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
+                                        Library, check)
 from repro_torch.kernels.ssd_step import ref
 
-__all__ = ["run_stream", "build", "reset", "launches", "events",
+__all__ = ["run_stream", "reset", "launches", "events",
            "composition_code", "kernel_constants", "smem_bytes",
-           "MAX_LANES", "SOURCE", "NVCC_FLAGS"]
+           "MAX_LANES", "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "ssd_step.cu")
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__))))))
-BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",) + LINK_FLAGS
 MAX_LANES = 32
 MAX_SMEM = 232448           # bytes of shared memory a block may use
-
-# launches of the kernel since the last reset(); the plain version and
-# argument errors never count
-launches = 0
-# (start, end) CUDA events around each launch since the last reset()
-events: list = []
 
 # argument tables, in the order csrc/ssd_step.cu reads them
 _PTR_ORDER = (
@@ -64,16 +50,6 @@ _PTR_ORDER = (
     "idle_seen_o", "loc_o", "loc_ep_o")
 _DIM_ORDER = ("comp", "closed", "C", "S", "K", "P", "N", "n_pad", "ppb")
 _N_FCONST = 11
-
-_lib = None
-build_log = ""              # nvcc's output of the build this process did
-
-
-def reset() -> None:
-    """Zero the launch count and drop the recorded launch events."""
-    global launches
-    launches = 0
-    events.clear()
 
 
 def composition_code(spec) -> int:
@@ -106,69 +82,33 @@ def smem_bytes(n_planes: int, n_logical: int) -> int:
     return 7 * 4 * n_planes + 3 * n_logical
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the ssd_step kernel is built with "
-                       "the CUDA toolkit's nvcc (PATH or CUDA_HOME)")
+def _bind(lib) -> None:
+    lib.ssd_stream_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_ulonglong]
+    lib.ssd_stream_launch.restype = ctypes.c_int
 
 
-def build() -> str:
-    """Compile csrc/ssd_step.cu for sm_90a unless this source and flag set
-    were built already; returns the library's path."""
-    global build_log
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"libssd_step-{digest.hexdigest()[:16]}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.remove(tmp)
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{build_log}")
-    os.replace(tmp, lib_path)
-    return lib_path
+LIB = Library("ssd_step", SOURCE, NVCC_FLAGS, _bind)
+# every launch is bracketed by CUDA events: the sweep runner reads each
+# group's kernel time from them
+LAUNCHER = Launcher(LIB, "ssd_step")
+LAUNCHER.record = True
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.ssd_stream_launch.argtypes = [
-            ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-            ctypes.c_ulonglong]
-        lib.ssd_stream_launch.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def reset() -> None:
+    """Zero the launch count and drop the recorded launch events."""
+    LAUNCHER.reset()
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"ssd_step: {name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"ssd_step: {name} is on {t.device}, the op "
-                         f"stream on {device}")
-    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
-        raise TypeError(f"ssd_step: {name} has dtype {t.dtype}, the "
-                        f"kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"ssd_step: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"ssd_step: {name} must be contiguous")
+def __getattr__(name):
+    # `launches` (launches since the last reset(); the plain version and
+    # argument errors never count) and `events` ((start, end) CUDA events
+    # of each of those launches) are the launcher's
+    if name in ("launches", "events"):
+        return getattr(LAUNCHER, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
@@ -218,19 +158,19 @@ def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
     i32, f32 = torch.int32, torch.float32
     plane_int = (torch.int16, torch.int32)
     shp = (c_cnt, s_cnt, k)
-    _check("arrival_ms", segs["arrival_ms"], f32, shp, dev)
-    _check("lba", lba, i32, shp, dev)
-    _check("is_write", segs["is_write"], i32, shp, dev)
+    check("ssd_step", "arrival_ms", segs["arrival_ms"], f32, shp, dev)
+    check("ssd_step", "lba", lba, i32, shp, dev)
+    check("ssd_step", "is_write", segs["is_write"], i32, shp, dev)
     if plan:
-        _check("src", segs["src"], i32, shp, dev)
-        _check("scat_lba", segs["scat_lba"], i32, shp, dev)
+        check("ssd_step", "src", segs["src"], i32, shp, dev)
+        check("ssd_step", "scat_lba", segs["scat_lba"], i32, shp, dev)
     for name, dt in (("cap_basic", i32), ("cap_trad", i32),
                      ("cap_boost", i32), ("idle_thr", f32),
                      ("waste_p", f32)):
-        _check(name, getattr(params, name), dt, (c_cnt,), dev)
+        check("ssd_step", name, getattr(params, name), dt, (c_cnt,), dev)
     if pad_t is None:
         pad_t = torch.zeros(c_cnt, dtype=f32, device=dev)
-    _check("pad_t", pad_t, f32, (c_cnt,), dev)
+    check("ssd_step", "pad_t", pad_t, f32, (c_cnt,), dev)
     for name, dt, shape in (
             ("busy", f32, (c_cnt, p)), ("slc_used", plane_int, (c_cnt, p)),
             ("rp_done", plane_int, (c_cnt, p)),
@@ -241,7 +181,7 @@ def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
             ("loc_ep", torch.int16, (c_cnt, n_logical)),
             ("counters", f32, (c_cnt, len(CTR))), ("prev_t", f32, (c_cnt,)),
             ("idle_cum", f32, (c_cnt,)), ("idle_seen", f32, (c_cnt, p))):
-        _check(name, getattr(state0, name), dt, shape, dev)
+        check("ssd_step", name, getattr(state0, name), dt, shape, dev)
 
     # packed int16 plane fields are widened to int32 at the boundary
     ins = {**segs, **params._asdict(), "pad_t": pad_t,
@@ -258,22 +198,9 @@ def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
         code, int(closed_loop), c_cnt, s_cnt, k, p, n_logical, int(n_pad),
         cfg.pages_per_slc_block)
     consts = (ctypes.c_float * _N_FCONST)(*kernel_constants(cfg).tolist())
-    lib = _load()
-    global launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        rc = lib.ssd_stream_launch(ptrs, len(table), dims, len(_DIM_ORDER),
-                                   consts, _N_FCONST, stream.cuda_stream)
-        end.record(stream)
-    if rc != 0:
-        raise RuntimeError(f"ssd_step launch failed with code {rc} "
-                           "(negative: arguments refused; positive: "
-                           "cudaGetLastError)")
-    launches += 1
-    events.append((start, end))
+    LAUNCHER.launch("ssd_stream_launch",
+                    (ptrs, len(table), dims, len(_DIM_ORDER), consts,
+                     _N_FCONST), dev)
     final = SimState(*(outs[f"{f}_o"].to(getattr(state0, f).dtype)
                        for f in SimState._fields))
     return outs["lat_o"], final

@@ -1,0 +1,141 @@
+"""Wrapper of the `tiered_decode` CUDA kernel (`csrc/tiered_decode.cu`),
+and the full tiered decode attention around it.
+
+`dense_tier_partial` computes the int4 dense tier's online-softmax
+partials: for tensors on a CUDA device it launches the kernel or raises;
+tensors on the CPU go to the plain version, `ref.dense_tier_partial_ref`.
+Nothing falls back. `tiered_decode_attention` merges that partial with
+the bf16 hot tail's and the current token's, which stay plain PyTorch
+(as in the reference's `tiered_attention/ops.py`: the tail is at most a
+few thousand tokens).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
+                                        Library, check)
+from repro_torch.kernels.tiered_attention import ref
+from repro_torch.kernels.tiered_attention.ref import merge_partials
+
+__all__ = ["dense_tier_partial", "tiered_decode_attention",
+           "merge_partials", "LIB", "LAUNCHER", "reset", "SOURCE"]
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                      "tiered_decode.cu")
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_G = 16
+
+
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tiered_dense_partial.argtypes = [p, p, p, p, p, i, i, p, p, p,
+                                         i, i, i, i, i, i, i,
+                                         ctypes.c_float, p]
+    lib.tiered_dense_partial.restype = i
+
+
+LIB = Library("tiered_decode", SOURCE, BASE_FLAGS + LINK_FLAGS, _bind)
+LAUNCHER = Launcher(LIB, "tiered_decode")
+
+
+def reset() -> None:
+    """Zero the launch count and drop the recorded launch events."""
+    LAUNCHER.reset()
+
+
+def dense_tier_partial(q, k4, k4_sc, v4, v4_sc, dense_len: int, *,
+                       group: int = 64, deq_dtype=torch.float32):
+    """The contract of `ref.dense_tier_partial_ref`: q (B, Hkv, G, hd)
+    float32, k4/v4 (B, S, Hkv, hd//2) uint8, scales (B, S, Hkv,
+    hd//group) bf16 or float32, dense_len an int. Returns float32
+    (m, l, acc)."""
+    dense_len = int(dense_len)
+    if q.device.type == "cpu":
+        return ref.dense_tier_partial_ref(q, k4, k4_sc, v4, v4_sc, dense_len,
+                                          group, deq_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"tiered_decode: no kernel for device {q.device}")
+    if deq_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"tiered_decode: deq_dtype {deq_dtype}; the kernel "
+                        "has float32 and bf16 forms")
+    if q.dim() != 4 or k4.dim() != 4:
+        raise ValueError("tiered_decode: q must be (B, Hkv, G, hd) and k4 "
+                         "(B, S, Hkv, hd//2)")
+    b, hkv, g, hd = q.shape
+    s = k4.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"tiered_decode: head_dim {hd}; the kernel takes "
+                         f"{HEAD_DIMS}")
+    if not 1 <= g <= MAX_G:
+        raise ValueError(f"tiered_decode: {g} query heads per KV head; the "
+                         f"kernel takes 1..{MAX_G}")
+    if group < 2 or group % 2 or hd % group:
+        raise ValueError(f"tiered_decode: group {group} does not divide "
+                         f"head_dim {hd} in even groups")
+    if not 0 <= dense_len <= s:
+        raise ValueError(f"tiered_decode: dense_len {dense_len} outside "
+                         f"[0, {s}]")
+    dev = q.device
+    check("tiered_decode", "q", q, torch.float32, (b, hkv, g, hd), dev)
+    for name, t in (("k4", k4), ("v4", v4)):
+        check("tiered_decode", name, t, torch.uint8, (b, s, hkv, hd // 2),
+              dev)
+    sc_dtypes = (torch.bfloat16, torch.float32)
+    check("tiered_decode", "k4_sc", k4_sc, sc_dtypes,
+          (b, s, hkv, hd // group), dev)
+    check("tiered_decode", "v4_sc", v4_sc, (k4_sc.dtype,),
+          (b, s, hkv, hd // group), dev)
+    m = torch.empty((b, hkv, g), dtype=torch.float32, device=dev)
+    l = torch.empty((b, hkv, g), dtype=torch.float32, device=dev)
+    acc = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
+    LAUNCHER.launch("tiered_dense_partial",
+                    (q.data_ptr(), k4.data_ptr(), k4_sc.data_ptr(),
+                     v4.data_ptr(), v4_sc.data_ptr(),
+                     int(k4_sc.dtype == torch.bfloat16),
+                     int(deq_dtype == torch.bfloat16), m.data_ptr(),
+                     l.data_ptr(), acc.data_ptr(), b, s, hkv, g, hd, group,
+                     dense_len, 1.0 / (hd ** 0.5)), dev)
+    return m, l, acc
+
+
+def _bf16_partial(q, k, v, valid):
+    """q: (B, Hkv, G, hd) float32; k/v: (B, W, Hkv, hd); valid: (B, W)
+    bool."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bkgd,bskd->bkgs", q,
+                          k.to(torch.float32)) / (hd ** 0.5)
+    mask = valid[:, None, None, :]
+    scores = torch.where(mask, scores, ref.NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(mask, p, 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
+    return m, l, acc
+
+
+def tiered_decode_attention(q, lc, dense_len: int, total_len: int, k_new,
+                            v_new, *, group: int = 64,
+                            deq_dtype=torch.float32):
+    """q: (B, 1, H, hd) after RoPE; lc: one layer's tier dict {k4, k4_sc,
+    v4, v4_sc, kh, vh}; k_new/v_new: (B, 1, Hkv, hd), the current token.
+    Returns the (B, 1, H, hd) float32 attention output (before the out
+    projection)."""
+    b, _, h, hd = q.shape
+    hkv = lc["kh"].shape[2]
+    g = h // hkv
+    qg = q[:, 0].reshape(b, hkv, g, hd).to(torch.float32).contiguous()
+    tier = (qg, lc["k4"], lc["k4_sc"], lc["v4"], lc["v4_sc"], dense_len)
+    dense = dense_tier_partial(*tier, group=group, deq_dtype=deq_dtype)
+    w = lc["kh"].shape[1]
+    hot_valid = (dense_len + torch.arange(w, device=q.device)
+                 < total_len).expand(b, w)
+    hot = _bf16_partial(qg, lc["kh"], lc["vh"], hot_valid)
+    self_valid = torch.ones((b, 1), dtype=torch.bool, device=q.device)
+    self_p = _bf16_partial(qg, k_new, v_new, self_valid)
+    out, _, _ = merge_partials([dense, hot, self_p])        # (B,Hkv,G,hd)
+    return out.reshape(b, 1, h, hd)

@@ -1,0 +1,99 @@
+"""Model API of the serving path (the port of the reference's
+`repro/models/model_zoo.py`, dense family).
+
+ModelBundle exposes init / prefill / decode / decode-cache builders and
+the tiered-cache kind, so the serve engine is model-agnostic (the loss
+waits for the training slice). The port runs the `dense` family; the
+others raise, naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tiercache.layout import (TierSpec, fill_quant_channel,
+                                               gqa_layer_zeros,
+                                               split_for_prefill)
+from repro_torch.models import transformer as tx
+
+__all__ = ["ModelBundle", "default_tier_spec", "build_model",
+           "make_train_batch"]
+
+_WAITING = {"moe": "the MoE slice", "vlm": "the VLM slice",
+            "ssm": "the Mamba2 slice (ssd_scan kernel)",
+            "hybrid": "the zamba2 slice, after Mamba2",
+            "audio": "the encoder-decoder slice"}
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ArchConfig
+    cache_kind: str                     # gqa (mla | encdec_self | ssm | hybrid later)
+    init: Callable                      # generator -> params
+    prefill: Callable                   # (params, batch, spec) -> (cache, logits)
+    decode: Callable                    # (params, token, cache, spec) -> (logits, kv_new)
+    make_decode_cache: Callable         # (batch, seq_len, spec) -> cache zeros
+
+
+def default_tier_spec(seq_len: int, hot_window: int = 1024,
+                      page_tokens: int = 256, group: int = 64) -> TierSpec:
+    return TierSpec(s_max=seq_len, hot_window=hot_window,
+                    page_tokens=page_tokens, group=group)
+
+
+def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+    def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
+        layers = gqa_layer_zeros(cfg.num_layers, b, spec, cfg.num_kv_heads,
+                                 cfg.head_dim, device=device)
+        w0, _ = split_for_prefill(seq_len, spec)
+        return {"layers": layers, "total_len": seq_len, "dense_len": w0}
+
+    def prefill(params, batch, spec: TierSpec):
+        hidden, _, (k, v) = tx.lm_hidden(params, cfg, batch["tokens"],
+                                         attn_chunk=attn_chunk,
+                                         collect_kv=True)
+        b, s = hidden.shape[:2]
+        layers = make_decode_cache(b, 0, spec, hidden.device)["layers"]
+        layers, w0 = fill_quant_channel(layers, "k4", "k4_sc", "kh", k,
+                                        spec)
+        layers, _ = fill_quant_channel(layers, "v4", "v4_sc", "vh", v, spec)
+        cache = {"layers": layers, "total_len": s, "dense_len": w0}
+        logits = (hidden[:, -1] @ tx.unembed_matrix(params)).to(
+            torch.float32)
+        return cache, logits
+
+    def decode(params, token, cache, spec=None):
+        g = spec.group if spec is not None else 64
+        return tx.lm_decode_step(params, cfg, token, cache, quant_group=g)
+
+    return ModelBundle(cfg=cfg, cache_kind="gqa",
+                       init=lambda gen: tx.init_lm(gen, cfg),
+                       prefill=prefill, decode=decode,
+                       make_decode_cache=make_decode_cache)
+
+
+def build_model(cfg: ArchConfig, *, attn_chunk: int = 512,
+                device="cuda") -> ModelBundle:
+    """The bundle of `cfg`; `make_decode_cache` allocates on `device`
+    unless told otherwise, and `prefill` beside its inputs."""
+    if cfg.family == "dense":
+        return _tx_bundle(cfg, attn_chunk, torch.device(device))
+    if cfg.family in _WAITING:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} "
+                                  f"waits for {_WAITING[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def make_train_batch(cfg: ArchConfig, batch: int, seq_len: int,
+                     generator: torch.Generator) -> Dict[str, Any]:
+    """Synthetic batch of token ids drawn from `generator`, on its
+    device."""
+    if cfg.vlm is not None or cfg.encdec is not None:
+        raise NotImplementedError(f"{cfg.name}: modality inputs wait for "
+                                  "their slices")
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                    generator=generator, dtype=torch.int32,
+                                    device=generator.device)}

@@ -1,12 +1,15 @@
-"""The `ssd_step` CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+`ssd_step`, and the serving path's `ips_repack`, `tiered_decode` and
+`flash_fwd` (plus the reduced serving path through all three).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 and `nvcc`, and skips elsewhere. On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-(`python3 chip_smoke.py` runs the same comparison at the paper's trace
-lengths and then the whole paper grid.)
+(`python3 chip_smoke.py` runs the same comparisons at the paper's trace
+lengths and the serving shapes, then the whole paper grid and gemma-2b
+served at full size.)
 """
 import numpy as np
 import pytest
@@ -105,3 +108,282 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, streams):
     with pytest.raises(ValueError, match="lanes"):
         _run("ips", "daily", wide, pad_t, cuda, False)
     assert ssd_step.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the serving path's kernels: ips_repack, tiered_decode, flash_fwd
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
+from repro_torch.kernels.ips_repack import ops as repack_ops  # noqa: E402
+from repro_torch.kernels.ips_repack.ref import (  # noqa: E402
+    page_layout, quantize_rows_ref, repack_ref)
+from repro_torch.kernels.tiered_attention import ops as tiered_ops  # noqa: E402
+from repro_torch.kernels.tiered_attention.ref import (  # noqa: E402
+    dense_tier_partial_ref)
+
+
+def _gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _randn(gen, *shape, scale=1.0, dtype=torch.float32):
+    return (scale * torch.randn(shape, generator=gen, device="cuda")).to(
+        dtype)
+
+
+def _refuse_plain(monkeypatch, module, name):
+    """Make the plain version raise, so a CUDA call that reached it
+    fails."""
+    def refuse(*a, **k):
+        raise AssertionError(f"{name} ran on a CUDA tensor")
+    monkeypatch.setattr(module.ref, name, refuse)
+
+
+class TestIpsRepackKernel:
+    @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+    @pytest.mark.parametrize("rows,feat,group", [
+        (4096, 256, 64), (300, 64, 16), (257, 1024, 64), (64, 128, 32),
+        (33, 8, 2)])
+    def test_tier_form_bit_exact(self, cuda, monkeypatch, rows, feat, group,
+                                 dtype):
+        x = _randn(_gen(rows + feat), rows, feat, scale=5.0, dtype=dtype)
+        x[::7] = 0.0
+        want = quantize_rows_ref(x, group)
+        _refuse_plain(monkeypatch, repack_ops, "quantize_rows_ref")
+        before = repack_ops.LAUNCHER.launches
+        got = repack_ops.quantize_rows(x, group)
+        torch.cuda.synchronize()
+        assert repack_ops.LAUNCHER.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("tokens,feat,group,tail", [
+        (256, 1024, 64, 4096), (16, 64, 16, 0), (8, 256, 64, 36)])
+    def test_arena_in_place_keeps_the_stale_tail(self, cuda, tokens, feat,
+                                                 group, tail):
+        gen = _gen(tokens)
+        pages = 5
+        arena = torch.randint(0, 256, (pages, tokens * feat * 2 + tail),
+                              dtype=torch.uint8, generator=gen, device="cuda")
+        arena[:, :tokens * feat * 2] = _randn(
+            gen, pages, tokens * feat, scale=3.0,
+            dtype=torch.bfloat16).view(torch.uint8)
+        before = arena.clone()
+        ptr = arena.data_ptr()
+        out = repack_ops.repack_arena(arena, tokens=tokens, feat=feat,
+                                      group=group)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == ptr
+        assert torch.equal(arena, repack_ref(before, tokens, feat, group))
+        _, packed_b, scale_b = page_layout(tokens, feat, group)
+        assert torch.equal(arena[:, packed_b + scale_b:],
+                           before[:, packed_b + scale_b:])
+
+    def test_refused_launches_raise(self, cuda):
+        before = repack_ops.LAUNCHER.launches
+        x = torch.zeros((8, 256), dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError, match="group"):
+            repack_ops.quantize_rows(x, 128)
+        with pytest.raises(TypeError, match="dtype"):
+            repack_ops.quantize_rows(x.to(torch.float16), 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            repack_ops.quantize_rows(x.t(), 8)
+        arena = torch.zeros((2, 100), dtype=torch.uint8, device="cuda")
+        with pytest.raises(ValueError, match="page_bytes"):
+            repack_ops.repack_arena(arena, tokens=4, feat=16, group=16)
+        assert repack_ops.LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        before = repack_ops.LAUNCHER.launches
+        x = torch.randn(16, 64).to(torch.bfloat16)
+        got = repack_ops.quantize_rows(x, 16)
+        assert got[0].device.type == "cpu"
+        assert repack_ops.LAUNCHER.launches == before
+        repack_ops.quantize_rows(x.cuda(), 16)
+        assert repack_ops.LAUNCHER.launches == before + 1
+
+
+class TestTieredDecodeKernel:
+    @staticmethod
+    def _tier(gen, b, s, hkv, g, hd, group, sc_dtype):
+        k4, ksc = quantize_rows_ref(_randn(gen, b * s * hkv, hd, scale=2.0),
+                                    group)
+        v4, vsc = quantize_rows_ref(_randn(gen, b * s * hkv, hd, scale=2.0),
+                                    group)
+        shape4 = (b, s, hkv, hd // 2)
+        shape_sc = (b, s, hkv, hd // group)
+        return (_randn(gen, b, hkv, g, hd), k4.reshape(shape4),
+                ksc.reshape(shape_sc).to(sc_dtype), v4.reshape(shape4),
+                vsc.reshape(shape_sc).to(sc_dtype))
+
+    @pytest.mark.parametrize("form", ("float32", "bf16"))
+    @pytest.mark.parametrize("fill", ("empty", "partial", "full"))
+    @pytest.mark.parametrize("b,s,hkv,g,hd,group", [
+        (2, 64, 2, 4, 32, 16), (2, 128, 1, 7, 64, 64), (2, 32, 4, 1, 64, 32),
+        (4, 3200, 1, 8, 256, 64), (1, 100, 2, 16, 128, 32),
+        (3, 40, 1, 2, 16, 8)])
+    def test_equals_plain_version(self, cuda, monkeypatch, b, s, hkv, g, hd,
+                                  group, fill, form):
+        deq = torch.float32 if form == "float32" else torch.bfloat16
+        tier = self._tier(_gen(s + g), b, s, hkv, g, hd, group, deq)
+        dense_len = {"empty": 0, "partial": s - s // 3 - 1, "full": s}[fill]
+        want = dense_tier_partial_ref(*tier, dense_len, group, deq)
+        _refuse_plain(monkeypatch, tiered_ops, "dense_tier_partial_ref")
+        before = tiered_ops.LAUNCHER.launches
+        got = tiered_ops.dense_tier_partial(*tier, dense_len, group=group,
+                                            deq_dtype=deq)
+        torch.cuda.synchronize()
+        assert tiered_ops.LAUNCHER.launches == before + 1
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            # float32 partials, another summation order: 2e-4, the
+            # reference's kernel tolerance
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4,
+                                       msg=name)
+        if fill == "empty":
+            assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
+            assert bool((got[2] == 0).all())
+
+    def test_the_two_forms_differ_by_the_bf16_rounding(self, cuda):
+        tier = self._tier(_gen(9), 2, 256, 1, 8, 256, 64, torch.bfloat16)
+        f32 = tiered_ops.dense_tier_partial(*tier, 200, group=64)
+        bf = tiered_ops.dense_tier_partial(*tier, 200, group=64,
+                                           deq_dtype=torch.bfloat16)
+        assert not torch.equal(f32[2], bf[2])
+        # normalized outputs: bf16's rounding of the tier (2^-9 relative)
+        # moves both the scores and the values of |v| < 16; 0.1 bounds it
+        out32 = f32[2] / f32[1][..., None]
+        out16 = bf[2] / bf[1][..., None]
+        torch.testing.assert_close(out32, out16, rtol=0.0, atol=0.1)
+
+    def test_refused_launches_raise(self, cuda):
+        tier = self._tier(_gen(3), 1, 32, 1, 4, 64, 16, torch.bfloat16)
+        before = tiered_ops.LAUNCHER.launches
+        with pytest.raises(ValueError, match="dense_len"):
+            tiered_ops.dense_tier_partial(*tier, 33, group=16)
+        with pytest.raises(ValueError, match="head_dim"):
+            tiered_ops.dense_tier_partial(tier[0][..., :48].contiguous(),
+                                          *tier[1:], 8, group=16)
+        with pytest.raises(TypeError, match="v4_sc"):
+            tiered_ops.dense_tier_partial(*tier[:4], tier[4].float(), 8,
+                                          group=16)
+        with pytest.raises(ValueError, match="query heads"):
+            q = torch.zeros((1, 1, 17, 64), device="cuda")
+            tiered_ops.dense_tier_partial(q, *tier[1:], 8, group=16)
+        assert tiered_ops.LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        tier = self._tier(_gen(4), 1, 32, 1, 4, 64, 16, torch.bfloat16)
+        before = tiered_ops.LAUNCHER.launches
+        cpu = tiered_ops.dense_tier_partial(*(t.cpu() for t in tier), 20,
+                                            group=16)
+        assert cpu[0].device.type == "cpu"
+        assert tiered_ops.LAUNCHER.launches == before
+        tiered_ops.dense_tier_partial(*tier, 20, group=16)
+        assert tiered_ops.LAUNCHER.launches == before + 1
+
+
+class TestFlashKernel:
+    @pytest.mark.parametrize("b,s,h,hkv,hd,dtype,tol", [
+        (4, 2048, 8, 1, 256, torch.bfloat16, 1e-2),
+        (1, 512, 8, 1, 256, torch.float32, 2e-5),
+        (2, 64, 6, 2, 32, torch.float32, 2e-5),
+        (2, 32, 4, 1, 64, torch.float32, 2e-5),
+        (2, 48, 4, 4, 16, torch.float32, 2e-5),
+        (2, 1000, 8, 1, 256, torch.bfloat16, 1e-2),
+        (1, 333, 6, 2, 128, torch.float32, 2e-5),
+        (1, 1, 2, 1, 64, torch.float32, 2e-5)])
+    def test_equals_plain_version(self, cuda, monkeypatch, b, s, h, hkv, hd,
+                                  dtype, tol):
+        gen = _gen(s + hd)
+        q = _randn(gen, b, s, h, hd, dtype=dtype)
+        k = _randn(gen, b, s, hkv, hd, dtype=dtype)
+        v = _randn(gen, b, s, hkv, hd, dtype=dtype)
+        want = flash_ref(q, k, v, chunk=64)
+        _refuse_plain(monkeypatch, flash_ops, "flash_ref")
+        before = flash_ops.LAUNCHER.launches
+        out, lse = flash_ops.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHER.launches == before + 1
+        # float32 arithmetic on both sides, other orders; bf16 inputs are
+        # held at 1e-2 as the serving path's check holds them
+        torch.testing.assert_close(out, want[0], rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, want[1], rtol=tol, atol=tol)
+
+    def test_refused_launches_raise(self, cuda):
+        q = torch.zeros((1, 16, 4, 48), device="cuda")
+        k = torch.zeros((1, 16, 2, 48), device="cuda")
+        before = flash_ops.LAUNCHER.launches
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_ops.flash_fwd(q, k, k)
+        q = torch.zeros((1, 16, 4, 64), device="cuda")
+        k = torch.zeros((1, 16, 2, 64), device="cuda")
+        with pytest.raises(TypeError, match="dtype"):
+            flash_ops.flash_fwd(q, k.to(torch.bfloat16), k)
+        with pytest.raises(ValueError, match="KV heads"):
+            flash_ops.flash_fwd(q, torch.zeros((1, 16, 3, 64),
+                                               device="cuda"), k)
+        assert flash_ops.LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        q = torch.randn(1, 24, 2, 32)
+        k = torch.randn(1, 24, 1, 32)
+        before = flash_ops.LAUNCHER.launches
+        out, _ = flash_ops.flash_fwd(q, k, k)
+        assert out.device.type == "cpu"
+        assert flash_ops.LAUNCHER.launches == before
+        flash_ops.flash_fwd(q.cuda(), k.cuda(), k.cuda())
+        assert flash_ops.LAUNCHER.launches == before + 1
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_serving_path_on_the_card(cuda):
+    """gemma-2b reduced to two layers, served on the card through the
+    three kernels and on the CPU through their plain versions, from the
+    same weights and prompts, the CPU teacher-forced on the card's
+    tokens: logits within 2e-2 (bf16 activations), the watermarks and
+    metrics equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tiercache.manager import zero_metrics
+    from repro_torch.core.tiercache.policy import Policy
+    from repro_torch.models.model_zoo import build_model, make_train_batch
+    from repro_torch.serve.engine import make_serve_step, make_tier_spec
+    cfg = get_arch("gemma-2b").reduced(num_layers=2)
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    tokens = make_train_batch(cfg, 2, 24,
+                              torch.Generator().manual_seed(0))["tokens"]
+    for policy in Policy:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            bundle = build_model(cfg, device=dev)
+            spec = make_tier_spec(bundle, 64, policy, hot_window=16,
+                                  page_tokens=8, group=16)
+            p = _to(params, dev)
+            cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)},
+                                           spec)
+            step = make_serve_step(bundle, spec, policy)
+            metrics = zero_metrics()
+            token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            forced = runs["cuda"]["inputs"] if runs else None
+            inputs, seq = [], [logits.cpu()]
+            for i in range(40):
+                tok = forced[i].to(dev) if forced else token
+                inputs.append(tok.cpu())
+                token, lg, cache, metrics = step(p, cache, tok, metrics)
+                seq.append(lg.cpu())
+            runs[dev] = {"inputs": inputs, "logits": seq, "cache": cache,
+                         "metrics": metrics}
+        for a, w in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
+            torch.testing.assert_close(a, w, rtol=2e-2, atol=2e-2)
+        for key in ("dense_len", "total_len"):
+            assert runs["cuda"]["cache"][key] == runs["cpu"]["cache"][key]
+        for k, v in runs["cpu"]["metrics"].items():
+            assert runs["cuda"]["metrics"][k] == v, k

@@ -1,0 +1,252 @@
+"""Port vs reference: the plain versions of the serving path's attention
+kernels — the tiered decode partial and the causal flash forward — and
+the wrappers' CPU routing.
+
+The reference's Pallas kernels run in interpret mode, as
+tests/test_kernels.py runs them, at its parameter sets. Each tolerance
+is stated where it is used.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as J_ARCHS
+from repro.core.tiercache.quant import quantize_int4 as j_quant
+from repro.kernels.flash_attention.kernel import flash_fwd_pallas
+from repro.kernels.flash_attention.ref import flash_ref as j_flash_ref
+from repro.kernels.tiered_attention.kernel import dense_tier_partial_pallas
+from repro.kernels.tiered_attention.ops import (
+    tiered_decode_attention as j_tiered)
+from repro.kernels.tiered_attention.ref import (
+    dense_tier_partial_ref as j_partial_ref)
+from repro.models import attention as jattn
+from repro.models import transformer as jtx
+from repro_torch.configs import ARCHS as T_ARCHS
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_ref as t_flash_ref
+from repro_torch.kernels.tiered_attention import ops as tiered_ops
+from repro_torch.kernels.tiered_attention.ref import (
+    dense_tier_partial_ref as t_partial_ref)
+from repro_torch.models import attention as tattn
+from repro_torch.models import transformer as ttx
+from repro_torch.interop import model_params_from_jax
+from torch_port_util import to_numpy, to_torch
+
+J_QUANT = jax.jit(j_quant, static_argnums=1)
+
+
+def _close(ref, got, tol, label):
+    np.testing.assert_allclose(to_numpy(got).astype(np.float32),
+                               np.asarray(ref, np.float32), rtol=tol,
+                               atol=tol, err_msg=label)
+
+
+def _tier(rng, b, s, hkv, g, hd, group):
+    q = rng.standard_normal((b, hkv, g, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    k4, ksc = map(np.asarray, J_QUANT(jnp.asarray(k), group))
+    v4, vsc = map(np.asarray, J_QUANT(jnp.asarray(v), group))
+    return q, k4, ksc, v4, vsc
+
+
+# ---------------------------------------------------------------------------
+# tiered decode: the dense-tier partial
+# ---------------------------------------------------------------------------
+
+TIER_SETS = [(64, 2, 4, 32, 16, 32), (128, 1, 7, 64, 64, 64),
+             (32, 4, 1, 64, 32, 32)]          # test_kernels.py's sets
+
+
+@pytest.mark.parametrize("s,hkv,g,hd,group,block_t", TIER_SETS)
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+def test_dense_partial_matches_reference(s, hkv, g, hd, group, block_t,
+                                         fill):
+    rng = np.random.default_rng(s + hkv + g)
+    q, k4, ksc, v4, vsc = _tier(rng, 2, s, hkv, g, hd, group)
+    dense_len = {"empty": 0, "partial": s - s // 4 - 3, "full": s}[fill]
+    ref = j_partial_ref(*map(jnp.asarray, (q, k4, ksc, v4, vsc)),
+                        jnp.int32(dense_len), group)
+    pal = dense_tier_partial_pallas(*map(jnp.asarray, (q, k4, ksc, v4, vsc)),
+                                    jnp.int32(dense_len), group=group,
+                                    block_t=block_t, interpret=True)
+    got = tiered_ops.dense_tier_partial(*map(to_torch, (q, k4, ksc, v4, vsc)),
+                                        dense_len, group=group)
+    for r, p, t, name in zip(ref, pal, got, ("m", "l", "acc")):
+        # float32 on both sides, other summation orders: 1e-5
+        _close(r, t, 1e-5, f"{name} vs ref")
+        # the Pallas kernel's blocked online softmax: the reference
+        # test's own tolerance (test_kernels.py)
+        _close(p, t, 2e-4, f"{name} vs pallas")
+    if fill == "empty":
+        # exactly the reference's masked form: m -1e30, l 0, acc 0
+        assert torch.all(got[0] == -1e30) and torch.all(got[1] == 0)
+        assert torch.all(got[2] == 0)
+
+
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+def test_tiered_decode_attention_matches_reference(fill, monkeypatch):
+    rng = np.random.default_rng(7)
+    b, s, w, hkv, g, hd, group = 2, 64, 16, 2, 3, 32, 16
+    _, k4, ksc, v4, vsc = _tier(rng, b, s, hkv, g, hd, group)
+    bf = lambda *sh: rng.standard_normal(sh).astype(jnp.bfloat16)
+    lc = {"k4": k4, "k4_sc": ksc.astype(jnp.bfloat16), "v4": v4,
+          "v4_sc": vsc.astype(jnp.bfloat16), "kh": bf(b, w, hkv, hd),
+          "vh": bf(b, w, hkv, hd)}
+    q = rng.standard_normal((b, 1, hkv * g, hd)).astype(np.float32)
+    k_new, v_new = bf(b, 1, hkv, hd), bf(b, 1, hkv, hd)
+    dense_len = {"empty": 0, "partial": 37, "full": s}[fill]
+    total_len = dense_len + 11
+    ref = j_tiered(jnp.asarray(q), {k: jnp.asarray(x) for k, x in lc.items()},
+                   jnp.int32(dense_len), jnp.int32(total_len),
+                   jnp.asarray(k_new), jnp.asarray(v_new), group=group,
+                   use_pallas=False)
+    tlc = {k: to_torch(x) for k, x in lc.items()}
+    got = tiered_ops.tiered_decode_attention(
+        to_torch(q), tlc, dense_len, total_len, to_torch(k_new),
+        to_torch(v_new), group=group)
+    _close(ref, got, 1e-5, "tiered_decode_attention")   # float32 throughout
+    # the dense partial is looked up on the module at each call, so a run
+    # that replaces it (chip_smoke.py's plain-version run) reaches it
+    calls = []
+
+    def plain(*args, **kwargs):
+        calls.append(1)
+        return t_partial_ref(*args, **kwargs)
+
+    monkeypatch.setattr(tiered_ops, "dense_tier_partial", plain)
+    again = tiered_ops.tiered_decode_attention(
+        to_torch(q), tlc, dense_len, total_len, to_torch(k_new),
+        to_torch(v_new), group=group)
+    assert calls == [1] and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("fill", ["empty", "partial", "full"])
+def test_bf16_form_matches_the_serving_path(fill):
+    """The port's decode attention (the bf16-rounded dense tier) against
+    the reference's `gqa_decode_tiered`, which dequantizes to bf16 and
+    attends over the concatenated tiers, on the same tier and weights."""
+    jcfg = J_ARCHS["gemma-2b"].reduced(num_layers=1)
+    tcfg = T_ARCHS["gemma-2b"].reduced(num_layers=1)
+    rng = np.random.default_rng(11)
+    b, s, w, group = 2, 48, 16, 16
+    hkv, hd, d = jcfg.num_kv_heads, jcfg.head_dim, jcfg.d_model
+    jparams = jax.tree.map(np.asarray, jattn.init_attention(
+        jax.random.PRNGKey(3), jcfg))
+    tparams = model_params_from_jax({"layers": {"attn": jparams}},
+                                    device="cpu")["layers"]["attn"]
+    kv = rng.standard_normal((2, b, s, hkv, hd)).astype(np.float32) * 3
+    (k4, ksc), (v4, vsc) = (map(np.asarray, J_QUANT(jnp.asarray(x), group))
+                            for x in kv)
+    bf = lambda *sh: rng.standard_normal(sh).astype(jnp.bfloat16)
+    lc = {"k4": k4, "k4_sc": ksc.astype(jnp.bfloat16), "v4": v4,
+          "v4_sc": vsc.astype(jnp.bfloat16), "kh": bf(b, w, hkv, hd),
+          "vh": bf(b, w, hkv, hd)}
+    x = bf(b, 1, d)
+    dense_len = {"empty": 0, "partial": 29, "full": s}[fill]
+    total_len = dense_len + 9
+    ref, (rk, rv) = jtx.gqa_decode_tiered(
+        jparams, jcfg, jnp.asarray(x), jnp.asarray([total_len], jnp.int32),
+        {k: jnp.asarray(a) for k, a in lc.items()}, jnp.int32(dense_len),
+        jnp.int32(total_len), group)
+    got, (tk, tv) = ttx.gqa_decode_tiered(
+        tparams, tcfg, to_torch(x), torch.tensor([total_len],
+                                                 dtype=torch.int32),
+        {k: to_torch(a) for k, a in lc.items()}, dense_len, total_len, group)
+    # bf16 activations through two projections: 2e-2, the reference's own
+    # bf16 tolerance (test_integration.py)
+    _close(ref, got, 2e-2, "attention output")
+    _close(rk, tk, 2e-2, "k_new")
+    _close(rv, tv, 2e-2, "v_new")
+
+
+# ---------------------------------------------------------------------------
+# flash forward
+# ---------------------------------------------------------------------------
+
+FLASH_SETS = [(64, 2, 3, 32, 16, 16), (32, 1, 4, 64, 32, 8),
+              (48, 4, 1, 16, 16, 24)]        # test_kernels.py's sets
+
+
+@pytest.mark.parametrize("s,hkv,g,hd,bq,bk", FLASH_SETS)
+def test_flash_ref_matches_reference(s, hkv, g, hd, bq, bk):
+    rng = np.random.default_rng(s + hd)
+    b = 2
+    q = rng.standard_normal((b, s, hkv * g, hd)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, hd)).astype(np.float32)
+    o_r, lse_r = j_flash_ref(*map(jnp.asarray, (q, k, v)), chunk=bk)
+    o_p, lse_p = flash_fwd_pallas(*map(jnp.asarray, (q, k, v)), bq=bq, bk=bk,
+                                  interpret=True)
+    o_t, lse_t = flash_ops.flash_fwd(*map(to_torch, (q, k, v)), chunk=bk)
+    # float32 on every side, other summation orders: 2e-5, the reference
+    # test's tolerance
+    for ref, label in ((o_r, "ref"), (o_p, "pallas")):
+        _close(ref, o_t, 2e-5, f"out vs {label}")
+    for ref, label in ((lse_r, "ref"), (lse_p, "pallas")):
+        _close(ref, lse_t, 2e-5, f"lse vs {label}")
+
+
+@pytest.mark.parametrize("s", [37, 100])
+def test_flash_takes_a_ragged_length(s):
+    """A length that is no multiple of the chunk, which the Pallas kernel
+    refuses: the port pads and masks it, and agrees with its own
+    attend_chunked (float32: 2e-5)."""
+    rng = np.random.default_rng(s)
+    b, hkv, g, hd = 2, 2, 2, 32
+    q, k, v = (to_torch(rng.standard_normal((b, s, h, hd)).astype(np.float32))
+               for h in (hkv * g, hkv, hkv))
+    out, lse = flash_ops.flash_attention_fwd(q, k, v, chunk=16)
+    pos = torch.arange(s, dtype=torch.int32)
+    want = tattn.attend_chunked(q, k, v, q_positions=pos, kv_positions=pos,
+                                causal=True, chunk=16)
+    _close(to_numpy(want), out, 2e-5, "ragged out")
+    assert out.shape == (b, s, hkv * g, hd) and torch.isfinite(lse).all()
+    # the same through the reference, which pads the same way
+    ref = jattn.attend_chunked(*map(jnp.asarray, (to_numpy(q), to_numpy(k),
+                                                  to_numpy(v))),
+                               q_positions=jnp.arange(s),
+                               kv_positions=jnp.arange(s), causal=True,
+                               chunk=16)
+    _close(ref, out, 2e-5, "ragged out vs reference attend_chunked")
+
+
+def test_prefill_attention_matches_reference_bf16():
+    """`attend_chunked` on the prefill's iota positions (the flash path)
+    against the reference's, in bf16 (2e-2)."""
+    rng = np.random.default_rng(5)
+    b, s, hkv, g, hd = 2, 40, 1, 4, 32
+    q, k, v = (rng.standard_normal((b, s, h, hd)).astype(jnp.bfloat16)
+               for h in (hkv * g, hkv, hkv))
+    pos = np.arange(s, dtype=np.int32)
+    ref = jattn.attend_chunked(*map(jnp.asarray, (q, k, v)),
+                               q_positions=jnp.asarray(pos),
+                               kv_positions=jnp.asarray(pos), causal=True,
+                               chunk=16)
+    got = tattn.attend_chunked(*map(to_torch, (q, k, v)),
+                               q_positions=to_torch(pos),
+                               kv_positions=to_torch(pos), causal=True,
+                               chunk=16, iota=True)
+    assert got.dtype == torch.bfloat16
+    _close(ref, got, 2e-2, "prefill attention")
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On the CPU each wrapper returns its plain version's result and
+    counts no launch."""
+    rng = np.random.default_rng(2)
+    flash_ops.reset()
+    tiered_ops.reset()
+    q, k, v = (to_torch(rng.standard_normal((1, 24, h, 16))
+                        .astype(np.float32)) for h in (2, 1, 1))
+    out, lse = flash_ops.flash_fwd(q, k, v, chunk=8)
+    o2, l2 = t_flash_ref(q, k, v, chunk=8)
+    assert torch.equal(out, o2) and torch.equal(lse, l2)
+    tq, k4, ksc, v4, vsc = map(to_torch, _tier(rng, 1, 32, 1, 2, 32, 16))
+    got = tiered_ops.dense_tier_partial(tq, k4, ksc, v4, vsc, 20, group=16)
+    want = t_partial_ref(tq, k4, ksc, v4, vsc, 20, 16)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    assert flash_ops.LAUNCHER.launches == 0
+    assert tiered_ops.LAUNCHER.launches == 0

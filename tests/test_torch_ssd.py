@@ -48,14 +48,18 @@ PORTED = ("baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """`import repro_torch` and every submodule (and chip_smoke.py) pull
-    in no `jax` and no `repro.` module."""
+    """`import repro_torch` and every submodule — the serving launcher and
+    the kernel packages among them — and chip_smoke.py pull in no `jax`
+    and no `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.ips_repack.ops\n"
+        "import repro_torch.kernels.tiered_attention.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -65,7 +69,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20      # the whole package loaded
+    assert int(out.stdout.strip()) >= 40      # the whole package loaded
 
 
 def test_config_matches_reference():

@@ -1,5 +1,9 @@
 """Shared fixtures of the port's equivalence tests (tests/test_torch_*.py).
 
+Arrays cross between the two packages as numpy: `to_torch` and
+`to_numpy` carry bf16 by its bits (numpy holds it as ml_dtypes'
+`bfloat16`).
+
 Both implementations get the same inputs: op arrays made with numpy by
 the reference's `workloads.build_ops` (`hm_0`, `proj_0` at the paper's
 128-plane scale, truncated to MAX_OPS ops, plus an `ir.pad_ops`-contract
@@ -8,7 +12,9 @@ as numpy arrays, value and dtype.
 """
 from __future__ import annotations
 
+import ml_dtypes
 import numpy as np
+import torch
 
 import repro.workloads as jwl
 from repro.configs.ssd_paper import PAPER_SSD as J_PAPER_SSD
@@ -44,11 +50,14 @@ def fixture_ops(name: str, max_ops: int = MAX_OPS,
 
 def assert_leaf_equal(ref, got, label: str) -> None:
     """`got` (a torch tensor) equals `ref` (a JAX or numpy array) in value
-    and dtype; on a mismatch name the first differing flat index."""
+    and dtype, bf16 by its bits; on a mismatch name the first differing
+    flat index."""
     ref = np.asarray(ref)
-    got = got.detach().cpu().numpy()
+    got = to_numpy(got)
     assert got.dtype == ref.dtype, f"{label}: dtype {got.dtype} != {ref.dtype}"
     assert got.shape == ref.shape, f"{label}: shape {got.shape} != {ref.shape}"
+    if ref.dtype == ml_dtypes.bfloat16:
+        ref, got = ref.view(np.uint16), got.view(np.uint16)
     if not np.array_equal(got, ref):
         bad = np.flatnonzero(got.reshape(-1) != ref.reshape(-1))
         i = int(bad[0])
@@ -64,3 +73,20 @@ def assert_state_equal(ref_state, got_state, label: str) -> None:
     for field in got_state._fields:
         assert_leaf_equal(getattr(ref_state, field),
                           getattr(got_state, field), f"{label}: {field}")
+
+
+def to_torch(x, device="cpu") -> torch.Tensor:
+    """A numpy (or JAX) array as a tensor of the same dtype."""
+    arr = np.ascontiguousarray(np.asarray(x))
+    if arr.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array of the same dtype (bf16 included)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
