@@ -54,7 +54,29 @@ then:
    to a closed-form count of the policy's plan; launch counts equal to
    what the path implies (flash 18 per prefill, tiered 18 per step,
    repack 2 per fill or repack). Under IPS, faults planted in the tiered
-   kernel's call show how far that logits check sees a wrong kernel.
+   kernel's call show how far that logits check sees a wrong kernel;
+7. the Mamba2 kernel — `ssd_intra` against its plain version on the card
+   at mamba2-370m's prefill shape (Bt 4, nc 8, Q 256, nh 32, hd 64,
+   N 128), zamba2-1.2b's (nh 64, N 64) and the overflow stress case
+   (A = -1 at Q 256), within 2e-5 of max |output|, every output finite;
+   its time, its plain version's and its bound;
+8. the Mamba2 serving paths, as phase 6 — mamba2-370m at full width and
+   depth (48 layers; no KV cache, so one policy, IPS_AGC, the launcher's
+   default: the policy changes nothing) and zamba2-1.2b (38 layers: 6
+   macro blocks of 6 Mamba2 layers and the shared attention block, then
+   a tail of 2) under the four policies, same batch, prompts and steps.
+   `ssd_intra` launches once per Mamba2 layer a prefill (48; 38), zamba2's
+   shared block flash 6 a prefill and tiered 6 a step. The floor run's
+   other summation order is the SSD scan in chunks of 128 (and zamba2's
+   attention softmax in chunks of 256). The counters equal the closed
+   form with each step's state bytes added after the tick, as the
+   engine adds them. The path check holds every `ssd_intra` call of one
+   prefill to its plain version on the path's own inputs (2e-5 of max
+   |output|). For mamba2 a fault planted in the `ssd_intra` call (a
+   strict causal mask: L's diagonal dropped) must be caught by the path
+   check or the logits check; the script records both. Each path starts
+   with one warm-up prefill, so no timed prefill pays the process's
+   set-up.
 
 Each phase prints JSON lines and any mismatch fails the run. The line
 before the last is the kernel table (`{"kernels": [...]}`); the last is
@@ -140,8 +162,11 @@ def leaves_equal(label, got, want) -> float:
 # the serving path (phases 4-6)
 # ---------------------------------------------------------------------------
 
-SERVE_ARCH = "gemma-2b"
+SERVE_ARCHS = ("gemma-2b", "mamba2-370m", "zamba2-1.2b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 128
+# the floor runs' other summation order: the prefill's attention softmax
+# in chunks of 256 instead of 512, the SSD scan in chunks of 128, not 256
+FLOOR_ATTN_CHUNK, FLOOR_SSD_CHUNK = 256, 128
 SERVE_SEED = 0
 GROUP = 64
 TIMED = 20                      # launches per kernel timing
@@ -159,17 +184,19 @@ LOGITS_TOL = 2e-2
 def serving_libraries():
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     return [("ips_repack", repack.LIB), ("tiered_decode", tiered.LIB),
-            ("flash_fwd", flash.LIB)]
+            ("flash_fwd", flash.LIB), ("ssd_intra", ssd.LIB)]
 
 
 def _launchers():
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     return {"ips_repack": repack.LAUNCHER, "tiered_decode": tiered.LAUNCHER,
-            "flash_fwd": flash.LAUNCHER}
+            "flash_fwd": flash.LAUNCHER, "ssd_intra": ssd.LAUNCHER}
 
 
 def time_ms(fn, n: int) -> float:
@@ -227,6 +254,19 @@ def flash_bound(b, s, h, hkv, hd, itemsize):
     ops = 4 * b * h * s * s * hd // 2
     return bound_ms(moved, ops, BF16_OPS_PER_S if itemsize == 2
                     else F32_OPS_PER_S)
+
+
+def ssd_intra_bound(bt, nc, q, nh, hd, n):
+    """x, dt, A, B, C read once, y, states and cum written once, float32;
+    the causal half of C B^T and of the score-times-x product (with 4
+    operations a score: subtract, exp, two products), the state product
+    and its weights, on the float32 CUDA-core rate."""
+    tri = q * (q + 1) // 2
+    moved = 4 * (2 * bt * nc * q * nh * hd + bt * nc * nh * hd * n
+                 + 2 * bt * nc * q * nh + nh + 2 * bt * nc * q * n)
+    ops = bt * nc * (2 * tri * n + nh * tri * (2 * hd + 4)
+                     + nh * q * (2 * hd * n + n + 4))
+    return bound_ms(moved, ops)
 
 
 def _within(label, got, want, tol) -> float:
@@ -431,11 +471,85 @@ def serve_kernels_vs_plain(cuda) -> dict:
     return out
 
 
-def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd):
+def ssd_kernel_vs_plain(cuda) -> dict:
+    """Phase 7: `ssd_intra` against its plain version on the card at the
+    two models' prefill shapes and the overflow stress case; returns the
+    kernel-table fields."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import intra_chunk_ref
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SERVE_SEED + 7)
+
+    def inputs(bt, nc, q, nh, hd, n, a):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=cuda)
+        A = (torch.full((nh,), a, device=cuda) if a is not None
+             else -torch.exp(0.3 * randn(nh)))          # A per head
+        return (randn(bt, nc, q, nh, hd), F.softplus(randn(bt, nc, q, nh)),
+                A, randn(bt, nc, q, n), randn(bt, nc, q, n))
+
+    launcher = _launchers()["ssd_intra"]
+    launcher.reset()
+    b, nc, q = SERVE_BATCH, SERVE_PROMPT // 256, 256
+    shapes = {"mamba2-370m": (b, nc, q, 32, 64, 128, None),
+              "zamba2-1.2b": (b, nc, q, 64, 64, 64, None),
+              "stress A=-1": (b, nc, q, 32, 64, 128, -1.0)}
+    err, rel, cases, timed = 0.0, 0.0, [], {}
+    for label, shape in shapes.items():
+        ins = inputs(*shape)
+        got = ssd.ssd_intra(*ins)
+        want = intra_chunk_ref(*ins)
+        for name, g, w in zip(("y", "states", "cum"), got, want):
+            scale = float(w.abs().max())
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"ssd_intra {label} {name}: {g.dtype}{tuple(g.shape)}"
+                     f" vs plain version {w.dtype}{tuple(w.shape)}")
+            if not torch.isfinite(g).all():
+                fail(f"ssd_intra {label} {name}: non-finite values")
+            e = float((g - w).abs().max())
+            if e > 2e-5 * scale:
+                fail(f"ssd_intra {label} {name}: differs from the plain "
+                     f"version by {e} (tolerance 2e-5 of {scale})")
+            err, rel = max(err, e), max(rel, e / scale)
+        cases.append(f"{label} {shape[:6]}")
+        if shape[-1] is None:
+            timed[label] = ins
+    ms = {k: kernel_ms(launcher, lambda: ssd.ssd_intra(*v))
+          for k, v in timed.items()}
+    plain = {k: time_ms(lambda: intra_chunk_ref(*v), PLAIN_TIMED)
+             for k, v in timed.items()}
+    bounds = {k: ssd_intra_bound(*shapes[k][:6]) for k in timed}
+    row = {"name": "ssd_intra", "route": "cuda",
+           "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_intra.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
+           "max_abs_err": err, "max_err_over_max_abs": rel,
+           "ms": ms["mamba2-370m"], "plain_ms": plain["mamba2-370m"],
+           "bound_ms": bounds["mamba2-370m"][0],
+           "bound_by": bounds["mamba2-370m"][1], "library_ms": None,
+           "library": "none: no single PyTorch call computes the SSD "
+                      "intra-chunk contraction",
+           "timed_shape": "Bt 4, nc 8, Q 256, nh 32, hd 64, N 128 "
+                          "(mamba2-370m's prefill)",
+           "zamba2_shape": {"ms": ms["zamba2-1.2b"],
+                            "plain_ms": plain["zamba2-1.2b"],
+                            "bound_ms": bounds["zamba2-1.2b"][0],
+                            "bound_by": bounds["zamba2-1.2b"][1]}}
+    emit({"phase": "kernel_vs_plain", "kernel": "ssd_intra", "cases": cases,
+          "tolerance": "2e-5 of max |output|", **row})
+    return row
+
+
+def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd,
+               state_bytes=0):
     """Closed-form count of a policy's plan with integers (`plan_for`):
     the dense_len each decode step attends over, the repack events, the
     final watermarks, the metrics added in float32 in the engine's order,
-    and their exact integer totals."""
+    and their exact integer totals. `n_layers` is the number of tiered
+    slots; `state_bytes`, a hybrid model's Mamba2 state bytes, are added
+    after each step's tick, as the engine adds them."""
     import numpy as np
     from repro_torch.core.tiercache.layout import split_for_prefill
     from repro_torch.core.tiercache.manager import METRICS
@@ -476,10 +590,29 @@ def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd):
             dense += t
         add("hbm_write_bytes", 2 * per_tok * hd * 2)
         add("appended_tokens", 1)
+        if state_bytes:
+            add("hbm_write_bytes", state_bytes)
         total += 1
     return {"attended": attended, "events": events, "fill": fill,
             "dense_len": dense, "total_len": total, "metrics": f32,
             "exact": exact}
+
+
+def ssm_trace(prompt, steps, state_bytes):
+    """The same count for an ssm model: no tiers, both watermarks one up
+    a step, the state bytes and one appended token a step."""
+    import numpy as np
+    from repro_torch.core.tiercache.manager import METRICS
+    f32 = {k: np.float32(0.0) for k in METRICS}
+    exact = {k: 0 for k in METRICS}
+    for _ in range(steps):
+        for key, value in (("hbm_write_bytes", state_bytes),
+                           ("appended_tokens", 1)):
+            f32[key] = np.float32(f32[key] + np.float32(float(value)))
+            exact[key] += value
+    return {"attended": [], "events": [], "fill": False,
+            "dense_len": prompt + steps, "total_len": prompt + steps,
+            "metrics": f32, "exact": exact}
 
 
 @contextlib.contextmanager
@@ -497,28 +630,48 @@ def _replaced(*swaps):
 
 def plain_versions():
     """The serving path with each kernel's wrapper replaced by its plain
-    version (`ref.py`) on the same tensors on the card: phase 6's
+    version (`ref.py`) on the same tensors on the card: phases 6 and 8's
     comparison run. The path looks each wrapper up on its module at every
     call, so this reaches every call site."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     return _replaced(
         (flash, "flash_fwd", flash.ref.flash_ref),
         (repack, "quantize_rows", repack.ref.quantize_rows_ref),
-        (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref))
+        (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref),
+        (ssd, "ssd_intra", ssd.ref.intra_chunk_ref))
 
 
-def planted_faults():
-    """Wrong forms of the tiered kernel's call, each still launching the
-    kernel, to read how far the logits check sees a wrong kernel:
-    (name, context, whether the check must catch it). Dropping the last
-    256 tokens (a page) of the dense tier must be caught at some step.
-    Dropping 32, and the float32 dequantized form in place of the bf16
-    one, are read only: on an H100 they stay under the limit (PERF.md
-    §6), and phase 5 holds the kernel to its plain version at 2e-4."""
+def planted_faults(arch):
+    """Wrong forms of a kernel's call on `arch`'s path, each still
+    launching the kernel, to read how far the logits check sees a wrong
+    kernel: (name, context, whether the check must catch it).
+
+    gemma-2b, the tiered call: dropping the last 256 tokens (a page) of
+    the dense tier must be caught at some step. Dropping 32, and the
+    float32 dequantized form in place of the bf16 one, are read only: on
+    an H100 they stay under the limit (PERF.md §6), and phase 5 holds the
+    kernel to its plain version at 2e-4.
+    mamba2-370m, the `ssd_intra` call: a strict causal mask (the kernel's
+    y less its diagonal term C_i.B_i dt_i x_i, L's diagonal being
+    exp(0) = 1) must be caught."""
     import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
+    if arch == "mamba2-370m":
+        intra = ssd.ssd_intra
+
+        def strict(x, dt, A, B, C):
+            y, states, cum = intra(x, dt, A, B, C)
+            diag = (C * B).sum(-1)[..., None] * dt         # (Bt, nc, Q, nh)
+            return y - diag[..., None] * x, states, cum
+
+        return [("ssd_intra strict mask (L's diagonal dropped)",
+                 _replaced((ssd, "ssd_intra", strict)), True)]
+    if arch != "gemma-2b":
+        return []
     kernel = tiered.dense_tier_partial
 
     def short(drop):
@@ -535,6 +688,25 @@ def planted_faults():
              drop == 256) for drop in (32, 256)] + [
             ("tiered float32 dequant",
              _replaced((tiered, "dense_tier_partial", float32_form)), False)]
+
+
+def shadow_intra(log):
+    """`ssd_intra` as the path calls it, each call held to its plain
+    version on the same inputs: appends max |kernel - plain| / max
+    |plain| over the three outputs per call. Wraps whatever the module
+    holds when entered (the kernel, or a planted fault)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    kernel = ssd.ssd_intra
+
+    def call(*args):
+        got = kernel(*args)
+        want = ssd.ref.intra_chunk_ref(*args)
+        log.append(max(float((g - w).abs().max())
+                       / max(float(w.abs().max()), 1e-30)
+                       for g, w in zip(got, want)))
+        return got
+
+    return _replaced((ssd, "ssd_intra", call))
 
 
 def _rms(x) -> float:
@@ -564,10 +736,42 @@ def _decode_run(bundle, params, cache, prefill_logits, spec, policy,
     return cache, metrics, token
 
 
-def serve_main_path(cuda) -> dict:
-    """Phase 6: gemma-2b served under each policy, with the kernels and
-    then teacher-forced with the plain versions; returns each kernel's
-    main-path launches, time and bound."""
+def _path_setup(cfg, b, prompt):
+    """What a path implies, per policy: the tiered slots and their
+    shapes, the Mamba2 state bytes a decode step writes, the expected
+    launches, and how the floor model differs."""
+    from repro_torch.models.hybrid import hybrid_structure
+    s = cfg.ssm
+    setup = {"slots": 0, "hkv": cfg.num_kv_heads, "hd": cfg.head_dim,
+             "mamba_layers": 0, "state_bytes": 0}
+    if s is not None:
+        d_xc = s.d_inner(cfg.d_model) + 2 * s.d_state
+        nh = s.num_heads(cfg.d_model)
+        per_layer = (b * (s.d_conv - 1) * d_xc * 2
+                     + b * nh * s.head_dim * s.d_state * 4)
+        setup["mamba_layers"] = cfg.num_layers
+        setup["intra_shape"] = (b, prompt // min(s.chunk_size, prompt),
+                                min(s.chunk_size, prompt), nh, s.head_dim,
+                                s.d_state)
+    if cfg.family == "dense":
+        setup["slots"] = cfg.num_layers
+    elif cfg.family == "hybrid":
+        n_macro, _ = hybrid_structure(cfg)
+        setup["slots"] = n_macro
+        # the engine counts the macro layers' states, not the tail's
+        setup["state_bytes"] = n_macro * cfg.hybrid.attn_every * per_layer
+    else:
+        setup["state_bytes"] = cfg.num_layers * per_layer
+    return setup
+
+
+def serve_main_path(cuda, arch) -> dict:
+    """Phases 6 and 8: `arch` served under each policy (an ssm model, which
+    has no KV cache, under one), with the kernels and then teacher-forced
+    with the plain versions; returns each kernel's main-path launches,
+    time and bound."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -576,17 +780,19 @@ def serve_main_path(cuda) -> dict:
     from repro_torch.models.model_zoo import build_model, make_train_batch
     from repro_torch.serve.engine import make_serve_step, make_tier_spec
 
-    cfg = get_arch(SERVE_ARCH)
-    n_layers, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    g = cfg.num_heads // hkv
+    cfg = get_arch(arch)
     b, prompt, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    setup = _path_setup(cfg, b, prompt)
+    slots, hkv, hd = setup["slots"], setup["hkv"], setup["hd"]
     gen = torch.Generator(device=cuda)
     gen.manual_seed(SERVE_SEED)
     t0 = time.perf_counter()
     model = build_model(cfg, device=cuda)
-    # the floor: the plain versions with the prefill's online softmax in
-    # chunks of 256 instead of 512
-    floor_model = build_model(cfg, attn_chunk=256, device=cuda)
+    # the floor: the plain versions under another summation order
+    floor_cfg = cfg if cfg.ssm is None else dataclasses.replace(
+        cfg, ssm=dataclasses.replace(cfg.ssm, chunk_size=FLOOR_SSD_CHUNK))
+    floor_model = build_model(floor_cfg, attn_chunk=FLOOR_ATTN_CHUNK,
+                              device=cuda)
     params = model.init(gen)
     batch = make_train_batch(cfg, b, prompt, gen)
     torch.cuda.synchronize()
@@ -594,25 +800,42 @@ def serve_main_path(cuda) -> dict:
     launchers = _launchers()
     totals = {name: {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
               for name in launchers}
-    flash_b, _ = flash_bound(b, prompt, cfg.num_heads, hkv, hd, 2)
+    flash_b = (flash_bound(b, prompt, cfg.num_heads, hkv, hd, 2)[0]
+               if slots else 0.0)
+    intra_b = (ssd_intra_bound(*setup["intra_shape"])[0]
+               if setup["mamba_layers"] else 0.0)
     inputs = torch.empty((steps, b, 1), dtype=torch.int32, device=cuda)
     logits = torch.empty((steps, b, cfg.vocab_size), dtype=torch.float32,
                          device=cuda)
     plain_logits = torch.empty_like(logits)
     faults = []
+    policies = list(Policy) if slots else [Policy.IPS_AGC]
+    fault_policy = Policy.IPS if slots else Policy.IPS_AGC
+    path_check = None
+    # warm-up: one prefill with the kernels (the counts are zeroed before
+    # each counted run), so that no timed prefill pays the process's
+    # first cuBLAS and allocator set-up
+    model.prefill(params, batch, make_tier_spec(model, prompt + steps,
+                                                policies[0]))
+    torch.cuda.synchronize()
 
     def run(**kw):
         cache, prefill_logits = model.prefill(params, batch, spec)
-        return _decode_run(model, params, cache, prefill_logits, spec,
-                           policy, steps, **kw)
+        return (prefill_logits,) + _decode_run(
+            model, params, cache, prefill_logits, spec, policy, steps, **kw)
 
-    for policy in Policy:
+    for policy in policies:
         spec = make_tier_spec(model, prompt + steps, policy)
-        trace = plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd)
-        expect = {"flash_fwd": n_layers,
-                  "tiered_decode": n_layers * steps,
+        if slots:
+            trace = plan_trace(policy, spec, prompt, steps, slots, b, hkv,
+                               hd, setup["state_bytes"])
+        else:
+            trace = ssm_trace(prompt, steps, setup["state_bytes"])
+        expect = {"flash_fwd": slots if cfg.family != "ssm" else 0,
+                  "tiered_decode": slots * steps,
                   "ips_repack": 2 * (int(trace["fill"])
-                                     + len(trace["events"]))}
+                                     + len(trace["events"])),
+                  "ssd_intra": setup["mamba_layers"]}
 
         # -- with the kernels, timed on the host clock with no CUDA events
         #    recorded: the counts zeroed just before, read just after
@@ -633,19 +856,19 @@ def serve_main_path(cuda) -> dict:
         counts = {n: launcher.launches for n, launcher in launchers.items()}
         peak = torch.cuda.max_memory_allocated(cuda)
         if counts != expect:
-            fail(f"{policy.name}: launches {counts}, the path implies "
-                 f"{expect}")
-        fast_cache, fast_metrics = cache, metrics
-        if fast_cache["dense_len"] != trace["dense_len"] or (
-                fast_cache["total_len"] != trace["total_len"]):
-            fail(f"{policy.name}: watermarks ({fast_cache['dense_len']}, "
-                 f"{fast_cache['total_len']}), the plan's "
+            fail(f"{arch} {policy.name}: launches {counts}, the path "
+                 f"implies {expect}")
+        fast_metrics = metrics
+        if cache["dense_len"] != trace["dense_len"] or (
+                cache["total_len"] != trace["total_len"]):
+            fail(f"{arch} {policy.name}: watermarks ({cache['dense_len']}, "
+                 f"{cache['total_len']}), the plan's "
                  f"({trace['dense_len']}, {trace['total_len']})")
         for k in METRICS:
             if np.float32(fast_metrics[k]) != trace["metrics"][k]:
-                fail(f"{policy.name}: {k} = {fast_metrics[k]!r}, the plan "
-                     f"counts {trace['metrics'][k]!r}")
-        del cache, fast_cache
+                fail(f"{arch} {policy.name}: {k} = {fast_metrics[k]!r}, the "
+                     f"plan counts {trace['metrics'][k]!r}")
+        del cache
 
         # -- the same run with each launch timed by CUDA events, the counts
         #    zeroed just before and read just after
@@ -660,7 +883,8 @@ def serve_main_path(cuda) -> dict:
             launcher.record = False
             launcher.reset()
         if timed_counts != expect:
-            fail(f"{policy.name}: the timed run launched {timed_counts}")
+            fail(f"{arch} {policy.name}: the timed run launched "
+                 f"{timed_counts}")
 
         # -- teacher-forced with the plain versions (no kernel launches),
         #    beside the floor
@@ -671,9 +895,9 @@ def serve_main_path(cuda) -> dict:
             torch.cuda.synchronize()
             plain_prefill_ms = (time.perf_counter() - t1) * 1e3
             cache_f, floor_prefill = floor_model.prefill(params, batch, spec)
-            err, floor, _ = _logits_close(f"{policy.name} prefill",
-                                          prefill_logits, plain_prefill,
-                                          floor_prefill)
+            err, floor, prefill_limit = _logits_close(
+                f"{arch} {policy.name} prefill", prefill_logits,
+                plain_prefill, floor_prefill)
             step = make_serve_step(model, spec, policy)
             step_f = make_serve_step(floor_model, spec, policy)
             metrics, metrics_f = zero_metrics(), zero_metrics()
@@ -684,7 +908,7 @@ def serve_main_path(cuda) -> dict:
                                                metrics)
                 _, lg_f, cache_f, metrics_f = step_f(params, cache_f,
                                                      inputs[i], metrics_f)
-                e, f, lim = _logits_close(f"{policy.name} step {i}",
+                e, f, lim = _logits_close(f"{arch} {policy.name} step {i}",
                                           logits[i], lg, lg_f)
                 err, floor = max(err, e), max(floor, f)
                 limits.append(lim)
@@ -699,28 +923,58 @@ def serve_main_path(cuda) -> dict:
             torch.cuda.synchronize()
         del cache_f
         if any(launcher.launches for launcher in launchers.values()):
-            fail(f"{policy.name}: the plain run launched a kernel")
+            fail(f"{arch} {policy.name}: the plain run launched a kernel")
         if (cache["dense_len"], cache["total_len"]) != (
                 trace["dense_len"], trace["total_len"]):
-            fail(f"{policy.name}: the plain run's watermarks differ")
+            fail(f"{arch} {policy.name}: the plain run's watermarks differ")
         for k in METRICS:
             if np.float32(metrics[k]) != np.float32(fast_metrics[k]):
-                fail(f"{policy.name}: plain run's {k} differs")
+                fail(f"{arch} {policy.name}: plain run's {k} differs")
         del cache
 
-        # -- planted faults (IPS: a dense tier at every step), teacher-
-        #    forced on the same tokens, against the plain run's logits
-        if policy is Policy.IPS:
-            for name, context, must_catch in planted_faults():
+        # -- the path check: a prefill with each `ssd_intra` call held to
+        #    its plain version on the path's own inputs, 2e-5 of max
+        #    |output| (once: the prefill is the same under every policy)
+        if setup["mamba_layers"] and path_check is None:
+            log = []
+            with shadow_intra(log):
+                model.prefill(params, batch, spec)
+            torch.cuda.synchronize()
+            if len(log) != setup["mamba_layers"] or max(log) > 2e-5:
+                fail(f"{arch}: ssd_intra on the path differs from its plain "
+                     f"version: {len(log)} calls, worst {max(log)} of max "
+                     "|output| (tolerance 2e-5)")
+            path_check = {"calls": len(log),
+                          "max_err_over_max_abs": max(log)}
+            emit({"phase": "serve_path_check", "arch": arch,
+                  "kernel": "ssd_intra", **path_check})
+
+        # -- planted faults (gemma under IPS: a dense tier at every step;
+        #    mamba2 in its one run), teacher-forced on the same tokens,
+        #    against the plain run's logits: the prefill's, then each
+        #    step's; an `ssd_intra` fault also meets the path check
+        if policy is fault_policy:
+            for name, context, must_catch in planted_faults(arch):
+                log = []
                 with context:
-                    run(inputs=inputs, forced=True, out=logits)
+                    if setup["mamba_layers"]:
+                        with shadow_intra(log):
+                            model.prefill(params, batch, spec)
+                    fault_prefill = run(inputs=inputs, forced=True,
+                                        out=logits)[0]
+                path_caught = bool(log) and max(log) > 2e-5
+                prefill_err = float((fault_prefill - plain_prefill).abs().max())
                 errs = [float((logits[i] - plain_logits[i]).abs().max())
                         for i in range(steps)]
                 rms = [_rms(logits[i] - plain_logits[i])
                        for i in range(steps)]
-                caught = sum(e > lim for e, lim in zip(errs, limits))
-                faults.append({"fault": name, "policy": policy.name,
-                               "logits_max_abs_err": max(errs),
+                caught = (sum(e > lim for e, lim in zip(errs, limits))
+                          + int(prefill_err > prefill_limit))
+                faults.append({"fault": name, "arch": arch,
+                               "policy": policy.name,
+                               "logits_max_abs_err": max(errs + [prefill_err]),
+                               "prefill_err_over_limit": prefill_err
+                               / prefill_limit,
                                "max_err_over_limit": max(
                                    e / lim for e, lim in zip(errs, limits)),
                                "min_err_over_limit": min(
@@ -729,29 +983,37 @@ def serve_main_path(cuda) -> dict:
                                "min_rms_over_floor_rms": min(
                                    r / max(f, 1e-30)
                                    for r, f in zip(rms, floor_rms)),
-                               "steps_caught": caught, "steps": steps,
+                               "checks_caught": caught,
+                               "checks": steps + 1,
+                               "path_check_err_over_max_abs":
+                                   max(log) if log else None,
+                               "caught_by_path_check": path_caught,
                                "must_catch": must_catch})
                 emit({"phase": "serve_planted_fault", **faults[-1]})
-                if must_catch and not caught:
+                if must_catch and not (caught or path_caught):
                     fail(f"planted fault '{name}' passed the logits check "
-                         f"(max error {max(errs)}, limits "
-                         f"{min(limits)}-{max(limits)})")
+                         f"(max error {max(errs + [prefill_err])}, limits "
+                         f"{min(limits + [prefill_limit])}-"
+                         f"{max(limits + [prefill_limit])}) and the path "
+                         "check")
 
         # rows per repack launch: the prefill fill's w0 tokens, then each
         # event's; two channels (k, v) each
-        rows = ([n_layers * b * hkv * trace["attended"][0]] if trace["fill"]
-                else []) + [n_layers * b * hkv * t for t in trace["events"]]
-        bounds = {"flash_fwd": [flash_b] * n_layers,
+        rows = ([slots * b * hkv * trace["attended"][0]] if trace["fill"]
+                else []) + [slots * b * hkv * t for t in trace["events"]]
+        g = cfg.num_heads // hkv if slots else 1
+        bounds = {"flash_fwd": [flash_b] * expect["flash_fwd"],
                   "tiered_decode": [tiered_bound(b, hkv, g, hd, d)[0]
                                     for d in trace["attended"]
-                                    for _ in range(n_layers)],
+                                    for _ in range(slots)],
                   "ips_repack": [repack_bound(r, hd)[0] for r in rows
-                                 for _ in range(2)]}
+                                 for _ in range(2)],
+                  "ssd_intra": [intra_b] * expect["ssd_intra"]}
         for name in launchers:
             totals[name]["launches"] += counts[name]
             totals[name]["ms"] += sum(per_launch[name])
             totals[name]["bound_ms"] += sum(bounds[name])
-        emit({"phase": "serve", "arch": SERVE_ARCH, "policy": policy.name,
+        emit({"phase": "serve", "arch": arch, "policy": policy.name,
               "batch": b, "prompt": prompt, "steps": steps,
               "tier_spec": {"s_max": spec.s_max,
                             "hot_window": spec.hot_window,
@@ -776,7 +1038,7 @@ def serve_main_path(cuda) -> dict:
               "logits_floor_rms": max(floor_rms),
               "logits_max_err_over_limit": over_limit,
               "logits_max_rms_over_floor_rms": over_floor_rms,
-              "logits_limit_min": min(limits),
+              "logits_limit_min": min(limits + [prefill_limit]),
               "logits_tolerance": (f"{LOGITS_TOL} of max |logit|, or twice "
                                    "the floor"),
               "argmax_agree": agree / (b * steps),
@@ -787,8 +1049,9 @@ def serve_main_path(cuda) -> dict:
               "repack_events": len(trace["events"]),
               "metrics": {k: float(fast_metrics[k]) for k in METRICS},
               "metrics_exact_integers": trace["exact"]})
-    emit({"phase": "serve_summary", "init_s": init_s,
-          "main_path": totals, "planted_faults": faults})
+    emit({"phase": "serve_summary", "arch": arch, "init_s": init_s,
+          "main_path": totals, "planted_faults": faults,
+          "path_check": path_check})
     return {"kernels": {n: {"launches": v["launches"],
                             "main_path_ms": v["ms"],
                             "main_path_bound_ms": v["bound_ms"]}
@@ -967,14 +1230,19 @@ def main() -> int:
                                "kernel_ms": g["kernel_ms"]}
                               for g in timings]})
 
-    # ---- 4.-6. the serving path ----
+    # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
           "libraries": {name: {"build_s": lib.build_s,
                                "library": os.path.relpath(lib.path(), ROOT),
                                **lib.ptxas()}
                         for name, lib in serve_libs}})
     kernels = serve_kernels_vs_plain(cuda)
-    served = serve_main_path(cuda)
+    by_path = {SERVE_ARCHS[0]: serve_main_path(cuda, SERVE_ARCHS[0])}
+    torch.cuda.empty_cache()
+    kernels["ssd_intra"] = ssd_kernel_vs_plain(cuda)
+    for arch in SERVE_ARCHS[1:]:
+        by_path[arch] = serve_main_path(cuda, arch)
+        torch.cuda.empty_cache()
 
     # ---- the kernel table, then the contract's last line ----
     table = [{
@@ -989,9 +1257,16 @@ def main() -> int:
         # the sweep path: all of the paper grid's launches
         "main_path_ms": grid_ms, "main_path_bound_ms": grid_bound,
         "main_path_bound_by": grid_by}]
-    for name in ("ips_repack", "tiered_decode", "flash_fwd"):
+    for name in ("ips_repack", "tiered_decode", "flash_fwd", "ssd_intra"):
+        # launches and main-path times: every serving path that runs it
+        paths = {arch: v["kernels"][name] for arch, v in by_path.items()
+                 if v["kernels"][name]["launches"]}
+        if not paths:
+            fail(f"{name}: no serving path launched it")
         row = dict(kernels[name])
-        row.update(served["kernels"][name])
+        for key in ("launches", "main_path_ms", "main_path_bound_ms"):
+            row[key] = sum(p[key] for p in paths.values())
+        row["main_paths"] = paths
         table.append(row)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,7 @@ from repro_torch.core.tiercache.layout import QUANT_CHANNELS, TierSpec
 from repro_torch.core.tiercache.policy import Policy, plan_for
 from repro_torch.core.tiercache.quant import quantize_int4
 
-__all__ = ["zero_metrics", "repack_pages", "serve_tick",
+__all__ = ["zero_metrics", "add_metric", "repack_pages", "serve_tick",
            "write_amplification"]
 
 METRICS = ("hbm_read_bytes", "hbm_write_bytes", "repack_tokens",
@@ -31,7 +31,7 @@ def zero_metrics():
     return {k: np.float32(0.0) for k in METRICS}
 
 
-def _add(metrics, key, value) -> None:
+def add_metric(metrics, key, value) -> None:
     """metrics[key] += value in float32, the value rounded to float32
     first (as a weak-typed Python float meets a float32 array)."""
     metrics[key] = np.float32(metrics[key] + np.float32(value))
@@ -104,9 +104,9 @@ def serve_tick(cache, kind, spec: TierSpec, policy: Policy, kv_new,
                                       plan.bg_pages, False)
         moved = plan.bg_pages * spec.page_tokens
         dense_len += moved
-        _add(metrics, "hbm_read_bytes", rb)
-        _add(metrics, "hbm_write_bytes", wb)
-        _add(metrics, "repack_tokens", moved)
+        add_metric(metrics, "hbm_read_bytes", rb)
+        add_metric(metrics, "hbm_write_bytes", wb)
+        add_metric(metrics, "repack_tokens", moved)
 
     # --- sync path: hot window (about to be) full ---
     if total_len - dense_len + 1 > spec.hot_window:
@@ -114,16 +114,16 @@ def serve_tick(cache, kind, spec: TierSpec, policy: Policy, kv_new,
                                       plan.sync_pages, plan.staging_copy)
         moved = plan.sync_pages * spec.page_tokens
         dense_len += moved
-        _add(metrics, "hbm_read_bytes", rb)
-        _add(metrics, "hbm_write_bytes", wb)
-        _add(metrics, "repack_tokens", moved)
-        _add(metrics, "stall_events", 1.0)
+        add_metric(metrics, "hbm_read_bytes", rb)
+        add_metric(metrics, "hbm_write_bytes", wb)
+        add_metric(metrics, "repack_tokens", moved)
+        add_metric(metrics, "stall_events", 1.0)
 
     # --- append the new token to the hot tier ---
     layers, wb_append = _append_token(layers, kind, spec, kv_new,
                                       total_len - dense_len)
-    _add(metrics, "hbm_write_bytes", wb_append)
-    _add(metrics, "appended_tokens", 1.0)
+    add_metric(metrics, "hbm_write_bytes", wb_append)
+    add_metric(metrics, "appended_tokens", 1.0)
 
     out = dict(cache)
     out[layers_key] = layers

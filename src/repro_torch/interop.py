@@ -92,19 +92,29 @@ def params_from_jax(leaves: Sequence, *, device="cuda") -> CellParams:
                         for f, x in zip(CellParams._fields, leaves)))
 
 
-# the dense family's parameter tree: leaf name -> dtypes it may have
+_W = ("bfloat16", "float32")
+_F32 = ("float32",)
+_MAMBA = {"in_proj": _W, "conv_w": _W, "conv_b": _W, "A_log": _F32,
+          "D": _F32, "dt_bias": _F32, "norm": _W, "out_proj": _W}
+_ATTN = {k: _W for k in ("wq", "wk", "wv", "wo")}
+_MLP = {k: _W for k in ("w_gate", "w_up", "w_down")}
+# the parameter trees of the dense, ssm and hybrid families: leaf name ->
+# the dtypes it may have
 _MODEL_LEAVES = {
-    "embed": ("bfloat16", "float32"), "final_norm": ("bfloat16", "float32"),
-    "unembed": ("bfloat16", "float32"),
-    "layers": {"ln1": ("bfloat16", "float32"), "ln2": ("bfloat16", "float32"),
-               "attn": {k: ("bfloat16", "float32")
-                        for k in ("wq", "wk", "wv", "wo")},
-               "mlp": {k: ("bfloat16", "float32")
-                       for k in ("w_gate", "w_up", "w_down")}}}
-_CACHE_LEAVES = {"k4": ("uint8",), "v4": ("uint8",),
-                 "k4_sc": ("bfloat16", "float32"),
-                 "v4_sc": ("bfloat16", "float32"),
-                 "kh": ("bfloat16",), "vh": ("bfloat16",)}
+    "embed": _W, "final_norm": _W, "unembed": _W,
+    "layers": {"ln1": _W, "ln2": _W, "attn": _ATTN, "mlp": _MLP,
+               "ln": _W, "mamba": _MAMBA},
+    "macro": {"ln": _W, "mamba": _MAMBA},
+    "tail": {"ln": _W, "mamba": _MAMBA},
+    "shared": {"attn": _ATTN, "mlp": _MLP, "ln1": _W, "ln2": _W}}
+_TIER_LEAVES = {"k4": ("uint8",), "v4": ("uint8",), "k4_sc": _W,
+                "v4_sc": _W, "kh": ("bfloat16",), "vh": ("bfloat16",)}
+# the caches: "layers" (gqa) or "attn" (hybrid) hold the tiers; the
+# Mamba2 states are conv (bf16) and ssm (float32)
+_CACHE_LEAVES = {"layers": _TIER_LEAVES, "attn": _TIER_LEAVES,
+                 "conv": ("bfloat16",), "ssm": _F32,
+                 "macro_conv": ("bfloat16",), "macro_ssm": _F32,
+                 "tail_conv": ("bfloat16",), "tail_ssm": _F32}
 
 
 def _tree(name, tree, schema, device):
@@ -115,7 +125,7 @@ def _tree(name, tree, schema, device):
         path = f"{name}/{key}" if name else key
         if key not in schema:
             raise ValueError(f"{path}: the port does not hold this leaf "
-                             "(only the dense family crosses yet)")
+                             "(the dense, ssm and hybrid families cross)")
         if isinstance(schema[key], dict):
             out[key] = _tree(path, x, schema[key], device)
         else:
@@ -124,19 +134,20 @@ def _tree(name, tree, schema, device):
 
 
 def model_params_from_jax(tree, *, device="cuda"):
-    """The reference's dense-family parameter tree (numpy leaves) as the
-    port's tree of tensors on `device`."""
+    """The reference's parameter tree of a dense, ssm or hybrid model
+    (numpy leaves) as the port's tree of tensors on `device`."""
     return _tree("", tree, _MODEL_LEAVES, device)
 
 
 def cache_from_jax(tree, *, device="cuda"):
-    """A reference tiered cache ({"layers": {...}, "dense_len",
-    "total_len"}, numpy leaves) as the port's: tensors on `device`, the
-    watermarks as ints."""
-    unknown = set(tree) - {"layers", "dense_len", "total_len"}
-    if unknown:
-        raise ValueError(f"cache leaves {sorted(unknown)}: the port holds "
-                         "only the gqa tiers yet")
-    return {"layers": _tree("layers", tree["layers"], _CACHE_LEAVES, device),
-            "dense_len": int(np.asarray(tree["dense_len"])),
-            "total_len": int(np.asarray(tree["total_len"]))}
+    """A reference serving cache (numpy leaves): the tiered gqa cache
+    ({"layers", "dense_len", "total_len"}), the ssm states ({"conv",
+    "ssm", ...}) or the hybrid's ({"attn", "macro_conv", "macro_ssm",
+    "tail_conv", "tail_ssm", ...}), as the port's: tensors on `device`,
+    the watermarks as ints."""
+    scalars = {"dense_len", "total_len"}
+    out = _tree("", {k: v for k, v in tree.items() if k not in scalars},
+                _CACHE_LEAVES, device)
+    for k in scalars:
+        out[k] = int(np.asarray(tree[k]))
+    return out

@@ -4,8 +4,12 @@ metrics (WA analogue, stalls). The port of the reference's
 `repro/launch/serve.py`, with the same flags plus `--device` and
 `--seed`; weights and prompts are random, drawn from the seed.
 
-Usage:
+Usage (`--arch` takes a dense, ssm or hybrid config; for an ssm model,
+which has no KV cache, the policy changes nothing):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --reduced --device cpu --prompt-len 64 --decode 64 --policy ips_agc
 """

@@ -1,10 +1,12 @@
 """Model API of the serving path (the port of the reference's
-`repro/models/model_zoo.py`, dense family).
+`repro/models/model_zoo.py`: the dense, ssm and hybrid families).
 
 ModelBundle exposes init / prefill / decode / decode-cache builders and
 the tiered-cache kind, so the serve engine is model-agnostic (the loss
-waits for the training slice). The port runs the `dense` family; the
-others raise, naming the slice that brings them.
+waits for the training slice). The port runs the `dense` family
+(gemma-2b and the other dense configs), `ssm` (mamba2-370m) and
+`hybrid` (zamba2-1.2b); the others raise, naming the slice that brings
+them.
 """
 from __future__ import annotations
 
@@ -17,21 +19,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiercache.layout import (TierSpec, fill_quant_channel,
                                                gqa_layer_zeros,
                                                split_for_prefill)
+from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import transformer as tx
 
 __all__ = ["ModelBundle", "default_tier_spec", "build_model",
            "make_train_batch"]
 
 _WAITING = {"moe": "the MoE slice", "vlm": "the VLM slice",
-            "ssm": "the Mamba2 slice (ssd_scan kernel)",
-            "hybrid": "the zamba2 slice, after Mamba2",
             "audio": "the encoder-decoder slice"}
 
 
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ArchConfig
-    cache_kind: str                     # gqa (mla | encdec_self | ssm | hybrid later)
+    cache_kind: str                     # gqa | ssm | hybrid (mla | encdec_self later)
     init: Callable                      # generator -> params
     prefill: Callable                   # (params, batch, spec) -> (cache, logits)
     decode: Callable                    # (params, token, cache, spec) -> (logits, kv_new)
@@ -61,9 +62,7 @@ def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                                         spec)
         layers, _ = fill_quant_channel(layers, "v4", "v4_sc", "vh", v, spec)
         cache = {"layers": layers, "total_len": s, "dense_len": w0}
-        logits = (hidden[:, -1] @ tx.unembed_matrix(params)).to(
-            torch.float32)
-        return cache, logits
+        return cache, _last_logits(params, hidden)
 
     def decode(params, token, cache, spec=None):
         g = spec.group if spec is not None else 64
@@ -75,12 +74,110 @@ def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                        make_decode_cache=make_decode_cache)
 
 
+def _last_logits(params, hidden):
+    return (hidden[:, -1] @ tx.unembed_matrix(params)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# SSM family (mamba2): O(1) decode state, no KV cache
+# ---------------------------------------------------------------------------
+
+
+def _ssm_bundle(cfg: ArchConfig, device) -> ModelBundle:
+    def make_decode_cache(b, seq_len, spec=None, device=device):
+        conv, ssm = hybrid_lib.ssm_state_shapes(cfg, b, device)
+        return {"conv": conv, "ssm": ssm, "total_len": seq_len,
+                "dense_len": seq_len}
+
+    def prefill(params, batch, spec=None):
+        tokens = batch["tokens"]
+        hidden, (conv, ssm) = hybrid_lib.ssm_lm_hidden(
+            params, cfg, tokens, collect_state=True)
+        s = tokens.shape[1]
+        cache = {"conv": conv, "ssm": ssm, "total_len": s, "dense_len": s}
+        return cache, _last_logits(params, hidden)
+
+    def decode(params, token, cache, spec=None):
+        return hybrid_lib.ssm_lm_decode_step(
+            params, cfg, token, (cache["conv"], cache["ssm"]))
+
+    return ModelBundle(cfg=cfg, cache_kind="ssm",
+                       init=lambda gen: hybrid_lib.init_ssm_lm(gen, cfg),
+                       prefill=prefill, decode=decode,
+                       make_decode_cache=make_decode_cache)
+
+
+# ---------------------------------------------------------------------------
+# hybrid family (zamba2): Mamba2 states plus the shared block's tiered cache
+# ---------------------------------------------------------------------------
+
+
+def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+    def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
+        n_macro, tail = hybrid_lib.hybrid_structure(cfg)
+        ae = cfg.hybrid.attn_every
+        s = cfg.ssm
+        d_xc = s.d_inner(cfg.d_model) + 2 * s.d_state
+        nh = s.num_heads(cfg.d_model)
+        w0, _ = split_for_prefill(seq_len, spec)
+        cache = {
+            "attn": gqa_layer_zeros(n_macro, b, spec, cfg.num_kv_heads,
+                                    cfg.head_dim, device=device),
+            "macro_conv": torch.zeros((n_macro, ae, b, s.d_conv - 1, d_xc),
+                                      dtype=torch.bfloat16, device=device),
+            "macro_ssm": torch.zeros((n_macro, ae, b, nh, s.head_dim,
+                                      s.d_state), dtype=torch.float32,
+                                     device=device),
+            "total_len": seq_len, "dense_len": w0,
+        }
+        if tail:
+            cache["tail_conv"] = torch.zeros((tail, b, s.d_conv - 1, d_xc),
+                                             dtype=torch.bfloat16,
+                                             device=device)
+            cache["tail_ssm"] = torch.zeros((tail, b, nh, s.head_dim,
+                                             s.d_state), dtype=torch.float32,
+                                            device=device)
+        return cache
+
+    def prefill(params, batch, spec: TierSpec):
+        tokens = batch["tokens"]
+        hidden, ((k, v), macro_states, tail_states) = (
+            hybrid_lib.hybrid_lm_hidden(params, cfg, tokens,
+                                        attn_chunk=attn_chunk,
+                                        collect_kv=True, collect_state=True))
+        b, s = tokens.shape
+        cache = make_decode_cache(b, 0, spec, hidden.device)
+        attn, w0 = fill_quant_channel(cache["attn"], "k4", "k4_sc", "kh", k,
+                                      spec)
+        attn, _ = fill_quant_channel(attn, "v4", "v4_sc", "vh", v, spec)
+        cache["attn"] = attn
+        cache["macro_conv"], cache["macro_ssm"] = macro_states
+        if tail_states is not None:
+            cache["tail_conv"], cache["tail_ssm"] = tail_states
+        cache.update(total_len=s, dense_len=w0)
+        return cache, _last_logits(params, hidden)
+
+    def decode(params, token, cache, spec=None):
+        g = spec.group if spec is not None else 64
+        return hybrid_lib.hybrid_decode_step(params, cfg, token, cache,
+                                             quant_group=g)
+
+    return ModelBundle(cfg=cfg, cache_kind="hybrid",
+                       init=lambda gen: hybrid_lib.init_hybrid_lm(gen, cfg),
+                       prefill=prefill, decode=decode,
+                       make_decode_cache=make_decode_cache)
+
+
 def build_model(cfg: ArchConfig, *, attn_chunk: int = 512,
                 device="cuda") -> ModelBundle:
     """The bundle of `cfg`; `make_decode_cache` allocates on `device`
     unless told otherwise, and `prefill` beside its inputs."""
     if cfg.family == "dense":
         return _tx_bundle(cfg, attn_chunk, torch.device(device))
+    if cfg.family == "ssm":
+        return _ssm_bundle(cfg, torch.device(device))
+    if cfg.family == "hybrid":
+        return _hybrid_bundle(cfg, attn_chunk, torch.device(device))
     if cfg.family in _WAITING:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} "
                                   f"waits for {_WAITING[cfg.family]}")

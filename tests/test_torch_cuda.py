@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-`ssd_step`, and the serving path's `ips_repack`, `tiered_decode` and
-`flash_fwd` (plus the reduced serving path through all three).
+`ssd_step`, the serving path's `ips_repack`, `tiered_decode` and
+`flash_fwd`, and the Mamba2 path's `ssd_intra` (plus the reduced
+serving paths of gemma-2b, mamba2-370m and zamba2 through them).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 and `nvcc`, and skips elsewhere. On a machine with a card:
@@ -8,8 +9,8 @@ and `nvcc`, and skips elsewhere. On a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 (`python3 chip_smoke.py` runs the same comparisons at the paper's trace
-lengths and the serving shapes, then the whole paper grid and gemma-2b
-served at full size.)
+lengths and the serving shapes, then the whole paper grid and gemma-2b,
+mamba2-370m and zamba2-1.2b served at full size.)
 """
 import numpy as np
 import pytest
@@ -122,6 +123,8 @@ from repro_torch.kernels.ips_repack.ref import (  # noqa: E402
 from repro_torch.kernels.tiered_attention import ops as tiered_ops  # noqa: E402
 from repro_torch.kernels.tiered_attention.ref import (  # noqa: E402
     dense_tier_partial_ref)
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
 
 def _gen(seed):
@@ -344,6 +347,145 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+class TestSsdIntraKernel:
+    """`ssd_intra` against its plain version: on the card within 2e-5 of
+    max |output| (float32 sums in other orders), and `cum` against the
+    plain version on the CPU bit for bit (both accumulate the float
+    products in double)."""
+
+    @staticmethod
+    def _inputs(gen, bt, nc, q, nh, hd, n, a=None):
+        x = _randn(gen, bt, nc, q, nh, hd)
+        dt = torch.nn.functional.softplus(_randn(gen, bt, nc, q, nh))
+        A = (torch.full((nh,), a, device="cuda") if a is not None else
+             -torch.exp(0.3 * _randn(gen, nh)))     # each head its own A
+        return (x, dt, A, _randn(gen, bt, nc, q, n), _randn(gen, bt, nc, q, n))
+
+    @pytest.mark.parametrize("bt,nc,q,nh,hd,n,a", [
+        (4, 8, 256, 32, 64, 128, None),     # mamba2-370m's prefill
+        (4, 8, 256, 64, 64, 64, None),      # zamba2-1.2b's prefill
+        (2, 2, 256, 8, 64, 128, -1.0),      # exp overflows unless masked
+        (2, 2, 16, 2, 16, 16, None), (2, 2, 32, 4, 32, 16, None),
+        (2, 2, 64, 2, 64, 32, None),        # test_kernels.py's sets
+        (1, 3, 100, 9, 32, 16, None),       # ragged row tile and head group
+        (1, 2, 128, 5, 128, 128, None), (3, 1, 1, 1, 16, 64, None)])
+    def test_equals_plain_version(self, cuda, monkeypatch, bt, nc, q, nh, hd,
+                                  n, a):
+        ins = self._inputs(_gen(q * nh + hd), bt, nc, q, nh, hd, n, a)
+        want = ssd_ref.intra_chunk_ref(*ins)
+        cpu_cum = ssd_ref.intra_chunk_ref(*(t.cpu() for t in ins))[2]
+        _refuse_plain(monkeypatch, ssd_ops, "intra_chunk_ref")
+        before = ssd_ops.LAUNCHER.launches
+        got = ssd_ops.ssd_intra(*ins)
+        torch.cuda.synchronize()
+        assert ssd_ops.LAUNCHER.launches == before + 1
+        for name, g, w in zip(("y", "states", "cum"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert bool(torch.isfinite(g).all()), name
+            tol = 2e-5 * float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=0.0, atol=tol, msg=name)
+        assert torch.equal(got[2].cpu(), cpu_cum)
+
+    def test_refused_launches_raise(self, cuda):
+        x, dt, A, B, C = self._inputs(_gen(1), 1, 2, 32, 4, 64, 32)
+        before = ssd_ops.LAUNCHER.launches
+        with pytest.raises(ValueError, match="head_dim"):
+            ssd_ops.ssd_intra(x[..., :48].contiguous(), dt, A, B, C)
+        with pytest.raises(ValueError, match="d_state"):
+            ssd_ops.ssd_intra(x, dt, A, B[..., :24].contiguous(),
+                              C[..., :24].contiguous())
+        with pytest.raises(TypeError, match="dtype"):
+            ssd_ops.ssd_intra(x.to(torch.bfloat16), dt, A, B, C)
+        with pytest.raises(ValueError, match="contiguous"):
+            ssd_ops.ssd_intra(x, dt, A, B.transpose(2, 3).contiguous()
+                              .transpose(2, 3), C)
+        with pytest.raises(ValueError, match="chunk"):
+            big = self._inputs(_gen(2), 1, 1, 512, 1, 16, 16)
+            ssd_ops.ssd_intra(*big)
+        assert ssd_ops.LAUNCHER.launches == before
+
+    def test_a_missing_library_raises(self, cuda, monkeypatch, tmp_path):
+        """No built library and no nvcc: the wrapper raises; it does not
+        take the plain version."""
+        from repro_torch.kernels import _build
+
+        def no_nvcc():
+            raise RuntimeError("nvcc not found")
+
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+        monkeypatch.setattr(_build, "nvcc", no_nvcc)
+        monkeypatch.setattr(ssd_ops.LIB, "_lib", None)
+        _refuse_plain(monkeypatch, ssd_ops, "intra_chunk_ref")
+        before = ssd_ops.LAUNCHER.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            ssd_ops.ssd_intra(*self._inputs(_gen(3), 1, 1, 32, 2, 16, 16))
+        assert ssd_ops.LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        ins = self._inputs(_gen(4), 1, 2, 32, 2, 32, 16)
+        before = ssd_ops.LAUNCHER.launches
+        cpu = ssd_ops.ssd_intra(*(t.cpu() for t in ins))
+        assert cpu[0].device.type == "cpu"
+        assert ssd_ops.LAUNCHER.launches == before
+        ssd_ops.ssd_intra(*ins)
+        assert ssd_ops.LAUNCHER.launches == before + 1
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _serve_on_both(cfg, prompt, steps, policy):
+    """`cfg` served on the card through the kernels and on the CPU through
+    their plain versions, from the same weights and prompts, the CPU
+    teacher-forced on the card's tokens. Returns the two runs and the
+    card's kernel launches."""
+    from repro_torch.core.tiercache.manager import zero_metrics
+    from repro_torch.models.model_zoo import build_model, make_train_batch
+    from repro_torch.serve.engine import make_serve_step, make_tier_spec
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(1))
+    tokens = make_train_batch(cfg, 2, prompt,
+                              torch.Generator().manual_seed(0))["tokens"]
+    launchers = {"ssd_intra": ssd_ops.LAUNCHER,
+                 "flash_fwd": flash_ops.LAUNCHER,
+                 "tiered_decode": tiered_ops.LAUNCHER,
+                 "ips_repack": repack_ops.LAUNCHER}
+    runs, launches = {}, None
+    for dev in ("cuda", "cpu"):
+        before = {k: v.launches for k, v in launchers.items()}
+        bundle = build_model(cfg, device=dev)
+        spec = make_tier_spec(bundle, prompt + steps, policy, hot_window=16,
+                              page_tokens=8, group=16)
+        p = _to(params, dev)
+        cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)}, spec)
+        step = make_serve_step(bundle, spec, policy)
+        metrics = zero_metrics()
+        token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        forced = runs["cuda"]["inputs"] if runs else None
+        inputs, seq = [], [logits.cpu()]
+        for i in range(steps):
+            tok = forced[i].to(dev) if forced else token
+            inputs.append(tok.cpu())
+            token, lg, cache, metrics = step(p, cache, tok, metrics)
+            seq.append(lg.cpu())
+        runs[dev] = {"inputs": inputs, "logits": seq, "cache": cache,
+                     "metrics": metrics}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: v.launches - before[k]
+                        for k, v in launchers.items()}
+    for a, w in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
+        torch.testing.assert_close(a, w, rtol=2e-2, atol=2e-2)
+    for key in ("dense_len", "total_len"):
+        assert runs["cuda"]["cache"][key] == runs["cpu"]["cache"][key]
+    for k, v in runs["cpu"]["metrics"].items():
+        assert runs["cuda"]["metrics"][k] == v, k
+    return runs, launches
+
+
 def test_serving_path_on_the_card(cuda):
     """gemma-2b reduced to two layers, served on the card through the
     three kernels and on the CPU through their plain versions, from the
@@ -351,39 +493,29 @@ def test_serving_path_on_the_card(cuda):
     tokens: logits within 2e-2 (bf16 activations), the watermarks and
     metrics equal."""
     from repro_torch.configs import get_arch
-    from repro_torch.core.tiercache.manager import zero_metrics
     from repro_torch.core.tiercache.policy import Policy
-    from repro_torch.models.model_zoo import build_model, make_train_batch
-    from repro_torch.serve.engine import make_serve_step, make_tier_spec
     cfg = get_arch("gemma-2b").reduced(num_layers=2)
-    params = build_model(cfg, device="cpu").init(
-        torch.Generator().manual_seed(1))
-    tokens = make_train_batch(cfg, 2, 24,
-                              torch.Generator().manual_seed(0))["tokens"]
     for policy in Policy:
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            bundle = build_model(cfg, device=dev)
-            spec = make_tier_spec(bundle, 64, policy, hot_window=16,
-                                  page_tokens=8, group=16)
-            p = _to(params, dev)
-            cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)},
-                                           spec)
-            step = make_serve_step(bundle, spec, policy)
-            metrics = zero_metrics()
-            token = torch.argmax(logits, -1).to(torch.int32)[:, None]
-            forced = runs["cuda"]["inputs"] if runs else None
-            inputs, seq = [], [logits.cpu()]
-            for i in range(40):
-                tok = forced[i].to(dev) if forced else token
-                inputs.append(tok.cpu())
-                token, lg, cache, metrics = step(p, cache, tok, metrics)
-                seq.append(lg.cpu())
-            runs[dev] = {"inputs": inputs, "logits": seq, "cache": cache,
-                         "metrics": metrics}
-        for a, w in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
-            torch.testing.assert_close(a, w, rtol=2e-2, atol=2e-2)
-        for key in ("dense_len", "total_len"):
-            assert runs["cuda"]["cache"][key] == runs["cpu"]["cache"][key]
-        for k, v in runs["cpu"]["metrics"].items():
-            assert runs["cuda"]["metrics"][k] == v, k
+        _serve_on_both(cfg, 24, 40, policy)
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-370m", 2),
+                                         ("zamba2-1.2b", 5)])
+def test_mamba2_serving_paths_on_the_card(cuda, arch, layers):
+    """mamba2-370m and zamba2 (with its tail) reduced, served on the card
+    and on the CPU as above, under each policy: logits within 2e-2, the
+    counters equal, and the prefill launching `ssd_intra` once per Mamba2
+    layer (zamba2's shared block: flash once per macro block)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tiercache.policy import Policy
+    from repro_torch.models.hybrid import hybrid_structure
+    cfg = get_arch(arch).reduced(num_layers=layers)
+    for policy in Policy:
+        _, launches = _serve_on_both(cfg, 64, 40, policy)
+        assert launches["ssd_intra"] == layers
+        if cfg.family == "ssm":
+            assert launches["flash_fwd"] == launches["tiered_decode"] == 0
+        else:
+            n_macro, _ = hybrid_structure(cfg)
+            assert launches["flash_fwd"] == n_macro
+            assert launches["tiered_decode"] == n_macro * 40

@@ -48,9 +48,9 @@ PORTED = ("baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy")
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """`import repro_torch` and every submodule — the serving launcher and
-    the kernel packages among them — and chip_smoke.py pull in no `jax`
-    and no `repro.` module."""
+    """`import repro_torch` and every submodule — the serving launcher, the
+    kernel packages and the Mamba2 and hybrid models among them — and
+    chip_smoke.py pull in no `jax` and no `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -60,6 +60,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.launch.serve, repro_torch.kernels.ips_repack.ops\n"
         "import repro_torch.kernels.tiered_attention.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.ssd_scan.ops, repro_torch.kernels.ssd_scan.ref\n"
+        "import repro_torch.models.mamba2, repro_torch.models.hybrid\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -283,6 +283,10 @@ def test_cache_from_jax_refuses_unknown_leaves():
         cache_from_jax({**jc, "layers": {**jc["layers"],
                                          "krope": jc["layers"]["kh"]}},
                        device="cpu")
-    with pytest.raises(ValueError, match="macro_conv"):
-        cache_from_jax({**jc, "macro_conv": jc["layers"]["kh"]},
+    # the encoder-decoder's static cross-attention cache waits for its
+    # slice; the Mamba2 states cross, each in its own dtype only
+    with pytest.raises(ValueError, match="ck4"):
+        cache_from_jax({**jc, "ck4": jc["layers"]["k4"]}, device="cpu")
+    with pytest.raises(TypeError, match="macro_ssm"):
+        cache_from_jax({**jc, "macro_ssm": jc["layers"]["kh"]},
                        device="cpu")
