@@ -32,13 +32,20 @@ then:
 5. kernel vs plain version at the serving shapes, both on the card, same
    inputs: the repack's tier form (gemma-2b's prefill fill, feat 256)
    and arena form (the TPU kernel's default page, 256 x 1024), bytes
-   exact; the tiered partials at B 4, Hkv 1, G 8, hd 256 over the
-   serving dense tier with dense_len 0, a partial block and full, in
-   both dequantized forms, within 2e-4; flash at B 4, S 2048, H 8,
-   Hkv 1, hd 256 in bf16 (within 1e-2), in float32 (2e-5) and at a
-   ragged S. Each kernel's time (CUDA events), its plain version's, its
-   bound, and for flash PyTorch's `scaled_dot_product_attention` on the
-   same inputs as a yardstick the port never calls;
+   exact; the tiered partials at gemma-2b's decode shape (B 4, Hkv 1,
+   G 8, hd 256) and zamba2-1.2b's (B 4, Hkv 32, G 1, hd 64) over the
+   serving dense tier, with dense_len 0, 1, one split's tokens less and
+   more one, 1000 and full, in both dequantized forms, within 2e-4;
+   flash in bf16 (the wgmma form, within 1e-2) at gemma-2b's prefill
+   shape (B 4, S 2048, H 8, Hkv 1, hd 256), zamba2's (H 32, Hkv 32,
+   hd 64), S 1000 and 333 (off the 128-row tile) and 17 (below it), and
+   in float32 (2e-5); the count of HGMMA instructions in the built flash
+   library (`cuobjdump -sass`), which must not be 0. Each kernel's time
+   at both path shapes (CUDA events around each launch; for the tiered
+   kernel also a CUDA graph of the launches, its device time alone), its
+   plain version's, its bound, and for flash PyTorch's
+   `scaled_dot_product_attention` on the same inputs as a yardstick the
+   port never calls;
 6. the serving path — gemma-2b at full width and depth (random weights
    from a seed), a batch of 4 prompts of 2048 tokens prefilled and 128
    tokens decoded greedily under each of the four cache policies, with
@@ -231,6 +238,26 @@ def kernel_ms(launcher, fn, n: int = TIMED) -> float:
     return sum(times) / len(times)
 
 
+def graph_ms(fn, n: int = TIMED) -> float:
+    """Mean device ms of fn() over n calls captured in one CUDA graph and
+    replayed: the kernels' own time, without the host's launch gaps that
+    the events around a single call include when the card waits on the
+    host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = time_ms(graph.replay, 3) / n
+    del graph
+    return ms
+
+
 def repack_bound(rows: int, feat: int):
     """Tier form: read rows x feat bf16, write the packed bytes and the
     float32 scales; some 7 float32 operations a value."""
@@ -375,62 +402,88 @@ def serve_kernels_vs_plain(cuda) -> dict:
     emit({"phase": "kernel_vs_plain", "kernel": "ips_repack",
           "cases": cases, "equal": True, **out["ips_repack"]})
 
-    # -- tiered_decode: B 4, Hkv 1, G 8, hd 256 over the serving dense tier
-    b, hkv, g, hd = SERVE_BATCH, 1, 8, 256
+    # -- tiered_decode at gemma-2b's decode shape (B 4, Hkv 1, G 8, hd 256)
+    #    and zamba2-1.2b's shared block's (B 4, Hkv 32, G 1, hd 64), over
+    #    the serving dense tier, both dequantized forms, dense_len from the
+    #    empty tier through one token and either side of one split to full
     s_dense = SERVE_PROMPT + SERVE_STEPS + 1024
-    k4, ksc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
-                                      dtype=torch.bfloat16), GROUP)
-    v4, vsc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
-                                      dtype=torch.bfloat16), GROUP)
-    k4, v4 = (t.reshape(b, s_dense, hkv, hd // 2) for t in (k4, v4))
-    ksc, vsc = (t.reshape(b, s_dense, hkv, hd // GROUP) for t in (ksc, vsc))
-    q = randn(b, hkv, g, hd)
-    err, cases = 0.0, []
-    for form, deq, sc_dtype in (("float32", torch.float32, torch.float32),
-                                ("bf16", torch.bfloat16, torch.bfloat16)):
-        ks, vs = ksc.to(sc_dtype), vsc.to(sc_dtype)
-        for dense_len in (0, 1000, s_dense):
-            got = tiered.dense_tier_partial(q, k4, ks, v4, vs, dense_len,
-                                            group=GROUP, deq_dtype=deq)
-            want = dense_tier_partial_ref(q, k4, ks, v4, vs, dense_len,
-                                          GROUP, deq)
-            for name, a, w in zip(("m", "l", "acc"), got, want):
-                err = max(err, _within(f"tiered {form} dense_len "
-                                       f"{dense_len} {name}", a, w, 2e-4))
-            if dense_len == 0 and not (bool((got[0] == -1e30).all())
-                                       and bool((got[1] == 0).all())
-                                       and bool((got[2] == 0).all())):
-                fail("tiered: an empty tier must give m -1e30, l 0, acc 0")
-            cases.append(f"{form} dense_len {dense_len}")
-    ks, vs = ksc.to(torch.bfloat16), vsc.to(torch.bfloat16)
-    timed_len = 2048
-    ms = kernel_ms(launchers["tiered_decode"],
-                   lambda: tiered.dense_tier_partial(
-                       q, k4, ks, v4, vs, timed_len, group=GROUP,
-                       deq_dtype=torch.bfloat16))
-    plain = time_ms(lambda: dense_tier_partial_ref(
-        q, k4, ks, v4, vs, timed_len, GROUP, torch.bfloat16), PLAIN_TIMED)
-    bnd, by = tiered_bound(b, hkv, g, hd, timed_len)
+    err, cases, timed = 0.0, [], {}
+    for label, (b, hkv, g, hd) in (("gemma-2b", (SERVE_BATCH, 1, 8, 256)),
+                                   ("zamba2-1.2b", (SERVE_BATCH, 32, 1, 64))):
+        k4, ksc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
+                                          dtype=torch.bfloat16), GROUP)
+        v4, vsc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
+                                          dtype=torch.bfloat16), GROUP)
+        k4, v4 = (t.reshape(b, s_dense, hkv, hd // 2) for t in (k4, v4))
+        ksc, vsc = (t.reshape(b, s_dense, hkv, hd // GROUP)
+                    for t in (ksc, vsc))
+        q = randn(b, hkv, g, hd)
+        split = tiered.split_plan(SERVE_PROMPT, b, hkv, g)[0]
+        for form, deq in (("float32", torch.float32),
+                          ("bf16", torch.bfloat16)):
+            ks, vs = ksc.to(deq), vsc.to(deq)
+            for dense_len in (0, 1, split - 1, split + 1, 1000, s_dense):
+                got = tiered.dense_tier_partial(q, k4, ks, v4, vs, dense_len,
+                                                group=GROUP, deq_dtype=deq)
+                want = dense_tier_partial_ref(q, k4, ks, v4, vs, dense_len,
+                                              GROUP, deq)
+                for name, a, w in zip(("m", "l", "acc"), got, want):
+                    err = max(err, _within(
+                        f"tiered {label} {form} dense_len {dense_len} "
+                        f"{name}", a, w, 2e-4))
+                if dense_len == 0 and not (bool((got[0] == -1e30).all())
+                                           and bool((got[1] == 0).all())
+                                           and bool((got[2] == 0).all())):
+                    fail("tiered: an empty tier must give m -1e30, l 0, "
+                         "acc 0")
+                cases.append(f"{label} {form} dense_len {dense_len}")
+        ks, vs = ksc.to(torch.bfloat16), vsc.to(torch.bfloat16)
+        timed_len = SERVE_PROMPT
+
+        def call(q=q, k4=k4, ks=ks, v4=v4, vs=vs):
+            return tiered.dense_tier_partial(q, k4, ks, v4, vs, timed_len,
+                                             group=GROUP,
+                                             deq_dtype=torch.bfloat16)
+        tokens, splits = tiered.split_plan(timed_len, b, hkv, g)
+        bnd, by = tiered_bound(b, hkv, g, hd, timed_len)
+        timed[label] = {
+            "ms": kernel_ms(launchers["tiered_decode"], call),
+            "device_ms": graph_ms(call),
+            "plain_ms": time_ms(lambda: dense_tier_partial_ref(
+                q, k4, ks, v4, vs, timed_len, GROUP, torch.bfloat16),
+                PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "timed_shape": (f"B {b}, Hkv {hkv}, G {g}, hd {hd}, S {s_dense}, "
+                            f"dense_len {timed_len}, bf16 form"),
+            "split_tokens": tokens, "blocks": b * hkv * splits}
+    gemma = timed["gemma-2b"]
     out["tiered_decode"] = {
         "name": "tiered_decode", "route": "cuda",
         "source": ("src/repro_torch/kernels/tiered_attention/csrc/"
                    "tiered_decode.cu"),
         "replaces": "src/repro/kernels/tiered_attention/kernel.py:37",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": None,
-        "timed_shape": (f"B {b}, Hkv {hkv}, G {g}, hd {hd}, S {s_dense}, "
-                        f"dense_len {timed_len}, bf16 form"),
-        "blocks": b * hkv}
+        "max_abs_err": err, "library_ms": None, **gemma,
+        "zamba2_shape": timed["zamba2-1.2b"]}
     emit({"phase": "kernel_vs_plain", "kernel": "tiered_decode",
           "cases": cases, "tolerance": 2e-4, **out["tiered_decode"]})
 
-    # -- flash_fwd: the prefill's shape in bf16, float32, and ragged S
+    # -- flash_fwd: bf16 (the tensor-core form) at gemma-2b's and zamba2's
+    #    prefill shapes, S off the 128-row tile and below it; float32
+    hgmma = flash.LIB.sass_count("HGMMA")
+    if hgmma == 0:
+        fail("flash_fwd: the built library issues no HGMMA (wgmma)")
     err_bf16 = err_f32 = 0.0
     cases = []
+    shapes = {"gemma-2b": (SERVE_BATCH, SERVE_PROMPT, 8, 1, 256),
+              "zamba2-1.2b": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 64)}
     for b_, s_, h_, hkv_, hd_, dt, tol in (
-            (SERVE_BATCH, SERVE_PROMPT, 8, 1, 256, torch.bfloat16, 1e-2),
-            (1, 512, 8, 1, 256, torch.float32, 2e-5),
+            shapes["gemma-2b"] + (torch.bfloat16, 1e-2),
+            shapes["zamba2-1.2b"] + (torch.bfloat16, 1e-2),
             (2, 1000, 8, 1, 256, torch.bfloat16, 1e-2),
+            (2, 1000, 6, 2, 64, torch.bfloat16, 1e-2),
+            (2, 333, 6, 2, 64, torch.bfloat16, 1e-2),
+            (2, 17, 8, 1, 256, torch.bfloat16, 1e-2),
+            (1, 512, 8, 1, 256, torch.float32, 2e-5),
             (2, 333, 6, 2, 64, torch.float32, 2e-5)):
         qf = randn(b_, s_, h_, hd_, dtype=dt)
         kf = randn(b_, s_, hkv_, hd_, dtype=dt)
@@ -444,28 +497,33 @@ def serve_kernels_vs_plain(cuda) -> dict:
         else:
             err_f32 = max(err_f32, e)
         cases.append(f"{dt} B{b_} S{s_} H{h_} Hkv{hkv_} hd{hd_}")
-    b, s, h, hkv, hd = SERVE_BATCH, SERVE_PROMPT, 8, 1, 256
-    qf = randn(b, s, h, hd, dtype=torch.bfloat16)
-    kf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
-    vf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
-    ms = kernel_ms(launchers["flash_fwd"], lambda: flash.flash_fwd(qf, kf, vf))
-    plain = time_ms(lambda: flash_ref(qf, kf, vf, chunk=512), PLAIN_TIMED)
-    qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), TIMED)
-    bnd, by = flash_bound(b, s, h, hkv, hd, 2)
-    f32_bound, _ = bound_ms(0, 4 * b * h * s * s * hd // 2)
+    timed = {}
+    for label, (b, s, h, hkv, hd) in shapes.items():
+        qf = randn(b, s, h, hd, dtype=torch.bfloat16)
+        kf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
+        vf = randn(b, s, hkv, hd, dtype=torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
+        bnd, by = flash_bound(b, s, h, hkv, hd, 2)
+
+        def call(qf=qf, kf=kf, vf=vf):
+            return flash.flash_fwd(qf, kf, vf)
+        timed[label] = {
+            "ms": kernel_ms(launchers["flash_fwd"], call),
+            "plain_ms": time_ms(lambda: flash_ref(qf, kf, vf, chunk=512),
+                                PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), TIMED),
+            "timed_shape": f"B {b}, S {s}, H {h}, Hkv {hkv}, hd {hd}, bf16"}
     out["flash_fwd"] = {
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "max_abs_err": err_bf16, "max_abs_err_f32": err_f32, "ms": ms,
-        "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-        "library_ms": library,
+        "max_abs_err": err_bf16, "max_abs_err_f32": err_f32,
+        **timed["gemma-2b"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
-        "bound_ms_f32_cores": f32_bound,
-        "timed_shape": f"B {b}, S {s}, H {h}, Hkv {hkv}, hd {hd}, bf16"}
+        "sass_hgmma": hgmma, "zamba2_shape": timed["zamba2-1.2b"]}
     emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": cases,
           "tolerance": {"bf16": 1e-2, "float32": 2e-5}, **out["flash_fwd"]})
     return out

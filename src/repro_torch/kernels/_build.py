@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -102,6 +103,15 @@ class Library:
             self._bind(lib)
             self._lib = lib
         return self._lib
+
+    def sass_count(self, opcode: str) -> int:
+        """Instructions of `opcode` (e.g. "HGMMA") in the built library's
+        machine code, as the toolkit's cuobjdump disassembles it."""
+        tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+        sass = subprocess.run([tool, "-sass", self.build()],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        return len(re.findall(rf"\b{re.escape(opcode)}\b", sass))
 
     def ptxas(self) -> dict:
         """Registers per kernel and the largest spill store that ptxas

@@ -22,18 +22,23 @@ from repro_torch.kernels.tiered_attention import ref
 from repro_torch.kernels.tiered_attention.ref import merge_partials
 
 __all__ = ["dense_tier_partial", "tiered_decode_attention",
-           "merge_partials", "LIB", "LAUNCHER", "reset", "SOURCE"]
+           "merge_partials", "split_plan", "LIB", "LAUNCHER", "reset",
+           "SOURCE"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "tiered_decode.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_G = 16
+# blocks of 128 threads the split is sized for: eight on each of the
+# H100's 132 SMs
+TARGET_BLOCKS = 8 * 132
+MAX_SPLITS = 4096
 
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tiered_dense_partial.argtypes = [p, p, p, p, p, i, i, p, p, p,
-                                         i, i, i, i, i, i, i,
+                                         p, p, p, i, i, i, i, i, i, i, i, i,
                                          ctypes.c_float, p]
     lib.tiered_dense_partial.restype = i
 
@@ -45,6 +50,21 @@ LAUNCHER = Launcher(LIB, "tiered_decode")
 def reset() -> None:
     """Zero the launch count and drop the recorded launch events."""
     LAUNCHER.reset()
+
+
+def split_plan(dense_len: int, b: int, hkv: int, g: int):
+    """(tokens a block, number of splits) of the kernel's split of
+    [0, dense_len) for g query heads per KV head: a multiple of the
+    tokens a block takes at a time (32 when its four warps share the
+    query heads, g > 1; 128 when each warp takes its own 32, g = 1), so
+    that B * Hkv * splits comes near TARGET_BLOCKS, and at most
+    MAX_SPLITS splits; one split (empty) when dense_len is 0."""
+    def up(n, m):
+        return -(-n // m) * m
+    step = 128 if g == 1 else 32
+    tokens = max(step, up(-(-dense_len * b * hkv // TARGET_BLOCKS), step),
+                 up(-(-dense_len // MAX_SPLITS), step))
+    return tokens, max(1, -(-dense_len // tokens))
 
 
 def dense_tier_partial(q, k4, k4_sc, v4, v4_sc, dense_len: int, *,
@@ -89,16 +109,27 @@ def dense_tier_partial(q, k4, k4_sc, v4, v4_sc, dense_len: int, *,
           (b, s, hkv, hd // group), dev)
     check("tiered_decode", "v4_sc", v4_sc, (k4_sc.dtype,),
           (b, s, hkv, hd // group), dev)
+    if b * hkv > 65535:
+        raise ValueError(f"tiered_decode: B * Hkv = {b * hkv}; the merge "
+                         "grid takes at most 65535")
     m = torch.empty((b, hkv, g), dtype=torch.float32, device=dev)
     l = torch.empty((b, hkv, g), dtype=torch.float32, device=dev)
     acc = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
+    tokens, splits = split_plan(dense_len, b, hkv, g)
+    parts = (None, None, None)
+    if splits > 1:                   # each split's partial, then the merge
+        parts = tuple(torch.empty((b, hkv, splits, g) + extra,
+                                  dtype=torch.float32, device=dev)
+                      for extra in ((), (), (hd,)))
     LAUNCHER.launch("tiered_dense_partial",
                     (q.data_ptr(), k4.data_ptr(), k4_sc.data_ptr(),
                      v4.data_ptr(), v4_sc.data_ptr(),
                      int(k4_sc.dtype == torch.bfloat16),
                      int(deq_dtype == torch.bfloat16), m.data_ptr(),
-                     l.data_ptr(), acc.data_ptr(), b, s, hkv, g, hd, group,
-                     dense_len, 1.0 / (hd ** 0.5)), dev)
+                     l.data_ptr(), acc.data_ptr(),
+                     *(None if t is None else t.data_ptr() for t in parts),
+                     b, s, hkv, g, hd, group, dense_len, tokens, splits,
+                     1.0 / (hd ** 0.5)), dev)
     return m, l, acc
 
 

@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core.tiercache.quant import dequantize_int4
 
-__all__ = ["NEG_INF", "dense_tier_partial_ref", "merge_partials"]
+__all__ = ["NEG_INF", "dense_tier_partial_ref", "merge_partials",
+           "split_partials_ref", "merge_splits"]
 
 NEG_INF = -1e30
 
@@ -53,3 +54,44 @@ def merge_partials(parts):
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out, m, l
+
+
+def split_partials_ref(q, k4, k4_sc, v4, v4_sc, dense_len: int,
+                       split_tokens: int, splits: int, group: int = 64,
+                       deq_dtype=torch.float32):
+    """The kernel's split, in plain PyTorch (for the tests): the partial
+    (m, l, acc) of each split [i * split_tokens, min((i + 1) *
+    split_tokens, dense_len)), i < splits. A split with no token gives
+    m = -1e30, l = 0, acc = 0."""
+    parts = []
+    for i in range(splits):
+        start = i * split_tokens
+        end = min(start + split_tokens, dense_len)
+        if end <= start:
+            m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
+                           device=q.device)
+            parts.append((m, torch.zeros_like(m),
+                          torch.zeros(q.shape, dtype=torch.float32,
+                                      device=q.device)))
+            continue
+        sl = slice(start, end)
+        parts.append(dense_tier_partial_ref(
+            q, k4[:, sl], k4_sc[:, sl], v4[:, sl], v4_sc[:, sl], end - start,
+            group, deq_dtype))
+    return parts
+
+
+def merge_splits(parts):
+    """The kernel's merge of split partials -> (m, l, acc): each rescaled
+    to the common max, as `merge_partials` rescales, and summed in split
+    order."""
+    m = parts[0][0]
+    for p in parts[1:]:
+        m = torch.maximum(m, p[0])
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for m_i, l_i, acc_i in parts:
+        c = torch.exp(m_i - m)
+        l = l + l_i * c
+        acc = acc + acc_i * c[..., None]
+    return m, l, acc

@@ -249,6 +249,37 @@ class TestTieredDecodeKernel:
             assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
             assert bool((got[2] == 0).all())
 
+    @pytest.mark.parametrize("form", ("float32", "bf16"))
+    @pytest.mark.parametrize("fill", ("0", "1", "split-1", "split+1", "1000",
+                                      "full"))
+    @pytest.mark.parametrize("g,hd", [(1, 64), (2, 16), (3, 256), (8, 256),
+                                      (16, 128), (5, 32), (16, 256)])
+    def test_split_equals_plain_version(self, cuda, monkeypatch, g, hd, fill,
+                                        form):
+        """S split over blocks and merged: splits of 32 tokens at this
+        shape (B * Hkv = 4; 128 for G = 1), the last one partly past
+        dense_len."""
+        b, s, hkv, group = 2, 1280, 2, min(64, hd)
+        deq = torch.float32 if form == "float32" else torch.bfloat16
+        tier = self._tier(_gen(g * hd), b, s, hkv, g, hd, group, deq)
+        split = tiered_ops.split_plan(1000, b, hkv, g)[0]
+        dense_len = {"0": 0, "1": 1, "split-1": split - 1,
+                     "split+1": split + 1, "1000": 1000, "full": s}[fill]
+        want = dense_tier_partial_ref(*tier, dense_len, group, deq)
+        _refuse_plain(monkeypatch, tiered_ops, "dense_tier_partial_ref")
+        before = tiered_ops.LAUNCHER.launches
+        got = tiered_ops.dense_tier_partial(*tier, dense_len, group=group,
+                                            deq_dtype=deq)
+        torch.cuda.synchronize()
+        assert tiered_ops.LAUNCHER.launches == before + 1
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            # float32 partials, another summation order: 2e-4
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4,
+                                       msg=name)
+        if dense_len == 0:
+            assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
+            assert bool((got[2] == 0).all())
+
     def test_the_two_forms_differ_by_the_bf16_rounding(self, cuda):
         tier = self._tier(_gen(9), 2, 256, 1, 8, 256, 64, torch.bfloat16)
         f32 = tiered_ops.dense_tier_partial(*tier, 200, group=64)
@@ -314,6 +345,34 @@ class TestFlashKernel:
         # held at 1e-2 as the serving path's check holds them
         torch.testing.assert_close(out, want[0], rtol=tol, atol=tol)
         torch.testing.assert_close(lse, want[1], rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("s", (1, 17, 333, 1000))
+    @pytest.mark.parametrize("g", (1, 8))
+    @pytest.mark.parametrize("hd", (16, 32, 64, 128, 256))
+    def test_wgmma_form_equals_plain_version(self, cuda, monkeypatch, hd, g,
+                                             s):
+        """The bf16 form on the tensor cores, at every head_dim, with and
+        without GQA, at S below one 128-row tile and off its multiples."""
+        b, hkv = 2, 2
+        gen = _gen(hd * s + g)
+        q = _randn(gen, b, s, hkv * g, hd, dtype=torch.bfloat16)
+        k = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+        v = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+        want = flash_ref(q, k, v, chunk=64)
+        _refuse_plain(monkeypatch, flash_ops, "flash_ref")
+        before = flash_ops.LAUNCHER.launches
+        out, lse = flash_ops.flash_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHER.launches == before + 1
+        # P rounded to bf16 for the second product: 1e-2, as the serving
+        # path's check holds the kernel
+        torch.testing.assert_close(out, want[0], rtol=1e-2, atol=1e-2)
+        torch.testing.assert_close(lse, want[1], rtol=1e-2, atol=1e-2)
+
+    def test_wgmma_form_issues_hgmma(self, cuda):
+        flash_ops.flash_fwd(*(torch.zeros((1, 8, 1, 64), device="cuda",
+                                          dtype=torch.bfloat16),) * 3)
+        assert flash_ops.LIB.sass_count("HGMMA") > 0
 
     def test_refused_launches_raise(self, cuda):
         q = torch.zeros((1, 16, 4, 48), device="cuda")

@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_ref as t_flash_ref
 from repro_torch.kernels.tiered_attention import ops as tiered_ops
 from repro_torch.kernels.tiered_attention.ref import (
-    dense_tier_partial_ref as t_partial_ref)
+    dense_tier_partial_ref as t_partial_ref, merge_splits,
+    split_partials_ref)
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttx
 from repro_torch.interop import model_params_from_jax
@@ -160,6 +161,55 @@ def test_bf16_form_matches_the_serving_path(fill):
     _close(ref, got, 2e-2, "attention output")
     _close(rk, tk, 2e-2, "k_new")
     _close(rv, tv, 2e-2, "v_new")
+
+
+# the CUDA kernel's split of [0, dense_len) over blocks and its merge, in
+# the plain version's arithmetic: splits of 32 tokens, the last one partly
+# past dense_len, and one more past it with no token at all
+@pytest.mark.parametrize("dense_len", [0, 1, 31, 33, 100, 160])
+@pytest.mark.parametrize("form", ["float32", "bf16"])
+def test_split_partials_merge_to_the_unsplit_partial(dense_len, form):
+    rng = np.random.default_rng(dense_len + 5)
+    b, s, hkv, g, hd, group, split = 2, 160, 2, 4, 32, 16, 32
+    q, k4, ksc, v4, vsc = _tier(rng, b, s, hkv, g, hd, group)
+    deq = torch.float32 if form == "float32" else torch.bfloat16
+    tier = (to_torch(q), to_torch(k4), to_torch(ksc).to(deq), to_torch(v4),
+            to_torch(vsc).to(deq))
+    splits = -(-dense_len // split) + 1
+    parts = split_partials_ref(*tier, dense_len, split, splits, group, deq)
+    assert torch.all(parts[-1][0] == -1e30) and torch.all(parts[-1][1] == 0)
+    got = merge_splits(parts)
+    want = t_partial_ref(*tier, dense_len, group, deq)
+    for w, t, name in zip(want, got, ("m", "l", "acc")):
+        # float32 on both sides, the sums split at other places: 1e-5
+        _close(to_numpy(w), t, 1e-5, f"{name} vs unsplit")
+    if form == "float32":
+        ref = j_partial_ref(*map(jnp.asarray, (q, k4, ksc, v4, vsc)),
+                            jnp.int32(dense_len), group)
+        for r, t, name in zip(ref, got, ("m", "l", "acc")):
+            _close(r, t, 1e-5, f"{name} vs reference")
+    if dense_len == 0:
+        # the empty tier's identity survives the merge exactly
+        assert torch.all(got[0] == -1e30) and torch.all(got[1] == 0)
+        assert torch.all(got[2] == 0)
+
+
+@pytest.mark.parametrize("dense_len,b,hkv,g", [
+    (0, 4, 1, 8), (1, 4, 1, 8), (1000, 4, 1, 8), (2048, 4, 1, 8),
+    (3200, 4, 1, 8), (2048, 4, 32, 1), (1536, 4, 32, 1), (100000, 1, 1, 3)])
+def test_split_plan_covers_the_tier_and_fills_the_card(dense_len, b, hkv, g):
+    tokens, splits = tiered_ops.split_plan(dense_len, b, hkv, g)
+    assert tokens % (128 if g == 1 else 32) == 0
+    assert 1 <= splits <= tiered_ops.MAX_SPLITS
+    # every token in exactly one split, none past dense_len but the last's
+    assert (splits - 1) * tokens < max(dense_len, 1) <= splits * tokens
+    if dense_len >= 1000 and b * hkv <= 4:
+        # gemma-2b's shape: more blocks than (batch, KV head) pairs
+        assert b * hkv * splits >= 32
+    if (dense_len, b, hkv, g) == (2048, 4, 1, 8):
+        assert (tokens, splits) == (32, 64)
+    if (dense_len, b, hkv, g) == (2048, 4, 32, 1):
+        assert (tokens, splits) == (256, 8)
 
 
 # ---------------------------------------------------------------------------
