@@ -1,11 +1,14 @@
-"""Fleet simulation: every cell of one (composition, mode) group in one
-launch — port of the reference package's `core/ssd/fleet.py`.
+"""Fleet simulation: every cell of one (composition, mode) group — or of
+many groups — in one launch; port of the reference package's
+`core/ssd/fleet.py`.
 
 A fleet is a stacked `(C, T)` op tensor with per-cell `CellParams`
-((C,) tensors). On a CUDA device `run_fleet` is one launch of the
-`ssd_step` kernel, one thread block per cell; on the CPU it loops the
-kernel's plain version over the cells. Either way cell i equals
-`sim.run_trace` on that cell with the same parameters, bit for bit.
+((C,) tensors). On a CUDA device `run_fleets` runs any number of fleets
+(`FleetGroup`s, which may differ in composition, mode, length and
+packing) as one launch of the `ssd_step` kernel, one thread block per
+cell; `run_fleet` is its one-group case. On the CPU the kernel's plain
+version loops over the cells. Either way cell i equals `sim.run_trace`
+on that cell with the same parameters, bit for bit.
 
 Memory: each cell's carry is dominated by its residency maps (`loc`
 int8 + `loc_ep` int16 over 2^16 logical pages, 192 KB), which the kernel
@@ -13,7 +16,7 @@ holds in shared memory for the whole run.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -25,8 +28,20 @@ from repro_torch.core.ssd.sim import flush_cache, summarize
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.workloads.compress import TRIM_QUANTUM
 
-__all__ = ["stack_params", "stack_ops", "run_fleet", "flush_fleet",
-           "summarize_fleet"]
+__all__ = ["FleetGroup", "stack_params", "stack_ops", "run_fleets",
+           "run_fleet", "flush_fleet", "summarize_fleet"]
+
+
+class FleetGroup(NamedTuple):
+    """One (composition, mode) fleet: `ops` (C, T) op tensors from
+    `stack_ops`, `params` (C,)-stacked CellParams on the same device;
+    `packed` carries int16 plane fields (gate on
+    `policies.state.can_pack`)."""
+    policy: object
+    ops: dict
+    params: CellParams
+    closed_loop: bool
+    packed: bool = False
 
 
 def stack_params(params: Sequence[CellParams]) -> CellParams:
@@ -64,36 +79,51 @@ def _trim_len(is_write: np.ndarray, quantum: int = TRIM_QUANTUM) -> int:
     return min(-(-n_live // quantum) * quantum, t_len)
 
 
+def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
+               trim_pads: bool = False, timer=None) -> list:
+    """Simulate several fleets in one launch; returns [(latency (C, T),
+    final SimState with leading C)] in group order.
+
+    `trim_pads` scans only each group's shared live prefix and replays
+    each cell's identical pad tail to its exact fixed point inside the
+    same launch. `timer`: the kernel's optional (cells, 6) int64 block
+    timers over the groups' cells in order (`ssd_step.run_streams`).
+    Results are identical either way, and equal `run_fleet` group by
+    group."""
+    jobs, shapes = [], []
+    for g in groups:
+        n_cells, t_len = g.ops["lba"].shape
+        device = g.ops["lba"].device
+        t_scan = t_len
+        if trim_pads:
+            t_scan = _trim_len(g.ops["is_write"].cpu().numpy())
+        n_pad = t_len - t_scan
+        segs = {k: v[:, :t_scan].reshape(n_cells, t_scan, 1).contiguous()
+                for k, v in g.ops.items()}
+        pad_t = (g.ops["arrival_ms"][:, t_scan].contiguous() if n_pad
+                 else None)
+        state0 = init_state(cfg, n_logical, packed=g.packed,
+                            n_cells=n_cells, device=device)
+        jobs.append(ssd_step.StreamJob(resolve_spec(g.policy), segs, state0,
+                                       g.closed_loop, g.params, n_pad,
+                                       pad_t))
+        shapes.append((n_cells, t_scan, n_pad))
+    out = []
+    for (lat, final), (n_cells, t_scan, n_pad) in zip(
+            ssd_step.run_streams(cfg, jobs, timer=timer), shapes):
+        out.append((torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
+                                            (0, n_pad)), final))
+    return out
+
+
 def run_fleet(cfg, policy, ops: dict, params: CellParams, *,
               closed_loop: bool, n_logical: int, trim_pads: bool = False,
               packed: bool = False):
-    """Simulate a whole (composition, mode) fleet.
-
-    ops: (C, T) op tensors from `stack_ops`; params: (C,)-stacked
-    CellParams on the same device. Returns (latency (C, T), final
-    SimState with leading C). `trim_pads` scans only the shared live
-    prefix and replays each cell's identical pad tail to its exact fixed
-    point inside the same launch; `packed` carries int16 plane fields
-    (gate on `policies.state.can_pack`). Results are identical either
-    way."""
-    spec = resolve_spec(policy)
-    n_cells, t_len = ops["lba"].shape
-    device = ops["lba"].device
-    t_scan = t_len
-    if trim_pads:
-        t_scan = _trim_len(ops["is_write"].cpu().numpy())
-    n_pad = t_len - t_scan
-    segs = {k: v[:, :t_scan].reshape(n_cells, t_scan, 1).contiguous()
-            for k, v in ops.items()}
-    pad_t = ops["arrival_ms"][:, t_scan].contiguous() if n_pad else None
-    state0 = init_state(cfg, n_logical, packed=packed, n_cells=n_cells,
-                        device=device)
-    lat, final = ssd_step.run_stream(cfg, spec, segs, state0,
-                                     closed_loop=closed_loop, params=params,
-                                     n_pad=n_pad, pad_t=pad_t)
-    latency = torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
-                                      (0, n_pad))
-    return latency, final
+    """Simulate a whole (composition, mode) fleet: `run_fleets` with one
+    group. Returns (latency (C, T), final SimState with leading C)."""
+    return run_fleets(cfg, [FleetGroup(policy, ops, params, closed_loop,
+                                       packed)],
+                      n_logical=n_logical, trim_pads=trim_pads)[0]
 
 
 def flush_fleet(cfg, states: SimState, policy) -> SimState:

@@ -73,6 +73,9 @@ def ssd_intra(x, dt, A, B, C):
     check("ssd_intra", "A", A, f32, (nh,), x.device)
     check("ssd_intra", "B", B, f32, (bt, nc, q, n), x.device)
     check("ssd_intra", "C", C, f32, (bt, nc, q, n), x.device)
+    # the kernel copies x, B and C tiles 16 bytes at a time: a view that
+    # starts off a 16-byte boundary is copied into a fresh buffer
+    x, B, C = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, B, C))
     y = torch.empty_like(x)
     states = torch.empty((bt, nc, nh, hd, n), dtype=torch.float32,
                          device=x.device)

@@ -1,30 +1,44 @@
 // ssd_step.cu — the hybrid-SSD simulator's per-op recurrence for a whole
-// fleet of cells in one launch, written for Hopper (sm_90a).
+// sweep in one launch, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_segment_stream_kernel` of the reference package
 // (src/repro/kernels/ssd_step/kernel.py:46, launched by
 // `run_segments_kernel`): one cell's (S, K) compressed-segment stream with
 // the residency maps held in fast memory. This kernel runs C cells at once,
-// one thread block per cell, and takes both stream forms: the per-op
-// stream (K = 1, src = -1, scat_lba = lba — passed as null pointers) and
-// the K-lane segment stream with its hazard plan. After the stream it
-// replays the cell's `n_pad` identical tail pads to their exact fixed point
-// in-kernel, as the reference's `sim.replay_pads` does.
+// one thread block per cell, and the cells of one launch may differ in
+// everything but the device configuration: composition, mode, stream form
+// (the per-op stream, K = 1, src = -1, scat_lba = lba — null pointers —
+// or the K-lane segment stream with its hazard plan), length and pad tail.
+// Each block reads its cell's descriptor and dispatches once, before the op
+// loop, to `run_cell<COMP, CLOSED, ONE_LANE>` (8 compositions x 2 modes x
+// K = 1 or not). The wrapper orders the descriptors longest stream first,
+// so a grid of more cells than SMs is scheduled longest-processing-time
+// first. After the stream each cell replays its `n_pad` identical tail pads
+// to their exact fixed point in-kernel, as the reference's
+// `sim.replay_pads` does.
 //
 // What bounds it on this card: the longest cell's dependent op chain. Every
 // op reads the plane state the previous op wrote, so a cell is one serial
-// recurrence of a few hundred dependent instructions per op; the bytes are
-// small (12 bytes of op stream and 4 of latency per op, plus 200 KB of carry
-// in and out per cell — some 240 MB for the paper grid, about 70 us at
-// 3.35 TB/s). The design keeps the whole recurrence out of device memory:
-// the cell's residency maps (`loc` int8, 64 KB, and `loc_ep` int16, 128 KB,
-// over 2^16 pages) and its 128-plane carry (3.5 KB) live in dynamic shared
-// memory, about 200 KB of the 227 KB a block may use, so every gather,
-// scatter and plane update is a shared-memory access. The block's threads
-// load and store the maps cooperatively; one thread runs the recurrence. A
-// launch of C cells occupies C of the 132 SMs. Shortening the chain (the op
-// stream is read from device memory op by op) and running a sweep's
-// launches side by side are later work.
+// recurrence; the bytes are small (12 bytes of op stream and 4 of latency
+// per op, plus 200 KB of carry in and out per cell). The cell's residency
+// maps (`loc` int8, 64 KB, and `loc_ep` int16, 128 KB, over 2^16 pages) and
+// its 128-plane carry (3.5 KB) live in dynamic shared memory, so every
+// gather, scatter and plane update is a shared-memory access; one thread
+// runs the recurrence. The design keeps everything else off the chain:
+//  - a producer warp stages the op stream into a two-stage ring in the
+//    spare shared memory (2 x 1,024 ops x 12 bytes), full/empty mbarriers
+//    per stage. It computes all that does not depend on the carry: the
+//    clamped gather index, `plane = lba % P` (a run-time modulo), the op
+//    kind, the hazard source and the checked scatter target, packed in
+//    three words an op;
+//  - the recurrence thread prefetches the next op's record while the core
+//    runs, so no device-memory load and no modulo is on the chain;
+//  - K = 1 has its own specialisation without lane buffers; K > 1 keeps
+//    its four lane buffers in shared memory, not in local memory;
+//  - latencies are stored to device memory and never waited on.
+// Each block writes %globaltimer at its start and end, and the recurrence
+// thread its op counts and clock64 cycles (total, and waiting on the
+// ring) into an optional (C, 6) int64 timer output.
 //
 // Bit identity with the reference. The reference's compiler (XLA on the
 // CPU) fuses exactly four of the core's multiply-adds into FMA
@@ -53,7 +67,13 @@ enum {
 constexpr int WATERMARK_NUM = 7;
 constexpr int WATERMARK_DEN = 8;
 constexpr int MAX_LANES = 32;
+constexpr int MAX_PAGES = 1 << 16;   // the ring's 16-bit page index
 constexpr int BLOCK_THREADS = 256;
+constexpr int PRODUCER_WARP = 1;
+constexpr int STAGE_OPS = 1024;      // ops a ring stage holds
+constexpr int N_STAGES = 2;
+constexpr int REC_WORDS = 3;         // arrival; gather|plane|kind; scat|src
+constexpr uint32_t KEEP = 0x10000u;  // the scatter target is in range
 
 // composition bits (the wrapper's `composition_code`)
 constexpr int DUAL = 1, ADAPTIVE = 2, MIGRATE = 4, PRESSURE = 8, AGC = 16;
@@ -64,32 +84,68 @@ enum {
   K_SLC_READ, K_TLC_READ, K_SLC_WRITE, K_TLC_WRITE, K_REPROGRAM, N_FCONST
 };
 
-// pointer table, in the order of the wrapper's `_PTR_ORDER`
+// a cell's descriptor: int64 fields, in the order of the wrapper's
+// `_DESC_ORDER` (pointers to the cell's own (S, K) op stream and latency)
 enum {
-  P_ARRIVAL = 0, P_LBA, P_IS_WRITE, P_SRC, P_SCAT,
-  P_CAP_BASIC, P_CAP_TRAD, P_CAP_BOOST, P_IDLE_THR, P_WASTE_P, P_PAD_T,
-  P_BUSY, P_SLC, P_RP, P_TRAD, P_VM, P_EP, P_CTR, P_PREV_T, P_IDLE_CUM,
-  P_IDLE_SEEN, P_LOC, P_LOC_EP,
-  P_LAT_O, P_BUSY_O, P_SLC_O, P_RP_O, P_TRAD_O, P_VM_O, P_EP_O, P_CTR_O,
-  P_PREV_T_O, P_IDLE_CUM_O, P_IDLE_SEEN_O, P_LOC_O, P_LOC_EP_O, N_PTR
+  Q_ARRIVAL = 0, Q_LBA, Q_IS_WRITE, Q_SRC, Q_SCAT, Q_LAT_O, Q_COMP,
+  Q_CLOSED, Q_S, Q_K, Q_N_PAD, Q_ROW, N_DESC
+};
+
+// pointer table, in the order of the wrapper's `_PTR_ORDER`; every
+// per-cell array is indexed by the descriptor's row
+enum {
+  P_DESC = 0, P_CAP_BASIC, P_CAP_TRAD, P_CAP_BOOST, P_IDLE_THR, P_WASTE_P,
+  P_PAD_T, P_BUSY, P_SLC, P_RP, P_TRAD, P_VM, P_EP, P_CTR, P_PREV_T,
+  P_IDLE_CUM, P_IDLE_SEEN, P_LOC, P_LOC_EP,
+  P_BUSY_O, P_SLC_O, P_RP_O, P_TRAD_O, P_VM_O, P_EP_O, P_CTR_O,
+  P_PREV_T_O, P_IDLE_CUM_O, P_IDLE_SEEN_O, P_LOC_O, P_LOC_EP_O, P_TIMER,
+  N_PTR
 };
 
 // integer dims, in the order of the wrapper's `_DIM_ORDER`
-enum { D_COMP = 0, D_CLOSED, D_C, D_S, D_K, D_P, D_N, D_N_PAD, D_PPB, N_DIM };
+enum { D_C = 0, D_P, D_N, D_PPB, N_DIM };
+
+// the timer output's columns (the wrapper's `TIMER_COLUMNS`)
+enum {
+  T_START = 0, T_END, T_SCANNED, T_PADS, T_CYCLES, T_WAIT, N_TIMER
+};
+
+// The launch's pages per SLC block as a divisor that needs no integer
+// division on the chain (the card has none; its emulation is some tens of
+// dependent instructions): for n >= 0, n / d by a multiply-high and two
+// shifts (Granlund and Montgomery), exact for every 32-bit n.
+struct Divisor {
+  int d;           // >= 1
+  uint32_t m;      // magic multiplier (d > 1)
+  int l;           // ceil(log2(d))
+};
+
+Divisor make_divisor(int d) {
+  Divisor v;
+  v.d = d;
+  v.l = 0;
+  while ((1LL << v.l) < d) ++v.l;
+  v.m = d > 1 ? static_cast<uint32_t>(
+                    ((1ULL << 32) * ((1ULL << v.l) - (unsigned long long)d)) /
+                        (unsigned long long)d + 1)
+              : 0u;
+  return v;
+}
 
 struct Args {
-  const float* arrival; const int* lba; const int* is_write;
-  const int* src; const int* scat;               // null: per-op stream
+  const long long* desc;
   const int* cap_basic; const int* cap_trad; const int* cap_boost;
   const float* idle_thr; const float* waste_p; const float* pad_t;
   const float* busy; const int* slc; const int* rp; const int* trad;
   const int* vm; const int* ep; const float* ctr; const float* prev_t;
   const float* idle_cum; const float* idle_seen;
   const int8_t* loc; const int16_t* loc_ep;
-  float* lat_o; float* busy_o; int* slc_o; int* rp_o; int* trad_o;
+  float* busy_o; int* slc_o; int* rp_o; int* trad_o;
   int* vm_o; int* ep_o; float* ctr_o; float* prev_t_o; float* idle_cum_o;
   float* idle_seen_o; int8_t* loc_o; int16_t* loc_ep_o;
-  int C, S, K, P, N, n_pad, ppb_slc;
+  long long* timer;                              // null: not timed
+  int C, P, N;
+  Divisor ppb;
   float k[N_FCONST];
 };
 
@@ -116,15 +172,32 @@ __device__ __forceinline__ int eff_cap(int slc_used, const Knobs& kn) {
   return kn.cap_basic;
 }
 
-__device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__device__ __forceinline__ int ceil_div(int a, const Divisor& v) {
+  const int n = a + v.d - 1;
+  if (n < 0) return n / v.d;             // never for a valid carry
+  if (v.d == 1) return n;
+  const uint32_t un = static_cast<uint32_t>(n);
+  const uint32_t t = __umulhi(v.m, un);
+  return static_cast<int>((t + ((un - t) >> 1)) >> (v.l - 1));
+}
+
+// (int)(a / b): the IEEE quotient truncated, as the reference's astype
+// truncates it. A zero dividend gives 0 without dividing (0 / b is +-0, or
+// NaN for b = 0, and each truncates to 0): the division's fast path leaves
+// a zero dividend to its slow path, and idle budgets are often zero.
+__device__ __forceinline__ int trunc_div(float a, float b) {
+  return a == 0.0f ? 0 : static_cast<int>(a / b);
+}
 
 // The per-op core (the reference engine's `_build_core`), in its fragment
 // order. Reads the plane state, computes, then writes it back; returns
 // whether any carry value changed (the fixed-point test of the tail replay).
+// `plane` is the op's `lba % P`, computed off the chain by the producer.
 template <int COMP, bool CLOSED>
 __device__ __forceinline__ bool core(
-    Carry& c, const Knobs& kn, const float* __restrict__ k, int P, int ppb,
-    float t, int lba, int kind, int old_raw, int old_ep,
+    Carry& c, const Knobs& kn, const float* __restrict__ k, int P,
+    const Divisor& ppb,
+    float t, int plane, int kind, int old_raw, int old_ep,
     float& latency_out, int& loc_val_out, int& loc_ep_val_out) {
   constexpr bool dual = COMP & DUAL;
   constexpr bool run_migrate = COMP & MIGRATE;
@@ -133,7 +206,6 @@ __device__ __forceinline__ bool core(
   constexpr bool run_agc = COMP & AGC;
   constexpr bool run_dual_reclaim = dual && run_agc;
 
-  const int plane = lba % P;
   const bool is_pad = kind < 0;
   const bool is_write = kind == 1;
   const float busy_p = c.busy[plane];
@@ -164,7 +236,7 @@ __device__ __forceinline__ bool core(
         const float overrun_allow = slc_used < eff ? k[K_OVERRUN_MS] : 0.0f;
         budget = above_wm ? full_gap + overrun_allow : dev_budget;
       }
-      const int mig = min(valid_mig, (int)(budget / k[K_C_MIG]));
+      const int mig = min(valid_mig, trunc_div(budget, k[K_C_MIG]));
       valid_mig = valid_mig - mig;
       float used_ms = (float)mig * k[K_C_MIG];
       budget = __fmaf_rn(-(float)mig, k[K_C_MIG], budget);  // fused there
@@ -185,13 +257,15 @@ __device__ __forceinline__ bool core(
     if (run_dual_reclaim) {
       float budget = dev_budget;
       int rp_avail = 2 * slc_used - rp_done;
-      const int ops1 = min(min(valid_mig, rp_avail), (int)(budget / k[K_C_TRAD_RP]));
+      const int ops1 = min(min(valid_mig, rp_avail),
+                           trunc_div(budget, k[K_C_TRAD_RP]));
       rp_done = rp_done + ops1;
       valid_mig = valid_mig - ops1;
       budget = __fmaf_rn(-(float)ops1, k[K_C_TRAD_RP], budget);
       ctr[CTR_RP_TRAD] = ctr[CTR_RP_TRAD] + (float)ops1;
       rp_avail = 2 * slc_used - rp_done;
-      const int ops2 = min(rp_avail == 0 ? valid_mig : 0, (int)(budget / k[K_C_MIG]));
+      const int ops2 = min(rp_avail == 0 ? valid_mig : 0,
+                           trunc_div(budget, k[K_C_MIG]));
       valid_mig = valid_mig - ops2;
       budget = __fmaf_rn(-(float)ops2, k[K_C_MIG], budget);
       ctr[CTR_MIG_W] = ctr[CTR_MIG_W] + (float)ops2;
@@ -205,7 +279,7 @@ __device__ __forceinline__ bool core(
     if (run_agc) {
       int rp_avail = 2 * slc_used - rp_done;
       if (dual) rp_avail = valid_mig == 0 ? rp_avail : 0;
-      const int ops = min(rp_avail, (int)(full_gap / k[K_C_AGC]));
+      const int ops = min(rp_avail, trunc_div(full_gap, k[K_C_AGC]));
       rp_done = rp_done + ops;
       const float opsf = (float)ops;
       ctr[CTR_RP_AGC] = ctr[CTR_RP_AGC] + opsf;
@@ -298,158 +372,429 @@ __device__ __forceinline__ bool core(
   return changed;
 }
 
-template <int COMP, bool CLOSED>
-__global__ void __launch_bounds__(BLOCK_THREADS) ssd_stream_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cell = blockIdx.x;
-  const int P = a.P;
-  const int N = a.N;
-  float* busy = reinterpret_cast<float*>(smem);
-  int* slc = reinterpret_cast<int*>(busy + P);
-  int* rp = slc + P;
-  int* trad = rp + P;
-  int* vm = trad + P;
-  int* ep = vm + P;
-  float* idle_seen = reinterpret_cast<float*>(ep + P);
-  int16_t* loc_ep = reinterpret_cast<int16_t*>(idle_seen + P);
-  int8_t* loc = reinterpret_cast<int8_t*>(loc_ep + N);
+// ---------------------------------------------------------------------------
+// shared memory and the ring's barriers
+// ---------------------------------------------------------------------------
 
-  const size_t pbase = (size_t)cell * P;
-  const size_t nbase = (size_t)cell * N;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    busy[i] = a.busy[pbase + i];
-    slc[i] = a.slc[pbase + i];
-    rp[i] = a.rp[pbase + i];
-    trad[i] = a.trad[pbase + i];
-    vm[i] = a.vm[pbase + i];
-    ep[i] = a.ep[pbase + i];
-    idle_seen[i] = a.idle_seen[pbase + i];
-  }
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    loc[i] = a.loc[nbase + i];
-    loc_ep[i] = a.loc_ep[nbase + i];
-  }
-  __syncthreads();
+__host__ __device__ constexpr long long carry_bytes(int P, int N) {
+  return 7LL * 4 * P + 3LL * N;          // seven (P,) arrays, loc_ep, loc
+}
 
-  if (threadIdx.x == 0) {
-    Carry c;
-    c.busy = busy; c.slc = slc; c.rp = rp; c.trad = trad; c.vm = vm;
-    c.ep = ep; c.idle_seen = idle_seen;
+__host__ __device__ constexpr long long align16(long long b) {
+  return (b + 15) & ~15LL;
+}
+
+constexpr int LANE_BYTES = 4 * 4 * MAX_LANES;      // old, ep, buf_loc, buf_ep
+constexpr int BAR_BYTES = 8 * 2 * N_STAGES;        // full and empty
+constexpr int RING_BYTES = N_STAGES * STAGE_OPS * REC_WORDS * 4;
+
+__host__ __device__ constexpr long long block_bytes(int P, int N) {
+  return align16(carry_bytes(P, N)) + LANE_BYTES + BAR_BYTES + RING_BYTES;
+}
+
+struct Smem {
+  float* busy; int* slc; int* rp; int* trad; int* vm; int* ep;
+  float* idle_seen; int16_t* loc_ep; int8_t* loc;
+  int* lane;                 // old_k, ep_k, buf_loc, buf_ep: MAX_LANES each
+  uint64_t* full;            // N_STAGES, then empty: N_STAGES
+  uint64_t* empty;
+  uint32_t* ring;            // N_STAGES x STAGE_OPS x REC_WORDS
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* smem, int P, int N) {
+  Smem s;
+  s.busy = reinterpret_cast<float*>(smem);
+  s.slc = reinterpret_cast<int*>(s.busy + P);
+  s.rp = s.slc + P;
+  s.trad = s.rp + P;
+  s.vm = s.trad + P;
+  s.ep = s.vm + P;
+  s.idle_seen = reinterpret_cast<float*>(s.ep + P);
+  s.loc_ep = reinterpret_cast<int16_t*>(s.idle_seen + P);
+  s.loc = reinterpret_cast<int8_t*>(s.loc_ep + N);
+  unsigned char* tail = smem + align16(carry_bytes(P, N));
+  s.lane = reinterpret_cast<int*>(tail);
+  s.full = reinterpret_cast<uint64_t*>(tail + LANE_BYTES);
+  s.empty = s.full + N_STAGES;
+  s.ring = reinterpret_cast<uint32_t*>(tail + LANE_BYTES + BAR_BYTES);
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// ops of whole segments a stage holds
+__device__ __forceinline__ int stage_ops_of(int K) {
+  return (STAGE_OPS / K) * K;
+}
+
+// ---------------------------------------------------------------------------
+// the producer warp: the cell's op stream into the ring
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void produce(const long long* d, const Smem& s,
+                                        int P, int N) {
+  const int lane = threadIdx.x & 31;
+  const float* arrival = reinterpret_cast<const float*>(d[Q_ARRIVAL]);
+  const int* lba = reinterpret_cast<const int*>(d[Q_LBA]);
+  const int* is_write = reinterpret_cast<const int*>(d[Q_IS_WRITE]);
+  const int* src = reinterpret_cast<const int*>(d[Q_SRC]);
+  const int* scat = reinterpret_cast<const int*>(d[Q_SCAT]);
+  const int K = static_cast<int>(d[Q_K]);
+  const long long n_ops = d[Q_S] * K;
+  const int per_stage = stage_ops_of(K);
+  int st = 0;
+  for (long long base = 0; base < n_ops; base += per_stage, ++st) {
+    const int slot = st % N_STAGES;
+    if (st >= N_STAGES) mbar_wait(s.empty + slot, ((st / N_STAGES) - 1) & 1);
+    const int cnt = static_cast<int>(min(static_cast<long long>(per_stage),
+                                         n_ops - base));
+    uint32_t* rec = s.ring + slot * STAGE_OPS * REC_WORDS;
+    for (int i = lane; i < cnt; i += 32) {
+      const long long o = base + i;
+      const int l = __ldg(lba + o);
+      const int kind = __ldg(is_write + o);
+      const int sv = src ? __ldg(src + o) : -1;
+      const int dst = scat ? __ldg(scat + o) : l;
+      const int gather = min(max(l, 0), N - 1);
+      const int plane = l % P;
+      // the core reads only kind < 0 and kind == 1; src only src >= 0 and
+      // its clamp to K - 1
+      const int kind3 = kind < 0 ? -1 : (kind == 1 ? 1 : 0);
+      const int src_c = sv < 0 ? -1 : min(sv, K - 1);
+      const bool keep = dst >= 0 && dst < N;
+      rec[REC_WORDS * i] = __float_as_uint(__ldg(arrival + o));
+      rec[REC_WORDS * i + 1] =
+          static_cast<uint32_t>(gather) |
+          (static_cast<uint32_t>(static_cast<uint8_t>(plane)) << 16) |
+          (static_cast<uint32_t>(static_cast<uint8_t>(kind3)) << 24);
+      rec[REC_WORDS * i + 2] =
+          (keep ? (static_cast<uint32_t>(dst) | KEEP) : 0u) |
+          (static_cast<uint32_t>(static_cast<uint8_t>(src_c)) << 24);
+    }
+    mbar_arrive(s.full + slot);          // one arrival a lane
+  }
+}
+
+__device__ __forceinline__ int rec_gather(uint32_t w1) {
+  return static_cast<int>(w1 & 0xFFFFu);
+}
+__device__ __forceinline__ int rec_plane(uint32_t w1) {
+  return static_cast<int8_t>(w1 >> 16);
+}
+__device__ __forceinline__ int rec_kind(uint32_t w1) {
+  return static_cast<int8_t>(w1 >> 24);
+}
+__device__ __forceinline__ int rec_src(uint32_t w2) {
+  return static_cast<int8_t>(w2 >> 24);
+}
+
+// ---------------------------------------------------------------------------
+// the recurrence thread: one cell's stream and pad tail
+// ---------------------------------------------------------------------------
+
+template <int COMP, bool CLOSED, bool ONE_LANE>
+__device__ __forceinline__ void run_cell(const Args& a, const long long* d,
+                                         const Smem& s, int row) {
+  Carry c;
+  c.busy = s.busy; c.slc = s.slc; c.rp = s.rp; c.trad = s.trad;
+  c.vm = s.vm; c.ep = s.ep; c.idle_seen = s.idle_seen;
 #pragma unroll
-    for (int i = 0; i < N_CTR; ++i) c.ctr[i] = a.ctr[(size_t)cell * N_CTR + i];
-    c.prev_t = a.prev_t[cell];
-    c.idle_cum = a.idle_cum[cell];
-    Knobs kn;
-    kn.cap_basic = a.cap_basic[cell];
-    kn.cap_trad = a.cap_trad[cell];
-    kn.cap_boost = a.cap_boost[cell];
-    kn.idle_thr = a.idle_thr[cell];
-    kn.waste_p = a.waste_p[cell];
-    const int K = a.K;
-    int old_k[MAX_LANES], ep_k[MAX_LANES], buf_loc[MAX_LANES], buf_ep[MAX_LANES];
-    float lat_unused;
+  for (int i = 0; i < N_CTR; ++i) c.ctr[i] = a.ctr[(size_t)row * N_CTR + i];
+  c.prev_t = a.prev_t[row];
+  c.idle_cum = a.idle_cum[row];
+  Knobs kn;
+  kn.cap_basic = a.cap_basic[row];
+  kn.cap_trad = a.cap_trad[row];
+  kn.cap_boost = a.cap_boost[row];
+  kn.idle_thr = a.idle_thr[row];
+  kn.waste_p = a.waste_p[row];
+  float k[N_FCONST];
+#pragma unroll
+  for (int i = 0; i < N_FCONST; ++i) k[i] = a.k[i];
+  const int P = a.P;
+  const Divisor ppb = a.ppb;
+  float* lat_o = reinterpret_cast<float*>(d[Q_LAT_O]);
+  const int K = ONE_LANE ? 1 : static_cast<int>(d[Q_K]);
+  const long long n_ops = d[Q_S] * K;
+  const int per_stage = stage_ops_of(K);
+  long long wait_cycles = 0;
+  const long long c0 = clock64();
 
-    for (int s = 0; s < a.S; ++s) {
-      const size_t base = ((size_t)cell * a.S + s) * K;
-      // segment-start residency gather (clamped, as the reference's is)
-      for (int i = 0; i < K; ++i) {
-        const int l = min(max(__ldg(a.lba + base + i), 0), N - 1);
-        old_k[i] = loc[l];
-        ep_k[i] = loc_ep[l];
+  int st = 0;
+  for (long long base = 0; base < n_ops; base += per_stage, ++st) {
+    const int slot = st % N_STAGES;
+    const long long w0 = clock64();
+    mbar_wait(s.full + slot, (st / N_STAGES) & 1);
+    wait_cycles += clock64() - w0;
+    const int cnt = static_cast<int>(min(static_cast<long long>(per_stage),
+                                         n_ops - base));
+    const uint32_t* rec = s.ring + slot * STAGE_OPS * REC_WORDS;
+    float* lat = lat_o + base;
+    if (ONE_LANE) {
+      // the next op's record is loaded while this op's core runs
+      uint32_t n0 = rec[0], n1 = rec[1], n2 = rec[2];
+      for (int i = 0; i < cnt; ++i) {
+        const uint32_t w0r = n0, w1 = n1, w2 = n2;
+        if (i + 1 < cnt) {
+          n0 = rec[REC_WORDS * (i + 1)];
+          n1 = rec[REC_WORDS * (i + 1) + 1];
+          n2 = rec[REC_WORDS * (i + 1) + 2];
+        }
+        const int g = rec_gather(w1);
+        float latency;
+        int lv, lev;
+        core<COMP, CLOSED>(c, kn, k, P, ppb, __uint_as_float(w0r),
+                           rec_plane(w1), rec_kind(w1), s.loc[g],
+                           s.loc_ep[g], latency, lv, lev);
+        lat[i] = latency;
+        if (w2 & KEEP) {
+          const int dst = static_cast<int>(w2 & 0xFFFFu);
+          s.loc[dst] = static_cast<int8_t>(lv);
+          s.loc_ep[dst] = static_cast<int16_t>(lev);
+        }
       }
-      // the lane recurrence, forwarding intra-segment hazards via src
-      for (int i = 0; i < K; ++i) {
-        const int src = a.src ? __ldg(a.src + base + i) : -1;
-        const int j = min(max(src, 0), K - 1);
-        const int old = src >= 0 ? buf_loc[j] : old_k[i];
-        const int old_ep = src >= 0 ? buf_ep[j] : ep_k[i];
-        core<COMP, CLOSED>(c, kn, a.k, P, a.ppb_slc, __ldg(a.arrival + base + i),
-                           __ldg(a.lba + base + i), __ldg(a.is_write + base + i),
-                           old, old_ep, a.lat_o[base + i], buf_loc[i], buf_ep[i]);
-      }
-      // duplicate-free scatter; out-of-range (superseded) lanes drop
-      for (int i = 0; i < K; ++i) {
-        const int dst = a.scat ? __ldg(a.scat + base + i) : __ldg(a.lba + base + i);
-        if (dst >= 0 && dst < N) {
-          loc[dst] = (int8_t)buf_loc[i];
-          loc_ep[dst] = (int16_t)buf_ep[i];
+    } else {
+      int* old_k = s.lane;
+      int* ep_k = old_k + MAX_LANES;
+      int* buf_loc = ep_k + MAX_LANES;
+      int* buf_ep = buf_loc + MAX_LANES;
+      for (int s0 = 0; s0 < cnt; s0 += K) {
+        const uint32_t* r = rec + REC_WORDS * s0;
+        // segment-start residency gather (clamped, as the reference's is)
+        for (int i = 0; i < K; ++i) {
+          const int g = rec_gather(r[REC_WORDS * i + 1]);
+          old_k[i] = s.loc[g];
+          ep_k[i] = s.loc_ep[g];
+        }
+        // the lane recurrence, forwarding intra-segment hazards via src
+        for (int i = 0; i < K; ++i) {
+          const uint32_t w1 = r[REC_WORDS * i + 1];
+          const int src = rec_src(r[REC_WORDS * i + 2]);
+          const int j = max(src, 0);
+          const int old = src >= 0 ? buf_loc[j] : old_k[i];
+          const int old_ep = src >= 0 ? buf_ep[j] : ep_k[i];
+          float latency;
+          int lv, lev;
+            core<COMP, CLOSED>(c, kn, k, P, ppb,
+                             __uint_as_float(r[REC_WORDS * i]), rec_plane(w1),
+                             rec_kind(w1), old, old_ep, latency, lv, lev);
+            lat[s0 + i] = latency;
+          buf_loc[i] = lv;
+          buf_ep[i] = lev;
+        }
+        // duplicate-free scatter; out-of-range (superseded) lanes drop
+        for (int i = 0; i < K; ++i) {
+          const uint32_t w2 = r[REC_WORDS * i + 2];
+          if (w2 & KEEP) {
+            const int dst = static_cast<int>(w2 & 0xFFFFu);
+            s.loc[dst] = static_cast<int8_t>(buf_loc[i]);
+            s.loc_ep[dst] = static_cast<int16_t>(buf_ep[i]);
+          }
         }
       }
     }
+    mbar_arrive(s.empty + slot);
+  }
 
-    // the identical tail pads (arrival pad_t, lba 0, is_write -1), applied
-    // until one application leaves the carry unchanged or n_pad are done;
-    // pads write their residency entry back unchanged, so loc/loc_ep hold
-    if (a.n_pad > 0) {
-      const int old0 = loc[0], ep0 = loc_ep[0];
-      const float pad_t = a.pad_t[cell];
-      int lv, lev;
-      for (int i = 0; i < a.n_pad; ++i) {
-        if (!core<COMP, CLOSED>(c, kn, a.k, P, a.ppb_slc, pad_t, 0, -1, old0, ep0,
-                                lat_unused, lv, lev)) break;
-      }
+  // the identical tail pads (arrival pad_t, lba 0, is_write -1), applied
+  // until one application leaves the carry unchanged or n_pad are done;
+  // pads write their residency entry back unchanged, so loc/loc_ep hold
+  const long long n_pad = d[Q_N_PAD];
+  long long pads = 0;
+  if (n_pad > 0) {
+    const int old0 = s.loc[0], ep0 = s.loc_ep[0];
+    const float pad_t = a.pad_t[row];
+    float lat_unused;
+    int lv, lev;
+    while (pads < n_pad) {
+      ++pads;
+      const bool changed = core<COMP, CLOSED>(c, kn, k, P, ppb, pad_t, 0, -1,
+                                              old0, ep0, lat_unused, lv, lev);
+      if (!changed) break;
     }
+  }
+  const long long cycles = clock64() - c0;
 #pragma unroll
-    for (int i = 0; i < N_CTR; ++i) a.ctr_o[(size_t)cell * N_CTR + i] = c.ctr[i];
-    a.prev_t_o[cell] = c.prev_t;
-    a.idle_cum_o[cell] = c.idle_cum;
+  for (int i = 0; i < N_CTR; ++i) a.ctr_o[(size_t)row * N_CTR + i] = c.ctr[i];
+  a.prev_t_o[row] = c.prev_t;
+  a.idle_cum_o[row] = c.idle_cum;
+  if (a.timer) {
+    long long* t = a.timer + (size_t)row * N_TIMER;
+    t[T_SCANNED] = n_ops;
+    t[T_PADS] = pads;
+    t[T_CYCLES] = cycles;
+    t[T_WAIT] = wait_cycles;
+  }
+}
+
+template <int COMP>
+__device__ __forceinline__ void run_comp(const Args& a, const long long* d,
+                                         const Smem& s, int row) {
+  const bool closed = d[Q_CLOSED] != 0, one = d[Q_K] == 1;
+  if (closed) {
+    if (one) run_cell<COMP, true, true>(a, d, s, row);
+    else run_cell<COMP, true, false>(a, d, s, row);
+  } else {
+    if (one) run_cell<COMP, false, true>(a, d, s, row);
+    else run_cell<COMP, false, false>(a, d, s, row);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_THREADS) ssd_fleet_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long t_start = globaltimer();
+  const long long* d = a.desc + (size_t)blockIdx.x * N_DESC;
+  const int row = static_cast<int>(d[Q_ROW]);
+  const int P = a.P;
+  const int N = a.N;
+  const Smem s = carve(smem, P, N);
+
+  const size_t pbase = (size_t)row * P;
+  const size_t nbase = (size_t)row * N;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    s.busy[i] = a.busy[pbase + i];
+    s.slc[i] = a.slc[pbase + i];
+    s.rp[i] = a.rp[pbase + i];
+    s.trad[i] = a.trad[pbase + i];
+    s.vm[i] = a.vm[pbase + i];
+    s.ep[i] = a.ep[pbase + i];
+    s.idle_seen[i] = a.idle_seen[pbase + i];
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    s.loc[i] = a.loc[nbase + i];
+    s.loc_ep[i] = a.loc_ep[nbase + i];
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < N_STAGES; ++i) {
+      mbar_init(s.full + i, 32);         // the producer warp's lanes
+      mbar_init(s.empty + i, 1);         // the recurrence thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x / 32 == PRODUCER_WARP) {
+    produce(d, s, P, N);
+  } else if (threadIdx.x == 0) {
+    switch (static_cast<int>(d[Q_COMP])) {
+      case MIGRATE | PRESSURE: run_comp<MIGRATE | PRESSURE>(a, d, s, row); break;
+      case MIGRATE: run_comp<MIGRATE>(a, d, s, row); break;
+      case ADAPTIVE | MIGRATE | PRESSURE:
+        run_comp<ADAPTIVE | MIGRATE | PRESSURE>(a, d, s, row); break;
+      case ADAPTIVE | MIGRATE: run_comp<ADAPTIVE | MIGRATE>(a, d, s, row); break;
+      case 0: run_comp<0>(a, d, s, row); break;
+      case AGC: run_comp<AGC>(a, d, s, row); break;
+      case DUAL: run_comp<DUAL>(a, d, s, row); break;
+      case DUAL | AGC: run_comp<DUAL | AGC>(a, d, s, row); break;
+      default: __trap();               // the host refused it
+    }
   }
   __syncthreads();
 
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
-    a.busy_o[pbase + i] = busy[i];
-    a.slc_o[pbase + i] = slc[i];
-    a.rp_o[pbase + i] = rp[i];
-    a.trad_o[pbase + i] = trad[i];
-    a.vm_o[pbase + i] = vm[i];
-    a.ep_o[pbase + i] = ep[i];
-    a.idle_seen_o[pbase + i] = idle_seen[i];
+    a.busy_o[pbase + i] = s.busy[i];
+    a.slc_o[pbase + i] = s.slc[i];
+    a.rp_o[pbase + i] = s.rp[i];
+    a.trad_o[pbase + i] = s.trad[i];
+    a.vm_o[pbase + i] = s.vm[i];
+    a.ep_o[pbase + i] = s.ep[i];
+    a.idle_seen_o[pbase + i] = s.idle_seen[i];
   }
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    a.loc_o[nbase + i] = loc[i];
-    a.loc_ep_o[nbase + i] = loc_ep[i];
+    a.loc_o[nbase + i] = s.loc[i];
+    a.loc_ep_o[nbase + i] = s.loc_ep[i];
+  }
+  if (a.timer) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      a.timer[(size_t)row * N_TIMER + T_START] = t_start;
+      a.timer[(size_t)row * N_TIMER + T_END] = globaltimer();
+    }
   }
 }
 
-template <int COMP, bool CLOSED>
-int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  auto kern = ssd_stream_kernel<COMP, CLOSED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<a.C, BLOCK_THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+// The latency of one dependent shared-memory load: one thread chases a
+// pointer ring in shared memory `steps` times; out[0] = clock64 cycles,
+// out[1] = %globaltimer ns, out[2] = steps, out[3] = the last index (kept
+// live so the chase is not optimised away).
+constexpr int CHASE_LEN = 1024;
+
+__global__ void smem_chase_kernel(int steps, long long* out) {
+  __shared__ int next[CHASE_LEN];
+  for (int i = threadIdx.x; i < CHASE_LEN; i += blockDim.x)
+    next[i] = (i + 1) % CHASE_LEN;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int j = 0;
+    const long long t0 = globaltimer();
+    const long long c0 = clock64();
+    for (int i = 0; i < steps; ++i) j = next[j];
+    const long long c1 = clock64();
+    const long long t1 = globaltimer();
+    out[0] = c1 - c0;
+    out[1] = t1 - t0;
+    out[2] = steps;
+    out[3] = j;
+  }
 }
 
-template <int COMP>
-int launch_mode(const Args& a, bool closed, size_t smem, cudaStream_t stream) {
-  return closed ? launch<COMP, true>(a, smem, stream)
-                : launch<COMP, false>(a, smem, stream);
+bool valid_comp(long long comp) {
+  switch (comp) {
+    case MIGRATE | PRESSURE: case MIGRATE: case ADAPTIVE | MIGRATE | PRESSURE:
+    case ADAPTIVE | MIGRATE: case 0: case AGC: case DUAL: case DUAL | AGC:
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one cell needs.
-long long ssd_stream_smem_bytes(int P, int N) {
-  return 7LL * 4 * P + 2LL * N + (long long)N;
-}
-
-// Launch the kernel on `stream`. `ptrs` holds N_PTR device pointers (src and
-// scat may be 0: the per-op stream), `dims` N_DIM ints, `consts` N_FCONST
-// floats. Returns 0, cudaGetLastError() of the launch, or a negative code
-// for arguments the kernel does not take.
-int ssd_stream_launch(const unsigned long long* ptrs, int n_ptrs,
-                      const int* dims, int n_dims, const float* consts,
-                      int n_consts, unsigned long long stream) {
+// Launch the kernel on `stream`: C blocks, block b running the cell of
+// descriptor row b. `ptrs` holds N_PTR device pointers (the timer may be
+// 0), `dims` N_DIM ints, `consts` N_FCONST floats, `desc_host` the
+// (C, N_DESC) descriptors also at ptrs[P_DESC], read here to refuse what
+// the kernel does not take. Returns 0, cudaGetLastError() of the launch,
+// or a negative code for refused arguments.
+int ssd_fleet_launch(const unsigned long long* ptrs, int n_ptrs,
+                     const int* dims, int n_dims, const float* consts,
+                     int n_consts, const long long* desc_host,
+                     unsigned long long stream) {
   if (n_ptrs != N_PTR || n_dims != N_DIM || n_consts != N_FCONST) return -1;
   Args a;
-  a.arrival = reinterpret_cast<const float*>(ptrs[P_ARRIVAL]);
-  a.lba = reinterpret_cast<const int*>(ptrs[P_LBA]);
-  a.is_write = reinterpret_cast<const int*>(ptrs[P_IS_WRITE]);
-  a.src = reinterpret_cast<const int*>(ptrs[P_SRC]);
-  a.scat = reinterpret_cast<const int*>(ptrs[P_SCAT]);
+  a.desc = reinterpret_cast<const long long*>(ptrs[P_DESC]);
   a.cap_basic = reinterpret_cast<const int*>(ptrs[P_CAP_BASIC]);
   a.cap_trad = reinterpret_cast<const int*>(ptrs[P_CAP_TRAD]);
   a.cap_boost = reinterpret_cast<const int*>(ptrs[P_CAP_BOOST]);
@@ -468,7 +813,6 @@ int ssd_stream_launch(const unsigned long long* ptrs, int n_ptrs,
   a.idle_seen = reinterpret_cast<const float*>(ptrs[P_IDLE_SEEN]);
   a.loc = reinterpret_cast<const int8_t*>(ptrs[P_LOC]);
   a.loc_ep = reinterpret_cast<const int16_t*>(ptrs[P_LOC_EP]);
-  a.lat_o = reinterpret_cast<float*>(ptrs[P_LAT_O]);
   a.busy_o = reinterpret_cast<float*>(ptrs[P_BUSY_O]);
   a.slc_o = reinterpret_cast<int*>(ptrs[P_SLC_O]);
   a.rp_o = reinterpret_cast<int*>(ptrs[P_RP_O]);
@@ -481,27 +825,42 @@ int ssd_stream_launch(const unsigned long long* ptrs, int n_ptrs,
   a.idle_seen_o = reinterpret_cast<float*>(ptrs[P_IDLE_SEEN_O]);
   a.loc_o = reinterpret_cast<int8_t*>(ptrs[P_LOC_O]);
   a.loc_ep_o = reinterpret_cast<int16_t*>(ptrs[P_LOC_EP_O]);
-  a.C = dims[D_C]; a.S = dims[D_S]; a.K = dims[D_K]; a.P = dims[D_P];
-  a.N = dims[D_N]; a.n_pad = dims[D_N_PAD]; a.ppb_slc = dims[D_PPB];
+  a.timer = reinterpret_cast<long long*>(ptrs[P_TIMER]);
+  a.C = dims[D_C]; a.P = dims[D_P]; a.N = dims[D_N];
   for (int i = 0; i < N_FCONST; ++i) a.k[i] = consts[i];
-  if (a.C <= 0 || a.K <= 0 || a.K > MAX_LANES || a.S < 0 || a.P <= 0 ||
-      a.P > 128 || a.N <= 0 || a.n_pad < 0 || a.ppb_slc <= 0) return -2;
-  if (a.K > 1 && (a.src == nullptr || a.scat == nullptr)) return -3;
-  const size_t smem = (size_t)ssd_stream_smem_bytes(a.P, a.N);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const bool closed = dims[D_CLOSED] != 0;
-  switch (dims[D_COMP]) {
-    case MIGRATE | PRESSURE: return launch_mode<MIGRATE | PRESSURE>(a, closed, smem, st);
-    case MIGRATE: return launch_mode<MIGRATE>(a, closed, smem, st);
-    case ADAPTIVE | MIGRATE | PRESSURE:
-      return launch_mode<ADAPTIVE | MIGRATE | PRESSURE>(a, closed, smem, st);
-    case ADAPTIVE | MIGRATE: return launch_mode<ADAPTIVE | MIGRATE>(a, closed, smem, st);
-    case 0: return launch_mode<0>(a, closed, smem, st);
-    case AGC: return launch_mode<AGC>(a, closed, smem, st);
-    case DUAL: return launch_mode<DUAL>(a, closed, smem, st);
-    case DUAL | AGC: return launch_mode<DUAL | AGC>(a, closed, smem, st);
-    default: return -4;
+  if (a.C <= 0 || a.P <= 0 || a.P > 128 || a.N <= 0 || a.N > MAX_PAGES ||
+      dims[D_PPB] <= 0 || desc_host == nullptr || a.desc == nullptr)
+    return -2;
+  a.ppb = make_divisor(dims[D_PPB]);
+  for (int b = 0; b < a.C; ++b) {
+    const long long* d = desc_host + (size_t)b * N_DESC;
+    if (!valid_comp(d[Q_COMP])) return -4;
+    if (d[Q_K] < 1 || d[Q_K] > MAX_LANES || d[Q_S] < 0 || d[Q_N_PAD] < 0 ||
+        d[Q_ROW] < 0 || d[Q_ROW] >= a.C || (d[Q_CLOSED] != 0 && d[Q_CLOSED] != 1))
+      return -2;
+    if (d[Q_K] > 1 && (d[Q_SRC] == 0 || d[Q_SCAT] == 0)) return -3;
+    if (d[Q_S] > 0 && (d[Q_ARRIVAL] == 0 || d[Q_LBA] == 0 ||
+                       d[Q_IS_WRITE] == 0 || d[Q_LAT_O] == 0))
+      return -2;
   }
+  const size_t smem = (size_t)block_bytes(a.P, a.N);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_fleet_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_fleet_kernel<<<a.C, BLOCK_THREADS, smem,
+                     reinterpret_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The dependent shared-memory load latency probe (smem_chase_kernel):
+// `out` is a device pointer to 4 int64.
+int ssd_smem_chase(int steps, unsigned long long out,
+                   unsigned long long stream) {
+  if (steps <= 0 || out == 0) return -1;
+  smem_chase_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      steps, reinterpret_cast<long long*>(out));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

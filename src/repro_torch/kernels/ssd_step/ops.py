@@ -1,11 +1,14 @@
 """Wrapper of the `ssd_step` CUDA kernel (`csrc/ssd_step.cu`): build,
 load, argument checks, launch, launch count and CUDA events.
 
-`run_stream` runs a fleet's op streams — the per-op form (K = 1, no
-hazard plan) or the (S, K) segment form — and each cell's pad-tail
-replay. For tensors on a CUDA device it launches the kernel (one launch
-for the whole fleet) or raises; tensors on the CPU go to the plain
-version, `ref.run_stream_ref`. Nothing falls back.
+`run_streams(cfg, jobs)` runs any number of jobs in ONE launch, one
+thread block per cell. A job (`StreamJob`) is one fleet of cells that
+share a composition, a mode and a stream shape: their op streams — the
+per-op form (K = 1, no hazard plan) or the (S, K) segment form — and each
+cell's pad-tail replay. Jobs may differ in all of that. `run_stream` is
+the one-job case. For tensors on a CUDA device the wrapper launches the
+kernel or raises; tensors on the CPU go to the plain version,
+`ref.run_stream_ref`, job by job. Nothing falls back.
 
 The kernel is built at first use by `kernels._build` (nvcc into
 `build/kernels/`, loaded with ctypes), with `-fmad=false`: the kernel
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,27 +33,55 @@ from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
                                         Library, check)
 from repro_torch.kernels.ssd_step import ref
 
-__all__ = ["run_stream", "reset", "launches", "events",
-           "composition_code", "kernel_constants", "smem_bytes",
-           "MAX_LANES", "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
+__all__ = ["StreamJob", "run_streams", "run_stream", "smem_chase", "reset",
+           "launches", "events", "composition_code", "kernel_constants",
+           "smem_bytes", "block_smem_bytes", "MAX_LANES", "MAX_PAGES",
+           "TIMER_COLUMNS", "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "ssd_step.cu")
 NVCC_FLAGS = BASE_FLAGS + ("-fmad=false",) + LINK_FLAGS
 MAX_LANES = 32
+MAX_PAGES = 1 << 16         # the op ring's 16-bit page index
 MAX_SMEM = 232448           # bytes of shared memory a block may use
+# the block's shared memory beyond the cell's carry: four lane buffers of
+# MAX_LANES ints, two stages' full/empty mbarriers, and the op ring of two
+# stages x 1,024 ops x 12 bytes (csrc/ssd_step.cu)
+STAGING_BYTES = 4 * 4 * MAX_LANES + 8 * 2 * 2 + 2 * 1024 * 12
+# what each block writes into the optional (C, 6) int64 timer, by column
+TIMER_COLUMNS = ("start_ns", "end_ns", "scanned_ops", "pads_replayed",
+                 "cycles", "wait_cycles")
 
 # argument tables, in the order csrc/ssd_step.cu reads them
 _PTR_ORDER = (
-    "arrival_ms", "lba", "is_write", "src", "scat_lba",
-    "cap_basic", "cap_trad", "cap_boost", "idle_thr", "waste_p", "pad_t",
-    "busy", "slc_used", "rp_done", "trad_used", "valid_mig", "epoch",
-    "counters", "prev_t", "idle_cum", "idle_seen", "loc", "loc_ep",
-    "lat_o", "busy_o", "slc_used_o", "rp_done_o", "trad_used_o",
-    "valid_mig_o", "epoch_o", "counters_o", "prev_t_o", "idle_cum_o",
-    "idle_seen_o", "loc_o", "loc_ep_o")
-_DIM_ORDER = ("comp", "closed", "C", "S", "K", "P", "N", "n_pad", "ppb")
+    "desc", "cap_basic", "cap_trad", "cap_boost", "idle_thr", "waste_p",
+    "pad_t", "busy", "slc_used", "rp_done", "trad_used", "valid_mig",
+    "epoch", "counters", "prev_t", "idle_cum", "idle_seen", "loc", "loc_ep",
+    "busy_o", "slc_used_o", "rp_done_o", "trad_used_o", "valid_mig_o",
+    "epoch_o", "counters_o", "prev_t_o", "idle_cum_o", "idle_seen_o",
+    "loc_o", "loc_ep_o", "timer")
+_DESC_ORDER = ("arrival_ms", "lba", "is_write", "src", "scat_lba", "lat_o",
+               "comp", "closed", "S", "K", "n_pad", "row")
+_DIM_ORDER = ("C", "P", "N", "ppb")
 _N_FCONST = 11
+_WIDENED = ("slc_used", "rp_done", "trad_used", "valid_mig", "epoch")
+
+
+class StreamJob(NamedTuple):
+    """One `run_stream` call's arguments: C cells of one composition and
+    mode. `segs`: (C, S, K) `arrival_ms` f32, `lba` i32, `is_write` i32,
+    and for K > 1 the hazard plan `src`/`scat_lba` i32 (without it the
+    stream is the per-op form, K = 1). `state0`: SimState with a leading
+    cell axis, packed or unpacked. `params`: CellParams of (C,) tensors.
+    `pad_t`: (C,) f32 arrival of each cell's `n_pad` identical tail
+    pads."""
+    policy: object
+    segs: dict
+    state0: SimState
+    closed_loop: bool
+    params: object
+    n_pad: int = 0
+    pad_t: Optional[torch.Tensor] = None
 
 
 def composition_code(spec) -> int:
@@ -77,22 +109,33 @@ def kernel_constants(cfg) -> np.ndarray:
 
 
 def smem_bytes(n_planes: int, n_logical: int) -> int:
-    """Dynamic shared memory one cell's block needs: the seven (P,)
-    plane arrays, `loc_ep` int16 and `loc` int8."""
+    """Shared memory of one cell's carry: the seven (P,) plane arrays,
+    `loc_ep` int16 and `loc` int8."""
     return 7 * 4 * n_planes + 3 * n_logical
 
 
+def block_smem_bytes(n_planes: int, n_logical: int) -> int:
+    """Dynamic shared memory one cell's block needs: the carry (16-byte
+    aligned), then the lane buffers, the ring's barriers and its stages
+    (`block_bytes` of csrc/ssd_step.cu)."""
+    return -(-smem_bytes(n_planes, n_logical) // 16) * 16 + STAGING_BYTES
+
+
 def _bind(lib) -> None:
-    lib.ssd_stream_launch.argtypes = [
+    lib.ssd_fleet_launch.argtypes = [
         ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_ulonglong]
-    lib.ssd_stream_launch.restype = ctypes.c_int
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_ulonglong]
+    lib.ssd_fleet_launch.restype = ctypes.c_int
+    lib.ssd_smem_chase.argtypes = [ctypes.c_int, ctypes.c_ulonglong,
+                                   ctypes.c_ulonglong]
+    lib.ssd_smem_chase.restype = ctypes.c_int
 
 
 LIB = Library("ssd_step", SOURCE, NVCC_FLAGS, _bind)
-# every launch is bracketed by CUDA events: the sweep runner reads each
-# group's kernel time from them
+# every launch is bracketed by CUDA events: the sweep runner reads the
+# launch's kernel time from them
 LAUNCHER = Launcher(LIB, "ssd_step")
 LAUNCHER.record = True
 
@@ -111,44 +154,30 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
-               params, n_pad: int = 0, pad_t=None):
-    """Run C cells' op streams and pad tails.
-
-    `segs`: (C, S, K) `arrival_ms` f32, `lba` i32, `is_write` i32, and
-    for K > 1 the hazard plan `src`/`scat_lba` i32 (without it the
-    stream is the per-op form, K = 1). `state0`: SimState with a leading
-    cell axis, packed or unpacked. `params`: CellParams of (C,) tensors.
-    `pad_t`: (C,) f32 arrival of each cell's `n_pad` identical tail pads.
-    Returns (latency (C, S, K) f32, final SimState in `state0`'s
-    dtypes)."""
-    spec = resolve_spec(policy)
-    lba = segs["lba"]
-    if lba.device.type == "cpu":
-        return ref.run_stream_ref(cfg, spec, segs, state0,
-                                  closed_loop=closed_loop, params=params,
-                                  n_pad=n_pad, pad_t=pad_t)
-    if lba.device.type != "cuda":
-        raise ValueError(f"ssd_step: no kernel for device {lba.device}")
+def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
+    """Raise unless the kernel takes `job` on `dev`; returns its
+    composition code, shape and pad arrival."""
+    spec = resolve_spec(job.policy)
     code = composition_code(spec)
-    dev = lba.device
+    segs, state0, params = job.segs, job.state0, job.params
+    lba = segs["lba"]
     if lba.dim() != 3:
         raise ValueError(f"ssd_step: segs must be (C, S, K), got "
                          f"{tuple(lba.shape)}")
     c_cnt, s_cnt, k = lba.shape
     p = cfg.num_planes
-    n_logical = state0.loc.shape[-1]
+    if c_cnt < 1:
+        raise ValueError("ssd_step: a job needs at least one cell")
     if not 1 <= k <= MAX_LANES:
         raise ValueError(f"ssd_step: K = {k} lanes; the kernel takes 1.."
                          f"{MAX_LANES}")
-    if p > 128:
-        raise ValueError(f"ssd_step: {p} planes; int8 residency holds at "
-                         "most 128")
-    if smem_bytes(p, n_logical) > MAX_SMEM:
-        raise ValueError(f"ssd_step: {n_logical} logical pages need "
-                         f"{smem_bytes(p, n_logical)} B of shared memory, "
-                         f"more than a block's {MAX_SMEM}")
-    if n_pad and pad_t is None:
+    if state0.loc.shape[-1] != n_logical:
+        raise ValueError(f"ssd_step: the jobs of one launch share one "
+                         f"logical space; {state0.loc.shape[-1]} != "
+                         f"{n_logical}")
+    if job.n_pad < 0:
+        raise ValueError("ssd_step: n_pad must be >= 0")
+    if job.n_pad and job.pad_t is None:
         raise ValueError("ssd_step: n_pad > 0 needs pad_t")
     plan = segs.get("src") is not None
     if plan != (segs.get("scat_lba") is not None):
@@ -168,6 +197,7 @@ def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
                      ("cap_boost", i32), ("idle_thr", f32),
                      ("waste_p", f32)):
         check("ssd_step", name, getattr(params, name), dt, (c_cnt,), dev)
+    pad_t = job.pad_t
     if pad_t is None:
         pad_t = torch.zeros(c_cnt, dtype=f32, device=dev)
     check("ssd_step", "pad_t", pad_t, f32, (c_cnt,), dev)
@@ -182,25 +212,134 @@ def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
             ("counters", f32, (c_cnt, len(CTR))), ("prev_t", f32, (c_cnt,)),
             ("idle_cum", f32, (c_cnt,)), ("idle_seen", f32, (c_cnt, p))):
         check("ssd_step", name, getattr(state0, name), dt, shape, dev)
+    return {"code": code, "C": c_cnt, "S": s_cnt, "K": k, "plan": plan,
+            "pad_t": pad_t}
 
-    # packed int16 plane fields are widened to int32 at the boundary
-    ins = {**segs, **params._asdict(), "pad_t": pad_t,
-           **{f: getattr(state0, f).to(i32) if f in (
-               "slc_used", "rp_done", "trad_used", "valid_mig", "epoch")
-              else getattr(state0, f) for f in SimState._fields}}
-    outs = {"lat_o": torch.empty(shp, dtype=f32, device=dev),
-            **{f"{f}_o": torch.empty_like(ins[f]) for f in SimState._fields}}
-    table = [outs[n] if n.endswith("_o") else ins.get(n)
-             for n in _PTR_ORDER]
+
+def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
+    """Run every job's cells in one launch; returns [(latency (C, S, K)
+    f32, final SimState in the job's `state0` dtypes)] in job order.
+
+    On a CUDA device the cells run side by side, one block each, the
+    longest stream (S x K) first. `timer`, if given, is a (cells, 6)
+    int64 CUDA tensor over the jobs' cells in order; each block writes
+    its `TIMER_COLUMNS` there: %globaltimer at its start and end (ns),
+    the ops it scanned and the pads it replayed, and the recurrence
+    thread's clock64 cycles in all and waiting on the op ring. The plain
+    version (tensors on the CPU) leaves `timer` untouched."""
+    jobs = list(jobs)
+    if not jobs:
+        return []
+    devs = {j.segs["lba"].device for j in jobs}
+    if len(devs) != 1:
+        raise ValueError(f"ssd_step: the jobs lie on several devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return [ref.run_stream_ref(cfg, resolve_spec(j.policy), j.segs,
+                                   j.state0, closed_loop=j.closed_loop,
+                                   params=j.params, n_pad=j.n_pad,
+                                   pad_t=j.pad_t) for j in jobs]
+    if dev.type != "cuda":
+        raise ValueError(f"ssd_step: no kernel for device {dev}")
+    p = cfg.num_planes
+    n_logical = jobs[0].state0.loc.shape[-1]
+    if p > 128:
+        raise ValueError(f"ssd_step: {p} planes; int8 residency holds at "
+                         "most 128")
+    if n_logical > MAX_PAGES:
+        raise ValueError(f"ssd_step: {n_logical} logical pages; the op "
+                         f"ring indexes at most {MAX_PAGES}")
+    if block_smem_bytes(p, n_logical) > MAX_SMEM:
+        raise ValueError(f"ssd_step: {n_logical} logical pages need "
+                         f"{block_smem_bytes(p, n_logical)} B of shared "
+                         f"memory, more than a block's {MAX_SMEM}")
+    info = [_check_job(cfg, j, dev, n_logical) for j in jobs]
+    c_tot = sum(x["C"] for x in info)
+    if timer is not None:
+        check("ssd_step", "timer", timer, torch.int64,
+              (c_tot, len(TIMER_COLUMNS)), dev)
+    i32, f32 = torch.int32, torch.float32
+
+    # the cells' carry and knobs, concatenated over the jobs; packed
+    # int16 plane fields are widened to int32 at the boundary
+    def cat(get):
+        return torch.cat([get(j) for j in jobs]).contiguous()
+
+    ins = {f: cat(lambda j, f=f: getattr(j.state0, f).to(i32)
+                  if f in _WIDENED else getattr(j.state0, f))
+           for f in SimState._fields}
+    ins.update({f: cat(lambda j, f=f: getattr(j.params, f))
+                for f in jobs[0].params._fields})
+    ins["pad_t"] = torch.cat([x["pad_t"] for x in info]).contiguous()
+    outs = {f"{f}_o": torch.empty_like(ins[f]) for f in SimState._fields}
+    lats = [torch.empty((x["C"], x["S"], x["K"]), dtype=f32, device=dev)
+            for x in info]
+
+    # one descriptor a cell (pointers to its own stream: every per-op
+    # array is 4 bytes an op), longest stream first
+    rows = []
+    for j, x, lat in zip(jobs, info, lats):
+        n_ops = x["S"] * x["K"]
+        streams = [j.segs["arrival_ms"], j.segs["lba"], j.segs["is_write"],
+                   j.segs["src"] if x["plan"] else None,
+                   j.segs["scat_lba"] if x["plan"] else None, lat]
+        for c in range(x["C"]):
+            rows.append([t.data_ptr() + 4 * c * n_ops
+                         if t is not None and n_ops else 0 for t in streams]
+                        + [x["code"], int(j.closed_loop), x["S"], x["K"],
+                           int(j.n_pad), len(rows)])
+    rows.sort(key=lambda r: -r[_DESC_ORDER.index("S")]
+              * r[_DESC_ORDER.index("K")])
+    desc_host = np.ascontiguousarray(np.array(rows, dtype=np.int64))
+    desc = torch.from_numpy(desc_host).to(dev)
+    ins["desc"] = desc
+    table = [outs[n] if n.endswith("_o") else
+             (timer if n == "timer" else ins[n]) for n in _PTR_ORDER]
     ptrs = (ctypes.c_ulonglong * len(table))(
         *[0 if t is None else t.data_ptr() for t in table])
-    dims = (ctypes.c_int * len(_DIM_ORDER))(
-        code, int(closed_loop), c_cnt, s_cnt, k, p, n_logical, int(n_pad),
-        cfg.pages_per_slc_block)
+    dims = (ctypes.c_int * len(_DIM_ORDER))(c_tot, p, n_logical,
+                                            cfg.pages_per_slc_block)
     consts = (ctypes.c_float * _N_FCONST)(*kernel_constants(cfg).tolist())
-    LAUNCHER.launch("ssd_stream_launch",
+    LAUNCHER.launch("ssd_fleet_launch",
                     (ptrs, len(table), dims, len(_DIM_ORDER), consts,
-                     _N_FCONST), dev)
-    final = SimState(*(outs[f"{f}_o"].to(getattr(state0, f).dtype)
-                       for f in SimState._fields))
-    return outs["lat_o"], final
+                     _N_FCONST, desc_host.ctypes.data_as(
+                         ctypes.POINTER(ctypes.c_longlong))), dev)
+
+    results, lo = [], 0
+    for j, x, lat in zip(jobs, info, lats):
+        hi = lo + x["C"]
+        final = SimState(*(outs[f"{f}_o"][lo:hi].to(
+            getattr(j.state0, f).dtype) for f in SimState._fields))
+        results.append((lat, final))
+        lo = hi
+    return results
+
+
+def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
+               params, n_pad: int = 0, pad_t=None):
+    """Run one fleet's op streams and pad tails: `run_streams` with one
+    job (the arguments of `StreamJob`). Returns (latency (C, S, K) f32,
+    final SimState in `state0`'s dtypes)."""
+    return run_streams(cfg, [StreamJob(policy, segs, state0, closed_loop,
+                                       params, n_pad, pad_t)])[0]
+
+
+def smem_chase(steps: int, device="cuda") -> dict:
+    """The latency of one dependent shared-memory load on the card: one
+    thread chases a pointer ring in shared memory `steps` times (not a
+    launch of the kernel: the count does not move). Returns cycles and
+    ns per load, and the clock they imply."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("ssd_step: the shared-memory probe runs on the card")
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
+    lib = LIB.load()
+    with torch.cuda.device(dev):
+        rc = lib.ssd_smem_chase(int(steps), out.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ssd_step: smem chase failed with code {rc}")
+    cycles, ns, n, _ = out.cpu().tolist()
+    return {"steps": n, "cycles_per_load": cycles / n,
+            "ns_per_load": ns / n, "clock_mhz": cycles / ns * 1e3}

@@ -4,14 +4,15 @@ reference package's `sweep/runner.py` for the MSR-trace grids.
 Points are grouped by what selects a different kernel specialisation or
 stacked shape: (mechanism composition, mode, padded trace length). The
 composition is the policy's `PolicySpec`, not its name, so two names
-with one composition share a group. Each group is ONE `fleet.run_fleet`
-call — on a CUDA device one launch of the `ssd_step` kernel — with
-per-cell `CellParams`.
+with one composition share a group. Every group is one `FleetGroup` with
+per-cell `CellParams`, and all of them go to ONE `fleet.run_fleets`
+call — on a CUDA device one launch of the `ssd_step` kernel, one block a
+cell, the longest cells first, every cell of the grid side by side.
 
-Each group's launch and summary are queued first; the results are copied
-to the host afterwards, group by group. Per-group timings — the host
-time of the group's dispatch and the kernel's own time from CUDA events
-— are appended to `timings`.
+The launch and each group's summary are queued first; the results are
+copied to the host afterwards, group by group. Per-group timings — the
+host time of building the group's fleet and the group's device time from
+the kernel's per-block timers — are appended to `timings`.
 """
 from __future__ import annotations
 
@@ -64,10 +65,17 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     `max_ops` truncates traces (smoke runs). `progress` is an optional
     callable(str) for per-group status lines. `timings`, if given, gets
     one dict per group: policies, mode, composition, cells, t_len,
-    t_scan, packed, dispatch_s (host clock), kernel_ms (CUDA events
-    around the group's launch; None on the CPU, where the dispatch is the
-    whole run) and ops_per_s over the padded length, per kernel time on
-    the card and per dispatch time on the CPU.
+    t_scan, packed, dispatch_s (host clock, building the group's fleet),
+    launch_s (host clock of the one shared call and the summaries),
+    launch_ms (CUDA events around the one launch, the same in every
+    group; None on the CPU), kernel_ms (the group's device time: its
+    latest block end minus its earliest block start), max_cell_ops and
+    ns_per_op (its longest cell's stepped ops, scanned and pads
+    replayed, and device ns per op), cycles and wait_cycles (the clock64
+    cycles that cell's recurrence took in all and waited on its op ring)
+    — None on the CPU — and ops_per_s over the padded
+    length, per kernel time on the card and per call time on the
+    CPU.
 
     Every group scans only its shared live prefix and replays the
     identical pad tail to its exact fixed point, and carries int16 plane
@@ -94,8 +102,8 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
         groups[(get_spec(pt.policy), pt.mode,
                 len(cell_trace(pt)["arrival_ms"]))].append(pt)
 
-    # ---- phase 1: queue every group's launch and summary ----
-    pending = []
+    # ---- phase 1: build every group's fleet, then one launch for all ----
+    pending, fleets = [], []
     for (spec, mode, t_len), pts in sorted(groups.items(),
                                            key=lambda kv: kv[0]):
         names = ",".join(sorted({p.policy for p in pts}))
@@ -109,44 +117,81 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
         ops = fleet.stack_ops(cell_traces, device=device)
         stacked = CellParams(*(x.to(device)
                                for x in fleet.stack_params(params)))
-        n_launch = len(ssd_step.events)
-        latency, states = fleet.run_fleet(
-            cfg, spec, ops, stacked, closed_loop=(mode == "bursty"),
-            n_logical=n_logical, trim_pads=True, packed=pack_grp)
-        if mode == "daily":
-            states = fleet.flush_fleet(cfg, states, spec)
-        summ = fleet.summarize_fleet(latency, ops["is_write"], states)
+        fleets.append(fleet.FleetGroup(spec, ops, stacked,
+                                       closed_loop=(mode == "bursty"),
+                                       packed=pack_grp))
         pending.append({
             "pts": pts, "n_ops": [t["n_ops"] for t in cell_traces],
-            "summ": summ, "names": names, "mode": mode, "spec": spec,
-            "t_len": t_len, "packed": pack_grp,
-            "dispatch_s": time.perf_counter() - t0,
+            "names": names, "mode": mode, "spec": spec, "t_len": t_len,
+            "packed": pack_grp, "dispatch_s": time.perf_counter() - t0,
             "t_scan": fleet._trim_len(np.stack(
-                [t["is_write"] for t in cell_traces])),
-            "events": ssd_step.events[n_launch:]})
+                [t["is_write"] for t in cell_traces]))})
+    n_cells = sum(len(g["pts"]) for g in pending)
+    timer = (torch.zeros((n_cells, len(ssd_step.TIMER_COLUMNS)),
+                         dtype=torch.int64, device=device)
+             if device.type == "cuda" else None)
+    n_launch = len(ssd_step.events)
+    t0 = time.perf_counter()
+    runs = fleet.run_fleets(cfg, fleets, n_logical=n_logical,
+                            trim_pads=True, timer=timer)
+    for grp, fl, (latency, states) in zip(pending, fleets, runs):
+        if grp["mode"] == "daily":
+            states = fleet.flush_fleet(cfg, states, grp["spec"])
+        grp["summ"] = fleet.summarize_fleet(latency, fl.ops["is_write"],
+                                            states)
+    launch_s = time.perf_counter() - t0
+    events = ssd_step.events[n_launch:]
 
     # ---- phase 2: copy each group's results to the host, oldest first ----
     results: Dict[SweepPoint, Dict[str, float]] = {}
+    cols = {c: i for i, c in enumerate(ssd_step.TIMER_COLUMNS)}
+    blocks = timer.cpu().numpy() if timer is not None else None
+    launch_ms = (sum(s.elapsed_time(e) for s, e in events)
+                 if events else None)
+    padded_total = sum(len(g["pts"]) * g["t_len"] for g in pending)
+    row = 0
     for grp in pending:
         summ = {k: v.cpu().numpy() for k, v in grp["summ"].items()}
         for i, pt in enumerate(grp["pts"]):
             out = {k: float(v[i]) for k, v in summ.items()}
             out["n_ops"] = int(grp["n_ops"][i])
             results[pt] = out
-        if timings is not None:
-            kernel_ms = (sum(s.elapsed_time(e) for s, e in grp["events"])
-                         if grp["events"] else None)
-            busy_s = (grp["dispatch_s"] if kernel_ms is None
-                      else kernel_ms / 1e3)
-            n_cells = len(grp["pts"])
-            timings.append({
-                "policies": grp["names"], "mode": grp["mode"],
-                "composition": grp["spec"].composition,
-                "cells": n_cells, "t_len": grp["t_len"],
-                "t_scan": grp["t_scan"], "packed": grp["packed"],
-                "dispatch_s": grp["dispatch_s"], "kernel_ms": kernel_ms,
-                # ops/s credits the full padded length each cell covers,
-                # as the reference's runner counts it
-                "ops_per_s": n_cells * grp["t_len"] / max(busy_s, 1e-9)})
+        cells = len(grp["pts"])
+        rows = (blocks[row:row + cells] if blocks is not None else None)
+        row += cells
+        if timings is None:
+            continue
+        entry = {
+            "policies": grp["names"], "mode": grp["mode"],
+            "composition": grp["spec"].composition, "cells": cells,
+            "t_len": grp["t_len"], "t_scan": grp["t_scan"],
+            "packed": grp["packed"], "dispatch_s": grp["dispatch_s"],
+            "launch_s": launch_s, "launch_ms": launch_ms,
+            "kernel_ms": None, "max_cell_ops": None, "ns_per_op": None,
+            "cycles": None, "wait_cycles": None}
+        if rows is not None:
+            # the group's device time: its latest block end minus its
+            # earliest block start (%globaltimer, ns)
+            entry["kernel_ms"] = float(
+                rows[:, cols["end_ns"]].max()
+                - rows[:, cols["start_ns"]].min()) / 1e6
+            stepped = (rows[:, cols["scanned_ops"]]
+                       + rows[:, cols["pads_replayed"]])
+            longest = int(np.argmax(stepped))
+            entry["max_cell_ops"] = int(stepped[longest])
+            entry["ns_per_op"] = float(
+                rows[longest, cols["end_ns"]]
+                - rows[longest, cols["start_ns"]]) / max(
+                    int(stepped[longest]), 1)
+            entry["cycles"] = int(rows[longest, cols["cycles"]])
+            entry["wait_cycles"] = int(rows[longest, cols["wait_cycles"]])
+            # ops/s credits the full padded length each cell covers, as
+            # the reference's runner counts it
+            entry["ops_per_s"] = cells * grp["t_len"] / max(
+                entry["kernel_ms"] / 1e3, 1e-9)
+        else:
+            # the CPU runs every group in the one call: its rate is the
+            # call's, over all groups' padded ops
+            entry["ops_per_s"] = padded_total / max(launch_s, 1e-9)
+        timings.append(entry)
     return results
-

@@ -111,6 +111,138 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, streams):
     assert ssd_step.launches == before
 
 
+COMPOSITIONS = (
+    "baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy",
+    PolicySpec("static", "idle_gap", "migrate", "greedy"),
+    PolicySpec("adaptive", "idle_gap", "migrate", "greedy"))
+
+
+def _padded(name, n_ops):
+    ops = truncate_trace(build_ops(name, N_LOGICAL,
+                                   capacity_pages=CFG.total_pages), n_ops)
+    return {"arrival_ms": np.concatenate(
+                [ops["arrival_ms"],
+                 np.full(PAD, ops["arrival_ms"][-1], np.float32)]),
+            "lba": np.concatenate([ops["lba"], np.zeros(PAD, np.int32)]),
+            "is_write": np.concatenate(
+                [ops["is_write"], np.full(PAD, -1, np.int8)])}
+
+
+def _job(policy, mode, form, trace, n_ops, cells=1):
+    """A `StreamJob` on the CPU of `cells` copies of one trace's first
+    `n_ops` ops: the per-op form (K = 1, packed carry) or the K = 32
+    segment form of the padded trace (unpacked)."""
+    if form == "K=1":
+        arrays = {k: v[:n_ops].astype(np.float32 if k == "arrival_ms"
+                                      else np.int32).reshape(1, n_ops, 1)
+                  for k, v in trace.items()}
+        n_pad, pad_t = PAD, trace["arrival_ms"][n_ops]
+    else:
+        plan = compress_ops(trace, quantum=256)
+        arrays = {k: v[None] for k, v in plan.segs.items()}
+        n_pad, pad_t = plan.n_pad, plan.pad_t
+    p = default_params(CFG, policy, 0.05, device="cpu")
+    return ssd_step.StreamJob(
+        policy, {k: torch.from_numpy(np.repeat(v, cells, axis=0))
+                 for k, v in arrays.items()},
+        init_state(CFG, N_LOGICAL, packed=form == "K=1", n_cells=cells,
+                   device="cpu"),
+        mode == "bursty", CellParams(*(torch.stack([x] * cells) for x in p)),
+        n_pad, torch.full((cells,), float(pad_t), dtype=torch.float32))
+
+
+def _on(job, dev):
+    return job._replace(
+        segs={k: v.to(dev) for k, v in job.segs.items()},
+        state0=type(job.state0)(*(x.to(dev) for x in job.state0)),
+        params=type(job.params)(*(x.to(dev) for x in job.params)),
+        pad_t=job.pad_t.to(dev))
+
+
+def _assert_cells_equal(got, want, label):
+    lat_k, st_k = got
+    lat_p, st_p = want
+    assert torch.equal(lat_k.cpu(), lat_p), f"{label}: latency"
+    for field in st_p._fields:
+        g, w = getattr(st_k, field).cpu(), getattr(st_p, field)
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{label}: {field}"
+
+
+def test_one_launch_of_mixed_jobs_equals_plain_version(cuda):
+    """Every composition x both modes x K = 1 and K = 32, each job its
+    own stream length, in ONE launch: each cell equals its plain run,
+    bit for bit; the block timers are filled."""
+    jobs, labels = [], []
+    for i, policy in enumerate(COMPOSITIONS):
+        for mode in ("daily", "bursty"):
+            for form in ("K=1", "K=32"):
+                n_ops = 192 + 40 * len(jobs)
+                trace = _padded(("hm_0", "proj_0")[len(jobs) % 2], n_ops)
+                jobs.append(_job(policy, mode, form, trace, n_ops))
+                labels.append(f"{getattr(policy, 'composition', policy)}/"
+                              f"{mode}/{form}/{n_ops}")
+    # the K = 1 streams all differ in length, the K = 32 ones in S
+    assert len({j.segs["lba"].shape for j in jobs}) >= 20
+    timer = torch.zeros((len(jobs), len(ssd_step.TIMER_COLUMNS)),
+                        dtype=torch.int64, device=cuda)
+    before = ssd_step.launches
+    got = ssd_step.run_streams(CFG, [_on(j, cuda) for j in jobs],
+                               timer=timer)
+    torch.cuda.synchronize()
+    assert ssd_step.launches == before + 1
+    for job, res, label in zip(jobs, got, labels):
+        _assert_cells_equal(res, ssd_step.run_streams(CFG, [job])[0], label)
+    t = timer.cpu()
+    col = {c: i for i, c in enumerate(ssd_step.TIMER_COLUMNS)}
+    assert bool((t[:, col["end_ns"]] > t[:, col["start_ns"]]).all())
+    assert t[:, col["scanned_ops"]].tolist() == [
+        j.segs["lba"].shape[1] * j.segs["lba"].shape[2] for j in jobs]
+    assert bool((t[:, col["pads_replayed"]] <= PAD).all())
+
+
+def test_a_launch_of_more_cells_than_sms_equals_plain_version(cuda):
+    """140 cells of 512 ops (more than the card's SMs, so blocks wait for
+    a free SM), in 8 jobs: each cell equals the plain run of its trace."""
+    traces = {n: _padded(n, OPS) for n in ("hm_0", "proj_0")}
+    jobs, plain = [], {}
+    for i, policy in enumerate(("baseline", "ips", "ips_agc", "coop")):
+        for mode in ("daily", "bursty"):
+            cells = 17 + (i + (mode == "daily")) % 2     # 140 in all
+            both = [_job(policy, mode, "K=1", traces[n], OPS) for n in
+                    traces]
+            plain[(policy, mode)] = [ssd_step.run_streams(CFG, [j])[0]
+                                     for j in both]
+            # cell c is trace c % 2
+            job = both[0]._replace(
+                segs={k: torch.cat([both[c % 2].segs[k]
+                                    for c in range(cells)])
+                      for k in both[0].segs},
+                state0=type(both[0].state0)(*(torch.cat([x] * cells)
+                                              for x in both[0].state0)),
+                params=type(both[0].params)(*(torch.cat([x] * cells)
+                                              for x in both[0].params)),
+                pad_t=torch.cat([both[c % 2].pad_t for c in range(cells)]))
+            jobs.append(((policy, mode), cells, job))
+    assert sum(c for _, c, _ in jobs) == 140
+    got = ssd_step.run_streams(CFG, [_on(j, cuda) for _, _, j in jobs])
+    torch.cuda.synchronize()
+    for ((key, cells, _), (lat, final)) in zip(jobs, got):
+        for c in range(cells):
+            want_lat, want_st = plain[key][c % 2]
+            _assert_cells_equal(
+                (lat[c:c + 1], type(final)(*(x[c:c + 1] for x in final))),
+                (want_lat, want_st), f"{key} cell {c}")
+
+
+def test_shared_memory_probe_reads_a_latency(cuda):
+    before = ssd_step.launches
+    probe = ssd_step.smem_chase(1 << 16, cuda)
+    assert ssd_step.launches == before
+    assert probe["steps"] == 1 << 16
+    assert 5.0 < probe["cycles_per_load"] < 500.0
+    assert 500.0 < probe["clock_mhz"] < 3000.0
+
+
 # ---------------------------------------------------------------------------
 # the serving path's kernels: ips_repack, tiered_decode, flash_fwd
 # ---------------------------------------------------------------------------
@@ -444,6 +576,62 @@ class TestSsdIntraKernel:
             tol = 2e-5 * float(w.abs().max())
             torch.testing.assert_close(g, w, rtol=0.0, atol=tol, msg=name)
         assert torch.equal(got[2].cpu(), cpu_cum)
+
+    @pytest.mark.parametrize("q", (1, 17, 64, 256))
+    @pytest.mark.parametrize("n", (16, 64, 128))
+    @pytest.mark.parametrize("hd", (16, 64, 128))
+    def test_tensor_core_tiles_cover_every_shape(self, cuda, monkeypatch, hd,
+                                                 n, q):
+        """The 3xTF32 tiles over head and state widths, chunks off the
+        64-row tile and the 8-row fragment, and head counts off the
+        8-head group: within 2e-5 of max |output| of the plain version."""
+        nh = 5 if q % 2 else 9
+        ins = self._inputs(_gen(hd * n + q), 1, 2, q, nh, hd, n)
+        want = ssd_ref.intra_chunk_ref(*ins)
+        _refuse_plain(monkeypatch, ssd_ops, "intra_chunk_ref")
+        got = ssd_ops.ssd_intra(*ins)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("y", "states", "cum"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert bool(torch.isfinite(g).all()), name
+            tol = 2e-5 * float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=0.0, atol=tol, msg=name)
+
+    def test_unaligned_inputs_are_copied_aligned(self, cuda, monkeypatch):
+        """Inputs whose rows do not start 16-byte aligned (views at an
+        offset of one float) are copied by the wrapper into fresh buffers
+        for the kernel's 16-byte copies, to the same result within 2e-5 of
+        max |output|; the C entry itself refuses them (-5)."""
+        ins = self._inputs(_gen(7), 1, 2, 100, 9, 64, 32)
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device="cuda")
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        x, dt, A, B, C = ins
+        moved = (shifted(x), dt, A, shifted(B), shifted(C))
+        assert moved[0].data_ptr() % 16 and moved[0].is_contiguous()
+        want = ssd_ref.intra_chunk_ref(*ins)
+        _refuse_plain(monkeypatch, ssd_ops, "intra_chunk_ref")
+        got = ssd_ops.ssd_intra(*moved)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("y", "states", "cum"), got, want):
+            tol = 2e-5 * float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=0.0, atol=tol, msg=name)
+        y, states, cum = (torch.empty_like(t) for t in got)
+        rc = ssd_ops.LIB.load().ssd_intra(
+            moved[0].data_ptr(), dt.data_ptr(), A.data_ptr(),
+            moved[3].data_ptr(), moved[4].data_ptr(), y.data_ptr(),
+            states.data_ptr(), cum.data_ptr(), 2, 100, 9, 64, 32,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == -5
+
+    def test_issues_hmma(self, cuda):
+        """The products run on the tensor cores (mma.sync, TF32)."""
+        ssd_ops.ssd_intra(*self._inputs(_gen(4), 1, 1, 16, 1, 16, 16))
+        assert ssd_ops.LIB.sass_count("HMMA") > 0
 
     def test_refused_launches_raise(self, cuda):
         x, dt, A, B, C = self._inputs(_gen(1), 1, 2, 32, 4, 64, 32)

@@ -3,6 +3,9 @@
 * `fleet.run_fleet(trim_pads=True, packed=True)` on a 4-cell fleet —
   the shared live prefix scanned, every cell's pad tail replayed to its
   exact fixed point — equals the live JAX `run_fleet`, leaf for leaf.
+* `fleet.run_fleets` — twelve (composition, mode, length) groups in one
+  call, as the sweep runner makes it — equals `run_fleet` group by group
+  and the live JAX `run_fleet`, leaf for leaf.
 * `flush_fleet` + `summarize_fleet`: counters and write amplification
   exact; `mean_write_latency_ms` within rtol 1e-6 (the port sums the
   float32 latencies in float64 and rounds once, the reference sums in
@@ -10,6 +13,7 @@
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core.ssd import fleet as jfleet
 from repro.core.ssd import sim as jsim
@@ -97,3 +101,81 @@ def test_single_cell_summarize_matches_reference():
                             tsim.flush_cache(CFG_T, t_state, "ips_agc"))
     assert_metrics_match({k: float(v) for k, v in j_summ.items()},
                          {k: float(v) for k, v in t_summ.items()}, "proj_0")
+
+
+# ---------------------------------------------------------------------------
+# run_fleets: many (composition, mode, length) groups in one call
+# ---------------------------------------------------------------------------
+
+MIXED_POLICIES = ("baseline", "ips_agc", "coop")
+MIXED_MODES = ("daily", "bursty")
+# two trace lengths, the longer at the sweep's --max-ops 2048
+MIXED_TRACES = (("hm_0", 2048, 256), ("proj_0", 512, 256))
+MIXED_GROUPS = [(p, m, t) for p in MIXED_POLICIES for m in MIXED_MODES
+                for t in MIXED_TRACES]
+
+
+def _group_id(group):
+    policy, mode, (name, n_ops, n_pad) = group
+    return f"{policy}-{mode}-{name}-{n_ops + n_pad}"
+
+
+@pytest.fixture(scope="module")
+def mixed_fleets():
+    """The twelve groups (baseline, ips_agc and coop x daily and bursty x
+    two trace lengths), one cell each: the port's `run_fleets` over all
+    of them in one call, and per group the port's `run_fleet` and the
+    live JAX `run_fleet`."""
+    groups, j_runs, t_single = [], [], []
+    for policy, mode, (name, n_ops, n_pad) in MIXED_GROUPS:
+        trace = fixture_ops(name, max_ops=n_ops, n_pad=n_pad)
+        closed = mode == "bursty"
+        j_params = jfleet.stack_params([jsim.default_params(CFG_J, policy,
+                                                            0.05)])
+        j_runs.append(jfleet.run_fleet(
+            CFG_J, policy, jfleet.stack_ops([trace]), j_params,
+            closed_loop=closed, n_logical=N_LOGICAL, trim_pads=True,
+            packed=True))
+        group = tfleet.FleetGroup(
+            policy, tfleet.stack_ops([trace], device="cpu"),
+            tfleet.stack_params([tsim.default_params(CFG_T, policy, 0.05,
+                                                     device="cpu")]),
+            closed_loop=closed, packed=True)
+        groups.append(group)
+        t_single.append(tfleet.run_fleet(
+            CFG_T, group.policy, group.ops, group.params,
+            closed_loop=closed, n_logical=N_LOGICAL, trim_pads=True,
+            packed=True))
+    t_all = tfleet.run_fleets(CFG_T, groups, n_logical=N_LOGICAL,
+                              trim_pads=True)
+    return groups, t_all, t_single, j_runs
+
+
+def test_run_fleets_takes_every_group_in_one_call(mixed_fleets):
+    groups, t_all, _, _ = mixed_fleets
+    assert len(t_all) == len(groups) == 12
+    assert len({g.ops["lba"].shape[1] for g in groups}) == 2
+    for g, (lat, final) in zip(groups, t_all):
+        assert lat.shape == g.ops["lba"].shape
+        assert final.loc.shape == (1, N_LOGICAL)
+
+
+@pytest.mark.parametrize("i", range(len(MIXED_GROUPS)),
+                         ids=[_group_id(g) for g in MIXED_GROUPS])
+def test_run_fleets_equals_run_fleet_group_by_group(mixed_fleets, i):
+    _, t_all, t_single, _ = mixed_fleets
+    (lat, final), (lat1, final1) = t_all[i], t_single[i]
+    assert torch.equal(lat, lat1)
+    for field in final._fields:
+        got, want = getattr(final, field), getattr(final1, field)
+        assert got.dtype == want.dtype and torch.equal(got, want), field
+
+
+@pytest.mark.parametrize("i", range(len(MIXED_GROUPS)),
+                         ids=[_group_id(g) for g in MIXED_GROUPS])
+def test_run_fleets_matches_reference(mixed_fleets, i):
+    _, t_all, _, j_runs = mixed_fleets
+    (t_lat, t_state), (j_lat, j_state) = t_all[i], j_runs[i]
+    label = _group_id(MIXED_GROUPS[i])
+    assert_leaf_equal(j_lat, t_lat, f"{label}: latency")
+    assert_state_equal(j_state, t_state, label)
