@@ -40,9 +40,18 @@ then:
    `tiered_decode`, `flash_fwd`): build seconds, ptxas registers and
    spills;
 5. kernel vs plain version at the serving shapes, both on the card, same
-   inputs: the repack's tier form (gemma-2b's prefill fill, feat 256)
-   and arena form (the TPU kernel's default page, 256 x 1024), bytes
-   exact; the tiered partials at gemma-2b's decode shape (B 4, Hkv 1,
+   inputs: the repack (`ips_repack`) bit for bit — every bf16 bit pattern
+   as x against 512 absmax values (subnormal and all-zero groups among
+   them), groups 2, 6, 48, 64, 128 and 256, the in-place tier form (K and
+   V in one launch, from the strided hot-tier slice into bf16-scaled
+   dense tiers) at gemma-2b's and zamba2-1.2b's serving shapes, the arena
+   form (one thread-block cluster a page) at 1, 5 and 128 pages of the
+   TPU kernel's default 256 x 1024, its stale tail kept; its times (the
+   tier form at gemma-2b's prefill fill, 73,728 x 256 bf16, per launch,
+   cold and by CUDA graph; each in-place event; the arena at 128 pages,
+   cold) beside their bytes bounds, and one repack event of each model
+   split into the kernel's share and the hot window's roll; the tiered
+   partials at gemma-2b's decode shape (B 4, Hkv 1,
    G 8, hd 256) and zamba2-1.2b's (B 4, Hkv 32, G 1, hd 64) over the
    serving dense tier, with dense_len 0, 1, one split's tokens less and
    more one, 1000 and full, in both dequantized forms, within 2e-4;
@@ -66,12 +75,16 @@ then:
    teacher-forced on the same tokens with each kernel's wrapper replaced
    by its plain version: logits within 2e-2 of their range at the
    prefill and every step, or within twice the plain versions' own
-   difference under another summation order (run beside them);
-   `dense_len`, `total_len` and the five traffic metrics exact, and equal
-   to a closed-form count of the policy's plan; launch counts equal to
-   what the path implies (flash 18 per prefill, tiered 18 per step,
-   repack 2 per fill or repack). Under IPS, faults planted in the tiered
-   kernel's call show how far that logits check sees a wrong kernel;
+   difference under another summation order (run beside them); beside
+   it an rms check: rms(kernel run - plain run) over rms(floor - plain
+   run) at every decode step, at most RMS_LIMIT; `dense_len`,
+   `total_len` and the five traffic metrics exact, and equal to a
+   closed-form count of the policy's plan; launch counts equal to what
+   the path implies (flash 18 per prefill, tiered 18 per step, repack 1
+   per fill or repack event, K and V together). Under IPS, faults planted
+   in the tiered kernel's call show how far the logits checks see a
+   wrong kernel: dropping 32 or 256 dense tokens must fail the rms check
+   at every step;
 7. the Mamba2 kernel — `ssd_intra` against its plain version on the card
    at mamba2-370m's prefill shape (Bt 4, nc 8, Q 256, nh 32, hd 64,
    N 128), zamba2-1.2b's (nh 64, N 64) and the overflow stress case
@@ -333,6 +346,13 @@ PLAIN_TIMED = 3                 # calls per plain-version timing
 # random layers turn last-bit differences into some 0.1 of logit, and
 # the plain versions differ from themselves by as much.
 LOGITS_TOL = 2e-2
+# The rms check beside it: at every decode step, rms(kernel run - plain
+# run) / rms(floor run - plain run) at most RMS_LIMIT. A tiered kernel
+# that drops the last 32 (or 256) dense tokens must exceed it at every
+# step. Set between what an H100 read (NVIDIA H100 80GB HBM3, 700 W): the
+# honest kernels at most 1.132 over the three models and four policies,
+# the 32-token fault at least 1.538 at every step.
+RMS_LIMIT = 1.3
 
 
 def serving_libraries():
@@ -407,9 +427,43 @@ def graph_ms(fn, n: int = TIMED) -> float:
 
 def repack_bound(rows: int, feat: int):
     """Tier form: read rows x feat bf16, write the packed bytes and the
-    float32 scales; some 7 float32 operations a value."""
-    moved = rows * feat * 2 + rows * feat // 2 + rows * (feat // GROUP) * 4
+    bf16 scales, each once; some 7 float32 operations a value."""
+    moved = rows * feat * 2 + rows * feat // 2 + rows * (feat // GROUP) * 2
     return bound_ms(moved, 7 * rows * feat)
+
+
+def arena_bound(pages: int, tokens: int, feat: int):
+    """Arena form: each page's tokens x feat bf16 read once, its packed
+    bytes and bf16 scales written once (the stale tail untouched)."""
+    return repack_bound(pages * tokens, feat)
+
+
+def l2_flush(cuda):
+    """A read of 512 MiB: run before a timed launch, it leaves the L2
+    full of clean lines (a write would leave dirty ones, whose write-back
+    the launch would pay) and keeps the card busy while the host issues
+    the launch."""
+    import torch
+    buf = torch.ones(128 << 20, dtype=torch.float32, device=cuda)
+    return lambda: buf.sum()
+
+
+def cold_ms(fn, before, n: int = TIMED) -> float:
+    """Mean ms of fn() by CUDA events around each call, `before()` run
+    just before each call, outside the events; after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in times) / n
 
 
 def tiered_bound(b, hkv, g, hd, dense_len):
@@ -499,6 +553,250 @@ def _logits_close(label, got, want, floor_run):
     return err, floor, limit
 
 
+def _same_scales(got, want) -> bool:
+    """Equal bit for bit, except that a NaN equals any NaN (the plain
+    version's reduction may carry another NaN payload)."""
+    import torch
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        return False
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(torch.where(nan, 0, got).view(bits),
+                       torch.where(nan, 0, want).view(bits))
+
+
+def repack_exhaustive(cuda, gen) -> dict:
+    """Every bf16 bit pattern as x against 512 absmax values a (zero, 16
+    subnormals, 7 * 2^k for k in -40..40, which make exact half-integer
+    quotients, the largest finite bf16 and random finite patterns): for
+    each (x, a) a group of 64 holding x, a and 62 zeros, so that its
+    absmax is max(|x|, a) (x = 0 with a = 0 is an all-zero group). Through
+    `quantize_into` into a bf16 scale tier and through its plain version,
+    both on the card: the packed bytes equal, the scales equal bit for bit
+    (NaN where the plain version has NaN)."""
+    import torch
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ips_repack.ref import quantize_into_ref
+    patterns = torch.arange(1 << 16, dtype=torch.int32, device=cuda).to(
+        torch.int16).view(torch.bfloat16)
+    k = torch.arange(-40, 41, dtype=torch.float32, device=cuda)
+    fixed = torch.cat([
+        torch.zeros(1, device=cuda),
+        torch.arange(1, 17, dtype=torch.int32, device=cuda).to(
+            torch.int16).view(torch.bfloat16).float(),
+        7.0 * torch.exp2(k),
+        torch.tensor([0x7f7f], dtype=torch.int32, device=cuda).to(
+            torch.int16).view(torch.bfloat16).float()])
+    rand = torch.randint(0x0080, 0x7f80, (512 - fixed.numel(),),
+                         generator=gen, device=cuda, dtype=torch.int32)
+    amax = torch.cat([fixed.to(torch.bfloat16),
+                      rand.to(torch.int16).view(torch.bfloat16)])
+    batch, n = 16, patterns.numel()
+    for i in range(0, amax.numel(), batch):
+        a = amax[i:i + batch]
+        vals = torch.zeros((a.numel(), n, GROUP), dtype=torch.bfloat16,
+                           device=cuda)
+        vals[:, :, 0] = patterns
+        vals[:, :, 1] = a[:, None]
+        src = vals.reshape(1, 1, a.numel() * n, GROUP)
+        got = (torch.empty((1, 1, a.numel() * n, GROUP // 2),
+                           dtype=torch.uint8, device=cuda),
+               torch.empty((1, 1, a.numel() * n, 1), dtype=torch.bfloat16,
+                           device=cuda))
+        want = tuple(torch.empty_like(t) for t in got)
+        repack.quantize_into([(src,) + got], 0, GROUP)
+        quantize_into_ref([(src,) + want], 0, GROUP)
+        if not (torch.equal(got[0], want[0])
+                and _same_scales(got[1], want[1])):
+            bad = (got[0] != want[0]).any(-1).reshape(-1).nonzero()
+            j = int(bad[0]) if bad.numel() else -1
+            fail(f"ips_repack exhaustive: x {hex(j % n)} against absmax "
+                 f"{float(a[j // n]) if j >= 0 else '?'}: the kernel differs "
+                 "from its plain version")
+    return {"x_patterns": n, "absmax_values": int(amax.numel()),
+            "groups": n * int(amax.numel()), "equal": True}
+
+
+def repack_event_split(cuda, arch, slots, hkv, hd) -> dict:
+    """One repack event (one page, dense_len 1024) of `arch`'s tiered
+    cache at the serving sizes, `repack_pages` timed by CUDA events with
+    the L2 flushed before it: the event's device ms, the kernel's share
+    (its launch's events) and the roll's (the rest)."""
+    import torch
+    from repro_torch.core.tiercache.layout import TierSpec, gqa_layer_zeros
+    from repro_torch.core.tiercache.manager import repack_pages
+    from repro_torch.kernels.ips_repack import ops as repack
+    spec = TierSpec(s_max=SERVE_PROMPT + SERVE_STEPS)
+    layers = gqa_layer_zeros(slots, SERVE_BATCH, spec, hkv, hd, device=cuda)
+    for name in ("kh", "vh"):
+        layers[name].normal_()
+    flush = l2_flush(cuda)
+    repack_pages(layers, "gqa", spec, 1024, 1, False)
+    events, kernel = [], []
+    for _ in range(TIMED):
+        flush()
+        repack.LAUNCHER.reset()
+        repack.LAUNCHER.record = True
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        repack_pages(layers, "gqa", spec, 1024, 1, False)
+        end.record()
+        kernel += repack.LAUNCHER.ms()
+        repack.LAUNCHER.record = False
+        events.append(start.elapsed_time(end))
+    repack.LAUNCHER.reset()
+    total, k_ms = sum(events) / TIMED, sum(kernel) / len(kernel)
+    rows = 2 * slots * SERVE_BATCH * hkv * spec.page_tokens
+    return {"arch": arch, "tokens": spec.page_tokens, "channels": 2,
+            "event_ms": total, "kernel_ms": k_ms, "roll_ms": total - k_ms,
+            "kernel_share": k_ms / total,
+            "kernel_bound_ms": repack_bound(rows, hd)[0]}
+
+
+def repack_vs_plain(cuda, gen, launcher) -> dict:
+    """Phase 5's `ips_repack`: every bf16 pattern (`repack_exhaustive`);
+    every group the reference takes; the in-place form (K and V in one
+    launch, from the strided hot-tier slice into bf16-scaled dense tiers)
+    at gemma-2b's and zamba2-1.2b's serving shapes; the arena form at 128
+    pages of 256 x 1024 with its stale tail; each against its plain
+    version on the card, bit for bit. Times: the tier form at gemma-2b's
+    prefill fill (73,728 x 256 bf16, bf16 scales) per launch (events, the
+    input reused, as before), cold (L2 flushed) and its device time (a
+    CUDA graph); each in-place event; the arena cold. Returns the kernel
+    table's row."""
+    import torch
+    from repro_torch.kernels.ips_repack import ops as repack
+    from repro_torch.kernels.ips_repack.ref import (page_layout,
+                                                    quantize_into_ref,
+                                                    quantize_rows_ref,
+                                                    repack_ref)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=cuda)).to(
+            torch.bfloat16)
+
+    flush = l2_flush(cuda)
+    exhaustive = repack_exhaustive(cuda, gen)
+    cases = [f"every bf16 x against {exhaustive['absmax_values']} absmax "
+             "values"]
+    for group in (2, 6, 48, 64, 128, 256):
+        x = randn(333, 768, scale=4.0)
+        x[::5, :group] = 0.0                            # all-zero groups
+        got, want = repack.quantize_rows(x, group), quantize_rows_ref(x, group)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"ips_repack group {group}: bytes or scales differ from the "
+                 "plain version")
+        cases.append(f"group {group}")
+
+    # the in-place form at the serving shapes: K and V from the hot tier's
+    # first t tokens into the dense tier at the watermark, one launch
+    s_dense = SERVE_PROMPT + SERVE_STEPS + 1024
+    in_place = {}
+    for label, (slots, hkv, hd) in (("gemma-2b", (18, 1, 256)),
+                                    ("zamba2-1.2b", (6, 32, 64))):
+        for t, start in ((256, 1024), (1024, 0)):
+            chans, want = [], []
+            for _ in range(2):
+                hot = randn(slots, SERVE_BATCH, 1024, hkv, hd, scale=3.0)
+                pk = torch.randint(0, 256, (slots, SERVE_BATCH, s_dense, hkv,
+                                            hd // 2), dtype=torch.uint8,
+                                   generator=gen, device=cuda)
+                sc = randn(slots, SERVE_BATCH, s_dense, hkv, hd // GROUP)
+                chans.append((hot[:, :, :t], pk, sc))
+                want.append((hot[:, :, :t], pk.clone(), sc.clone()))
+            quantize_into_ref(want, start, GROUP)
+            before = launcher.launches
+            repack.quantize_into(chans, start, GROUP)
+            torch.cuda.synchronize()
+            if launcher.launches != before + 1:
+                fail("ips_repack in-place form: K and V took more than one "
+                     "launch")
+            for (_, pk, sc), (_, wpk, wsc) in zip(chans, want):
+                if not (torch.equal(pk, wpk) and torch.equal(sc, wsc)):
+                    fail(f"ips_repack in-place form {label} t {t}: the dense "
+                         "tier differs from the plain version's")
+            cases.append(f"in place {label} t {t} start {start}")
+            if t == 256:
+                rows = 2 * slots * SERVE_BATCH * t * hkv
+                bnd, by = repack_bound(rows, hd)
+
+                def call(chans=chans, start=start):
+                    repack.quantize_into(chans, start, GROUP)
+                in_place[label] = {
+                    "ms": kernel_ms(launcher, call),
+                    "cold_ms": cold_ms(call, flush), "bound_ms": bnd,
+                    "bound_by": by,
+                    "timed_shape": f"K and V, {slots} slots x B "
+                                   f"{SERVE_BATCH} x {t} tokens x Hkv {hkv}"
+                                   f" x hd {hd}, strided hot slice"}
+
+    # the arena form at 128 pages of the TPU default 256 x 1024, a stale
+    # tail after each
+    tokens, feat, pages = 256, 1024, 128
+    _, packed_b, scale_b = page_layout(tokens, feat, GROUP)
+    page_bytes = tokens * feat * 2 + 4096
+    orig = torch.randint(0, 256, (pages, page_bytes), dtype=torch.uint8,
+                         generator=gen, device=cuda)
+    orig[:, :tokens * feat * 2] = randn(pages, tokens * feat,
+                                        scale=2.0).view(torch.uint8)
+    want = repack_ref(orig, tokens, feat, GROUP)
+    for n in (1, 5, pages):
+        arena = orig[:n].clone()
+        ptr = arena.data_ptr()
+        if repack.repack_arena(arena, tokens=tokens, feat=feat,
+                               group=GROUP).data_ptr() != ptr:
+            fail("ips_repack arena form: not the same storage")
+        if not torch.equal(arena, want[:n]):
+            fail(f"ips_repack arena form {n} pages: bytes differ from the "
+                 "plain version")
+        if not torch.equal(arena[:, packed_b + scale_b:],
+                           orig[:n, packed_b + scale_b:]):
+            fail("ips_repack arena form: the stale tail was written")
+        cases.append(f"arena {n} x {tokens} x {feat}")
+    arena = orig.clone()
+    bnd, by = arena_bound(pages, tokens, feat)
+    arena_row = {
+        "cold_ms": cold_ms(lambda: repack.repack_arena(
+            arena, tokens=tokens, feat=feat, group=GROUP),
+            lambda: (arena.copy_(orig), flush())),
+        "bound_ms": bnd, "bound_by": by,
+        "timed_shape": f"{pages} pages of {tokens} x {feat} bf16, group "
+                       f"{GROUP}, one cluster of CTAs a page"}
+    del arena, orig, want
+
+    # the tier form at gemma-2b's prefill fill, one channel, bf16 scales
+    rows = 18 * SERVE_BATCH * 1024
+    x = randn(rows, 256, scale=3.0)
+    pk = torch.empty((1, 1, rows, 128), dtype=torch.uint8, device=cuda)
+    sc = torch.empty((1, 1, rows, 256 // GROUP), dtype=torch.bfloat16,
+                     device=cuda)
+
+    def tier():
+        repack.quantize_into([(x[None, None], pk, sc)], 0, GROUP)
+    bnd, by = repack_bound(rows, 256)
+    row = {"name": "ips_repack", "route": "cuda",
+           "source": "src/repro_torch/kernels/ips_repack/csrc/ips_repack.cu",
+           "replaces": "src/repro/kernels/ips_repack/kernel.py:28",
+           "max_abs_err": 0.0, "ms": kernel_ms(launcher, tier),
+           "cold_ms": cold_ms(tier, flush), "device_ms": graph_ms(tier),
+           "plain_ms": time_ms(lambda: quantize_into_ref(
+               [(x[None, None], pk, sc)], 0, GROUP), PLAIN_TIMED),
+           "bound_ms": bnd, "bound_by": by, "library_ms": None,
+           "library": "none: no PyTorch call quantizes to packed int4",
+           "timed_shape": f"tier form {rows}x256 bf16, bf16 scales, group "
+                          f"{GROUP}",
+           "in_place": in_place, "arena": arena_row,
+           "exhaustive": exhaustive,
+           "event_split": [repack_event_split(cuda, "gemma-2b", 18, 1, 256),
+                           repack_event_split(cuda, "zamba2-1.2b", 6, 32,
+                                              64)],
+           **repack.LIB.ptxas()}
+    emit({"phase": "kernel_vs_plain", "kernel": "ips_repack",
+          "cases": cases, "equal": True, **row})
+    return row
+
+
 def serve_kernels_vs_plain(cuda) -> dict:
     """Phase 5: each serving kernel against its plain version on the card,
     at the serving shapes; returns the kernel-table fields of each."""
@@ -506,10 +804,7 @@ def serve_kernels_vs_plain(cuda) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.flash_attention.ref import flash_ref
-    from repro_torch.kernels.ips_repack import ops as repack
-    from repro_torch.kernels.ips_repack.ref import (page_layout,
-                                                    quantize_rows_ref,
-                                                    repack_ref)
+    from repro_torch.kernels.ips_repack.ref import quantize_rows_ref
     from repro_torch.kernels.tiered_attention import ops as tiered
     from repro_torch.kernels.tiered_attention.ref import (
         dense_tier_partial_ref)
@@ -526,50 +821,7 @@ def serve_kernels_vs_plain(cuda) -> dict:
         launcher.reset()
     out = {}
 
-    # -- ips_repack: tier form at gemma-2b's prefill fill (18 layers x 4 x
-    #    1024 tokens x 1 KV head, feat 256) and at the TPU default feat
-    #    1024; arena form at the TPU default page (256 x 1024, group 64)
-    fill_rows = 18 * SERVE_BATCH * 1024
-    cases = []
-    for rows, feat in ((fill_rows, 256), (16 * 256, 1024)):
-        x = randn(rows, feat, scale=3.0, dtype=torch.bfloat16)
-        x[::97] = 0.0                                   # all-zero groups
-        got, want = repack.quantize_rows(x, GROUP), quantize_rows_ref(x, GROUP)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail(f"ips_repack tier form {rows}x{feat}: bytes or scales "
-                 "differ from the plain version")
-        cases.append(f"tier {rows}x{feat}")
-    tokens, feat, pages = 256, 1024, 16
-    _, packed_b, scale_b = page_layout(tokens, feat, GROUP)
-    page_bytes = tokens * feat * 2 + 4096               # a stale tail too
-    arena = torch.randint(0, 256, (pages, page_bytes), dtype=torch.uint8,
-                          generator=gen, device=cuda)
-    arena[:, :tokens * feat * 2] = randn(
-        pages, tokens * feat, scale=2.0, dtype=torch.bfloat16).view(
-        torch.uint8)
-    before = arena.clone()
-    want = repack_ref(before, tokens, feat, GROUP)
-    repack.repack_arena(arena, tokens=tokens, feat=feat, group=GROUP)
-    if not torch.equal(arena, want):
-        fail("ips_repack arena form: bytes differ from the plain version")
-    if not torch.equal(arena[:, packed_b + scale_b:],
-                       before[:, packed_b + scale_b:]):
-        fail("ips_repack arena form: the stale tail was written")
-    cases.append(f"arena {pages}x{tokens}x{feat}")
-    x = randn(fill_rows, 256, scale=3.0, dtype=torch.bfloat16)
-    ms = kernel_ms(launchers["ips_repack"],
-                   lambda: repack.quantize_rows(x, GROUP))
-    plain = time_ms(lambda: quantize_rows_ref(x, GROUP), PLAIN_TIMED)
-    bnd, by = repack_bound(fill_rows, 256)
-    out["ips_repack"] = {
-        "name": "ips_repack", "route": "cuda",
-        "source": "src/repro_torch/kernels/ips_repack/csrc/ips_repack.cu",
-        "replaces": "src/repro/kernels/ips_repack/kernel.py:28",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-        "bound_by": by, "library_ms": None,
-        "timed_shape": f"tier form {fill_rows}x256 bf16, group {GROUP}"}
-    emit({"phase": "kernel_vs_plain", "kernel": "ips_repack",
-          "cases": cases, "equal": True, **out["ips_repack"]})
+    out["ips_repack"] = repack_vs_plain(cuda, gen, launchers["ips_repack"])
 
     # -- tiered_decode at gemma-2b's decode shape (B 4, Hkv 1, G 8, hd 256)
     #    and zamba2-1.2b's shared block's (B 4, Hkv 32, G 1, hd 64), over
@@ -876,7 +1128,7 @@ def plain_versions():
     from repro_torch.kernels.tiered_attention import ops as tiered
     return _replaced(
         (flash, "flash_fwd", flash.ref.flash_ref),
-        (repack, "quantize_rows", repack.ref.quantize_rows_ref),
+        (repack, "quantize_into", repack.ref.quantize_into_ref),
         (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref),
         (ssd, "ssd_intra", ssd.ref.intra_chunk_ref))
 
@@ -887,10 +1139,11 @@ def planted_faults(arch):
     kernel: (name, context, whether the check must catch it).
 
     gemma-2b, the tiered call: dropping the last 256 tokens (a page) of
-    the dense tier must be caught at some step. Dropping 32, and the
-    float32 dequantized form in place of the bf16 one, are read only: on
-    an H100 they stay under the limit (PERF.md §6), and phase 5 holds the
-    kernel to its plain version at 2e-4.
+    the dense tier must be caught by the max-based check at some step,
+    and dropping 256 or 32 by the rms check at every step
+    (`rms_must_catch`). The float32 dequantized form in place of the bf16
+    one is read only: on an H100 it stays under both limits (PERF.md §6),
+    and phase 5 holds the kernel to its plain version at 2e-4.
     mamba2-370m, the `ssd_intra` call: a strict causal mask (the kernel's
     y less its diagonal term C_i.B_i dt_i x_i, L's diagonal being
     exp(0) = 1) must be caught."""
@@ -925,6 +1178,11 @@ def planted_faults(arch):
              drop == 256) for drop in (32, 256)] + [
             ("tiered float32 dequant",
              _replaced((tiered, "dense_tier_partial", float32_form)), False)]
+
+
+def rms_must_catch(fault: str) -> bool:
+    """Whether the rms check must see `fault` at every decode step."""
+    return fault.startswith("tiered dense_len")
 
 
 def shadow_intra(log):
@@ -1070,8 +1328,7 @@ def serve_main_path(cuda, arch) -> dict:
             trace = ssm_trace(prompt, steps, setup["state_bytes"])
         expect = {"flash_fwd": slots if cfg.family != "ssm" else 0,
                   "tiered_decode": slots * steps,
-                  "ips_repack": 2 * (int(trace["fill"])
-                                     + len(trace["events"])),
+                  "ips_repack": int(trace["fill"]) + len(trace["events"]),
                   "ssd_intra": setup["mamba_layers"]}
 
         # -- with the kernels, timed on the host clock with no CUDA events
@@ -1159,6 +1416,10 @@ def serve_main_path(cuda, arch) -> dict:
                 agree += int((nxt == chosen).sum())
             torch.cuda.synchronize()
         del cache_f
+        if over_floor_rms > RMS_LIMIT:
+            fail(f"{arch} {policy.name}: rms of the logits' error is "
+                 f"{over_floor_rms} x the floor's at some step (limit "
+                 f"{RMS_LIMIT})")
         if any(launcher.launches for launcher in launchers.values()):
             fail(f"{arch} {policy.name}: the plain run launched a kernel")
         if (cache["dense_len"], cache["total_len"]) != (
@@ -1207,6 +1468,8 @@ def serve_main_path(cuda, arch) -> dict:
                        for i in range(steps)]
                 caught = (sum(e > lim for e, lim in zip(errs, limits))
                           + int(prefill_err > prefill_limit))
+                rms_ratio = [r / max(f, 1e-30) for r, f in zip(rms, floor_rms)]
+                rms_caught = sum(r > RMS_LIMIT for r in rms_ratio)
                 faults.append({"fault": name, "arch": arch,
                                "policy": policy.name,
                                "logits_max_abs_err": max(errs + [prefill_err]),
@@ -1217,9 +1480,11 @@ def serve_main_path(cuda, arch) -> dict:
                                "min_err_over_limit": min(
                                    e / lim for e, lim in zip(errs, limits)),
                                "logits_rms_err": max(rms),
-                               "min_rms_over_floor_rms": min(
-                                   r / max(f, 1e-30)
-                                   for r, f in zip(rms, floor_rms)),
+                               "min_rms_over_floor_rms": min(rms_ratio),
+                               "rms_over_floor_rms": rms_ratio,
+                               "rms_limit": RMS_LIMIT,
+                               "rms_caught_steps": rms_caught,
+                               "rms_must_catch": rms_must_catch(name),
                                "checks_caught": caught,
                                "checks": steps + 1,
                                "path_check_err_over_max_abs":
@@ -1227,6 +1492,11 @@ def serve_main_path(cuda, arch) -> dict:
                                "caught_by_path_check": path_caught,
                                "must_catch": must_catch})
                 emit({"phase": "serve_planted_fault", **faults[-1]})
+                if rms_must_catch(name) and rms_caught < steps:
+                    fail(f"planted fault '{name}' passed the rms check at "
+                         f"{steps - rms_caught} of {steps} steps (ratios "
+                         f"{min(rms_ratio)}-{max(rms_ratio)}, limit "
+                         f"{RMS_LIMIT})")
                 if must_catch and not (caught or path_caught):
                     fail(f"planted fault '{name}' passed the logits check "
                          f"(max error {max(errs + [prefill_err])}, limits "
@@ -1234,17 +1504,17 @@ def serve_main_path(cuda, arch) -> dict:
                          f"{max(limits + [prefill_limit])}) and the path "
                          "check")
 
-        # rows per repack launch: the prefill fill's w0 tokens, then each
-        # event's; two channels (k, v) each
-        rows = ([slots * b * hkv * trace["attended"][0]] if trace["fill"]
-                else []) + [slots * b * hkv * t for t in trace["events"]]
+        # rows per repack launch, K and V together: the prefill fill's w0
+        # tokens, then each event's
+        rows = ([2 * slots * b * hkv * trace["attended"][0]]
+                if trace["fill"] else []) + [2 * slots * b * hkv * t
+                                             for t in trace["events"]]
         g = cfg.num_heads // hkv if slots else 1
         bounds = {"flash_fwd": [flash_b] * expect["flash_fwd"],
                   "tiered_decode": [tiered_bound(b, hkv, g, hd, d)[0]
                                     for d in trace["attended"]
                                     for _ in range(slots)],
-                  "ips_repack": [repack_bound(r, hd)[0] for r in rows
-                                 for _ in range(2)],
+                  "ips_repack": [repack_bound(r, hd)[0] for r in rows],
                   "ssd_intra": [intra_b] * expect["ssd_intra"]}
         for name in launchers:
             totals[name]["launches"] += counts[name]
@@ -1275,6 +1545,7 @@ def serve_main_path(cuda, arch) -> dict:
               "logits_floor_rms": max(floor_rms),
               "logits_max_err_over_limit": over_limit,
               "logits_max_rms_over_floor_rms": over_floor_rms,
+              "logits_rms_limit": RMS_LIMIT,
               "logits_limit_min": min(limits + [prefill_limit]),
               "logits_tolerance": (f"{LOGITS_TOL} of max |logit|, or twice "
                                    "the floor"),

@@ -21,10 +21,10 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.tiercache.quant import quantize_int4
+from repro_torch.kernels.ips_repack import ops as repack_ops
 
 __all__ = ["TierSpec", "QUANT_CHANNELS", "RAW_CHANNELS", "gqa_layer_zeros",
-           "split_for_prefill", "fill_quant_channel"]
+           "split_for_prefill", "fill_quant_channels"]
 
 
 @dataclass(frozen=True)
@@ -75,22 +75,26 @@ def split_for_prefill(s: int, spec: TierSpec):
     return w0, s - w0
 
 
-def fill_quant_channel(buffers, packed_name, sc_name, hot_name, values,
-                       spec: TierSpec):
-    """values: (n_slots, B, S, ...feat) bf16 bulk write -> tier buffers.
-    Writes into the given buffers in place (the reference returns updated
-    copies) and returns (buffers, w0)."""
-    s = values.shape[2]
+def fill_quant_channels(buffers, channels, values, spec: TierSpec):
+    """values: per channel of `channels` ((packed, scales, hot) names), a
+    (n_slots, B, S, ...feat) bf16 bulk write -> tier buffers: the dense
+    prefix quantized into every channel's dense tier in one `ips_repack`
+    launch, the tail copied into the hot tier. Writes into the given
+    buffers in place (the reference returns updated copies) and returns
+    (buffers, w0)."""
+    s = values[0].shape[2]
     w0, tail = split_for_prefill(s, spec)
-    if w0 > buffers[packed_name].shape[2] or tail > buffers[hot_name].shape[2]:
-        raise ValueError(f"a prefill of {s} tokens does not fit the tiers "
-                         f"({buffers[packed_name].shape[2]} dense, "
-                         f"{buffers[hot_name].shape[2]} hot)")
+    for packed_name, _, hot_name in channels:
+        if (w0 > buffers[packed_name].shape[2]
+                or tail > buffers[hot_name].shape[2]):
+            raise ValueError(f"a prefill of {s} tokens does not fit the "
+                             f"tiers ({buffers[packed_name].shape[2]} dense, "
+                             f"{buffers[hot_name].shape[2]} hot)")
     if w0:
-        pk, sc = quantize_int4(values[:, :, :w0], spec.group)
-        buffers[packed_name][:, :, :w0] = pk
-        buffers[sc_name][:, :, :w0] = sc.to(buffers[sc_name].dtype)
+        repack_ops.quantize_into([(v[:, :, :w0], buffers[pk], buffers[sc])
+                                  for v, (pk, sc, _) in zip(values, channels)],
+                                 0, spec.group)
     if tail:
-        buffers[hot_name][:, :, :tail] = values[:, :, w0:].to(
-            buffers[hot_name].dtype)
+        for v, (_, _, hot) in zip(values, channels):
+            buffers[hot][:, :, :tail] = v[:, :, w0:].to(buffers[hot].dtype)
     return buffers, w0

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.core.tiercache.layout import QUANT_CHANNELS, TierSpec
 from repro_torch.core.tiercache.policy import Policy, plan_for
-from repro_torch.core.tiercache.quant import quantize_int4
+from repro_torch.kernels.ips_repack import ops as repack_ops
+from repro_torch.kernels.ips_repack.ref import update_start
 
 __all__ = ["zero_metrics", "add_metric", "repack_pages", "serve_tick",
            "write_amplification"]
@@ -45,31 +46,35 @@ def _nbytes(shape, dtype) -> float:
 
 
 def _update_dim2(buf, update, idx: int) -> None:
-    """buf[:, :, idx:idx+len] = update, the start clamped into range as
-    `jax.lax.dynamic_update_slice` clamps it."""
-    idx = min(max(idx, 0), buf.shape[2] - update.shape[2])
+    """buf[:, :, idx:idx+len] = update, the start placed as
+    `jax.lax.dynamic_update_slice` places it."""
+    idx = update_start(idx, buf.shape[2], update.shape[2])
     buf[:, :, idx:idx + update.shape[2]] = update.to(buf.dtype)
 
 
 def repack_pages(layers, kind, spec: TierSpec, dense_len: int, n_pages: int,
                  staging_copy: bool):
     """Move the oldest n_pages*page_tokens hot tokens into the dense tier,
-    in place. Returns (layers, read_bytes, write_bytes)."""
+    in place: every channel quantized straight from the hot tier into its
+    dense tier at the watermark in one `ips_repack` launch, then each hot
+    window rolled. Returns (layers, read_bytes, write_bytes)."""
     t = n_pages * spec.page_tokens
+    chans = QUANT_CHANNELS[kind]
+    vals = [layers[hot][:, :, :t] for (_, _, hot) in chans]
+    repack_ops.quantize_into([(v, layers[pk], layers[sc])
+                              for v, (pk, sc, _) in zip(vals, chans)],
+                             dense_len, spec.group)
     read_b = 0.0
     write_b = 0.0
-    for (pk, sc, hot) in QUANT_CHANNELS[kind]:
-        vals = layers[hot][:, :, :t]
-        packed, scales = quantize_int4(vals, spec.group)
-        _update_dim2(layers[pk], packed, dense_len)
-        _update_dim2(layers[sc], scales, dense_len)
+    for v, (pk, sc, hot) in zip(vals, chans):
+        lead, f = tuple(v.shape[:-1]), v.shape[-1]
+        read_b += _nbytes(v.shape, layers[hot].dtype)
+        wb = (_nbytes(lead + (f // 2,), torch.uint8)
+              + _nbytes(lead + (f // spec.group,), layers[sc].dtype))
+        write_b += wb * (2.0 if staging_copy else 1.0)
         # the reference rolls into a new buffer; the port rolls into a
         # temporary and copies back into the same storage
         layers[hot].copy_(torch.roll(layers[hot], -t, dims=2))
-        read_b += _nbytes(vals.shape, layers[hot].dtype)
-        wb = (_nbytes(packed.shape, torch.uint8)
-              + _nbytes(scales.shape, layers[sc].dtype))
-        write_b += wb * (2.0 if staging_copy else 1.0)
     return layers, read_b, write_b
 
 

@@ -7,8 +7,10 @@ dequant on read). Symmetric groupwise int4: two nibbles per uint8 along
 the trailing feature axis, one float32 scale per group.
 
 `quantize_int4` of a CUDA tensor runs the `ips_repack` kernel's tier
-form; of a CPU tensor, its plain version. Both equal the reference bit
-for bit.
+form on contiguous rows; of a CPU tensor, its plain version. Both equal
+the reference bit for bit. The serving path does not call it: its fills
+and repacks quantize straight from the hot tier into the dense tier
+(`ips_repack.ops.quantize_into`).
 """
 from __future__ import annotations
 

@@ -13,6 +13,8 @@ constant into a product with its rounded reciprocal, under `jax.jit`
 and in the Pallas kernel alike; only JAX's op-by-op dispatch divides).
 The port follows the compiled reference, which is what its serving path
 runs (ROADMAP §C; pinned by tests/test_torch_tiercache.py).
+`quantize_into_ref` is the serving path's in-place form: the quantizer,
+then the manager's `dynamic_update_slice` into the dense tier.
 
 Arena byte layout per page (page = `tokens` cache entries of `feat`
 bf16s):
@@ -26,7 +28,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["INT4_MAX", "INV_INT4_MAX", "page_layout", "quantize_rows_ref",
-           "dequantize_rows_ref", "repack_ref", "unpack_ref"]
+           "update_start", "quantize_into_ref", "dequantize_rows_ref", "repack_ref",
+           "unpack_ref"]
 
 INT4_MAX = 7.0
 INV_INT4_MAX = 0.1428571492433548       # float32(1/7), exactly
@@ -52,6 +55,33 @@ def quantize_rows_ref(x: torch.Tensor, group: int = 64):
     q = (q + 8.0).to(torch.uint8).reshape(n, f)
     packed = q[:, 0::2] | (q[:, 1::2] << 4)
     return packed, scale
+
+
+def update_start(start: int, size: int, length: int) -> int:
+    """Where `jax.lax.dynamic_update_slice` writes `length` items into an
+    axis of `size`: a negative start counted from the end, then clamped
+    into [0, size - length]."""
+    if length > size:
+        raise ValueError(f"{length} tokens do not fit an axis of {size}")
+    start = int(start)
+    if start < 0:
+        start += size
+    return min(max(start, 0), size - length)
+
+
+def quantize_into_ref(channels, start: int, group: int = 64) -> None:
+    """The in-place tier form: for each (src, packed, scales) of
+    `channels`, src (A, B, T, ..., F), the reference's
+    `dynamic_update_slice(packed, quantize_int4(src)[0], (0, 0, start,
+    ...))` and the same of the scales (cast to their dtype), written in
+    place."""
+    for src, packed, scales in channels:
+        t, f = src.shape[2], src.shape[-1]
+        s = update_start(start, packed.shape[2], t)
+        pk, sc = quantize_rows_ref(src.reshape(-1, f), group)
+        lead = src.shape[:-1]
+        packed[:, :, s:s + t] = pk.reshape(*lead, f // 2)
+        scales[:, :, s:s + t] = sc.reshape(*lead, f // group).to(scales.dtype)
 
 
 def dequantize_rows_ref(packed: torch.Tensor, scales: torch.Tensor,

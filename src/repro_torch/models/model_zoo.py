@@ -16,7 +16,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.tiercache.layout import (TierSpec, fill_quant_channel,
+from repro_torch.core.tiercache.layout import (QUANT_CHANNELS, TierSpec,
+                                               fill_quant_channels,
                                                gqa_layer_zeros,
                                                split_for_prefill)
 from repro_torch.models import hybrid as hybrid_lib
@@ -58,9 +59,8 @@ def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                                          collect_kv=True)
         b, s = hidden.shape[:2]
         layers = make_decode_cache(b, 0, spec, hidden.device)["layers"]
-        layers, w0 = fill_quant_channel(layers, "k4", "k4_sc", "kh", k,
-                                        spec)
-        layers, _ = fill_quant_channel(layers, "v4", "v4_sc", "vh", v, spec)
+        layers, w0 = fill_quant_channels(layers, QUANT_CHANNELS["gqa"],
+                                         (k, v), spec)
         cache = {"layers": layers, "total_len": s, "dense_len": w0}
         return cache, _last_logits(params, hidden)
 
@@ -147,10 +147,8 @@ def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                                         collect_kv=True, collect_state=True))
         b, s = tokens.shape
         cache = make_decode_cache(b, 0, spec, hidden.device)
-        attn, w0 = fill_quant_channel(cache["attn"], "k4", "k4_sc", "kh", k,
-                                      spec)
-        attn, _ = fill_quant_channel(attn, "v4", "v4_sc", "vh", v, spec)
-        cache["attn"] = attn
+        cache["attn"], w0 = fill_quant_channels(
+            cache["attn"], QUANT_CHANNELS["gqa"], (k, v), spec)
         cache["macro_conv"], cache["macro_ssm"] = macro_states
         if tail_states is not None:
             cache["tail_conv"], cache["tail_ssm"] = tail_states

@@ -251,7 +251,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
 from repro_torch.kernels.ips_repack import ops as repack_ops  # noqa: E402
 from repro_torch.kernels.ips_repack.ref import (  # noqa: E402
-    page_layout, quantize_rows_ref, repack_ref)
+    page_layout, quantize_into_ref, quantize_rows_ref, repack_ref)
 from repro_torch.kernels.tiered_attention import ops as tiered_ops  # noqa: E402
 from repro_torch.kernels.tiered_attention.ref import (  # noqa: E402
     dense_tier_partial_ref)
@@ -295,12 +295,66 @@ class TestIpsRepackKernel:
         assert repack_ops.LAUNCHER.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
+    @pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+    @pytest.mark.parametrize("feat,group", [
+        (768, 2), (768, 6), (768, 48), (768, 64), (768, 128), (768, 256),
+        (16384, 16384)])
+    def test_every_group_bit_exact(self, cuda, monkeypatch, feat, group,
+                                   dtype):
+        """Every even group that divides feat, as the reference takes it:
+        powers of two of 8-value lanes up to 32 reduce by shuffles, the
+        others (6: 3 lanes of 2, 48: 6 lanes of 8, 16384: 2,048 lanes,
+        more than a block's 1,024 chunks) through shared memory."""
+        x = _randn(_gen(group), 333 if feat < 4096 else 20, feat, scale=4.0,
+                   dtype=dtype)
+        x[::5, :group] = 0.0
+        want = quantize_rows_ref(x, group)
+        _refuse_plain(monkeypatch, repack_ops, "quantize_rows_ref")
+        got = repack_ops.quantize_rows(x, group)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    @pytest.mark.parametrize("shape,t,start", [
+        ((18, 4, 1024, 1, 256), 256, 1024),     # gemma-2b, one page
+        ((18, 4, 1024, 1, 256), 1024, 2500),    # four pages, start clamped
+        ((6, 4, 1024, 32, 64), 512, 1536),      # zamba2-1.2b's shared block
+    ])
+    def test_in_place_form_on_hot_tier_slices(self, cuda, monkeypatch, shape,
+                                              t, start):
+        """K and V in ONE launch, read from the strided hot-tier slice
+        `[:, :, :t]` and written into bf16-scaled dense tiers at the
+        watermark: every byte of both tiers equals the plain version's
+        (the rest of each tier untouched)."""
+        gen = _gen(t + start)
+        n, b, w, hkv, hd = shape
+        s_dense = 3200
+        chans, want = [], []
+        for _ in range(2):
+            hot = _randn(gen, n, b, w, hkv, hd, scale=3.0,
+                         dtype=torch.bfloat16)
+            pk = torch.randint(0, 256, (n, b, s_dense, hkv, hd // 2),
+                               dtype=torch.uint8, generator=gen,
+                               device="cuda")
+            sc = _randn(gen, n, b, s_dense, hkv, hd // 64,
+                        dtype=torch.bfloat16)
+            chans.append((hot[:, :, :t], pk, sc))
+            want.append((pk.clone(), sc.clone()))
+        quantize_into_ref([(src, pk, sc) for (src, _, _), (pk, sc)
+                           in zip(chans, want)], start, 64)
+        _refuse_plain(monkeypatch, repack_ops, "quantize_into_ref")
+        before = repack_ops.LAUNCHER.launches
+        repack_ops.quantize_into(chans, start, 64)
+        torch.cuda.synchronize()
+        assert repack_ops.LAUNCHER.launches == before + 1
+        for (_, pk, sc), (want_pk, want_sc) in zip(chans, want):
+            assert torch.equal(pk, want_pk) and torch.equal(sc, want_sc)
+
+    @pytest.mark.parametrize("pages", (1, 5, 128))
     @pytest.mark.parametrize("tokens,feat,group,tail", [
         (256, 1024, 64, 4096), (16, 64, 16, 0), (8, 256, 64, 36)])
     def test_arena_in_place_keeps_the_stale_tail(self, cuda, tokens, feat,
-                                                 group, tail):
+                                                 group, tail, pages):
         gen = _gen(tokens)
-        pages = 5
         arena = torch.randint(0, 256, (pages, tokens * feat * 2 + tail),
                               dtype=torch.uint8, generator=gen, device="cuda")
         arena[:, :tokens * feat * 2] = _randn(
@@ -320,8 +374,11 @@ class TestIpsRepackKernel:
     def test_refused_launches_raise(self, cuda):
         before = repack_ops.LAUNCHER.launches
         x = torch.zeros((8, 256), dtype=torch.bfloat16, device="cuda")
+        # groups the reference refuses too: odd, and not a divisor of feat
         with pytest.raises(ValueError, match="group"):
-            repack_ops.quantize_rows(x, 128)
+            repack_ops.quantize_rows(x, 7)
+        with pytest.raises(ValueError, match="group"):
+            repack_ops.quantize_rows(x, 96)
         with pytest.raises(TypeError, match="dtype"):
             repack_ops.quantize_rows(x.to(torch.float16), 64)
         with pytest.raises(ValueError, match="contiguous"):
@@ -329,6 +386,10 @@ class TestIpsRepackKernel:
         arena = torch.zeros((2, 100), dtype=torch.uint8, device="cuda")
         with pytest.raises(ValueError, match="page_bytes"):
             repack_ops.repack_arena(arena, tokens=4, feat=16, group=16)
+        big = torch.zeros((1, 4096 * 1024 * 2), dtype=torch.uint8,
+                          device="cuda")
+        with pytest.raises(ValueError, match="shared memory"):
+            repack_ops.repack_arena(big, tokens=4096, feat=1024, group=64)
         assert repack_ops.LAUNCHER.launches == before
 
     def test_cpu_tensors_take_the_plain_version(self, cuda):

@@ -37,7 +37,9 @@ from repro_torch.core.tiercache.quant import dequantize_int4 as t_dequant
 from repro_torch.core.tiercache.quant import quantize_int4 as t_quant
 from repro_torch.interop import cache_from_jax
 from repro_torch.kernels.ips_repack import ops as repack_ops
-from repro_torch.kernels.ips_repack.ref import quantize_rows_ref
+from repro_torch.kernels.ips_repack.ref import (INV_INT4_MAX,
+                                                quantize_into_ref,
+                                                quantize_rows_ref)
 from repro_torch.kernels.ips_repack.ref import repack_ref as t_repack_ref
 from repro_torch.kernels.ips_repack.ref import unpack_ref as t_unpack_ref
 from torch_port_util import assert_leaf_equal, to_torch
@@ -45,6 +47,10 @@ from torch_port_util import assert_leaf_equal, to_torch
 POLICIES = list(jpolicy.Policy)
 J_QUANT = jax.jit(j_quant, static_argnums=1)
 J_DEQUANT = jax.jit(j_dequant, static_argnums=(2, 3))
+# the reference manager's `_dus_dim2`: an update written at position s of
+# axis 2, s clamped into range by `dynamic_update_slice`
+J_DUS = jax.jit(lambda buf, update, s: jax.lax.dynamic_update_slice(
+    buf, update.astype(buf.dtype), (0, 0, s) + (0,) * (buf.ndim - 3)))
 
 
 def _values(rng, shape, kind):
@@ -157,6 +163,114 @@ def test_quantize_cpu_wrapper_does_not_count_launches():
     arena = torch.zeros((2, 4 * 64 * 2), dtype=torch.uint8)
     repack_ops.repack_arena(arena, tokens=4, feat=64, group=16)
     assert repack_ops.LAUNCHER.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the in-place tier form: quantize straight into the dense tier
+# ---------------------------------------------------------------------------
+
+INTO_FEAT = {2: 16, 6: 48, 48: 96, 64: 128, 128: 256, 256: 256}
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "scaled"])
+@pytest.mark.parametrize("group", sorted(INTO_FEAT))
+def test_quantize_into_ref_is_quantize_then_update_slice(kind, group):
+    """`quantize_into_ref` on a strided hot-tier slice equals the compiled
+    reference's `quantize_int4` written into a dense tier by
+    `dynamic_update_slice`: every byte and scale, the rest of the tier
+    untouched, in bf16 and float32 scale tiers, at a start in range and at
+    starts that `dynamic_update_slice` clamps (past the end) or counts
+    from the end (negative)."""
+    feat = INTO_FEAT[group]
+    rng = np.random.default_rng(group * 31 + len(kind))
+    a, b, w, t, h, s_len = 2, 2, 8, 5, 2, 12
+    hot = _values(rng, (a, b, w, h, feat), kind)
+    pj, sj = J_QUANT(jnp.asarray(hot[:, :, :t]), group)
+    for jdt in (jnp.bfloat16, jnp.float32):
+        pk0 = rng.integers(0, 256, (a, b, s_len, h, feat // 2),
+                           dtype=np.uint8)
+        sc0 = np.asarray(jnp.asarray(rng.standard_normal(
+            (a, b, s_len, h, feat // group)), jdt))
+        for start in (3, 10, -4, -20):
+            pk, sc = to_torch(pk0), to_torch(sc0)
+            quantize_into_ref([(to_torch(hot)[:, :, :t], pk, sc)], start,
+                              group)
+            label = f"{jdt.__name__} start {start}"
+            assert_leaf_equal(J_DUS(jnp.asarray(pk0), pj, start), pk,
+                              f"packed {label}")
+            assert_leaf_equal(J_DUS(jnp.asarray(sc0), sj, start), sc,
+                              f"scales {label}")
+
+
+def test_quantize_into_on_cpu_takes_the_plain_version():
+    """The wrapper on CPU tensors: K and V in one call, each equal to its
+    own plain call, and no launch counted."""
+    rng = np.random.default_rng(5)
+    hot = [to_torch(_values(rng, (2, 3, 16, 2, 64), "scaled"))
+           for _ in range(2)]
+    tiers = [(torch.zeros((2, 3, 40, 2, 32), dtype=torch.uint8),
+              torch.zeros((2, 3, 40, 2, 4), dtype=torch.bfloat16))
+             for _ in range(2)]
+    repack_ops.reset()
+    repack_ops.quantize_into([(x[:, :, :8], pk, sc)
+                              for x, (pk, sc) in zip(hot, tiers)], 36, 16)
+    assert repack_ops.LAUNCHER.launches == 0
+    for x, (pk, sc) in zip(hot, tiers):
+        want_pk, want_sc = torch.zeros_like(pk), torch.zeros_like(sc)
+        quantize_into_ref([(x[:, :, :8], want_pk, want_sc)], 32, 16)
+        assert torch.equal(pk, want_pk) and torch.equal(sc, want_sc)
+        assert bool(pk[:, :, 32:].any()) and not bool(pk[:, :, :32].any())
+
+
+def _bf16_patterns():
+    """Every finite bf16 value, as float32."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).to(torch.float32)
+    return x[torch.isfinite(x)]
+
+
+@pytest.mark.parametrize("rcp_ulps", [-1, 0, 1])
+def test_reciprocal_route_decides_as_the_division(rcp_ulps):
+    """The kernel's quotient, emulated in float32 (each operation one
+    IEEE rounding, as `__fmul_rn` / `__fadd_rn` are): v = x * rcp(safe)
+    with the reciprocal up to one ulp off (what `rcp.approx` may give),
+    rounded by adding 1.5 * 2^23 + 8; a v within 2^-17 of a half-integer
+    takes the exact division. Over every finite bf16 x against absmax
+    values from zero through the subnormals, 7 * 2^k (exact half-integer
+    quotients) and random values, the nibble equals the reference's
+    `clip(round(x / safe), -7, 7) + 8`."""
+    x = _bf16_patterns()
+    rng = np.random.default_rng(11)
+    sub = torch.tensor([1, 2, 3, 5, 17, 100, 127], dtype=torch.int16)
+    rand = torch.from_numpy(rng.integers(0x0080, 0x7f80, 80).astype(
+        np.int16))
+    amaxes = torch.cat([
+        torch.zeros(1), sub.view(torch.bfloat16).to(torch.float32),
+        7.0 * 2.0 ** torch.arange(-30, 31, 3, dtype=torch.float32),
+        rand.view(torch.bfloat16).to(torch.float32)])
+    magic = np.float32(12582920.0)
+    near = np.float32(0.5 - 2.0 ** -17)
+    ties = flagged = 0
+    for amax in amaxes:
+        xs = x[x.abs() <= amax]
+        scale = amax * np.float32(INV_INT4_MAX)
+        safe = torch.clamp(scale, min=1e-12)
+        rcp = 1.0 / safe
+        for _ in range(abs(rcp_ulps)):
+            rcp = torch.nextafter(rcp, torch.tensor(
+                float("inf") if rcp_ulps > 0 else 0.0))
+        v = xs * rcp
+        m = v + magic
+        d = v - (m - magic)
+        fast = m.view(torch.int32) & 0xF
+        exact_q = torch.clamp(torch.round(xs / safe), -7, 7) + 8
+        exact = d.abs() > near
+        got = torch.where(exact, exact_q.to(torch.int32), fast)
+        assert torch.equal(got, exact_q.to(torch.int32)), float(amax)
+        quot = xs / safe
+        ties += int((quot - quot.floor() == 0.5).sum())
+        flagged += int(exact.sum())
+    assert ties > 300 and flagged >= ties
 
 
 # ---------------------------------------------------------------------------
