@@ -24,17 +24,29 @@ then:
    pointer chase (`ssd_step.smem_chase`), with the card's highest SM
    clock (`nvidia-smi --query-gpu=clocks.max.sm`); and where an op's
    cycles go: clock64 cycles per op and the share spent waiting on the
-   op ring;
-3. the sweep path — the full 102-cell `paper` grid through
-   `repro_torch.sweep.runner.run_sweep` on the card, untruncated, held
-   against the committed `BENCH_sweep_paper.json` of the reference
-   package: counters, `wa_paper` and `wa_raw` exact, mean write latency
-   within rtol 1e-6 (the reference sums float32 latencies in its own
-   order). The kernel's launch count is zeroed just before and read
-   just after: the whole grid is ONE launch. Each group's device ms
-   comes from the kernel's per-block %globaltimer stamps, with its
-   longest cell's ns and clock64 cycles per op; the launch's own time
-   from CUDA events; the grid's bytes bound beside its chain bound (the
+   op ring. Then the kernel's wear form (cells that track endurance):
+   per-op streams of `ips_raro`, `base_wl` and `ips` with wear, both
+   modes, 2048 ops of hm_0 and proj_0 at small caches so that the gate,
+   the fallback, the end of life and the read penalty fire, every
+   `WearState` and `SimState` leaf and every latency held to the plain
+   version, bit for bit, each job alone and the six in one launch;
+3. the sweep paths — through `repro_torch.sweep.runner.run_sweep` on the
+   card, untruncated, each grid with the kernel's launch count zeroed
+   just before and read just after (each grid is ONE launch): the
+   102-cell `paper` grid against the committed `BENCH_sweep_paper.json`
+   of the reference package, its traces built with the port's on-disk
+   trace cache cold (emptied first) and again warm (a fresh cache object
+   over the same directory, under `build/`); the 24-cell `endurance`
+   grid (every cell tracks wear, in the kernel's wear form) against the
+   committed `BENCH_sweep_endurance.json`; the `stress`, `mixed` and
+   `sensitivity` grids against the reference's uncut runs recorded in
+   `tests/data/torch_reference_sweeps.json`. Counters, `wa_paper`,
+   `wa_raw` and the lifetime columns exact; mean write latency and the
+   two bucket means (`eff_cycles_mean`, `cycle_skew`) within rtol 1e-6
+   (the reference sums float32 values in its own order). Each group's
+   device ms comes from the kernel's per-block %globaltimer stamps, with
+   its longest cell's ns and clock64 cycles per op; the launch's own time
+   from CUDA events; each grid's bytes bound beside its chain bound (the
    longest cell's stepped ops x one dependent shared-memory load);
 4. build — the serving path's three kernels (`ips_repack`,
    `tiered_decode`, `flash_fwd`): build seconds, ptxas registers and
@@ -121,6 +133,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -136,11 +149,22 @@ TF32_OPS_PER_S = 495e12         # H100 SXM TF32 dense tensor cores
 # composition (coop, daily), counted in csrc/ssd_step.cu and rounded up;
 # the pad ops replayed in the kernel are not counted
 CORE_F32_OPS = 32
+# ... and what the wear form adds to an op (the gate's sum, the read
+# penalty's two sums, products and divisions, the placement's 8 FMAs and
+# compares, the end-of-life check's 8 FMAs and max), rounded up
+WEAR_F32_OPS = 136
+WEAR_OPS = 2048                 # ops per phase-2 wear stream
 SMOKE_OPS = 4096                # live ops per phase-2 trace
 SMOKE_PAD = 8192                # identical tail pads per phase-2 trace
 EXACT = ("wa_paper", "wa_raw", "slc_writes", "tlc_writes", "reprogram_host",
          "reprogram_agc", "reprogram_trad", "migrations", "erases",
          "host_pages", "conflict_ms", "n_ops")
+# the lifetime columns: exact, but the two means over buckets, which the
+# port sums in float64 (rtol 1e-6, like the mean latency)
+WEAR_EXACT = ("eff_cycles_max", "tbw_proj_gb", "eol_op", "pe_slc_total",
+              "pe_rp_total", "pe_tlc_total", "pe_trad_total",
+              "erase_events")
+WEAR_CLOSE = ("eff_cycles_mean", "cycle_skew", "mean_write_latency_ms")
 
 
 CARD = None     # `nvidia-smi --query-gpu=name,power.limit`, once known
@@ -185,8 +209,19 @@ def leaves_equal(label, got, want) -> float:
     import torch
     lat_g, st_g = got
     lat_w, st_w = want
-    pairs = [("latency", lat_g, lat_w)] + [
-        (f, getattr(st_g, f), getattr(st_w, f)) for f in st_g._fields]
+    pairs = [("latency", lat_g, lat_w)]
+
+    def add(prefix, a, b):
+        for f in b._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None):
+                fail(f"{label}: {prefix}{f} present on one side only")
+            if isinstance(y, tuple):
+                add(f"{f}.", x, y)
+            elif y is not None:
+                pairs.append((prefix + f, x, y))
+
+    add("", st_g, st_w)
     err = 0.0
     for name, g, w in pairs:
         g = g.cpu()
@@ -213,7 +248,7 @@ def mixed_launch_vs_plain(cfg, n_logical, cuda) -> dict:
     import numpy as np
     import torch
     from repro_torch.core.ssd.policies.spec import PolicySpec
-    from repro_torch.core.ssd.policies.state import CellParams, init_state
+    from repro_torch.core.ssd.policies.state import init_state, map_state
     from repro_torch.core.ssd.sim import default_params
     from repro_torch.kernels.ssd_step import ops as ssd_step
     from repro_torch.workloads import build_ops, compress_ops, truncate_trace
@@ -255,20 +290,13 @@ def mixed_launch_vs_plain(cfg, n_logical, cuda) -> dict:
                              arrays.items()},
                     init_state(cfg, n_logical, packed=form == "K=1",
                                n_cells=1, device="cpu"),
-                    mode == "bursty", CellParams(*(x[None] for x in params)),
+                    mode == "bursty", map_state(lambda x: x[None], params),
                     n_pad, torch.tensor([pad_t], dtype=torch.float32)))
                 labels.append(f"{getattr(policy, 'composition', policy)}/"
                               f"{mode}/{form}/{n_ops} ops")
 
-    def on_card(job):
-        return job._replace(
-            segs={k: v.to(cuda) for k, v in job.segs.items()},
-            state0=type(job.state0)(*(x.to(cuda) for x in job.state0)),
-            params=type(job.params)(*(x.to(cuda) for x in job.params)),
-            pad_t=job.pad_t.to(cuda))
-
     before = ssd_step.launches
-    got = ssd_step.run_streams(cfg, [on_card(j) for j in jobs])
+    got = ssd_step.run_streams(cfg, [on_card(j, cuda) for j in jobs])
     torch.cuda.synchronize()
     if ssd_step.launches != before + 1:
         fail("phase 2: the mixed jobs took more than one launch")
@@ -281,6 +309,101 @@ def mixed_launch_vs_plain(cfg, n_logical, cuda) -> dict:
             "stream_ops": [int(j.segs["lba"].numel()) for j in jobs]}
 
 
+def on_card(job, cuda):
+    """A CPU `StreamJob` with every tensor moved to the card."""
+    from repro_torch.core.ssd.policies.state import map_state
+    return job._replace(
+        segs={k: v.to(cuda) for k, v in job.segs.items()},
+        state0=map_state(lambda x: x.to(cuda), job.state0),
+        params=map_state(lambda x: x.to(cuda), job.params),
+        pad_t=None if job.pad_t is None else job.pad_t.to(cuda))
+
+
+def wear_jobs(cfg, n_logical, traces, cells_of=None):
+    """Phase 2's wear streams: ips_raro, base_wl and ips x both modes,
+    the per-op form of hm_0 and proj_0 (WEAR_OPS ops each, every op
+    stepped), at small caches and budgets so that the gate, the
+    fallback, the end of life and the read penalty all fire. CPU jobs,
+    one per (policy, mode), `c_cnt` cells each."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+    from repro_torch.core.ssd.policies.state import init_state, map_state
+    from repro_torch.core.ssd.sim import default_params
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+
+    spec = EnduranceSpec(w_rp=4.0, w_erase=1.0, cycle_budget=3.0,
+                         rp_budget=0.75, read_penalty_ms=0.05,
+                         rp_hysteresis=0.25)
+    arrays = {k: np.stack([t[k][:WEAR_OPS] for t in traces]).astype(
+        np.float32 if k == "arrival_ms" else np.int32)
+        .reshape(len(traces), WEAR_OPS, 1) for k in traces[0]}
+    jobs, labels = [], []
+    for policy in ("ips_raro", "base_wl", "ips"):
+        for mode in ("daily", "bursty"):
+            p = default_params(cfg, policy, 0.05, spec, device="cpu")
+            p = p._replace(cap_basic=torch.tensor(8, dtype=torch.int32),
+                           cap_trad=torch.tensor(8, dtype=torch.int32))
+            c_cnt = len(traces)
+            jobs.append(ssd_step.StreamJob(
+                policy, {k: torch.from_numpy(v) for k, v in arrays.items()},
+                init_state(cfg, n_logical, packed=True, n_cells=c_cnt,
+                           endurance=True, device="cpu"),
+                mode == "bursty",
+                map_state(lambda x: torch.stack([x] * c_cnt), p)))
+            labels.append(f"{policy}/{mode}/wear")
+    return jobs, labels
+
+
+def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
+    """The kernel's wear form against its plain version: each wear job in
+    its own launch (timed by CUDA events), then all of them in one
+    launch; every leaf, the wear carry's included, equal. (Phase 3's
+    sensitivity grid mixes wear and plain cells in its one launch.)"""
+    import time as _time
+    import torch
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+
+    jobs, labels = wear_jobs(cfg, n_logical, traces)
+    kernel_ms, plain_s, err, fired, wants = 0.0, 0.0, 0.0, [], []
+    for job, label in zip(jobs, labels):
+        got = ssd_step.run_streams(cfg, [on_card(job, cuda)])[0]
+        torch.cuda.synchronize()
+        start, end = ssd_step.events[-1]
+        kernel_ms += start.elapsed_time(end)
+        t1 = _time.perf_counter()
+        want = ssd_step.run_streams(cfg, [job])[0]
+        plain_s += _time.perf_counter() - t1
+        wants.append(want)
+        err = max(err, leaves_equal(label, got, want))
+        wear = want[1].wear
+        fired.append({"job": label,
+                      "eol_op": [float(x) for x in wear.eol_op],
+                      "pe_rp_total": float(wear.pe_rp.sum()),
+                      "pe_slc_total": float(wear.pe_slc.sum())})
+    if not any(f["eol_op"][0] > 0 for f in fired):
+        fail("phase 2 wear: no cell reached its end of life")
+    # and all of them in one launch
+    before = ssd_step.launches
+    got = ssd_step.run_streams(cfg, [on_card(j, cuda) for j in jobs])
+    torch.cuda.synchronize()
+    if ssd_step.launches != before + 1:
+        fail("phase 2 wear: the wear jobs took more than one launch")
+    for res, want, label in zip(got, wants, labels):
+        err = max(err, leaves_equal(f"one launch {label}", res, want))
+    c_cnt = len(traces)
+    n_ops = len(jobs) * c_cnt * WEAR_OPS
+    wear_bytes = len(jobs) * (stream_bytes(c_cnt, WEAR_OPS, False,
+                                           cfg.num_planes, n_logical)
+                              + c_cnt * 2 * 4 * (2 * cfg.num_planes * 8
+                                                 + 4 * cfg.num_planes + 2))
+    bound, by = bound_ms(wear_bytes, n_ops * (CORE_F32_OPS + WEAR_F32_OPS))
+    return {"jobs": labels, "cells_per_job": c_cnt, "ops": WEAR_OPS,
+            "equal": True, "max_abs_err": err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
+            "launches": len(jobs) + 1, "fired": fired}
+
+
 def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
     """Where an op's cycles go: phase 2's per-op streams (hm_0 and
     proj_0, 4096 ops and the 8192-op pad tail) under each paper policy
@@ -288,7 +411,7 @@ def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
     its longest cell, and the share spent waiting on the op ring."""
     import torch
     from repro_torch.core.ssd.policies.registry import PAPER_POLICIES
-    from repro_torch.core.ssd.policies.state import CellParams, init_state
+    from repro_torch.core.ssd.policies.state import init_state, map_state
     from repro_torch.core.ssd.sim import default_params
     from repro_torch.kernels.ssd_step import ops as ssd_step
 
@@ -302,8 +425,8 @@ def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
                          for k, v in per_op.items()},
                 init_state(cfg, n_logical, packed=True, n_cells=c_cnt,
                            device=cuda), mode == "bursty",
-                CellParams(*(torch.stack([x] * c_cnt).to(cuda)
-                             for x in params)),
+                map_state(lambda x: torch.stack([x] * c_cnt).to(cuda),
+                          params),
                 SMOKE_PAD, torch.from_numpy(pad_t).to(cuda)))
             labels.append(f"{policy}/{mode}")
     cols = {c: i for i, c in enumerate(ssd_step.TIMER_COLUMNS)}
@@ -1566,6 +1689,101 @@ def serve_main_path(cuda, arch) -> dict:
                         for n, v in totals.items()}}
 
 
+def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
+               max_sm_mhz) -> dict:
+    """One sweep path: `grid` through `run_sweep` on the card, its traces
+    through the port's trace cache at `cache_dir`, with the kernel's
+    count zeroed just before and read just after (one launch); every
+    cell held to `ref` (the reference's results by key)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.sweep.report import policy_geomeans
+    from repro_torch.sweep.runner import run_sweep
+    from repro_torch.workloads import TraceCache
+
+    points = named_grid(grid)
+    cache = TraceCache(root=cache_dir)
+    timings = []
+    ssd_step.reset()
+    t1 = time.perf_counter()
+    results = run_sweep(cfg, points, device=cuda, timings=timings,
+                        trace_cache=cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ssd_step.launches
+    if launches != 1:
+        fail(f"{grid}: the sweep launched the kernel {launches} times for "
+             f"{len(timings)} groups; a grid is one launch")
+    worst = 0.0
+    for pt in points:
+        got, want = results[pt], ref.get(pt.key)
+        if want is None:
+            fail(f"{grid}: {pt.key} has no reference result")
+        if set(got) != set(want):
+            fail(f"{grid}: {pt.key} reports {sorted(set(got) ^ set(want))} "
+                 "on one side only")
+        for key in EXACT + WEAR_EXACT:
+            if key in want and got[key] != want[key]:
+                fail(f"{grid}: {pt.key}: {key} = {got[key]!r}, reference "
+                     f"{want[key]!r}")
+        for key in WEAR_CLOSE:
+            if key not in want:
+                continue
+            a, b = got[key], want[key]
+            if not np.isfinite(a) or abs(a - b) > 1e-6 * abs(b):
+                fail(f"{grid}: {pt.key}: {key} = {a!r}, reference {b!r}")
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    grid_ms = timings[0]["launch_ms"]
+    if grid_ms is None or any(g["kernel_ms"] is None for g in timings):
+        fail(f"{grid}: the launch's events or block timers are missing")
+    padded_ops = sum(g["cells"] * g["t_len"] for g in timings)
+    wear_cells = sum(g["cells"] for g in timings if g["endurance"])
+    grid_bytes = sum(stream_bytes(g["cells"], g["t_scan"], False,
+                                  cfg.num_planes, n_logical)
+                     for g in timings)
+    grid_bound, grid_by = bound_ms(
+        grid_bytes, sum(g["cells"] * g["t_scan"]
+                        * (CORE_F32_OPS + (WEAR_F32_OPS if g["endurance"]
+                                           else 0)) for g in timings))
+    # the chain bound: the longest cell's stepped ops (scanned and pads
+    # replayed), one dependent shared-memory load each, at the card's
+    # highest SM clock
+    longest = max(timings, key=lambda g: g["max_cell_ops"])
+    chain_bound = longest["max_cell_ops"] * smem_cycles / (max_sm_mhz * 1e3)
+    line = {
+        "grid": grid, "cells": len(points), "groups": len(timings),
+        "launches": launches, "wear_cells": wear_cells,
+        "matches_reference": True, "close_max_rel_err": worst,
+        "wall_s": wall, "ops_per_s": padded_ops / wall,
+        "kernel_ms": grid_ms, "bound_ms": grid_bound, "bound_by": grid_by,
+        "chain_bound_ms": chain_bound,
+        "longest_cell_ops": longest["max_cell_ops"],
+        "longest_cell_ns_per_op": longest["ns_per_op"],
+        "longest_cell_cycles_per_op":
+            longest["cycles"] / longest["max_cell_ops"],
+        "trace_cache": cache.stats(),
+        "group_kernel_ms": [{"group": f"{g['composition']}/{g['mode']}",
+                             "endurance": g["endurance"],
+                             "cells": g["cells"], "t_len": g["t_len"],
+                             "t_scan": g["t_scan"],
+                             "kernel_ms": g["kernel_ms"],
+                             "max_cell_ops": g["max_cell_ops"],
+                             "ns_per_op": g["ns_per_op"],
+                             "cycles_per_op": g["cycles"]
+                             / max(g["max_cell_ops"], 1),
+                             "wait_share": g["wait_cycles"]
+                             / max(g["cycles"], 1)}
+                            for g in timings]}
+    geomeans = {f"{m}/{p}": {k: v[k] for k in ("mean_write_latency_ms",
+                                               "wa_paper") if k in v}
+                for (m, p), v in sorted(policy_geomeans(results).items())}
+    line["geomeans"] = geomeans
+    return {"line": line, "geomeans": geomeans,
+            "trace_cache": cache.stats()}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1579,12 +1797,9 @@ def main() -> int:
     from repro_torch.configs.ssd_paper import PAPER_SSD
     from repro_torch.core.ssd.policies.registry import PAPER_POLICIES
     from repro_torch.kernels._build import build_all
-    from repro_torch.core.ssd.policies.state import CellParams, init_state
+    from repro_torch.core.ssd.policies.state import init_state, map_state
     from repro_torch.core.ssd.sim import default_params
     from repro_torch.kernels.ssd_step import ops as ssd_step
-    from repro_torch.sweep.grid import paper_grid
-    from repro_torch.sweep.report import policy_geomeans
-    from repro_torch.sweep.runner import run_sweep
     from repro_torch.workloads import build_ops, compress_ops, truncate_trace
 
     # ---- 1. device and build ----
@@ -1645,9 +1860,9 @@ def main() -> int:
     cases, kernel_ms, plain_s, max_err = [], 0.0, 0.0, 0.0
     for policy in PAPER_POLICIES:
         for mode in ("daily", "bursty"):
-            params = CellParams(*(torch.stack([x, x]) for x in
-                                  default_params(cfg, policy, 0.05,
-                                                 device="cpu")))
+            params = map_state(lambda x: torch.stack([x, x]),
+                               default_params(cfg, policy, 0.05,
+                                              device="cpu"))
             for form, arrays in (("K=1", per_op), ("K=32", seg)):
                 res = {}
                 for dev in (cuda, torch.device("cpu")):
@@ -1659,7 +1874,7 @@ def main() -> int:
                     res[dev.type] = ssd_step.run_stream(
                         cfg, policy, segs, state0,
                         closed_loop=(mode == "bursty"),
-                        params=CellParams(*(x.to(dev) for x in params)),
+                        params=map_state(lambda x: x.to(dev), params),
                         n_pad=SMOKE_PAD,
                         pad_t=torch.from_numpy(pad_t).to(dev))
                     if dev.type == "cuda":
@@ -1678,6 +1893,8 @@ def main() -> int:
     if smoke_launches != len(cases) + 1:
         fail(f"phase 2 launched the kernel {smoke_launches} times for "
              f"{len(cases)} comparisons and one mixed launch")
+    wear = wear_vs_plain(cfg, n_logical, cuda, traces)
+    emit({"phase": "wear_vs_plain", **wear})
     probe = ssd_step.smem_chase(1 << 22, cuda)
     emit({"phase": "smem_chase", **probe, "max_sm_mhz": max_sm_mhz})
     emit({"phase": "op_cycles", "smem_load_cycles": probe["cycles_per_load"],
@@ -1693,84 +1910,52 @@ def main() -> int:
           "plain_ms_k1": plain_s * 1e3, "bound_ms_k1": smoke_bound,
           "mixed_launch": mixed})
 
-    # ---- 3. the sweep path: the paper grid on the card ----
+    # ---- 3. the sweep paths: every device-only grid on the card ----
     with open(bench_path) as f:
         bench = json.load(f)
-    points = paper_grid()
-    timings = []
-    ssd_step.reset()
-    t1 = time.perf_counter()
-    results = run_sweep(cfg, points, device=cuda, timings=timings)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = ssd_step.launches
-    if launches != 1:
-        fail(f"main path launched the kernel {launches} times for "
-             f"{len(timings)} groups; the grid is one launch")
-    worst = 0.0
-    for pt in points:
-        got, want = results[pt], bench["results"].get(pt.key)
-        if want is None:
-            fail(f"{pt.key} is not in {bench_path}")
-        for key in EXACT:
-            if got[key] != want[key]:
-                fail(f"{pt.key}: {key} = {got[key]!r}, reference "
-                     f"{want[key]!r}")
-        a, b = got["mean_write_latency_ms"], want["mean_write_latency_ms"]
-        if not np.isfinite(a) or abs(a - b) > 1e-6 * abs(b):
-            fail(f"{pt.key}: mean_write_latency_ms = {a!r}, reference "
-                 f"{b!r}")
-        worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
-    geomeans = {f"{m}/{p}": v for (m, p), v in
-                sorted(policy_geomeans(results).items())}
-    for key, v in geomeans.items():
-        for metric in ("mean_write_latency_ms", "wa_paper"):
-            ref = bench["geomeans"][key][metric]
-            if abs(v[metric] - ref) > 1e-6 * abs(ref):
-                fail(f"geomean {key}/{metric} = {v[metric]!r}, reference "
-                     f"{ref!r}")
-    grid_ms = timings[0]["launch_ms"]
-    if grid_ms is None or any(g["kernel_ms"] is None for g in timings):
-        fail("main path: the launch's events or block timers are missing")
-    padded_ops = sum(g["cells"] * g["t_len"] for g in timings)
-    grid_bytes = sum(stream_bytes(g["cells"], g["t_scan"], False,
-                                  cfg.num_planes, n_logical)
-                     for g in timings)
-    grid_bound, grid_by = bound_ms(
-        grid_bytes, sum(g["cells"] * g["t_scan"] for g in timings)
-        * CORE_F32_OPS)
-    # the chain bound: the longest cell's stepped ops (scanned and pads
-    # replayed), one dependent shared-memory load each, at the card's
-    # highest SM clock
-    longest = max(timings, key=lambda g: g["max_cell_ops"])
-    chain_bound = (longest["max_cell_ops"] * probe["cycles_per_load"]
-                   / (max_sm_mhz * 1e3))
-    emit({"phase": "main_path", "cells": len(points),
-          "groups": len(timings), "launches": launches,
-          "matches_reference": True, "mean_latency_max_rel_err": worst,
-          "wall_s": wall, "ops_per_s": padded_ops / wall,
-          "kernel_ms": grid_ms, "bound_ms": grid_bound,
-          "bound_by": grid_by, "chain_bound_ms": chain_bound,
-          "longest_cell_ops": longest["max_cell_ops"],
-          "longest_cell_ns_per_op": longest["ns_per_op"],
-          "longest_cell_cycles_per_op":
-              longest["cycles"] / longest["max_cell_ops"],
-          "smem_load_cycles": probe["cycles_per_load"],
-          "max_sm_mhz": max_sm_mhz,
-          "geomeans": {k: {m: v[m] for m in ("mean_write_latency_ms",
-                                             "wa_paper")}
-                       for k, v in geomeans.items()},
-          "group_kernel_ms": [{"group": f"{g['composition']}/{g['mode']}",
-                               "cells": g["cells"], "t_len": g["t_len"],
-                               "t_scan": g["t_scan"],
-                               "kernel_ms": g["kernel_ms"],
-                               "max_cell_ops": g["max_cell_ops"],
-                               "ns_per_op": g["ns_per_op"],
-                               "cycles_per_op": g["cycles"]
-                               / max(g["max_cell_ops"], 1),
-                               "wait_share": g["wait_cycles"]
-                               / max(g["cycles"], 1)}
-                              for g in timings]})
+    with open(os.path.join(ROOT, "BENCH_sweep_endurance.json")) as f:
+        endur_ref = json.load(f)["results"]
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_reference_sweeps.json")) as f:
+        recorded = json.load(f)["grids"]
+    cache_dir = os.path.join(ROOT, "build", "trace_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    sweeps = {}
+    for run, grid, ref in (
+            ("paper_cold", "paper", bench["results"]),
+            ("paper_warm", "paper", bench["results"]),
+            ("endurance", "endurance", endur_ref),
+            ("stress", "stress", recorded["stress"]["results"]),
+            ("mixed", "mixed", recorded["mixed"]["results"]),
+            ("sensitivity", "sensitivity",
+             recorded["sensitivity"]["results"])):
+        sweeps[run] = sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir,
+                                 probe["cycles_per_load"], max_sm_mhz)
+        emit({"phase": "main_path", "run": run, **sweeps[run]["line"]})
+        if grid == "paper":
+            geomeans = sweeps[run]["geomeans"]
+            for key, v in geomeans.items():
+                for metric in ("mean_write_latency_ms", "wa_paper"):
+                    ref_v = bench["geomeans"][key][metric]
+                    if abs(v[metric] - ref_v) > 1e-6 * abs(ref_v):
+                        fail(f"geomean {key}/{metric} = {v[metric]!r}, "
+                             f"reference {ref_v!r}")
+    if sweeps["paper_warm"]["trace_cache"]["misses"] != 0:
+        fail("the warm paper run missed the trace cache")
+    emit({"phase": "trace_cache",
+          "paper_wall_cold_s": sweeps["paper_cold"]["line"]["wall_s"],
+          "paper_wall_warm_s": sweeps["paper_warm"]["line"]["wall_s"],
+          "cold": sweeps["paper_cold"]["trace_cache"],
+          "warm": sweeps["paper_warm"]["trace_cache"]})
+    emit({"phase": "wear_form_per_op",
+          "endurance_ns_per_op":
+              sweeps["endurance"]["line"]["longest_cell_ns_per_op"],
+          "endurance_cycles_per_op":
+              sweeps["endurance"]["line"]["longest_cell_cycles_per_op"],
+          "paper_ns_per_op":
+              sweeps["paper_warm"]["line"]["longest_cell_ns_per_op"],
+          "paper_cycles_per_op":
+              sweeps["paper_warm"]["line"]["longest_cell_cycles_per_op"]})
 
     # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
@@ -1787,20 +1972,37 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- the kernel table, then the contract's last line ----
+    paper = sweeps["paper_warm"]["line"]
     table = [{
         "name": "ssd_step", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_step/csrc/ssd_step.cu",
         "replaces": "src/repro/kernels/ssd_step/kernel.py:46",
-        "launches": launches,
+        # every sweep path's one launch, each counted from 0
+        "launches": sum(s["line"]["launches"] for s in sweeps.values()),
         # ms / plain_ms / bound_ms: the same work — phase 2's eight K = 1
         # launches, which the CPU plain version can also run
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_s * 1e3,
-        "bound_ms": smoke_bound, "bound_by": smoke_by, "library_ms": None,
-        # the sweep path: the paper grid's one launch, beside its bytes
-        # bound and the chain bound of its longest cell
-        "main_path_ms": grid_ms, "main_path_bound_ms": grid_bound,
-        "main_path_bound_by": grid_by,
-        "main_path_chain_bound_ms": chain_bound}]
+        "max_abs_err": max(max_err, wear["max_abs_err"]), "ms": kernel_ms,
+        "plain_ms": plain_s * 1e3, "bound_ms": smoke_bound,
+        "bound_by": smoke_by, "library_ms": None,
+        # the paper grid's one launch (warm), beside its bytes bound and
+        # the chain bound of its longest cell
+        "main_path_ms": paper["kernel_ms"],
+        "main_path_bound_ms": paper["bound_ms"],
+        "main_path_bound_by": paper["bound_by"],
+        "main_path_chain_bound_ms": paper["chain_bound_ms"],
+        # the wear form: phase 2's wear launches beside their plain
+        # version and bound, and the sweep paths that run wear cells
+        "wear_ms": wear["kernel_ms"], "wear_plain_ms": wear["plain_ms"],
+        "wear_bound_ms": wear["bound_ms"], "wear_bound_by": wear["bound_by"],
+        "wear_launches": sum(s["line"]["launches"] for s in sweeps.values()
+                             if s["line"]["wear_cells"]),
+        "wear_main_path_ms": sweeps["endurance"]["line"]["kernel_ms"],
+        "wear_ns_per_op":
+            sweeps["endurance"]["line"]["longest_cell_ns_per_op"],
+        "plain_form_ns_per_op": paper["longest_cell_ns_per_op"],
+        "main_paths": {run: {k: s["line"][k] for k in (
+            "launches", "kernel_ms", "wall_s", "bound_ms", "bound_by",
+            "chain_bound_ms")} for run, s in sweeps.items()}}]
     for name in ("ips_repack", "tiered_decode", "flash_fwd", "ssd_intra"):
         # launches and main-path times: every serving path that runs it
         paths = {arch: v["kernels"][name] for arch, v in by_path.items()

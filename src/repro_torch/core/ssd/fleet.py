@@ -12,7 +12,10 @@ on that cell with the same parameters, bit for bit.
 
 Memory: each cell's carry is dominated by its residency maps (`loc`
 int8 + `loc_ep` int16 over 2^16 logical pages, 192 KB), which the kernel
-holds in shared memory for the whole run.
+holds in shared memory for the whole run. A fleet whose cells track wear
+(`CellParams.endurance`) carries a `WearState` too, and steps every
+padded op: the reference's fleet takes no pad trim for it, since tail
+reclamation keeps erasing into the wear state.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.state import (CellParams, SimState,
-                                                 init_state)
+                                                 init_state, map_state)
 from repro_torch.core.ssd.sim import flush_cache, summarize
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.workloads.compress import TRIM_QUANTUM
@@ -45,8 +48,9 @@ class FleetGroup(NamedTuple):
 
 
 def stack_params(params: Sequence[CellParams]) -> CellParams:
-    """Stack per-cell CellParams into one CellParams of (C,) tensors."""
-    return CellParams(*(torch.stack(xs) for xs in zip(*params)))
+    """Stack per-cell CellParams into one CellParams of (C,) tensors
+    (the cells agree on whether they track wear)."""
+    return map_state(lambda *xs: torch.stack(xs), *params)
 
 
 def stack_ops(traces: Sequence[dict], device="cuda") -> dict:
@@ -86,7 +90,7 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
 
     `trim_pads` scans only each group's shared live prefix and replays
     each cell's identical pad tail to its exact fixed point inside the
-    same launch. `timer`: the kernel's optional (cells, 6) int64 block
+    same launch; groups that track wear step every op regardless. `timer`: the kernel's optional (cells, 6) int64 block
     timers over the groups' cells in order (`ssd_step.run_streams`).
     Results are identical either way, and equal `run_fleet` group by
     group."""
@@ -94,8 +98,9 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
     for g in groups:
         n_cells, t_len = g.ops["lba"].shape
         device = g.ops["lba"].device
+        endurance = g.params.endurance is not None
         t_scan = t_len
-        if trim_pads:
+        if trim_pads and not endurance:
             t_scan = _trim_len(g.ops["is_write"].cpu().numpy())
         n_pad = t_len - t_scan
         segs = {k: v[:, :t_scan].reshape(n_cells, t_scan, 1).contiguous()
@@ -103,7 +108,8 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
         pad_t = (g.ops["arrival_ms"][:, t_scan].contiguous() if n_pad
                  else None)
         state0 = init_state(cfg, n_logical, packed=g.packed,
-                            n_cells=n_cells, device=device)
+                            n_cells=n_cells, endurance=endurance,
+                            device=device)
         jobs.append(ssd_step.StreamJob(resolve_spec(g.policy), segs, state0,
                                        g.closed_loop, g.params, n_pad,
                                        pad_t))
@@ -131,7 +137,9 @@ def flush_fleet(cfg, states: SimState, policy) -> SimState:
     return flush_cache(cfg, states, policy)
 
 
-def summarize_fleet(latency, is_write, states: SimState) -> dict:
+def summarize_fleet(latency, is_write, states: SimState, *,
+                    params: CellParams | None = None, cfg=None) -> dict:
     """Per-cell summaries: dict of (C,) tensors (same keys as
-    `sim.summarize`)."""
-    return summarize(latency, is_write, states)
+    `sim.summarize`); pass the (C,)-stacked `params` and `cfg` for the
+    lifetime metrics of fleets that track wear."""
+    return summarize(latency, is_write, states, cell=params, cfg=cfg)

@@ -25,8 +25,8 @@ class AllocationMech:
     state_fields: Tuple[str, ...]
     default_caps: Callable           # cfg -> (cap_basic, cap_trad, cap_boost)
     eff_cap: Callable                # ctx -> effective basic capacity
-    wear_aware: bool = False         # coldest-bucket placement (needs wear
-    #                                  tracking, not ported yet)
+    wear_aware: bool = False         # place SLC programs in the coldest
+    #                                  wear bucket (needs wear tracking)
 
 
 def _static_caps(cfg):

@@ -6,10 +6,19 @@ selected *statically* from the spec (Python `if`s), exactly as the
 reference selects them at trace time, and run in its canonical order:
 
   1. triggered migrate reclamation        (mechanism == "migrate")
+  1b. gated-reprogram fallback migration  (mechanism == "reprogram_gated")
   2. dual-region traditional reclamation  (allocation dual, idle != none)
   3. AGC slot fill                        (idle == "agc")
-  4. generation completion                (mechanism == "reprogram")
+  4. generation completion                (mechanism == reprogram*)
   5. destination selection + service + bookkeeping (shared)
+
+Endurance tracking is orthogonal to the composition: when
+`CellParams.endurance` is set, every fragment and the shared section also
+book P/E events into the wear carry (`SimState.wear`), reads pay the
+retention penalty, `wear_min` places SLC programs in the coldest bucket,
+the gated mechanism's reliability gate is live, and the `eol_op` clock
+runs (the reference's `engine.py:245-267, 354-450`). Its float sites
+round as the reference's compiler rounds them (`endurance.model`).
 
 `_build_core` is the plain version of the per-op core: 0-d tensors, one
 op at a time, every float rounded where the reference rounds it. It is
@@ -24,16 +33,21 @@ what the `ssd_step` CUDA kernel computes, and the kernel's plain version
 
 Both executors update the residency maps of the state they are given in
 place (a Python loop that copied a 192 KB map per op would spend its
-time copying); the reduced carry stays functional. Compositions that
-need wear tracking (`reprogram_gated`, `wear_min`) are a later slice and
-raise NotImplementedError.
+time copying); the reduced carry stays functional. Wear rides the
+per-op executor only: the segment executor refuses a wear carry, as the
+reference's does.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.ssd.endurance.model import (WearState, bucket_cycles,
+                                                  coldest_bucket,
+                                                  plane_cycles, row_sum,
+                                                  trad_cycles)
 from repro_torch.core.ssd.policies import idle as idle_mod
 from repro_torch.core.ssd.policies import reclaim
 from repro_torch.core.ssd.policies.allocation import ALLOCATIONS
@@ -41,7 +55,8 @@ from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.spec import (PolicySpec,
                                                 requires_endurance,
                                                 tracked_region)
-from repro_torch.core.ssd.policies.state import CTR, CellParams, SimState
+from repro_torch.core.ssd.policies.state import (CTR, CellParams,
+                                                 SimState, fma32)
 
 __all__ = ["StepCtx", "Reduced", "CoreOut", "build_step",
            "build_segment_step", "reduced_of", "with_reduced",
@@ -62,6 +77,12 @@ class StepCtx:
         "dev_budget", "full_gap",
         "cap_basic", "cap_trad", "cap_boost", "waste_p",
         "c_mig", "c_agc", "c_trad_rp", "erase_ms", "ppb_slc",
+        "inv_c_mig", "inv_c_agc", "inv_c_trad_rp",
+        # wear tracking: track_wear is a Python bool; the pe_*/erase* rows
+        # are the local plane's wear, mutated by fragments like plane
+        # state; gate_ok/fallback_on are the gated mechanism's gate
+        "track_wear", "inv_buckets", "pe_slc_p", "pe_rp_p", "pe_tlc_p",
+        "erase_p", "pe_trad_p", "erase_trad_p", "gate_ok", "fallback_on",
     )
 
 
@@ -84,48 +105,67 @@ class CoreOut(NamedTuple):
     latency: torch.Tensor       # () f32 — 0 for pads
     loc_val: torch.Tensor       # () i8  — residency value for op's lba
     loc_ep_val: torch.Tensor    # () i16 — epoch stamp for op's lba
+    wear: object = None         # the updated WearState, or None
 
 
 def core_constants(cfg) -> dict:
     """The composition-independent cost constants, as Python doubles.
     Each is rounded once to float32 where it meets a float32 tensor —
-    the rounding the reference's weak-typed Python floats get."""
+    the rounding the reference's weak-typed Python floats get. The
+    `inv_*` entries are what the reference's compiler divides by instead
+    (XLA's algebraic simplifier turns `x / c` for a constant `c` into `x
+    * (1 / c)`, the reciprocal rounded to float32), exact float32
+    values."""
     t_ = cfg.timing
-    return {"c_mig": t_.slc_read_ms + t_.tlc_write_ms,     # SLC -> TLC
-            "c_agc": t_.tlc_read_ms + t_.reprogram_ms,     # AGC fill
-            "c_trad_rp": t_.slc_read_ms + t_.reprogram_ms,  # trad -> IPS
-            "erase_ms": t_.erase_ms}
+    k = {"c_mig": t_.slc_read_ms + t_.tlc_write_ms,      # SLC -> TLC
+         "c_agc": t_.tlc_read_ms + t_.reprogram_ms,      # AGC fill
+         "c_trad_rp": t_.slc_read_ms + t_.reprogram_ms,  # trad -> IPS
+         "erase_ms": t_.erase_ms}
+    for name in ("c_mig", "c_agc", "c_trad_rp"):
+        k["inv_" + name] = float(np.float32(1.0) / np.float32(k[name]))
+    k["inv_buckets"] = float(np.float32(1.0)
+                             / np.float32(cfg.wear_buckets))
+    return k
 
 
-def check_composition(spec: PolicySpec) -> None:
-    """Refuse the compositions this slice of the port cannot run."""
-    if requires_endurance(spec):
-        raise NotImplementedError(
-            f"{spec.composition} needs endurance tracking, which the "
-            "PyTorch port does not carry yet")
+def check_composition(spec: PolicySpec, params: CellParams) -> None:
+    """Refuse a composition that needs wear tracking without it."""
+    if requires_endurance(spec) and params.endurance is None:
+        raise ValueError(
+            f"{spec.composition} requires endurance tracking: pass "
+            "CellParams.endurance (default_cell attaches the default "
+            "EnduranceSpec knobs for such compositions)")
 
 
 def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
                 params: CellParams):
     """The whole per-op computation as a function of the reduced carry.
 
-    Returns `core(red, op, old_raw, old_ep) -> (Reduced, CoreOut)`;
-    `op` holds 0-d `arrival_ms` f32, `lba` i32, `is_write` i32;
-    `old_raw`/`old_ep` are the op's residency entries (i8, i16)."""
-    check_composition(spec)
+    Returns `core(red, op, old_raw, old_ep, wear=None) -> (Reduced,
+    CoreOut)`; `op` holds 0-d `arrival_ms` f32, `lba` i32, `is_write`
+    i32; `old_raw`/`old_ep` are the op's residency entries (i8, i16);
+    `wear` is the cell's WearState when `params.endurance` is set."""
+    check_composition(spec, params)
     t_ = cfg.timing
     p_total = cfg.num_planes
     alloc = ALLOCATIONS[spec.allocation]
     dual = alloc.dual
-    use_rp = spec.mechanism == "reprogram"
+    gated = spec.mechanism == "reprogram_gated"
+    use_rp = spec.mechanism in ("reprogram", "reprogram_gated")
     run_migrate = spec.mechanism == "migrate"
     run_dual_reclaim = dual and spec.idle != "none"
     run_agc = spec.idle == "agc"
     pressure = spec.trigger == "watermark"
     tracked = tracked_region(spec)
     consts = core_constants(cfg)
+    endur = params.endurance
+    use_endurance = endur is not None
+    n_buckets = cfg.wear_buckets
+    # gated regions keep ips's conservative read model: cache hits read at
+    # TLC speed (residency is tracked for migration accounting only)
+    hit_read_ms = t_.tlc_read_ms if gated else t_.slc_read_ms
 
-    def core(red: Reduced, op, old_raw, old_ep):
+    def core(red: Reduced, op, old_raw, old_ep, wear: WearState = None):
         t, lba, kind = op["arrival_ms"], op["lba"], op["is_write"]
         plane = lba % p_total
         # integer plane state may be carried packed (int16) — compute in
@@ -147,7 +187,28 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
         ctx.cap_boost, ctx.waste_p = params.cap_boost, params.waste_p
         ctx.c_mig, ctx.c_agc = consts["c_mig"], consts["c_agc"]
         ctx.c_trad_rp, ctx.erase_ms = consts["c_trad_rp"], consts["erase_ms"]
+        ctx.inv_c_mig, ctx.inv_c_agc = consts["inv_c_mig"], consts["inv_c_agc"]
+        ctx.inv_c_trad_rp = consts["inv_c_trad_rp"]
         ctx.ppb_slc = cfg.pages_per_slc_block
+        ctx.track_wear = use_endurance
+        if use_endurance:
+            ctx.inv_buckets = consts["inv_buckets"]
+            ctx.pe_slc_p = wear.pe_slc[plane]
+            ctx.pe_rp_p = wear.pe_rp[plane]
+            ctx.pe_tlc_p = wear.pe_tlc[plane]
+            ctx.erase_p = wear.erase[plane]
+            ctx.pe_trad_p = wear.pe_trad[plane]
+            ctx.erase_trad_p = wear.erase_trad[plane]
+            if gated:
+                # RARO-style reliability gate: the plane's per-page average
+                # reprogram count against the budget; the hysteresis band
+                # [rp_budget - rp_hysteresis, rp_budget) pre-arms the
+                # migrate fallback while conversion is still allowed
+                rp_count = row_sum(ctx.pe_rp_p) / torch.clamp_min(
+                    params.cap_basic.to(_F32), 1.0)
+                ctx.gate_ok = rp_count < endur.rp_budget
+                ctx.fallback_on = (rp_count
+                                   >= endur.rp_budget - endur.rp_hysteresis)
 
         # 1. idle work on this plane, lazily applied for [busy_p, t):
         # inter-arrival gaps above the threshold accumulate as device
@@ -164,10 +225,12 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
                                        torch.clamp_min(t - busy_p, 0.0))
             if run_migrate:
                 reclaim.migrate_reclaim(ctx, alloc, pressure=pressure)
+            if gated:
+                reclaim.gated_fallback_reclaim(ctx)
             if run_dual_reclaim:
                 reclaim.dual_reclaim(ctx)
             if run_agc:
-                idle_mod.agc_fill(ctx, dual=dual)
+                idle_mod.agc_fill(ctx, dual=dual, gated=gated)
 
         # generation completion: fully reprogrammed region -> fresh layer
         if use_rp:
@@ -200,6 +263,9 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
         if use_rp:
             rp_avail = 2 * slc_used - rp_done
             to_rp = is_write & ~to_slc & ~to_trad & (rp_avail > 0)
+            if gated:
+                # budget-exhausted blocks take no more reprogram stress
+                to_rp = to_rp & ctx.gate_ok
         else:
             to_rp = torch.zeros_like(to_slc)
         to_tlc = is_write & ~to_slc & ~to_trad & ~to_rp
@@ -207,11 +273,38 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
         prog_t = torch.where(to_slc | to_trad, t_.slc_write_ms,
                              torch.where(to_rp, t_.reprogram_ms,
                                          t_.tlc_write_ms))
-        read_t = torch.where(old_ok, t_.slc_read_ms, t_.tlc_read_ms)
+        read_t = torch.where(old_ok, hit_read_ms, t_.tlc_read_ms)
+        if use_endurance:
+            # retention read cost: aged blocks need read-retry, ramping to
+            # read_penalty_ms at the cycle budget (worst of the plane's
+            # basic and traditional regions)
+            aged = torch.maximum(
+                plane_cycles(ctx.pe_slc_p, ctx.pe_rp_p, ctx.erase_p, endur,
+                             params.cap_basic, dual=dual),
+                trad_cycles(ctx.pe_trad_p, ctx.erase_trad_p, endur,
+                            params.cap_trad))
+            age = torch.clamp(
+                aged / torch.clamp_min(endur.cycle_budget, 1e-9), 0.0, 1.0)
+            read_t = fma32(endur.read_penalty_ms, age, read_t)
         service = torch.where(is_write, prog_t, read_t)
         service = torch.where(is_pad, 0.0, service)
         latency = torch.where(is_pad, 0.0, wait + conflict + service)
         busy_new = torch.where(is_pad, busy_p, start + service)
+
+        # wear placement: a basic-region program lands in the sequential
+        # fill position's bucket (the coldest under wear-aware
+        # allocation); reprogram stress at the conversion position
+        if use_endurance:
+            if alloc.wear_aware:
+                bkt_slc = coldest_bucket(ctx.pe_slc_p, ctx.pe_rp_p, endur)
+            else:
+                bkt_slc = torch.clamp(
+                    slc_used * n_buckets
+                    // torch.clamp_min(params.cap_basic, 1),
+                    0, n_buckets - 1)
+            bkt_rp = torch.clamp(
+                rp_done * n_buckets // torch.clamp_min(2 * slc_used, 1),
+                0, n_buckets - 1)
 
         # bookkeeping
         slc_used = slc_used + to_slc.to(_I32)
@@ -242,6 +335,33 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
         loc_ep_val = torch.where(is_write & track_new, epoch_p.to(_I16),
                                  old_ep)
 
+        wear_new = None
+        if use_endurance:
+            pe_slc_new = ctx.pe_slc_p.clone()
+            pe_slc_new[bkt_slc] += torch.where(to_slc, 1.0, 0.0)
+            pe_rp_new = ctx.pe_rp_p.clone()
+            pe_rp_new[bkt_rp] += torch.where(to_rp, 1.0, 0.0)
+            pe_tlc_new = ctx.pe_tlc_p + torch.where(to_tlc, 1.0, 0.0)
+            pe_trad_new = ctx.pe_trad_p + torch.where(to_trad, 1.0, 0.0)
+            ops_seen = wear.ops_seen + torch.where(is_pad, 0.0, 1.0)
+            max_cycles = torch.maximum(
+                bucket_cycles(pe_slc_new, pe_rp_new, ctx.erase_p, endur,
+                              params.cap_basic).max(),
+                trad_cycles(pe_trad_new, ctx.erase_trad_p, endur,
+                            params.cap_trad))
+            tripped = max_cycles >= endur.cycle_budget
+            rows = {"pe_slc": pe_slc_new, "pe_rp": pe_rp_new,
+                    "pe_tlc": pe_tlc_new, "erase": ctx.erase_p,
+                    "pe_trad": pe_trad_new, "erase_trad": ctx.erase_trad_p}
+            leaves = {}
+            for name, row in rows.items():
+                leaves[name] = getattr(wear, name).clone()
+                leaves[name][plane] = row
+            wear_new = WearState(
+                **leaves, ops_seen=ops_seen,
+                eol_op=torch.where((wear.eol_op < 0) & tripped & ~is_pad,
+                                   ops_seen, wear.eol_op))
+
         busy = red.busy.clone()
         busy[plane] = torch.where(is_pad, busy_p, busy_new)
         slc = red.slc_used.clone()
@@ -264,7 +384,7 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
             prev_t=torch.where(is_pad, red.prev_t, t),
             idle_cum=idle_cum, idle_seen=seen)
         return new_red, CoreOut(latency=latency, loc_val=loc_val,
-                                loc_ep_val=loc_ep_val)
+                                loc_ep_val=loc_ep_val, wear=wear_new)
 
     return core
 
@@ -278,30 +398,33 @@ def reduced_of(state: SimState) -> Reduced:
                    idle_cum=state.idle_cum, idle_seen=state.idle_seen)
 
 
-def with_reduced(red: Reduced, loc, loc_ep) -> SimState:
-    """Reassemble a SimState from a reduced carry and residency maps."""
+def with_reduced(red: Reduced, loc, loc_ep, wear=None) -> SimState:
+    """Reassemble a SimState from a reduced carry, residency maps and
+    the wear carry (None without endurance)."""
     return SimState(busy=red.busy, slc_used=red.slc_used,
                     rp_done=red.rp_done, trad_used=red.trad_used,
                     valid_mig=red.valid_mig, epoch=red.epoch, loc=loc,
                     loc_ep=loc_ep, counters=red.counters,
                     prev_t=red.prev_t, idle_cum=red.idle_cum,
-                    idle_seen=red.idle_seen)
+                    idle_seen=red.idle_seen, wear=wear)
 
 
 def build_step(cfg, policy, *, closed_loop: bool, params: CellParams):
     """The per-op executor specialized to (composition, mode):
     `step(state, op) -> (state, latency)`. The residency maps of `state`
-    are updated in place."""
+    are updated in place; the wear carry rides along when
+    `params.endurance` is set."""
     spec = resolve_spec(policy)
     core = _build_core(cfg, spec, closed_loop=closed_loop, params=params)
 
     def step(state: SimState, op):
         lba = op["lba"]
         red, out = core(reduced_of(state), op, state.loc[lba],
-                        state.loc_ep[lba])
+                        state.loc_ep[lba], wear=state.wear)
         state.loc[lba] = out.loc_val
         state.loc_ep[lba] = out.loc_ep_val
-        return with_reduced(red, state.loc, state.loc_ep), out.latency
+        return with_reduced(red, state.loc, state.loc_ep,
+                            out.wear), out.latency
 
     return step
 
@@ -318,6 +441,9 @@ def build_segment_step(cfg, policy, *, closed_loop: bool,
     have gathered after its predecessor's write-back, so the two
     executors agree bit for bit."""
     spec = resolve_spec(policy)
+    if params.endurance is not None:
+        raise ValueError("the segment executor does not carry wear state; "
+                         "run endurance cells through the per-op step")
     core = _build_core(cfg, spec, closed_loop=closed_loop, params=params)
 
     def seg_step(carry, seg):

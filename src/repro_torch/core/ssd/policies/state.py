@@ -8,9 +8,13 @@ int32 — or int16 when the state is *packed* (`init_state(packed=True)`,
 gated by `can_pack`) — and `epoch` wrapping mod 2^16 in the packed
 layout, congruent with the int16 `loc_ep` stamps it is compared against.
 
-The reference's optional trailing carries (wear, telemetry timeline,
-host-tier cache) belong to later slices of the port and are absent.
-Leaves are 0-d (one cell) or carry a leading cell axis (a fleet).
+`SimState.wear` is the reference's optional trailing wear carry
+(`endurance.model.WearState`): None unless the cell tracks endurance
+(`CellParams.endurance` set), so a run without it keeps the seed layout.
+The reference's other trailing carries (telemetry timeline, host-tier
+cache) belong to later slices of the port and are absent. Leaves are 0-d
+(one cell) or carry a leading cell axis (a fleet); `map_state` maps a
+function over the tensor leaves, the wear carry's included.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["CellParams", "SimState", "CTR", "init_state", "default_cell",
-           "can_pack", "WATERMARK_NUM", "WATERMARK_DEN", "OVERRUN_PAGES",
-           "ceil_div", "fma32"]
+           "can_pack", "map_state", "WATERMARK_NUM",
+           "WATERMARK_DEN", "OVERRUN_PAGES", "ceil_div", "fma32"]
 
 # block-granularity reclamation model: pressure watermark + per-op overrun
 WATERMARK_NUM, WATERMARK_DEN = 7, 8
@@ -36,6 +40,8 @@ class CellParams(NamedTuple):
     waste_p: torch.Tensor     # f32 — AGC early-migration waste probability
     cap_boost: torch.Tensor   # i32 — adaptive allocation: extra SLC pages
     #                           unlocked above the watermark (0 otherwise)
+    endurance: object = None  # endurance.model.EnduranceParams, or None:
+    #                           wear tracking off
 
 
 class SimState(NamedTuple):
@@ -51,6 +57,7 @@ class SimState(NamedTuple):
     prev_t: torch.Tensor      # () f32 — last arrival (device-level idle)
     idle_cum: torch.Tensor    # () f32 — cumulative usable device idle
     idle_seen: torch.Tensor   # (P,) f32 — idle_cum consumed per plane
+    wear: object = None       # endurance.model.WearState, or None
 
 
 CTR = {name: i for i, name in enumerate(
@@ -109,10 +116,12 @@ def can_pack(cfg, n_logical: int, params: CellParams) -> bool:
 
 
 def init_state(cfg, n_logical: int, *, packed: bool = False,
-               n_cells: int | None = None, device="cuda") -> SimState:
+               n_cells: int | None = None, endurance: bool = False,
+               device="cuda") -> SimState:
     """Fresh carry for one cell, or for `n_cells` cells with a leading
     cell axis. `packed` carries the integer plane fields as int16 (gate
-    on `can_pack`); results are identical either way."""
+    on `can_pack`); results are identical either way. `endurance`
+    attaches a zero `WearState`."""
     p = cfg.num_planes
     dt_i = torch.int16 if packed else torch.int32
     lead = () if n_cells is None else (n_cells,)
@@ -120,6 +129,10 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
     def zeros(shape, dtype):
         return torch.zeros(lead + shape, dtype=dtype, device=device)
 
+    wear = None
+    if endurance:
+        from repro_torch.core.ssd.endurance.model import init_wear
+        wear = init_wear(cfg, n_cells, device=device)
     return SimState(
         busy=zeros((p,), torch.float32),
         slc_used=zeros((p,), dt_i),
@@ -134,14 +147,35 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
         prev_t=zeros((), torch.float32),
         idle_cum=zeros((), torch.float32),
         idle_seen=zeros((p,), torch.float32),
+        wear=wear,
     )
 
 
-def default_cell(cfg, spec, waste_p: float = 0.0, *,
+def map_state(fn, *states):
+    """The `SimState` (or `CellParams`) whose every tensor leaf is
+    `fn(*leaves)` of the matching leaves of `states`; the wear carry (or
+    the endurance knobs) is mapped leaf by leaf, None stays None."""
+    def one(*xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*(one(*ys) for ys in zip(*xs)))
+        return fn(*xs)
+    return type(states[0])(*(one(*xs) for xs in zip(*states)))
+
+
+def default_cell(cfg, spec, waste_p: float = 0.0, endurance=None, *,
                  device="cuda") -> CellParams:
     """CellParams matching the static config for one composition (the
-    per-name defaults come from the allocation mechanism)."""
+    per-name defaults come from the allocation mechanism). `endurance`
+    (an `EnduranceSpec`) turns wear tracking on; compositions that
+    require it get the default `EnduranceSpec` when it is None."""
+    from repro_torch.core.ssd.endurance.model import as_params
+    from repro_torch.core.ssd.endurance.spec import EnduranceSpec
     from repro_torch.core.ssd.policies.allocation import ALLOCATIONS
+    from repro_torch.core.ssd.policies.spec import requires_endurance
+    if endurance is None and requires_endurance(spec):
+        endurance = EnduranceSpec()
     cap_basic, cap_trad, cap_boost = \
         ALLOCATIONS[spec.allocation].default_caps(cfg)
 
@@ -153,4 +187,6 @@ def default_cell(cfg, spec, waste_p: float = 0.0, *,
 
     return CellParams(cap_basic=i32(cap_basic), cap_trad=i32(cap_trad),
                       idle_thr=f32(cfg.idle_threshold_ms),
-                      waste_p=f32(waste_p), cap_boost=i32(cap_boost))
+                      waste_p=f32(waste_p), cap_boost=i32(cap_boost),
+                      endurance=None if endurance is None
+                      else as_params(endurance, device=device))

@@ -15,6 +15,8 @@ unchanged every further pad would too. `run_trace` and `run_compressed`
 therefore scan only the live prefix and replay the tail to that exact
 fixed point (`replay_pads`); pads emit latency 0.0 and write their
 residency entry back unchanged, so the result equals scanning every op.
+A run that tracks wear (`CellParams.endurance`) steps every padded op,
+as the reference's does, and has no compressed path.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.spec import tracked_region
 from repro_torch.core.ssd.policies.state import (CTR, CellParams, SimState,
                                                  ceil_div, default_cell,
-                                                 init_state)
+                                                 init_state, map_state)
 from repro_torch.kernels.ssd_step import ops as ssd_step
 
 __all__ = ["default_params", "run_trace", "replay_pads", "run_compressed",
@@ -35,10 +37,13 @@ __all__ = ["default_params", "run_trace", "replay_pads", "run_compressed",
 _F32 = torch.float32
 
 
-def default_params(cfg, policy, waste_p: float = 0.0, *,
+def default_params(cfg, policy, waste_p: float = 0.0, endurance=None, *,
                    device="cuda") -> CellParams:
-    """CellParams matching the static config for one policy."""
-    return default_cell(cfg, resolve_spec(policy), waste_p, device=device)
+    """CellParams matching the static config for one policy;
+    `endurance` (an `EnduranceSpec`) turns wear tracking on, and
+    compositions that require it get the default knobs."""
+    return default_cell(cfg, resolve_spec(policy), waste_p, endurance,
+                        device=device)
 
 
 def as_ops(trace, device="cuda") -> dict:
@@ -72,12 +77,14 @@ def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
               waste_p: float = 0.0, params: CellParams | None = None,
               packed: bool = False, device="cuda"):
     """Simulate one padded trace. Returns (per-op latency (T,), final
-    SimState). `packed` carries the integer plane fields as int16
-    (gate on `policies.state.can_pack`); results are identical."""
+    SimState; its `wear` when `params.endurance` is set). `packed`
+    carries the integer plane fields as int16 (gate on
+    `policies.state.can_pack`); results are identical."""
     if params is None:
         params = default_params(cfg, policy, waste_p, device=device)
+    endurance = params.endurance is not None
     t_len = len(trace["lba"])
-    n_scan = scan_len(trace)
+    n_scan = t_len if endurance else scan_len(trace)
     ops = as_ops({k: np.asarray(trace[k])[:n_scan]
                   for k in ("arrival_ms", "lba", "is_write")}, device)
     pad_t = torch.as_tensor(
@@ -85,13 +92,14 @@ def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
         device=device)
     lat, final = ssd_step.run_stream(
         cfg, policy, {k: v.reshape(1, n_scan, 1) for k, v in ops.items()},
-        init_state(cfg, n_logical, packed=packed, n_cells=1, device=device),
-        closed_loop=closed_loop, params=CellParams(*map(_one, params)),
+        init_state(cfg, n_logical, packed=packed, n_cells=1,
+                   endurance=endurance, device=device),
+        closed_loop=closed_loop, params=map_state(_one, params),
         n_pad=t_len - n_scan, pad_t=pad_t if n_scan < t_len else None)
     latency = torch.cat([lat.reshape(-1),
                          torch.zeros(t_len - n_scan, dtype=_F32,
                                      device=lat.device)])
-    return latency, SimState(*(x[0] for x in final))
+    return latency, map_state(lambda x: x[0], final)
 
 
 def _tree_equal(a, b) -> bool:
@@ -126,21 +134,25 @@ def run_compressed(cfg, policy, comp, *, closed_loop: bool, n_logical: int,
     """Simulate one compressed trace (`workloads.compress.compress_ops`):
     the (S, K) segment stream, then the pad tail. Returns (per-op latency
     over the original padded length, final SimState) — identical to
-    `run_trace` on the uncompressed trace, leaf for leaf."""
+    `run_trace` on the uncompressed trace, leaf for leaf. Runs that
+    track wear have no compressed path, as in the reference."""
     if params is None:
         params = default_params(cfg, policy, waste_p, device=device)
+    if params.endurance is not None:
+        raise ValueError("no compressed path for endurance runs; "
+                         "use run_trace")
     segs = {k: torch.as_tensor(v, device=device).unsqueeze(0)
             for k, v in comp.segs.items()}
     lat, final = ssd_step.run_stream(
         cfg, policy, segs,
         init_state(cfg, n_logical, packed=packed, n_cells=1, device=device),
-        closed_loop=closed_loop, params=CellParams(*map(_one, params)),
+        closed_loop=closed_loop, params=map_state(_one, params),
         n_pad=comp.n_pad,
         pad_t=torch.tensor([comp.pad_t], dtype=_F32, device=device))
     latency = torch.cat([lat.reshape(-1),
                          torch.zeros(comp.n_pad, dtype=_F32,
                                      device=lat.device)])
-    return latency, SimState(*(x[0] for x in final))
+    return latency, map_state(lambda x: x[0], final)
 
 
 def flush_cache(cfg, state: SimState, policy="baseline") -> SimState:
@@ -159,11 +171,14 @@ def flush_cache(cfg, state: SimState, policy="baseline") -> SimState:
     return state._replace(counters=ctr)
 
 
-def summarize(latency, is_write, state: SimState) -> dict:
+def summarize(latency, is_write, state: SimState, *,
+              cell: CellParams | None = None, cfg=None) -> dict:
     """Write-latency stats + write amplification from counters, for one
     cell ((T,) latency) or a fleet ((C, T)). The mean's float32 sum is
     accumulated in float64 and rounded once, so it does not depend on
-    the reduction order of the device."""
+    the reduction order of the device. When the run carried wear and the
+    caller passes its `CellParams` and config, the lifetime metrics of
+    `endurance.model.wear_summary` join the summary."""
     is_w = torch.as_tensor(is_write, device=latency.device) == 1
     lat_w = torch.where(is_w, latency, 0.0)
     n_w = torch.clamp_min(is_w.sum(-1), 1)
@@ -176,7 +191,14 @@ def summarize(latency, is_write, state: SimState) -> dict:
     host = torch.clamp_min(ctr("host_w"), 1.0)
     extra_paper = ctr("mig_w") + ctr("rp_trad") + ctr("agc_waste")
     extra_raw = ctr("mig_w") + ctr("rp_trad") + ctr("rp_agc")
-    return {
+    wear_metrics = {}
+    if (state.wear is not None and cell is not None
+            and cell.endurance is not None and cfg is not None):
+        from repro_torch.core.ssd.endurance.model import wear_summary
+        wear_metrics = wear_summary(state.wear, cell.endurance,
+                                    cell.cap_basic, cell.cap_trad,
+                                    cfg.page_bytes, ctr("host_w"))
+    return wear_metrics | {
         "mean_write_latency_ms": mean_lat,
         "wa_paper": 1.0 + extra_paper / host,
         "wa_raw": 1.0 + extra_raw / host,

@@ -8,8 +8,10 @@ return the port's tensors, dtype for dtype. Nothing here imports JAX:
 the caller converts (`[np.asarray(x) for x in jax.tree.leaves(state)]`).
 
 A carry may be one cell's or a fleet's (a leading cell axis on every
-leaf). Optional carries the port does not hold yet (wear, telemetry,
-host tier) show up as extra leaves and are refused.
+leaf). The wear carry (`SimState.wear`) and the endurance knobs
+(`CellParams.endurance`) cross as their eight trailing leaves; optional
+carries the port does not hold yet (telemetry, host tier) show up as
+other extra leaves and are refused.
 
 The serving path's model parameters and tiered caches cross as nested
 dicts of numpy arrays (`jax.tree.map(np.asarray, params)`):
@@ -24,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.ssd.endurance.model import EnduranceParams, WearState
 from repro_torch.core.ssd.policies.state import CellParams, SimState
 
 __all__ = ["state_from_jax", "params_from_jax", "model_params_from_jax",
@@ -55,18 +58,28 @@ def _tensor(name, x, dtypes, device):
     return torch.from_numpy(arr).to(device)
 
 
+_BASE_STATE = SimState._fields[:-1]          # all but `wear`
+_BASE_PARAMS = CellParams._fields[:-1]       # all but `endurance`
+
+
 def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
     """The reference's SimState leaves (numpy, field order) as a port
-    SimState. Exactly the 12 base fields: a carry with wear, timeline or
-    host-tier leaves is refused."""
+    SimState: the 12 base fields, optionally followed by the 8 leaves of
+    the wear carry. A carry with telemetry or host-tier leaves is
+    refused."""
     leaves = list(leaves)
-    if len(leaves) != len(SimState._fields):
+    n_base, n_wear = len(_BASE_STATE), len(WearState._fields)
+    if len(leaves) not in (n_base, n_base + n_wear):
         raise ValueError(
-            f"expected the {len(SimState._fields)} base SimState leaves "
-            f"{SimState._fields}, got {len(leaves)}: the port carries no "
-            "wear, telemetry or host-tier state yet")
+            f"expected the {n_base} base SimState leaves {_BASE_STATE}, "
+            f"or those and the {n_wear} wear leaves, got {len(leaves)}: "
+            "the port carries no telemetry or host-tier state yet")
+    wear = None
+    if len(leaves) > n_base:
+        wear = WearState(*(_tensor(f, x, ("float32",), device) for f, x in
+                           zip(WearState._fields, leaves[n_base:])))
     state = SimState(*(_tensor(f, x, _STATE_DTYPES[f], device)
-                       for f, x in zip(SimState._fields, leaves)))
+                       for f, x in zip(_BASE_STATE, leaves)), wear=wear)
     plane = {state.slc_used.dtype, state.rp_done.dtype,
              state.trad_used.dtype, state.valid_mig.dtype,
              state.epoch.dtype}
@@ -78,18 +91,26 @@ def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
 
 def params_from_jax(leaves: Sequence, *, device="cuda") -> CellParams:
     """The reference's CellParams leaves (numpy, field order) as a port
-    CellParams. Four leaves mean `cap_boost` was None (read as 0); more
-    than five mean endurance or host-tier knobs, which are refused."""
+    CellParams. Four leaves mean `cap_boost` was None (read as 0); the
+    five base leaves may be followed by the 8 endurance knobs; any other
+    count (host-tier knobs) is refused."""
     leaves = list(leaves)
     if len(leaves) == 4:
         leaves.append(np.zeros_like(np.asarray(leaves[0]), np.int32))
-    if len(leaves) != len(CellParams._fields):
+    n_base, n_end = len(_BASE_PARAMS), len(EnduranceParams._fields)
+    if len(leaves) not in (n_base, n_base + n_end):
         raise ValueError(
-            f"expected the CellParams leaves {CellParams._fields}, got "
-            f"{len(leaves)}: the port takes no endurance or host-tier "
-            "knobs yet")
+            f"expected the CellParams leaves {_BASE_PARAMS}, or those and "
+            f"the {n_end} endurance knobs, got {len(leaves)}: the port "
+            "takes no host-tier knobs yet")
+    endurance = None
+    if len(leaves) > n_base:
+        endurance = EnduranceParams(*(
+            _tensor(f, x, ("float32",), device)
+            for f, x in zip(EnduranceParams._fields, leaves[n_base:])))
     return CellParams(*(_tensor(f, x, (_PARAM_DTYPES[f],), device)
-                        for f, x in zip(CellParams._fields, leaves)))
+                        for f, x in zip(_BASE_PARAMS, leaves)),
+                      endurance=endurance)
 
 
 _W = ("bfloat16", "float32")

@@ -10,8 +10,9 @@
 // (the per-op stream, K = 1, src = -1, scat_lba = lba — null pointers —
 // or the K-lane segment stream with its hazard plan), length and pad tail.
 // Each block reads its cell's descriptor and dispatches once, before the op
-// loop, to `run_cell<COMP, CLOSED, ONE_LANE>` (8 compositions x 2 modes x
-// K = 1 or not). The wrapper orders the descriptors longest stream first,
+// loop, to `run_cell<COMP, CLOSED, ONE_LANE, WEAR>` (8 compositions x 2
+// modes x K = 1 or not, and the wear form: 16 compositions x 2 modes at
+// K = 1). The wrapper orders the descriptors longest stream first,
 // so a grid of more cells than SMs is scheduled longest-processing-time
 // first. After the stream each cell replays its `n_pad` identical tail pads
 // to their exact fixed point in-kernel, as the reference's
@@ -40,17 +41,37 @@
 // thread its op counts and clock64 cycles (total, and waiting on the
 // ring) into an optional (C, 6) int64 timer output.
 //
+// The wear form (a cell whose descriptor names a wear row). The reference
+// tracks endurance per op only, so the wear form is the K = 1 path. Its
+// per-plane wear rows — pe_slc and pe_rp (P, 8), pe_tlc, erase, pe_trad and
+// erase_trad (P,), 10,240 bytes at 128 planes — live in shared memory: a
+// wear cell's op ring has stages of 512 ops, not 1,024, and the rows take
+// the ring space this frees, so a wear cell's block needs no more shared
+// memory than any other. The ops seen and the end-of-life op ride in
+// registers. On the chain this adds the plane row's loads and stores, the
+// reliability gate (gated compositions), the retention read penalty (reads,
+// when read_penalty_ms != 0), the bucket placement, and the end-of-life
+// check until the cell's end of life is found: its max over the 8 bucket
+// cycles is taken over the weighted sums before the one division by the
+// bucket's page share and the erase term (both monotone, so the max is the
+// same), and the check stops once eol_op is set (it could not change it).
+//
 // Bit identity with the reference. The reference's compiler (XLA on the
 // CPU) fuses exactly four of the core's multiply-adds into FMA
-// instructions: `budget - mig * c_mig` (migrate), `budget - ops1 *
-// c_trad_rp` and `budget - ops2 * c_mig` (dual reclaim) and `agc_waste +
-// ops * waste_p` (AGC). Those four are written as __fmaf_rn here, and the
-// file is built with -fmad=false so that nvcc fuses nothing else: `used_ms
-// + erase_total` (migrate) rounds `mig * c_mig` first, as there. Float
-// division is IEEE (no fast math) and is truncated to int32 as the
-// reference's astype does. The composition's constants arrive from the wrapper already rounded once
-// from Python doubles to float32, the rounding the reference's weak-typed
-// Python floats get. Packed int16 plane fields are widened to int32 by the
+// instructions: `budget - mig * c_mig` (migrate, and the gated fallback),
+// `budget - ops1 * c_trad_rp` and `budget - ops2 * c_mig` (dual reclaim)
+// and `agc_waste + ops * waste_p` (AGC). Those four are written as
+// __fmaf_rn here, and the file is built with -fmad=false so that nvcc fuses
+// nothing else: `used_ms + erase_total` (migrate) rounds `mig * c_mig`
+// first, as there. A quotient by one of the core's constants, `budget /
+// c_mig`, XLA's algebraic simplifier turns into `budget * float32(1 /
+// c_mig)`: it is that product here (`trunc_mul`), truncated to int32 as the
+// reference's astype does. The wear form's sites follow the reference's
+// compiled core the same way (`endurance/model.py` of the port lists
+// them); a quotient by a per-cell value is an IEEE division (no fast
+// math). The composition's constants arrive from the wrapper already
+// rounded once from Python doubles to float32, the rounding the
+// reference's weak-typed Python floats get. Packed int16 plane fields are widened to int32 by the
 // wrapper; every residency comparison goes through explicit int16/int8
 // casts, so the widened carry is value-exact for both layouts.
 
@@ -71,24 +92,34 @@ constexpr int MAX_PAGES = 1 << 16;   // the ring's 16-bit page index
 constexpr int BLOCK_THREADS = 256;
 constexpr int PRODUCER_WARP = 1;
 constexpr int STAGE_OPS = 1024;      // ops a ring stage holds
+constexpr int WEAR_STAGE_OPS = 512;  // ... in a wear cell's block
 constexpr int N_STAGES = 2;
+constexpr int WEAR_B = 8;            // wear buckets a plane's row holds
 constexpr int REC_WORDS = 3;         // arrival; gather|plane|kind; scat|src
 constexpr uint32_t KEEP = 0x10000u;  // the scatter target is in range
 
 // composition bits (the wrapper's `composition_code`)
-constexpr int DUAL = 1, ADAPTIVE = 2, MIGRATE = 4, PRESSURE = 8, AGC = 16;
+constexpr int DUAL = 1, ADAPTIVE = 2, MIGRATE = 4, PRESSURE = 8, AGC = 16,
+              GATED = 32, WEAR_MIN = 64;
 
 // float constants, in the order of the wrapper's `kernel_constants`
 enum {
   K_C_MIG = 0, K_C_AGC, K_C_TRAD_RP, K_OVERRUN_MS, K_AGC_HALF, K_ERASE_MS,
-  K_SLC_READ, K_TLC_READ, K_SLC_WRITE, K_TLC_WRITE, K_REPROGRAM, N_FCONST
+  K_SLC_READ, K_TLC_READ, K_SLC_WRITE, K_TLC_WRITE, K_REPROGRAM,
+  K_INV_C_MIG, K_INV_C_AGC, K_INV_C_TRAD_RP, K_INV_BUCKETS, N_FCONST
+};
+
+// a wear row's endurance knobs, in the order of `EnduranceParams`
+enum {
+  E_W_SLC = 0, E_W_TLC, E_W_RP, E_W_ERASE, E_CYCLE_BUDGET, E_RP_BUDGET,
+  E_READ_PENALTY, E_RP_HYSTERESIS, N_ENDUR
 };
 
 // a cell's descriptor: int64 fields, in the order of the wrapper's
 // `_DESC_ORDER` (pointers to the cell's own (S, K) op stream and latency)
 enum {
   Q_ARRIVAL = 0, Q_LBA, Q_IS_WRITE, Q_SRC, Q_SCAT, Q_LAT_O, Q_COMP,
-  Q_CLOSED, Q_S, Q_K, Q_N_PAD, Q_ROW, N_DESC
+  Q_CLOSED, Q_S, Q_K, Q_N_PAD, Q_ROW, Q_WEAR, N_DESC
 };
 
 // pointer table, in the order of the wrapper's `_PTR_ORDER`; every
@@ -99,7 +130,7 @@ enum {
   P_IDLE_CUM, P_IDLE_SEEN, P_LOC, P_LOC_EP,
   P_BUSY_O, P_SLC_O, P_RP_O, P_TRAD_O, P_VM_O, P_EP_O, P_CTR_O,
   P_PREV_T_O, P_IDLE_CUM_O, P_IDLE_SEEN_O, P_LOC_O, P_LOC_EP_O, P_TIMER,
-  N_PTR
+  P_ENDUR, P_WEAR, P_WEAR_O, N_PTR
 };
 
 // integer dims, in the order of the wrapper's `_DIM_ORDER`
@@ -144,23 +175,32 @@ struct Args {
   int* vm_o; int* ep_o; float* ctr_o; float* prev_t_o; float* idle_cum_o;
   float* idle_seen_o; int8_t* loc_o; int16_t* loc_ep_o;
   long long* timer;                              // null: not timed
+  const float* endur;                            // (wear rows, N_ENDUR)
+  const float* wear; float* wear_o;              // (wear rows, wear_words)
   int C, P, N;
   Divisor ppb;
   float k[N_FCONST];
 };
 
 // One cell's carry while its thread runs the recurrence: plane arrays in
-// shared memory, the counters and the two idle scalars in registers.
+// shared memory, the counters and the two idle scalars in registers; for a
+// wear cell its wear rows in shared memory and two scalars in registers.
 struct Carry {
   float* busy; int* slc; int* rp; int* trad; int* vm; int* ep;
   float* idle_seen;
   float ctr[N_CTR];
   float prev_t, idle_cum;
+  float* pe_slc; float* pe_rp; float* pe_tlc; float* erase;
+  float* pe_trad; float* erase_trad;
+  float ops_seen, eol_op;
 };
 
 struct Knobs {
   int cap_basic, cap_trad, cap_boost;
   float idle_thr, waste_p;
+  // the wear form's knobs and their per-cell derived values
+  float w_slc, w_rp, w_erase, cycle_budget, budget_floor, rp_budget, rp_lo,
+      read_penalty, cap_f, cap_t_f, per_bucket;
 };
 
 template <int COMP>
@@ -181,19 +221,44 @@ __device__ __forceinline__ int ceil_div(int a, const Divisor& v) {
   return static_cast<int>((t + ((un - t) >> 1)) >> (v.l - 1));
 }
 
-// (int)(a / b): the IEEE quotient truncated, as the reference's astype
-// truncates it. A zero dividend gives 0 without dividing (0 / b is +-0, or
-// NaN for b = 0, and each truncates to 0): the division's fast path leaves
-// a zero dividend to its slow path, and idle budgets are often zero.
-__device__ __forceinline__ int trunc_div(float a, float b) {
-  return a == 0.0f ? 0 : static_cast<int>(a / b);
+// (int)(a * r), r = float32(1 / c): the reference's `(a / c).astype(int32)`
+// for a constant c as its compiler computes it (a product with the
+// reciprocal), truncated as its astype truncates.
+__device__ __forceinline__ int trunc_mul(float a, float r) {
+  return static_cast<int>(a * r);
+}
+
+// A wear cell's packed state (`_WEAR_ORDER` of the wrapper), floats:
+// pe_slc (P, 8), pe_rp (P, 8), pe_tlc, erase, pe_trad, erase_trad (P,),
+// ops_seen, eol_op.
+__host__ __device__ constexpr long long wear_words(int P) {
+  return 2LL * P * WEAR_B + 4LL * P + 2;
+}
+
+// min(n * WEAR_B / d, WEAR_B - 1) for n >= 0, d >= 1: the bucket of a fill
+// position, by comparisons (no integer division on the chain)
+__device__ __forceinline__ int bucket_of(int n, int d) {
+  const int scaled = n * WEAR_B;
+  int b = 0;
+#pragma unroll
+  for (int j = 1; j < WEAR_B; ++j) b += (scaled >= j * d) ? 1 : 0;
+  return b;
+}
+
+// a row's float32 sum, left to right (the reference's compiled order)
+__device__ __forceinline__ float row_sum(const float (&r)[WEAR_B]) {
+  float s = r[0];
+#pragma unroll
+  for (int j = 1; j < WEAR_B; ++j) s = s + r[j];
+  return s;
 }
 
 // The per-op core (the reference engine's `_build_core`), in its fragment
 // order. Reads the plane state, computes, then writes it back; returns
-// whether any carry value changed (the fixed-point test of the tail replay).
-// `plane` is the op's `lba % P`, computed off the chain by the producer.
-template <int COMP, bool CLOSED>
+// whether any carry value changed (the fixed-point test of the tail replay;
+// wear cells replay no tail). `plane` is the op's `lba % P`, computed off
+// the chain by the producer.
+template <int COMP, bool CLOSED, bool WEAR>
 __device__ __forceinline__ bool core(
     Carry& c, const Knobs& kn, const float* __restrict__ k, int P,
     const Divisor& ppb,
@@ -201,10 +266,14 @@ __device__ __forceinline__ bool core(
     float& latency_out, int& loc_val_out, int& loc_ep_val_out) {
   constexpr bool dual = COMP & DUAL;
   constexpr bool run_migrate = COMP & MIGRATE;
+  constexpr bool gated = COMP & GATED;
   constexpr bool use_rp = !run_migrate;
   constexpr bool pressure = COMP & PRESSURE;
   constexpr bool run_agc = COMP & AGC;
   constexpr bool run_dual_reclaim = dual && run_agc;
+  constexpr bool wear_aware = COMP & WEAR_MIN;
+  static_assert(WEAR || !(COMP & (GATED | WEAR_MIN)),
+                "the gate and wear-aware placement read the wear rows");
 
   const bool is_pad = kind < 0;
   const bool is_write = kind == 1;
@@ -217,6 +286,32 @@ __device__ __forceinline__ bool core(
   int slc_used = slc0, rp_done = rp0, trad_used = trad0;
   int valid_mig = c.vm[plane], epoch_p = ep0;
   float conflict = 0.0f;
+
+  // the plane's wear row (registers while the op runs)
+  float ws[WEAR_B], wr[WEAR_B];
+  float pe_tlc_p = 0.0f, erase_p = 0.0f, pe_trad_p = 0.0f, erase_trad_p = 0.0f;
+  bool gate_ok = true, fallback_on = false;
+  if (WEAR) {
+    const float4* s4 = reinterpret_cast<const float4*>(c.pe_slc + plane * WEAR_B);
+    const float4* r4 = reinterpret_cast<const float4*>(c.pe_rp + plane * WEAR_B);
+#pragma unroll
+    for (int j = 0; j < WEAR_B / 4; ++j) {
+      const float4 a = s4[j], b = r4[j];
+      ws[4 * j] = a.x; ws[4 * j + 1] = a.y; ws[4 * j + 2] = a.z; ws[4 * j + 3] = a.w;
+      wr[4 * j] = b.x; wr[4 * j + 1] = b.y; wr[4 * j + 2] = b.z; wr[4 * j + 3] = b.w;
+    }
+    pe_tlc_p = c.pe_tlc[plane];
+    erase_p = c.erase[plane];
+    pe_trad_p = c.pe_trad[plane];
+    erase_trad_p = c.erase_trad[plane];
+    if (gated) {
+      // RARO-style reliability gate: the plane's per-page reprogram count
+      // against the budget, with the hysteresis band pre-arming the fallback
+      const float rp_count = row_sum(wr) / kn.cap_f;
+      gate_ok = rp_count < kn.rp_budget;
+      fallback_on = rp_count >= kn.rp_lo;
+    }
+  }
 
   // 1. idle work on this plane, lazily applied for [busy_p, t)
   float idle_cum = c.idle_cum;
@@ -236,7 +331,7 @@ __device__ __forceinline__ bool core(
         const float overrun_allow = slc_used < eff ? k[K_OVERRUN_MS] : 0.0f;
         budget = above_wm ? full_gap + overrun_allow : dev_budget;
       }
-      const int mig = min(valid_mig, trunc_div(budget, k[K_C_MIG]));
+      const int mig = min(valid_mig, trunc_mul(budget, k[K_INV_C_MIG]));
       valid_mig = valid_mig - mig;
       float used_ms = (float)mig * k[K_C_MIG];
       budget = __fmaf_rn(-(float)mig, k[K_C_MIG], budget);  // fused there
@@ -245,6 +340,11 @@ __device__ __forceinline__ bool core(
       const float erase_total = (float)blocks * k[K_ERASE_MS];
       const bool can_erase = valid_mig == 0 && slc_used > 0 && budget >= erase_total;
       ctr[CTR_ERASES] = ctr[CTR_ERASES] + (float)(can_erase ? blocks : 0);
+      if (WEAR) {
+        // migrations program TLC pages; the erase cycles the region blocks
+        pe_tlc_p = pe_tlc_p + (float)mig;
+        erase_p = erase_p + (can_erase ? 1.0f : 0.0f);
+      }
       epoch_p = epoch_p + (can_erase ? 1 : 0);
       slc_used = can_erase ? 0 : slc_used;
       used_ms = used_ms + (can_erase ? erase_total : 0.0f);
@@ -254,36 +354,72 @@ __device__ __forceinline__ bool core(
                                ? fmaxf(used_ms - full_gap, 0.0f) : 0.0f);
       }
     }
+    if (gated) {
+      // past the gate's warning band the region is also reclaimed like a
+      // traditional cache, on device-idle budget only
+      float budget = fallback_on ? dev_budget : 0.0f;
+      const int mig = min(valid_mig, trunc_mul(budget, k[K_INV_C_MIG]));
+      valid_mig = valid_mig - mig;
+      budget = __fmaf_rn(-(float)mig, k[K_C_MIG], budget);  // fused there
+      ctr[CTR_MIG_W] = ctr[CTR_MIG_W] + (float)mig;
+      const int blocks = ceil_div(slc_used, ppb);
+      // erase only a watermark-full region
+      const bool full_enough =
+          slc_used >= (WATERMARK_NUM * kn.cap_basic) / WATERMARK_DEN;
+      const bool can_erase = valid_mig == 0 && full_enough &&
+                             budget >= (float)blocks * k[K_ERASE_MS];
+      ctr[CTR_ERASES] = ctr[CTR_ERASES] + (float)(can_erase ? blocks : 0);
+      pe_tlc_p = pe_tlc_p + (float)mig;
+      erase_p = erase_p + (can_erase ? 1.0f : 0.0f);
+      epoch_p = epoch_p + (can_erase ? 1 : 0);
+      slc_used = can_erase ? 0 : slc_used;
+      rp_done = can_erase ? 0 : rp_done;
+    }
     if (run_dual_reclaim) {
       float budget = dev_budget;
       int rp_avail = 2 * slc_used - rp_done;
       const int ops1 = min(min(valid_mig, rp_avail),
-                           trunc_div(budget, k[K_C_TRAD_RP]));
+                           trunc_mul(budget, k[K_INV_C_TRAD_RP]));
       rp_done = rp_done + ops1;
       valid_mig = valid_mig - ops1;
       budget = __fmaf_rn(-(float)ops1, k[K_C_TRAD_RP], budget);
       ctr[CTR_RP_TRAD] = ctr[CTR_RP_TRAD] + (float)ops1;
+      if (WEAR) {
+        // batched reprogram fills spread page-granularly over the region
+        const float add = (float)ops1 * k[K_INV_BUCKETS];
+#pragma unroll
+        for (int j = 0; j < WEAR_B; ++j) wr[j] = wr[j] + add;
+      }
       rp_avail = 2 * slc_used - rp_done;
       const int ops2 = min(rp_avail == 0 ? valid_mig : 0,
-                           trunc_div(budget, k[K_C_MIG]));
+                           trunc_mul(budget, k[K_INV_C_MIG]));
       valid_mig = valid_mig - ops2;
       budget = __fmaf_rn(-(float)ops2, k[K_C_MIG], budget);
       ctr[CTR_MIG_W] = ctr[CTR_MIG_W] + (float)ops2;
+      if (WEAR) pe_tlc_p = pe_tlc_p + (float)ops2;
       const int blocks = ceil_div(trad_used, ppb);
       const bool can_erase = valid_mig == 0 && trad_used > 0 &&
                              budget >= (float)blocks * k[K_ERASE_MS];
       ctr[CTR_ERASES] = ctr[CTR_ERASES] + (float)(can_erase ? blocks : 0);
+      if (WEAR) erase_trad_p = erase_trad_p + (can_erase ? 1.0f : 0.0f);
       epoch_p = epoch_p + (can_erase ? 1 : 0);
       trad_used = can_erase ? 0 : trad_used;
     }
     if (run_agc) {
       int rp_avail = 2 * slc_used - rp_done;
       if (dual) rp_avail = valid_mig == 0 ? rp_avail : 0;
-      const int ops = min(rp_avail, trunc_div(full_gap, k[K_C_AGC]));
+      if (gated) rp_avail = gate_ok ? rp_avail : 0;
+      const int ops = min(rp_avail, trunc_mul(full_gap, k[K_INV_C_AGC]));
       rp_done = rp_done + ops;
       const float opsf = (float)ops;
       ctr[CTR_RP_AGC] = ctr[CTR_RP_AGC] + opsf;
       ctr[CTR_AGC_WASTE] = __fmaf_rn(opsf, kn.waste_p, ctr[CTR_AGC_WASTE]);
+      if (WEAR) {
+        // page-granular fills spread evenly over the region's buckets
+        const float add = opsf * k[K_INV_BUCKETS];
+#pragma unroll
+        for (int j = 0; j < WEAR_B; ++j) wr[j] = wr[j] + add;
+      }
       const bool agc_active = (2 * slc_used - rp_done) > 0;
       conflict = conflict + ((agc_active && is_write) ? k[K_AGC_HALF] : 0.0f);
     }
@@ -314,23 +450,92 @@ __device__ __forceinline__ bool core(
   const bool to_slc = is_write && slc_used < eff_cap<COMP>(slc_used, kn);
   const bool to_trad = dual && is_write && !to_slc && trad_used < kn.cap_trad;
   const bool to_rp = use_rp && is_write && !to_slc && !to_trad &&
-                     (2 * slc_used - rp_done) > 0;
+                     (2 * slc_used - rp_done) > 0 && gate_ok;
   const bool to_tlc = is_write && !to_slc && !to_trad && !to_rp;
 
   const float prog_t = (to_slc || to_trad) ? k[K_SLC_WRITE]
                        : (to_rp ? k[K_REPROGRAM] : k[K_TLC_WRITE]);
-  const float read_t = old_ok ? k[K_SLC_READ] : k[K_TLC_READ];
+  // gated regions keep ips's conservative read model: hits read at TLC speed
+  float read_t = old_ok ? (gated ? k[K_TLC_READ] : k[K_SLC_READ]) : k[K_TLC_READ];
+  if (WEAR && !is_write && !is_pad && kn.read_penalty != 0.0f) {
+    // retention read cost (only a read's service reads it; a zero penalty
+    // adds an exact zero)
+    const float s_slc = row_sum(ws), s_rp = row_sum(wr);
+    const float a = dual ? __fmaf_rn(kn.w_rp, s_rp, kn.w_slc * s_slc)
+                         : __fmaf_rn(kn.w_slc, s_slc, kn.w_rp * s_rp);
+    const float plane_cyc = __fmaf_rn(kn.w_erase, erase_p, a / kn.cap_f);
+    const float trad_cyc =
+        __fmaf_rn(kn.w_erase, erase_trad_p, kn.w_slc * pe_trad_p / kn.cap_t_f);
+    const float aged = fmaxf(plane_cyc, trad_cyc);
+    const float age = fminf(fmaxf(aged / kn.budget_floor, 0.0f), 1.0f);
+    read_t = __fmaf_rn(kn.read_penalty, age, read_t);
+  }
   float service = is_write ? prog_t : read_t;
   service = is_pad ? 0.0f : service;
   const float latency = is_pad ? 0.0f : wait + conflict + service;
   const float busy_new = is_pad ? busy_p : start + service;
+
+  // wear placement (before the bookkeeping moves slc_used / rp_done): a
+  // basic-region program lands in its fill position's bucket, or the
+  // coldest under wear-aware allocation; reprogram stress at the
+  // conversion position
+  if (WEAR) {
+    if (to_slc) {
+      int b = 0;
+      if (wear_aware) {
+        float best = __fmaf_rn(kn.w_slc, ws[0], kn.w_rp * wr[0]);
+#pragma unroll
+        for (int j = 1; j < WEAR_B; ++j) {
+          const float v = __fmaf_rn(kn.w_slc, ws[j], kn.w_rp * wr[j]);
+          if (v < best) { best = v; b = j; }
+        }
+      } else {
+        b = bucket_of(slc_used, max(kn.cap_basic, 1));
+      }
+#pragma unroll
+      for (int j = 0; j < WEAR_B; ++j) ws[j] = (j == b) ? ws[j] + 1.0f : ws[j];
+    }
+    if (to_rp) {
+      const int b = bucket_of(rp_done, max(2 * slc_used, 1));
+#pragma unroll
+      for (int j = 0; j < WEAR_B; ++j) wr[j] = (j == b) ? wr[j] + 1.0f : wr[j];
+    }
+    pe_tlc_p = pe_tlc_p + (to_tlc ? 1.0f : 0.0f);
+    pe_trad_p = pe_trad_p + (to_trad ? 1.0f : 0.0f);
+    const float ops_seen = c.ops_seen + (is_pad ? 0.0f : 1.0f);
+    if (c.eol_op < 0.0f && !is_pad) {
+      // the worst block's effective cycles against the budget
+      float vmax = __fmaf_rn(kn.w_slc, ws[0], kn.w_rp * wr[0]);
+#pragma unroll
+      for (int j = 1; j < WEAR_B; ++j)
+        vmax = fmaxf(vmax, __fmaf_rn(kn.w_slc, ws[j], kn.w_rp * wr[j]));
+      const float erase_term = kn.w_erase * erase_p;
+      const float bucket_max = vmax / kn.per_bucket + erase_term;
+      const float trad_cyc =
+          __fmaf_rn(kn.w_erase, erase_trad_p, kn.w_slc * pe_trad_p / kn.cap_t_f);
+      if (fmaxf(bucket_max, trad_cyc) >= kn.cycle_budget) c.eol_op = ops_seen;
+    }
+    c.ops_seen = ops_seen;
+    float4* s4 = reinterpret_cast<float4*>(c.pe_slc + plane * WEAR_B);
+    float4* r4 = reinterpret_cast<float4*>(c.pe_rp + plane * WEAR_B);
+#pragma unroll
+    for (int j = 0; j < WEAR_B / 4; ++j) {
+      s4[j] = make_float4(ws[4 * j], ws[4 * j + 1], ws[4 * j + 2], ws[4 * j + 3]);
+      r4[j] = make_float4(wr[4 * j], wr[4 * j + 1], wr[4 * j + 2], wr[4 * j + 3]);
+    }
+    c.pe_tlc[plane] = pe_tlc_p;
+    c.erase[plane] = erase_p;
+    c.pe_trad[plane] = pe_trad_p;
+    c.erase_trad[plane] = erase_trad_p;
+  }
 
   // bookkeeping
   slc_used = slc_used + (to_slc ? 1 : 0);
   trad_used = trad_used + (to_trad ? 1 : 0);
   rp_done = rp_done + (to_rp ? 1 : 0);
   // residency tracking covers exactly the migratable region
-  const bool track_new = run_migrate ? (to_slc || to_rp) : (dual ? to_trad : false);
+  const bool track_new =
+      (run_migrate || gated) ? (to_slc || to_rp) : (dual ? to_trad : false);
   const int valid_dec = (is_write && old_ok) ? 1 : 0;
 
   ctr[CTR_HOST_W] = ctr[CTR_HOST_W] + (is_write ? 1.0f : 0.0f);
@@ -452,9 +657,15 @@ __device__ __forceinline__ long long globaltimer() {
   return t;
 }
 
+// ring ops a stage holds: a wear cell's stages are half as long (its wear
+// rows take the other half of the ring's space)
+__device__ __forceinline__ int stage_cap_of(bool wear) {
+  return wear ? WEAR_STAGE_OPS : STAGE_OPS;
+}
+
 // ops of whole segments a stage holds
-__device__ __forceinline__ int stage_ops_of(int K) {
-  return (STAGE_OPS / K) * K;
+__device__ __forceinline__ int stage_ops_of(int K, bool wear) {
+  return (stage_cap_of(wear) / K) * K;
 }
 
 // ---------------------------------------------------------------------------
@@ -470,15 +681,17 @@ __device__ __forceinline__ void produce(const long long* d, const Smem& s,
   const int* src = reinterpret_cast<const int*>(d[Q_SRC]);
   const int* scat = reinterpret_cast<const int*>(d[Q_SCAT]);
   const int K = static_cast<int>(d[Q_K]);
+  const bool wear = d[Q_WEAR] >= 0;
   const long long n_ops = d[Q_S] * K;
-  const int per_stage = stage_ops_of(K);
+  const int per_stage = stage_ops_of(K, wear);
+  const int stride = stage_cap_of(wear) * REC_WORDS;
   int st = 0;
   for (long long base = 0; base < n_ops; base += per_stage, ++st) {
     const int slot = st % N_STAGES;
     if (st >= N_STAGES) mbar_wait(s.empty + slot, ((st / N_STAGES) - 1) & 1);
     const int cnt = static_cast<int>(min(static_cast<long long>(per_stage),
                                          n_ops - base));
-    uint32_t* rec = s.ring + slot * STAGE_OPS * REC_WORDS;
+    uint32_t* rec = s.ring + slot * stride;
     for (int i = lane; i < cnt; i += 32) {
       const long long o = base + i;
       const int l = __ldg(lba + o);
@@ -518,13 +731,20 @@ __device__ __forceinline__ int rec_src(uint32_t w2) {
   return static_cast<int8_t>(w2 >> 24);
 }
 
+// a wear cell's rows: in the ring's space past its half-length stages
+__device__ __forceinline__ float* wear_rows(const Smem& s) {
+  return reinterpret_cast<float*>(s.ring +
+                                  N_STAGES * WEAR_STAGE_OPS * REC_WORDS);
+}
+
 // ---------------------------------------------------------------------------
 // the recurrence thread: one cell's stream and pad tail
 // ---------------------------------------------------------------------------
 
-template <int COMP, bool CLOSED, bool ONE_LANE>
+template <int COMP, bool CLOSED, bool ONE_LANE, bool WEAR>
 __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
                                          const Smem& s, int row) {
+  static_assert(ONE_LANE || !WEAR, "the wear form is the per-op path");
   Carry c;
   c.busy = s.busy; c.slc = s.slc; c.rp = s.rp; c.trad = s.trad;
   c.vm = s.vm; c.ep = s.ep; c.idle_seen = s.idle_seen;
@@ -538,15 +758,41 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
   kn.cap_boost = a.cap_boost[row];
   kn.idle_thr = a.idle_thr[row];
   kn.waste_p = a.waste_p[row];
+  const int P = a.P;
+  if constexpr (WEAR) {
+    const long long wrow = d[Q_WEAR];
+    const float* e = a.endur + wrow * N_ENDUR;
+    const float* w = a.wear + wrow * wear_words(P);
+    kn.w_slc = e[E_W_SLC];
+    kn.w_rp = e[E_W_RP];
+    kn.w_erase = e[E_W_ERASE];
+    kn.cycle_budget = e[E_CYCLE_BUDGET];
+    kn.budget_floor = fmaxf(e[E_CYCLE_BUDGET], 1e-9f);
+    kn.rp_budget = e[E_RP_BUDGET];
+    kn.rp_lo = e[E_RP_BUDGET] - e[E_RP_HYSTERESIS];
+    kn.read_penalty = e[E_READ_PENALTY];
+    kn.cap_f = fmaxf((float)kn.cap_basic, 1.0f);
+    kn.cap_t_f = fmaxf((float)kn.cap_trad, 1.0f);
+    kn.per_bucket = fmaxf(kn.cap_f / (float)WEAR_B, 1.0f);
+    float* rows = wear_rows(s);
+    c.pe_slc = rows;
+    c.pe_rp = rows + P * WEAR_B;
+    c.pe_tlc = rows + 2 * P * WEAR_B;
+    c.erase = c.pe_tlc + P;
+    c.pe_trad = c.erase + P;
+    c.erase_trad = c.pe_trad + P;
+    c.ops_seen = w[2 * P * WEAR_B + 4 * P];
+    c.eol_op = w[2 * P * WEAR_B + 4 * P + 1];
+  }
   float k[N_FCONST];
 #pragma unroll
   for (int i = 0; i < N_FCONST; ++i) k[i] = a.k[i];
-  const int P = a.P;
   const Divisor ppb = a.ppb;
   float* lat_o = reinterpret_cast<float*>(d[Q_LAT_O]);
   const int K = ONE_LANE ? 1 : static_cast<int>(d[Q_K]);
   const long long n_ops = d[Q_S] * K;
-  const int per_stage = stage_ops_of(K);
+  const int per_stage = stage_ops_of(K, WEAR);
+  const int stride = stage_cap_of(WEAR) * REC_WORDS;
   long long wait_cycles = 0;
   const long long c0 = clock64();
 
@@ -558,9 +804,9 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
     wait_cycles += clock64() - w0;
     const int cnt = static_cast<int>(min(static_cast<long long>(per_stage),
                                          n_ops - base));
-    const uint32_t* rec = s.ring + slot * STAGE_OPS * REC_WORDS;
+    const uint32_t* rec = s.ring + slot * stride;
     float* lat = lat_o + base;
-    if (ONE_LANE) {
+    if constexpr (ONE_LANE) {
       // the next op's record is loaded while this op's core runs
       uint32_t n0 = rec[0], n1 = rec[1], n2 = rec[2];
       for (int i = 0; i < cnt; ++i) {
@@ -573,9 +819,9 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
         const int g = rec_gather(w1);
         float latency;
         int lv, lev;
-        core<COMP, CLOSED>(c, kn, k, P, ppb, __uint_as_float(w0r),
-                           rec_plane(w1), rec_kind(w1), s.loc[g],
-                           s.loc_ep[g], latency, lv, lev);
+        core<COMP, CLOSED, WEAR>(c, kn, k, P, ppb, __uint_as_float(w0r),
+                                 rec_plane(w1), rec_kind(w1), s.loc[g],
+                                 s.loc_ep[g], latency, lv, lev);
         lat[i] = latency;
         if (w2 & KEEP) {
           const int dst = static_cast<int>(w2 & 0xFFFFu);
@@ -605,10 +851,11 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
           const int old_ep = src >= 0 ? buf_ep[j] : ep_k[i];
           float latency;
           int lv, lev;
-            core<COMP, CLOSED>(c, kn, k, P, ppb,
-                             __uint_as_float(r[REC_WORDS * i]), rec_plane(w1),
-                             rec_kind(w1), old, old_ep, latency, lv, lev);
-            lat[s0 + i] = latency;
+          core<COMP, CLOSED, false>(c, kn, k, P, ppb,
+                                    __uint_as_float(r[REC_WORDS * i]),
+                                    rec_plane(w1), rec_kind(w1), old, old_ep,
+                                    latency, lv, lev);
+          lat[s0 + i] = latency;
           buf_loc[i] = lv;
           buf_ep[i] = lev;
         }
@@ -629,18 +876,21 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
   // the identical tail pads (arrival pad_t, lba 0, is_write -1), applied
   // until one application leaves the carry unchanged or n_pad are done;
   // pads write their residency entry back unchanged, so loc/loc_ep hold
-  const long long n_pad = d[Q_N_PAD];
+  // (a wear cell has none: it steps every op)
   long long pads = 0;
-  if (n_pad > 0) {
-    const int old0 = s.loc[0], ep0 = s.loc_ep[0];
-    const float pad_t = a.pad_t[row];
-    float lat_unused;
-    int lv, lev;
-    while (pads < n_pad) {
-      ++pads;
-      const bool changed = core<COMP, CLOSED>(c, kn, k, P, ppb, pad_t, 0, -1,
-                                              old0, ep0, lat_unused, lv, lev);
-      if (!changed) break;
+  if constexpr (!WEAR) {
+    const long long n_pad = d[Q_N_PAD];
+    if (n_pad > 0) {
+      const int old0 = s.loc[0], ep0 = s.loc_ep[0];
+      const float pad_t = a.pad_t[row];
+      float lat_unused;
+      int lv, lev;
+      while (pads < n_pad) {
+        ++pads;
+        const bool changed = core<COMP, CLOSED, false>(
+            c, kn, k, P, ppb, pad_t, 0, -1, old0, ep0, lat_unused, lv, lev);
+        if (!changed) break;
+      }
     }
   }
   const long long cycles = clock64() - c0;
@@ -648,6 +898,11 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
   for (int i = 0; i < N_CTR; ++i) a.ctr_o[(size_t)row * N_CTR + i] = c.ctr[i];
   a.prev_t_o[row] = c.prev_t;
   a.idle_cum_o[row] = c.idle_cum;
+  if constexpr (WEAR) {
+    float* w = a.wear_o + d[Q_WEAR] * wear_words(P);
+    w[2 * P * WEAR_B + 4 * P] = c.ops_seen;
+    w[2 * P * WEAR_B + 4 * P + 1] = c.eol_op;
+  }
   if (a.timer) {
     long long* t = a.timer + (size_t)row * N_TIMER;
     t[T_SCANNED] = n_ops;
@@ -662,19 +917,38 @@ __device__ __forceinline__ void run_comp(const Args& a, const long long* d,
                                          const Smem& s, int row) {
   const bool closed = d[Q_CLOSED] != 0, one = d[Q_K] == 1;
   if (closed) {
-    if (one) run_cell<COMP, true, true>(a, d, s, row);
-    else run_cell<COMP, true, false>(a, d, s, row);
+    if (one) run_cell<COMP, true, true, false>(a, d, s, row);
+    else run_cell<COMP, true, false, false>(a, d, s, row);
   } else {
-    if (one) run_cell<COMP, false, true>(a, d, s, row);
-    else run_cell<COMP, false, false>(a, d, s, row);
+    if (one) run_cell<COMP, false, true, false>(a, d, s, row);
+    else run_cell<COMP, false, false, false>(a, d, s, row);
   }
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS) ssd_fleet_kernel(Args a) {
+template <int COMP>
+__device__ __forceinline__ void run_comp_wear(const Args& a,
+                                              const long long* d,
+                                              const Smem& s, int row) {
+  if (d[Q_CLOSED] != 0) run_cell<COMP, true, true, true>(a, d, s, row);
+  else run_cell<COMP, false, true, true>(a, d, s, row);
+}
+
+// the compositions the kernel instantiates: the 8 valid ones without wear
+// bits (either form), and all 16 valid ones in the wear form
+#define SSD_PLAIN_COMPS(X)                                                 \
+  X(MIGRATE | PRESSURE) X(MIGRATE) X(ADAPTIVE | MIGRATE | PRESSURE)       \
+  X(ADAPTIVE | MIGRATE) X(0) X(AGC) X(DUAL) X(DUAL | AGC)
+#define SSD_WEAR_COMPS(X)                                                  \
+  SSD_PLAIN_COMPS(X) X(GATED) X(GATED | AGC)                               \
+  X(WEAR_MIN | MIGRATE | PRESSURE) X(WEAR_MIN | MIGRATE) X(WEAR_MIN)      \
+  X(WEAR_MIN | AGC) X(WEAR_MIN | GATED) X(WEAR_MIN | GATED | AGC)
+
+__global__ void __launch_bounds__(BLOCK_THREADS, 1) ssd_fleet_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long t_start = globaltimer();
   const long long* d = a.desc + (size_t)blockIdx.x * N_DESC;
   const int row = static_cast<int>(d[Q_ROW]);
+  const long long wrow = d[Q_WEAR];
   const int P = a.P;
   const int N = a.N;
   const Smem s = carve(smem, P, N);
@@ -694,6 +968,12 @@ __global__ void __launch_bounds__(BLOCK_THREADS) ssd_fleet_kernel(Args a) {
     s.loc[i] = a.loc[nbase + i];
     s.loc_ep[i] = a.loc_ep[nbase + i];
   }
+  const int rows_words = 2 * P * WEAR_B + 4 * P;
+  if (wrow >= 0) {
+    const float* w = a.wear + wrow * wear_words(P);
+    float* rows = wear_rows(s);
+    for (int i = threadIdx.x; i < rows_words; i += blockDim.x) rows[i] = w[i];
+  }
   if (threadIdx.x == 0) {
     for (int i = 0; i < N_STAGES; ++i) {
       mbar_init(s.full + i, 32);         // the producer warp's lanes
@@ -706,17 +986,21 @@ __global__ void __launch_bounds__(BLOCK_THREADS) ssd_fleet_kernel(Args a) {
   if (threadIdx.x / 32 == PRODUCER_WARP) {
     produce(d, s, P, N);
   } else if (threadIdx.x == 0) {
-    switch (static_cast<int>(d[Q_COMP])) {
-      case MIGRATE | PRESSURE: run_comp<MIGRATE | PRESSURE>(a, d, s, row); break;
-      case MIGRATE: run_comp<MIGRATE>(a, d, s, row); break;
-      case ADAPTIVE | MIGRATE | PRESSURE:
-        run_comp<ADAPTIVE | MIGRATE | PRESSURE>(a, d, s, row); break;
-      case ADAPTIVE | MIGRATE: run_comp<ADAPTIVE | MIGRATE>(a, d, s, row); break;
-      case 0: run_comp<0>(a, d, s, row); break;
-      case AGC: run_comp<AGC>(a, d, s, row); break;
-      case DUAL: run_comp<DUAL>(a, d, s, row); break;
-      case DUAL | AGC: run_comp<DUAL | AGC>(a, d, s, row); break;
-      default: __trap();               // the host refused it
+    const int comp = static_cast<int>(d[Q_COMP]);
+    if (wrow >= 0) {
+      switch (comp) {
+#define SSD_CASE(C) case C: run_comp_wear<C>(a, d, s, row); break;
+        SSD_WEAR_COMPS(SSD_CASE)
+#undef SSD_CASE
+        default: __trap();             // the host refused it
+      }
+    } else {
+      switch (comp) {
+#define SSD_CASE(C) case C: run_comp<C>(a, d, s, row); break;
+        SSD_PLAIN_COMPS(SSD_CASE)
+#undef SSD_CASE
+        default: __trap();             // the host refused it
+      }
     }
   }
   __syncthreads();
@@ -733,6 +1017,11 @@ __global__ void __launch_bounds__(BLOCK_THREADS) ssd_fleet_kernel(Args a) {
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     a.loc_o[nbase + i] = s.loc[i];
     a.loc_ep_o[nbase + i] = s.loc_ep[i];
+  }
+  if (wrow >= 0) {
+    float* w = a.wear_o + wrow * wear_words(P);
+    const float* rows = wear_rows(s);
+    for (int i = threadIdx.x; i < rows_words; i += blockDim.x) w[i] = rows[i];
   }
   if (a.timer) {
     __syncthreads();
@@ -768,11 +1057,16 @@ __global__ void smem_chase_kernel(int steps, long long* out) {
   }
 }
 
-bool valid_comp(long long comp) {
+bool valid_comp(long long comp, bool wear) {
   switch (comp) {
-    case MIGRATE | PRESSURE: case MIGRATE: case ADAPTIVE | MIGRATE | PRESSURE:
-    case ADAPTIVE | MIGRATE: case 0: case AGC: case DUAL: case DUAL | AGC:
+#define SSD_CASE(C) case C:
+    SSD_PLAIN_COMPS(SSD_CASE)
+#undef SSD_CASE
       return true;
+    case GATED: case GATED | AGC: case WEAR_MIN | MIGRATE | PRESSURE:
+    case WEAR_MIN | MIGRATE: case WEAR_MIN: case WEAR_MIN | AGC:
+    case WEAR_MIN | GATED: case WEAR_MIN | GATED | AGC:
+      return wear;
     default:
       return false;
   }
@@ -784,10 +1078,11 @@ extern "C" {
 
 // Launch the kernel on `stream`: C blocks, block b running the cell of
 // descriptor row b. `ptrs` holds N_PTR device pointers (the timer may be
-// 0), `dims` N_DIM ints, `consts` N_FCONST floats, `desc_host` the
-// (C, N_DESC) descriptors also at ptrs[P_DESC], read here to refuse what
-// the kernel does not take. Returns 0, cudaGetLastError() of the launch,
-// or a negative code for refused arguments.
+// 0, and the three wear pointers when no cell tracks wear), `dims` N_DIM
+// ints, `consts` N_FCONST floats, `desc_host` the (C, N_DESC) descriptors
+// also at ptrs[P_DESC], read here to refuse what the kernel does not take.
+// Returns 0, cudaGetLastError() of the launch, or a negative code for
+// refused arguments.
 int ssd_fleet_launch(const unsigned long long* ptrs, int n_ptrs,
                      const int* dims, int n_dims, const float* consts,
                      int n_consts, const long long* desc_host,
@@ -826,15 +1121,23 @@ int ssd_fleet_launch(const unsigned long long* ptrs, int n_ptrs,
   a.loc_o = reinterpret_cast<int8_t*>(ptrs[P_LOC_O]);
   a.loc_ep_o = reinterpret_cast<int16_t*>(ptrs[P_LOC_EP_O]);
   a.timer = reinterpret_cast<long long*>(ptrs[P_TIMER]);
+  a.endur = reinterpret_cast<const float*>(ptrs[P_ENDUR]);
+  a.wear = reinterpret_cast<const float*>(ptrs[P_WEAR]);
+  a.wear_o = reinterpret_cast<float*>(ptrs[P_WEAR_O]);
   a.C = dims[D_C]; a.P = dims[D_P]; a.N = dims[D_N];
   for (int i = 0; i < N_FCONST; ++i) a.k[i] = consts[i];
   if (a.C <= 0 || a.P <= 0 || a.P > 128 || a.N <= 0 || a.N > MAX_PAGES ||
       dims[D_PPB] <= 0 || desc_host == nullptr || a.desc == nullptr)
     return -2;
   a.ppb = make_divisor(dims[D_PPB]);
+  // a wear cell's rows must fit the ring space its half-length stages free
+  const bool wear_fits =
+      4LL * (2LL * a.P * WEAR_B + 4LL * a.P) <=
+      (long long)RING_BYTES - 4LL * N_STAGES * WEAR_STAGE_OPS * REC_WORDS;
   for (int b = 0; b < a.C; ++b) {
     const long long* d = desc_host + (size_t)b * N_DESC;
-    if (!valid_comp(d[Q_COMP])) return -4;
+    const bool wear = d[Q_WEAR] >= 0;
+    if (!valid_comp(d[Q_COMP], wear)) return -4;
     if (d[Q_K] < 1 || d[Q_K] > MAX_LANES || d[Q_S] < 0 || d[Q_N_PAD] < 0 ||
         d[Q_ROW] < 0 || d[Q_ROW] >= a.C || (d[Q_CLOSED] != 0 && d[Q_CLOSED] != 1))
       return -2;
@@ -842,6 +1145,10 @@ int ssd_fleet_launch(const unsigned long long* ptrs, int n_ptrs,
     if (d[Q_S] > 0 && (d[Q_ARRIVAL] == 0 || d[Q_LBA] == 0 ||
                        d[Q_IS_WRITE] == 0 || d[Q_LAT_O] == 0))
       return -2;
+    if (wear && (d[Q_K] != 1 || d[Q_N_PAD] != 0 || !wear_fits ||
+                 a.endur == nullptr || a.wear == nullptr ||
+                 a.wear_o == nullptr))
+      return -6;
   }
   const size_t smem = (size_t)block_bytes(a.P, a.N);
   cudaError_t err = cudaFuncSetAttribute(

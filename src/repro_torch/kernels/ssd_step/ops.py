@@ -5,8 +5,10 @@ load, argument checks, launch, launch count and CUDA events.
 thread block per cell. A job (`StreamJob`) is one fleet of cells that
 share a composition, a mode and a stream shape: their op streams — the
 per-op form (K = 1, no hazard plan) or the (S, K) segment form — and each
-cell's pad-tail replay. Jobs may differ in all of that. `run_stream` is
-the one-job case. For tensors on a CUDA device the wrapper launches the
+cell's pad-tail replay. Jobs may differ in all of that. A job whose
+cells track wear (`params.endurance` set, `state0.wear` present) runs the
+kernel's wear form: the per-op stream, no pad tail (it steps every op),
+its `WearState` carried in and out. `run_stream` is the one-job case. For tensors on a CUDA device the wrapper launches the
 kernel or raises; tensors on the CPU go to the plain version,
 `ref.run_stream_ref`, job by job. Nothing falls back.
 
@@ -23,6 +25,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.ssd.endurance.model import (EnduranceParams,
+                                                  WearState)
 from repro_torch.core.ssd.policies.allocation import ALLOCATIONS
 from repro_torch.core.ssd.policies.engine import (check_composition,
                                                   core_constants)
@@ -35,8 +39,8 @@ from repro_torch.kernels.ssd_step import ref
 
 __all__ = ["StreamJob", "run_streams", "run_stream", "smem_chase", "reset",
            "launches", "events", "composition_code", "kernel_constants",
-           "smem_bytes", "block_smem_bytes", "MAX_LANES", "MAX_PAGES",
-           "TIMER_COLUMNS", "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
+           "smem_bytes", "block_smem_bytes", "MAX_LANES", "MAX_PAGES", "WEAR_BUCKETS", "TIMER_COLUMNS",
+           "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "ssd_step.cu")
@@ -48,6 +52,10 @@ MAX_SMEM = 232448           # bytes of shared memory a block may use
 # MAX_LANES ints, two stages' full/empty mbarriers, and the op ring of two
 # stages x 1,024 ops x 12 bytes (csrc/ssd_step.cu)
 STAGING_BYTES = 4 * 4 * MAX_LANES + 8 * 2 * 2 + 2 * 1024 * 12
+# a wear cell's ring stages hold 512 ops, and its wear rows take the ring
+# space that frees: 2 x 512 x 12 bytes of the 2 x 1,024 x 12
+WEAR_RING_FREE = 2 * 1024 * 12 - 2 * 512 * 12
+WEAR_BUCKETS = 8            # the wear buckets a kernel row holds
 # what each block writes into the optional (C, 6) int64 timer, by column
 TIMER_COLUMNS = ("start_ns", "end_ns", "scanned_ops", "pads_replayed",
                  "cycles", "wait_cycles")
@@ -59,12 +67,17 @@ _PTR_ORDER = (
     "epoch", "counters", "prev_t", "idle_cum", "idle_seen", "loc", "loc_ep",
     "busy_o", "slc_used_o", "rp_done_o", "trad_used_o", "valid_mig_o",
     "epoch_o", "counters_o", "prev_t_o", "idle_cum_o", "idle_seen_o",
-    "loc_o", "loc_ep_o", "timer")
+    "loc_o", "loc_ep_o", "timer", "endur", "wear", "wear_o")
 _DESC_ORDER = ("arrival_ms", "lba", "is_write", "src", "scat_lba", "lat_o",
-               "comp", "closed", "S", "K", "n_pad", "row")
+               "comp", "closed", "S", "K", "n_pad", "row", "wear")
 _DIM_ORDER = ("C", "P", "N", "ppb")
-_N_FCONST = 11
+_N_FCONST = 15
 _WIDENED = ("slc_used", "rp_done", "trad_used", "valid_mig", "epoch")
+_BASE_STATE = SimState._fields[:-1]                 # all but `wear`
+_BASE_PARAMS = ("cap_basic", "cap_trad", "cap_boost", "idle_thr", "waste_p")
+# a wear cell's state packed into one float32 row, in this order
+# (`wear_words` of csrc/ssd_step.cu)
+_WEAR_ORDER = WearState._fields
 
 
 class StreamJob(NamedTuple):
@@ -74,7 +87,8 @@ class StreamJob(NamedTuple):
     stream is the per-op form, K = 1). `state0`: SimState with a leading
     cell axis, packed or unpacked. `params`: CellParams of (C,) tensors.
     `pad_t`: (C,) f32 arrival of each cell's `n_pad` identical tail
-    pads."""
+    pads. Cells that track wear carry `state0.wear` and
+    `params.endurance` and take the per-op form with no pad tail."""
     policy: object
     segs: dict
     state0: SimState
@@ -86,13 +100,15 @@ class StreamJob(NamedTuple):
 
 def composition_code(spec) -> int:
     """The kernel's template selector for a composition (the bits of
-    csrc/ssd_step.cu: DUAL 1, ADAPTIVE 2, MIGRATE 4, PRESSURE 8, AGC 16)."""
-    check_composition(spec)
+    csrc/ssd_step.cu: DUAL 1, ADAPTIVE 2, MIGRATE 4, PRESSURE 8, AGC 16,
+    GATED 32, WEAR_MIN 64; the last two only in the wear form)."""
     return ((1 if ALLOCATIONS[spec.allocation].dual else 0)
             | (2 if spec.allocation == "adaptive" else 0)
             | (4 if spec.mechanism == "migrate" else 0)
             | (8 if spec.trigger == "watermark" else 0)
-            | (16 if spec.idle == "agc" else 0))
+            | (16 if spec.idle == "agc" else 0)
+            | (32 if spec.mechanism == "reprogram_gated" else 0)
+            | (64 if spec.allocation == "wear_min" else 0))
 
 
 def kernel_constants(cfg) -> np.ndarray:
@@ -104,8 +120,9 @@ def kernel_constants(cfg) -> np.ndarray:
     return np.array([k["c_mig"], k["c_agc"], k["c_trad_rp"],
                      OVERRUN_PAGES * k["c_mig"], k["c_agc"] * 0.5,
                      k["erase_ms"], t_.slc_read_ms, t_.tlc_read_ms,
-                     t_.slc_write_ms, t_.tlc_write_ms, t_.reprogram_ms],
-                    dtype=np.float32)
+                     t_.slc_write_ms, t_.tlc_write_ms, t_.reprogram_ms,
+                     k["inv_c_mig"], k["inv_c_agc"], k["inv_c_trad_rp"],
+                     k["inv_buckets"]], dtype=np.float32)
 
 
 def smem_bytes(n_planes: int, n_logical: int) -> int:
@@ -119,6 +136,34 @@ def block_smem_bytes(n_planes: int, n_logical: int) -> int:
     aligned), then the lane buffers, the ring's barriers and its stages
     (`block_bytes` of csrc/ssd_step.cu)."""
     return -(-smem_bytes(n_planes, n_logical) // 16) * 16 + STAGING_BYTES
+
+
+def _wear_words(n_planes: int) -> int:
+    """Floats of one wear cell's packed state: pe_slc and pe_rp (P, 8),
+    the four (P,) rows, ops_seen and eol_op."""
+    return 2 * n_planes * WEAR_BUCKETS + 4 * n_planes + 2
+
+
+def _wear_fits(n_planes: int) -> bool:
+    """Whether a wear cell's rows fit the ring space its half-length
+    stages free (10,240 of 12,288 bytes at 128 planes)."""
+    return 4 * (_wear_words(n_planes) - 2) <= WEAR_RING_FREE
+
+
+def _pack_wear(wear: WearState) -> torch.Tensor:
+    """(C, _wear_words) float32 rows of a fleet's WearState."""
+    c_cnt = wear.ops_seen.shape[0]
+    return torch.cat([getattr(wear, f).reshape(c_cnt, -1)
+                      for f in _WEAR_ORDER], dim=1).contiguous()
+
+
+def _unpack_wear(rows: torch.Tensor, n_planes: int) -> WearState:
+    c_cnt, p, b = rows.shape[0], n_planes, WEAR_BUCKETS
+    sizes = (p * b, p * b, p, p, p, p, 1, 1)
+    parts = torch.split(rows, sizes, dim=1)
+    shapes = ((c_cnt, p, b), (c_cnt, p, b), (c_cnt, p), (c_cnt, p),
+              (c_cnt, p), (c_cnt, p), (c_cnt,), (c_cnt,))
+    return WearState(*(x.reshape(s) for x, s in zip(parts, shapes)))
 
 
 def _bind(lib) -> None:
@@ -158,8 +203,13 @@ def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
     """Raise unless the kernel takes `job` on `dev`; returns its
     composition code, shape and pad arrival."""
     spec = resolve_spec(job.policy)
+    check_composition(spec, job.params)
     code = composition_code(spec)
     segs, state0, params = job.segs, job.state0, job.params
+    wear = params.endurance is not None
+    if wear != (state0.wear is not None):
+        raise ValueError("ssd_step: a job's cells carry wear state exactly "
+                         "when their params set endurance knobs")
     lba = segs["lba"]
     if lba.dim() != 3:
         raise ValueError(f"ssd_step: segs must be (C, S, K), got "
@@ -184,6 +234,9 @@ def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
         raise ValueError("ssd_step: give src and scat_lba together")
     if k > 1 and not plan:
         raise ValueError("ssd_step: K > 1 needs the hazard plan")
+    if wear and (plan or k != 1 or job.n_pad):
+        raise ValueError("ssd_step: a wear job is the per-op stream (K = 1, "
+                         "no hazard plan) and steps every op (n_pad = 0)")
     i32, f32 = torch.int32, torch.float32
     plane_int = (torch.int16, torch.int32)
     shp = (c_cnt, s_cnt, k)
@@ -212,13 +265,26 @@ def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
             ("counters", f32, (c_cnt, len(CTR))), ("prev_t", f32, (c_cnt,)),
             ("idle_cum", f32, (c_cnt,)), ("idle_seen", f32, (c_cnt, p))):
         check("ssd_step", name, getattr(state0, name), dt, shape, dev)
+    if wear:
+        b = WEAR_BUCKETS
+        for name in EnduranceParams._fields:
+            check("ssd_step", name, getattr(params.endurance, name), f32,
+                  (c_cnt,), dev)
+        for name, shape in (("pe_slc", (c_cnt, p, b)),
+                            ("pe_rp", (c_cnt, p, b)), ("pe_tlc", (c_cnt, p)),
+                            ("erase", (c_cnt, p)), ("pe_trad", (c_cnt, p)),
+                            ("erase_trad", (c_cnt, p)),
+                            ("ops_seen", (c_cnt,)), ("eol_op", (c_cnt,))):
+            check("ssd_step", name, getattr(state0.wear, name), f32, shape,
+                  dev)
     return {"code": code, "C": c_cnt, "S": s_cnt, "K": k, "plan": plan,
-            "pad_t": pad_t}
+            "pad_t": pad_t, "wear": wear}
 
 
 def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
     """Run every job's cells in one launch; returns [(latency (C, S, K)
-    f32, final SimState in the job's `state0` dtypes)] in job order.
+    f32, final SimState in the job's `state0` dtypes, its wear carry
+    included)] in job order.
 
     On a CUDA device the cells run side by side, one block each, the
     longest stream (S x K) first. `timer`, if given, is a (cells, 6)
@@ -255,6 +321,15 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
                          f"{block_smem_bytes(p, n_logical)} B of shared "
                          f"memory, more than a block's {MAX_SMEM}")
     info = [_check_job(cfg, j, dev, n_logical) for j in jobs]
+    if any(x["wear"] for x in info):
+        if cfg.wear_buckets != WEAR_BUCKETS:
+            raise ValueError(f"ssd_step: the kernel's wear rows hold "
+                             f"{WEAR_BUCKETS} buckets, not "
+                             f"{cfg.wear_buckets}")
+        if not _wear_fits(p):
+            raise ValueError(f"ssd_step: a wear cell's rows at {p} planes "
+                             f"need {4 * (_wear_words(p) - 2)} B, more than "
+                             f"the {WEAR_RING_FREE} B its ring frees")
     c_tot = sum(x["C"] for x in info)
     if timer is not None:
         check("ssd_step", "timer", timer, torch.int64,
@@ -268,27 +343,41 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
 
     ins = {f: cat(lambda j, f=f: getattr(j.state0, f).to(i32)
                   if f in _WIDENED else getattr(j.state0, f))
-           for f in SimState._fields}
+           for f in _BASE_STATE}
     ins.update({f: cat(lambda j, f=f: getattr(j.params, f))
-                for f in jobs[0].params._fields})
+                for f in _BASE_PARAMS})
     ins["pad_t"] = torch.cat([x["pad_t"] for x in info]).contiguous()
-    outs = {f"{f}_o": torch.empty_like(ins[f]) for f in SimState._fields}
+    outs = {f"{f}_o": torch.empty_like(ins[f]) for f in _BASE_STATE}
+    # the wear cells' knobs and packed state, in job order
+    wear_jobs = [j for j, x in zip(jobs, info) if x["wear"]]
+    if wear_jobs:
+        ins["endur"] = torch.cat([
+            torch.stack(list(j.params.endurance), dim=1)
+            for j in wear_jobs]).contiguous()
+        ins["wear"] = torch.cat([_pack_wear(j.state0.wear)
+                                 for j in wear_jobs]).contiguous()
+        outs["wear_o"] = torch.empty_like(ins["wear"])
+    else:
+        ins["endur"] = ins["wear"] = outs["wear_o"] = None
     lats = [torch.empty((x["C"], x["S"], x["K"]), dtype=f32, device=dev)
             for x in info]
 
     # one descriptor a cell (pointers to its own stream: every per-op
     # array is 4 bytes an op), longest stream first
-    rows = []
+    rows, n_wear = [], 0
     for j, x, lat in zip(jobs, info, lats):
         n_ops = x["S"] * x["K"]
         streams = [j.segs["arrival_ms"], j.segs["lba"], j.segs["is_write"],
                    j.segs["src"] if x["plan"] else None,
                    j.segs["scat_lba"] if x["plan"] else None, lat]
         for c in range(x["C"]):
+            wear_row = -1
+            if x["wear"]:
+                wear_row, n_wear = n_wear, n_wear + 1
             rows.append([t.data_ptr() + 4 * c * n_ops
                          if t is not None and n_ops else 0 for t in streams]
                         + [x["code"], int(j.closed_loop), x["S"], x["K"],
-                           int(j.n_pad), len(rows)])
+                           int(j.n_pad), len(rows), wear_row])
     rows.sort(key=lambda r: -r[_DESC_ORDER.index("S")]
               * r[_DESC_ORDER.index("K")])
     desc_host = np.ascontiguousarray(np.array(rows, dtype=np.int64))
@@ -296,6 +385,8 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
     ins["desc"] = desc
     table = [outs[n] if n.endswith("_o") else
              (timer if n == "timer" else ins[n]) for n in _PTR_ORDER]
+    assert len(table) == len(_PTR_ORDER) and desc_host.shape[1] == len(
+        _DESC_ORDER)
     ptrs = (ctypes.c_ulonglong * len(table))(
         *[0 if t is None else t.data_ptr() for t in table])
     dims = (ctypes.c_int * len(_DIM_ORDER))(c_tot, p, n_logical,
@@ -306,11 +397,15 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
                      _N_FCONST, desc_host.ctypes.data_as(
                          ctypes.POINTER(ctypes.c_longlong))), dev)
 
-    results, lo = [], 0
+    results, lo, wlo = [], 0, 0
     for j, x, lat in zip(jobs, info, lats):
         hi = lo + x["C"]
+        wear = None
+        if x["wear"]:
+            wear = _unpack_wear(outs["wear_o"][wlo:wlo + x["C"]], p)
+            wlo += x["C"]
         final = SimState(*(outs[f"{f}_o"][lo:hi].to(
-            getattr(j.state0, f).dtype) for f in SimState._fields))
+            getattr(j.state0, f).dtype) for f in _BASE_STATE), wear=wear)
         results.append((lat, final))
         lo = hi
     return results

@@ -1,14 +1,29 @@
 """Sweep CLI of the port: `python -m repro_torch.sweep.cli --grid paper`
 runs the paper's evaluation grid (Figs. 9-12) through the fleet
-simulator and writes `BENCH_torch_sweep_<grid>.json` into `--out-dir`.
+simulator and writes `BENCH_torch_<name>.json` into `--out-dir`.
 
   python -m repro_torch.sweep.cli --grid paper              # on the card
   python -m repro_torch.sweep.cli --grid quick --device cpu --max-ops 2048
+  python -m repro_torch.sweep.cli --grid stress             # scenarios
+  python -m repro_torch.sweep.cli --grid mixed              # + bootstrap CIs
+  python -m repro_torch.sweep.cli --grid endurance          # wear columns
+  python -m repro_torch.sweep.cli --grid sensitivity        # one-axis deltas
+  python -m repro_torch.sweep.cli --traces hm_0,gc_pressure --seeds 0,1,2
+  python -m repro_torch.sweep.cli --trace-file tests/data/sample_msr.csv \
+      --policies baseline,ips --modes daily
+  python -m repro_torch.sweep.cli --traces hm_0 --policies ips,ips_raro \
+      --endurance w_rp=4,rp_budget=2
+  python -m repro_torch.sweep.cli --list-policies | --list-grids
 
-Every artifact it writes is named `BENCH_torch_*.json`, so it never
-overwrites a file of the reference package. On the CPU the fleet runs
-the kernel's plain version, an op at a time in Python: keep `--max-ops`
-small there.
+Port of the reference package's `sweep/cli.py`, with the flags of the
+slices ported so far; the host tier, search, telemetry, profiling and
+history flags belong to later slices. Traces come through the port's
+own compiled-trace cache (`$REPRO_TORCH_TRACE_CACHE_DIR`, by default
+`~/.cache/repro_torch/traces`; `--no-trace-cache-disk` keeps it in
+memory). Every artifact it writes is named `BENCH_torch_*.json`, so it
+never overwrites a file of the reference package. On the CPU the fleet
+runs the kernel's plain version, an op at a time in Python: keep
+`--max-ops` small there.
 """
 from __future__ import annotations
 
@@ -19,6 +34,7 @@ import os
 import platform
 import sys
 import time
+from dataclasses import replace
 
 from repro_torch.sweep.grid import GRIDS
 
@@ -30,14 +46,51 @@ def _parse(argv):
         prog="repro_torch.sweep.cli",
         description="Batched sweeps over the hybrid-SSD fleet simulator "
                     "(paper Figs. 9-12), PyTorch / CUDA port.")
-    ap.add_argument("--grid", choices=tuple(GRIDS), default="paper")
+    ap.add_argument("--grid", choices=tuple(GRIDS), default=None,
+                    help="named grid; omit to build one from "
+                    "--traces/--policies/--modes")
+    ap.add_argument("--traces", default=None,
+                    help="comma list of workload specs: MSR names, "
+                    "scenario names, or trace-file paths (default: all 11 "
+                    "MSR traces)")
+    ap.add_argument("--trace-file", action="append", default=[],
+                    metavar="PATH", help="add a real trace file (MSR CSV, "
+                    "generic CSV, fio iolog, blktrace; .gz ok) as a "
+                    "workload; repeatable")
+    ap.add_argument("--policies", default=None,
+                    help="comma list of registered policy names (default: "
+                    "baseline,ips,ips_agc); with --grid it replays the "
+                    "grid's workload cells under these policies and their "
+                    "declared baselines")
+    ap.add_argument("--modes", default="bursty,daily")
+    ap.add_argument("--endurance", nargs="?", const="", default=None,
+                    metavar="K=V[,K=V...]",
+                    help="track wear on every cell; optional knobs over "
+                    "EnduranceSpec fields, e.g. w_rp=4,rp_budget=2,"
+                    "read_penalty_ms=0.05 (bare flag: defaults). Overrides "
+                    "a named grid's pinned knobs")
+    ap.add_argument("--list-policies", action="store_true",
+                    help="print the policy registry and exit")
+    ap.add_argument("--list-grids", action="store_true",
+                    help="print the named grids and exit")
+    ap.add_argument("--seeds", default="0", help="comma list of RNG seeds; "
+                    ">1 seed adds bootstrap CIs to the geomean summary")
+    ap.add_argument("--cache-fracs", default="1.0",
+                    help="comma list of SLC cache scale factors")
+    ap.add_argument("--scale", type=int, default=None,
+                    help="drive scale-down factor (default "
+                    "driver.DEFAULT_SCALE, 128)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the "
                     "kernel's plain version)")
     ap.add_argument("--max-ops", type=int, default=None,
                     help="truncate traces (smoke runs)")
+    ap.add_argument("--no-trace-cache-disk", action="store_true",
+                    help="keep the compiled-trace cache in memory only")
+    ap.add_argument("--name", default=None, help="artifact name: "
+                    "BENCH_torch_<name>.json (default: sweep_<grid>)")
     ap.add_argument("--out-dir", default=".",
-                    help="where BENCH_torch_sweep_<grid>.json is written")
+                    help="where BENCH_torch_<name>.json is written")
     ap.add_argument("--no-save", action="store_true")
     return ap.parse_args(argv)
 
@@ -54,31 +107,152 @@ def _device_meta(device) -> dict:
     return meta
 
 
+def _select_points(args, seeds):
+    """The sweep's points from --grid or --traces/--trace-file, with
+    --policies/--modes/--cache-fracs/--endurance applied as the
+    reference's CLI applies them; returns (points, error message)."""
+    from repro_torch import workloads
+    from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+    from repro_torch.core.ssd.policies.registry import (baseline_of,
+                                                        policy_names)
+    from repro_torch.sweep.grid import SweepPoint, expand_grid, named_grid
+
+    def unknown_policies(policies):
+        bad = sorted(set(policies) - set(policy_names()))
+        return (f"unknown --policies value(s) {','.join(bad)}; registered: "
+                f"{','.join(policy_names())}") if bad else None
+
+    if args.grid:
+        if args.trace_file:
+            return None, ("--trace-file cannot be combined with --grid "
+                          "(named grids fix their workloads)")
+        points = named_grid(args.grid)
+        if args.policies:
+            # replay the grid's workload cells under the requested
+            # policies, each with its declared baseline
+            req = tuple(dict.fromkeys(args.policies.split(",")))
+            err = unknown_policies(req)
+            if err:
+                return None, err
+            wanted = list(dict.fromkeys(
+                sum(((p, baseline_of(p)) for p in req), ())))
+            coords = list(dict.fromkeys(
+                (pt.trace, pt.mode, pt.seed, pt.repeat, pt.cache_frac,
+                 pt.idle_threshold_ms, pt.cap_boost_frac, pt.endurance)
+                for pt in points))
+            points = [SweepPoint(trace=t, mode=m, policy=p, seed=s,
+                                 repeat=r, cache_frac=c,
+                                 idle_threshold_ms=i, cap_boost_frac=b,
+                                 endurance=e, baseline=baseline_of(p))
+                      for (t, m, s, r, c, i, b, e) in coords
+                      for p in wanted]
+    else:
+        traces = tuple(args.traces.split(",") if args.traces else
+                       (workloads.TRACE_NAMES if not args.trace_file
+                        else ()))
+        traces += tuple(args.trace_file)
+        policies = tuple((args.policies or "baseline,ips,ips_agc")
+                         .split(","))
+        modes = tuple(args.modes.split(","))
+        bad, missing = [], []
+        for t in sorted(set(traces)):
+            try:
+                kind = workloads.spec_kind(t)
+            except ValueError:
+                bad.append(t)
+                continue
+            if kind == "file" and not os.path.isfile(t):
+                missing.append(t)
+        if bad:
+            return None, (f"unknown --traces value(s) {','.join(bad)}; "
+                          f"valid: {','.join(workloads.known_specs())} "
+                          "(or a trace-file path)")
+        if missing:
+            return None, f"trace file not found: {','.join(missing)}"
+        err = unknown_policies(policies)
+        if err:
+            return None, err
+        orphans = {p: baseline_of(p) for p in policies
+                   if baseline_of(p) not in policies}
+        if orphans:
+            pol, base = sorted(orphans.items())[0]
+            return None, (f"policy {pol!r} normalizes against {base!r}, "
+                          "which is not in --policies; add it (baselines "
+                          "are added automatically only with --grid)")
+        unknown_modes = sorted(set(modes) - {"bursty", "daily"})
+        if unknown_modes:
+            return None, (f"unknown --modes value(s) "
+                          f"{','.join(unknown_modes)}; valid: bursty,daily")
+        if not traces:
+            return None, "no workloads selected"
+        points = [replace(pt, baseline=baseline_of(pt.policy))
+                  for pt in expand_grid(
+                      traces=traces, modes=modes, policies=policies,
+                      seeds=seeds,
+                      cache_fracs=tuple(float(c) for c in
+                                        args.cache_fracs.split(",")))]
+    if args.endurance is not None:
+        try:
+            endurance = EnduranceSpec.parse(args.endurance)
+        except ValueError as e:
+            return None, str(e)
+        points = [replace(pt, endurance=endurance) for pt in points]
+    return points, None
+
+
 def main(argv=None) -> int:
     args = _parse(argv if argv is not None else sys.argv[1:])
     import torch
 
+    from repro_torch import workloads
     from repro_torch.configs.ssd_paper import PAPER_SSD
     from repro_torch.core.ssd.driver import DEFAULT_SCALE
-    from repro_torch.sweep.grid import named_grid
-    from repro_torch.sweep.report import policy_geomeans, throughput_table
+    from repro_torch.core.ssd.policies.registry import get_entry, policy_names
+    from repro_torch.sweep.report import (endurance_summary, policy_geomeans,
+                                          policy_geomeans_ci,
+                                          sensitivity_deltas,
+                                          throughput_table)
     from repro_torch.sweep.runner import run_sweep
 
+    if args.list_policies:
+        print(f"{'policy':<10}{'composition':<42}{'baseline':<10}doc")
+        for name in policy_names():
+            e = get_entry(name)
+            doc = e.doc.partition(";")[0].partition(":")[0]
+            print(f"{name:<10}{e.spec.composition:<42}{e.baseline:<10}"
+                  f"{doc}")
+        return 0
+    if args.list_grids:
+        print(f"{'grid':<13}{'cells':>6}  summary")
+        for gname, fn in GRIDS.items():
+            summary = (fn.__doc__ or "").strip().splitlines()[0]
+            print(f"{gname:<13}{len(fn()):>6}  {summary}")
+        return 0
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         print("error: --device cuda but no CUDA device is available; "
               "pass --device cpu for the plain version", file=sys.stderr)
         return 2
-    cfg = PAPER_SSD.scaled(DEFAULT_SCALE)
-    points = named_grid(args.grid)
-    print(f"sweep: {len(points)} cells on a 1/{DEFAULT_SCALE} drive "
+    seeds = tuple(int(s) for s in args.seeds.split(","))
+    points, err = _select_points(args, seeds)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 2
+    scale = args.scale or DEFAULT_SCALE
+    cfg = PAPER_SSD.scaled(scale)
+    cache = workloads.TraceCache(use_disk=not args.no_trace_cache_disk)
+    print(f"sweep: {len(points)} cells on a 1/{scale} drive "
           f"({cfg.capacity_gb:.1f} GB) on {args.device}")
     timings = []
     t0 = time.perf_counter()
     results = run_sweep(cfg, points, max_ops=args.max_ops,
                         device=args.device, timings=timings,
+                        trace_cache=cache,
                         progress=lambda s: print(f"  {s}"))
     wall = time.perf_counter() - t0
+    cstats = cache.stats()
+    print(f"  trace cache: {cstats['hits']} hit(s), {cstats['misses']} "
+          "miss(es)")
     padded = sum(g["cells"] * g["t_len"] for g in timings)
     throughput = {"wall_s": wall, "ops_per_s": padded / max(wall, 1e-9),
                   "cells_per_s": len(points) / max(wall, 1e-9)}
@@ -86,28 +260,95 @@ def main(argv=None) -> int:
           f"{throughput['ops_per_s'] / 1e6:.3f} Mops/s over the padded "
           "length")
     print(throughput_table(timings))
+    _print_table(results)
     geomeans = {f"{m}/{p}": v for (m, p), v in
                 sorted(policy_geomeans(results).items())}
-    print("\n=== geomeans vs declared baseline ===")
-    for key, v in geomeans.items():
-        print(f"{key:<16} lat={v.get('mean_write_latency_ms', float('nan')):.4f}"
-              f" wa={v.get('wa_paper', float('nan')):.4f}  (n={v['n']})")
+    payload = {"geomeans": geomeans}
+    if any("tbw_proj_gb" in v for v in results.values()):
+        endur = endurance_summary(results)
+        _print_endurance_table(endur)
+        payload["endurance"] = {f"{m}/{p}": v for (m, p), v in
+                                sorted(endur.items())}
+    if args.grid == "sensitivity":
+        deltas = sensitivity_deltas(results)
+        _print_sensitivity_table(deltas)
+        payload["sensitivity"] = {"/".join(k): v
+                                  for k, v in sorted(deltas.items())}
+    if len({pt.seed for pt in points}) > 1:
+        cis = policy_geomeans_ci(results)
+        _print_ci_table(cis)
+        payload["geomeans_ci"] = {f"{m}/{p}": v
+                                  for (m, p), v in sorted(cis.items())}
     if not args.no_save:
-        name = f"torch_sweep_{args.grid}"
-        doc = {"name": name, "meta": _device_meta(args.device),
-               "config": dataclasses.asdict(cfg), "grid": args.grid,
-               "n_cells": len(points), "max_ops": args.max_ops,
-               "scale": DEFAULT_SCALE, "group_timings": timings,
+        name = args.name or f"sweep_{args.grid or 'custom'}"
+        doc = {"name": f"torch_{name}", "meta": _device_meta(args.device),
+               "config": dataclasses.asdict(cfg),
+               "grid": args.grid or "custom", "n_cells": len(points),
+               "max_ops": args.max_ops, "scale": scale,
+               "trace_cache": cstats, "group_timings": timings,
                "throughput": throughput,
                "results": {pt.key: v for pt, v in sorted(
                    results.items(), key=lambda kv: kv[0].key)},
-               "geomeans": geomeans}
+               **payload}
         os.makedirs(args.out_dir, exist_ok=True)
-        path = os.path.join(args.out_dir, f"BENCH_{name}.json")
+        path = os.path.join(args.out_dir, f"BENCH_torch_{name}.json")
         with open(path, "w") as f:
             json.dump(doc, f, indent=1, sort_keys=True)
         print(f"\nwrote {path}")
     return 0
+
+
+def _print_table(results) -> None:
+    from repro_torch.sweep.report import normalize_points, policy_geomeans
+    lat = normalize_points(results, "mean_write_latency_ms")
+    wa = normalize_points(results, "wa_paper")
+    if lat:
+        print(f"\n{'cell':<40}{'lat/base':>10}{'wa/base':>10}")
+        for point in sorted(lat, key=lambda p: p.key):
+            print(f"{point.key:<40}{lat[point]:>10.3f}"
+                  f"{wa.get(point, float('nan')):>10.3f}")
+    print("\n=== geomeans vs declared baseline ===")
+    for (mode, policy), v in sorted(policy_geomeans(results).items()):
+        print(f"{mode:>7} {policy:<8} "
+              f"lat={v.get('mean_write_latency_ms', float('nan')):.4f} "
+              f"wa={v.get('wa_paper', float('nan')):.4f}  (n={v['n']})")
+
+
+def _print_endurance_table(endur) -> None:
+    print("\n=== endurance: lifetime + wear leveling ===")
+    print(f"{'mode':>7} {'policy':<9}{'tbw/base':>9}{'eol/base':>9}"
+          f"{'cyc_max':>9}{'skew':>7}{'eol%':>6}")
+    for (mode, policy), v in sorted(endur.items()):
+        def fmt(x):
+            # "ref": a reference cell; "n/a": no comparable pairs
+            if x is not None:
+                return f"{x:.3f}"
+            return "ref" if v["is_ref"] else "n/a"
+        print(f"{mode:>7} {policy:<9}{fmt(v['tbw_ratio']):>9}"
+              f"{fmt(v['eol_ratio']):>9}{v['eff_cycles_max']:>9.1f}"
+              f"{v['cycle_skew']:>7.3f}{v['eol_frac']:>6.0%}")
+
+
+def _print_sensitivity_table(deltas) -> None:
+    print("\n=== sensitivity: one-axis swaps around ips (ratios vs ips) ===")
+    print(f"{'axis':<11}{'swap':<29}{'policy':<9}{'mode':<7}"
+          f"{'lat':>7}{'wa':>7}")
+    for (axis, swap, policy, mode), v in sorted(deltas.items()):
+        print(f"{axis:<11}{swap:<29}{policy:<9}{mode:<7}"
+              f"{v.get('mean_write_latency_ms', float('nan')):>7.3f}"
+              f"{v.get('wa_paper', float('nan')):>7.3f}")
+
+
+def _print_ci_table(cis) -> None:
+    print("\n=== seed-pooled geomeans, 95% bootstrap CI ===")
+    for (mode, policy), v in sorted(cis.items()):
+        def fmt(d):
+            return (f"{d['geomean']:.3f} [{d['lo']:.3f},{d['hi']:.3f}]"
+                    if d else "n/a")
+        print(f"{mode:>7} {policy:<8} "
+              f"lat={fmt(v.get('mean_write_latency_ms'))} "
+              f"wa={fmt(v.get('wa_paper'))}  "
+              f"(n={v['n']}, seeds={v['n_seeds']})")
 
 
 if __name__ == "__main__":

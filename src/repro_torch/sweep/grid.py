@@ -1,13 +1,15 @@
 """Sweep-grid definition: the cell is a `SweepPoint`, grids are lists.
 
-Port of the reference package's `sweep/grid.py` for the grids whose
-cells the port runs: `paper`, `quick` and `beyond`. A point pins one
-simulated cell: workload trace, access mode, policy, RNG seed,
-write-volume repeat factor (paper Fig. 12a) and cache-size fraction
-(Fig. 12b) — plus the cell's declared normalization `baseline`. Its
-`key` is the reference's, so results of the two packages pair up by
-key. The reference's other point knobs (pinned waste_p, idle threshold,
-boost fraction, endurance, host tier) belong to later slices.
+Port of the reference package's `sweep/grid.py`: every device-only grid
+(`paper`, `quick`, `matrix`, `stress`, `mixed`, `beyond`, `endurance`,
+`sensitivity`). A point pins one simulated cell: workload spec, access
+mode, policy, RNG seed, write-volume repeat factor (paper Fig. 12a),
+cache-size fraction (Fig. 12b), an optional idle-threshold override,
+pinned AGC waste probability, cap_boost scaling and endurance knobs —
+plus the cell's declared normalization `baseline`. Its `key` is the
+reference's, so results of the two packages pair up by key. The
+reference's host-tier knob and its `hostcache` grid belong to a later
+slice of the port (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -15,8 +17,11 @@ import itertools
 from dataclasses import dataclass, field, replace
 from typing import Iterable, Optional, Sequence
 
-__all__ = ["SweepPoint", "expand_grid", "paper_grid", "quick_grid",
-           "beyond_grid", "named_grid", "GRIDS"]
+from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+
+__all__ = ["SweepPoint", "expand_grid", "matrix_grid", "paper_grid",
+           "quick_grid", "stress_grid", "mixed_grid", "beyond_grid",
+           "endurance_grid", "sensitivity_grid", "named_grid", "GRIDS"]
 
 
 @dataclass(frozen=True)
@@ -27,6 +32,13 @@ class SweepPoint:
     seed: int = 0
     repeat: int = 1                # write-volume multiplier (Fig. 12a)
     cache_frac: float = 1.0        # scales SLC regions (Fig. 12b)
+    idle_threshold_ms: Optional[float] = None
+    waste_p: Optional[float] = None  # None -> per-trace calibration
+    cap_boost_frac: Optional[float] = None  # scales the adaptive
+    #                                allocation's cap_boost
+    # endurance-model knobs; None disables wear tracking unless the
+    # policy's composition requires it (the runner then attaches defaults)
+    endurance: Optional[EnduranceSpec] = None
     # declared normalization policy — metadata, not cell identity
     baseline: str = field(default="baseline", compare=False)
 
@@ -40,12 +52,19 @@ class SweepPoint:
             quals.append(f"rep={self.repeat}")
         if self.cache_frac != 1.0:
             quals.append(f"cache={self.cache_frac:g}")
+        if self.idle_threshold_ms is not None:
+            quals.append(f"idle={self.idle_threshold_ms:g}")
+        if self.cap_boost_frac is not None:
+            quals.append(f"boost={self.cap_boost_frac:g}")
+        if self.endurance is not None:
+            quals.append(f"endur={self.endurance.tag}")
         base = f"{self.trace}/{self.mode}/{self.policy}"
         return base + (f"&{','.join(quals)}" if quals else "")
 
     def baseline_point(self) -> "SweepPoint":
-        """The cell this point normalizes against."""
-        return replace(self, policy=self.baseline)
+        """The cell this point normalizes against: the declared baseline
+        policy, everything else the same but a pinned `waste_p`."""
+        return replace(self, policy=self.baseline, waste_p=None)
 
 
 def expand_grid(traces: Optional[Iterable[str]] = None,
@@ -65,6 +84,13 @@ def expand_grid(traces: Optional[Iterable[str]] = None,
                        cache_frac=c, baseline=baseline)
             for t, m, p, s, r, c in itertools.product(
                 traces, modes, policies, seeds, repeats, cache_fracs)]
+
+
+def matrix_grid(policies=("baseline", "ips", "ips_agc"),
+                seeds=(0,)) -> list[SweepPoint]:
+    """The paper's headline matrix: 11 traces x {bursty, daily} x
+    policies (Figs. 9-11)."""
+    return expand_grid(policies=policies, seeds=seeds)
 
 
 def paper_grid() -> list[SweepPoint]:
@@ -91,6 +117,24 @@ def quick_grid() -> list[SweepPoint]:
                        policies=("baseline", "ips"))
 
 
+def stress_grid() -> list[SweepPoint]:
+    """Beyond-MSR stress matrix: the parametric scenario generators
+    across both modes — skewed overwrites, duty cycles, write bursts and
+    sustained cache overrun."""
+    return expand_grid(
+        traces=("gc_pressure", "zipf_hot", "read_burst", "diurnal"),
+        policies=("baseline", "ips", "ips_agc"))
+
+
+def mixed_grid() -> list[SweepPoint]:
+    """Multi-tenant colocation: the tenant_mix scenario across seeds, all
+    four policies — the seed axis feeds the bootstrap CIs
+    (`report.policy_geomeans_ci`)."""
+    return expand_grid(traces=("tenant_mix",), modes=("daily",),
+                       policies=("baseline", "ips", "ips_agc", "coop"),
+                       seeds=(0, 1, 2))
+
+
 def beyond_grid() -> list[SweepPoint]:
     """Beyond-paper compositions, each against its declared baseline:
     `dyn_slc` vs `baseline`, `ips_lazy` vs `coop`."""
@@ -101,10 +145,46 @@ def beyond_grid() -> list[SweepPoint]:
     return pts
 
 
-GRIDS = {"paper": paper_grid, "quick": quick_grid, "beyond": beyond_grid}
+def endurance_grid() -> list[SweepPoint]:
+    """Wear / reliability / lifetime evaluation. Every cell tracks
+    endurance with one pinned knob set: `w_rp=4`, `rp_budget=2`,
+    `cycle_budget=15`, `read_penalty_ms=0.05`. `ips_raro` normalizes
+    against `ips`, `base_wl` and the rest against `baseline`."""
+    e = EnduranceSpec(w_rp=4.0, w_erase=1.0, cycle_budget=15.0,
+                      rp_budget=2.0, read_penalty_ms=0.05)
+    traces = ("hm_0", "hm_1", "proj_0")
+    pts = expand_grid(traces=traces, policies=("baseline", "ips",
+                                               "base_wl"))
+    pts += expand_grid(traces=traces, policies=("ips_raro",),
+                       baseline="ips")
+    return [replace(p, endurance=e) for p in pts]
+
+
+def sensitivity_grid() -> list[SweepPoint]:
+    """Per-mechanism sensitivity around the `ips` composition: every
+    registered policy whose spec differs from ips on exactly ONE axis,
+    each normalized against ips."""
+    from repro_torch.core.ssd.policies.registry import get_spec, policy_names
+    center = "ips"
+    cspec = get_spec(center)
+    axes = ("allocation", "trigger", "mechanism", "idle")
+    neighbors = sorted(
+        name for name in policy_names()
+        if sum(getattr(get_spec(name), a) != getattr(cspec, a)
+               for a in axes) == 1)
+    return expand_grid(traces=("hm_0", "hm_1", "proj_0"),
+                       policies=(center, *neighbors), baseline=center)
+
+
+GRIDS = {"paper": paper_grid, "quick": quick_grid, "matrix": matrix_grid,
+         "stress": stress_grid, "mixed": mixed_grid, "beyond": beyond_grid,
+         "endurance": endurance_grid, "sensitivity": sensitivity_grid}
 
 
 def named_grid(name: str) -> list[SweepPoint]:
+    if name == "hostcache":
+        raise ValueError("the hostcache grid needs the host tier, which "
+                         "the port has not ported yet (ROADMAP A4)")
     try:
         return GRIDS[name]()
     except KeyError:

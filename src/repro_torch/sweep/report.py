@@ -1,8 +1,11 @@
-"""Reporting: baseline normalization + geomean aggregation — port of the
-part of the reference package's `sweep/report.py` the paper sweep uses.
+"""Reporting: baseline normalization, geomeans, lifetime and sensitivity
+tables, bootstrap CIs — numpy copies of the reference package's
+`sweep/report.py` (its search and host-tier tables belong to later
+slices of the port).
 
 The paper reports every policy metric normalized per (workload, mode) to
 the Turbo-Write baseline; the geometric mean aggregates the ratios.
+`bootstrap_ci` draws exactly what the reference draws for the same seed.
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ from typing import Dict, Mapping
 import numpy as np
 
 __all__ = ["geomean", "normalize_points", "policy_geomeans",
-           "throughput_table"]
+           "endurance_summary", "sensitivity_deltas", "bootstrap_ci",
+           "policy_geomeans_ci", "throughput_table"]
 
 
 def geomean(values) -> float:
@@ -42,13 +46,136 @@ def policy_geomeans(results: Mapping, metrics=("mean_write_latency_ms",
     agg: Dict = {}
     for metric in metrics:
         for point, ratio in normalize_points(results, metric).items():
-            if (point.seed, point.repeat, point.cache_frac) != (0, 1, 1.0):
+            if (point.seed, point.repeat, point.cache_frac,
+                    point.idle_threshold_ms) != (0, 1, 1.0, None):
                 continue
             agg.setdefault((point.mode, point.policy), {}).setdefault(
                 metric, []).append(ratio)
     return {k: {m: geomean(v) for m, v in d.items()}
             | {"n": max(len(v) for v in d.values())}
             for k, d in agg.items()}
+
+
+def endurance_summary(results: Mapping) -> Dict:
+    """Per-(mode, policy) lifetime / wear-leveling columns (DESIGN.md §9)
+    over cells that carried endurance metrics:
+
+    * `tbw_ratio` — geomean of the TBW projection normalized against each
+      cell's declared baseline (None for reference cells);
+    * `eol_ratio` — likewise for the end-of-life step, over cell pairs
+      where BOTH sides reached EOL inside the trace (an `eol_op` of -1
+      means the budget was never exhausted — not comparable as a ratio);
+    * `cycle_skew` / `eff_cycles_max` — raw means (max/mean bucket-cycle
+      skew: wear-leveling quality; worst-block cycles: lifetime driver);
+    * `eol_frac` — fraction of cells whose worst bucket hit the cycle
+      budget inside the trace.
+    """
+    tbw = normalize_points(results, "tbw_proj_gb")
+    agg: Dict = {}
+    for point, val in results.items():
+        if "tbw_proj_gb" not in val:
+            continue
+        d = agg.setdefault((point.mode, point.policy),
+                           {"tbw": [], "eol": [], "skew": [], "cyc": [],
+                            "eol_hit": [], "is_ref": True})
+        if point.policy != point.baseline:
+            d["is_ref"] = False         # normalizes against someone else
+        if point in tbw:
+            d["tbw"].append(tbw[point])
+            base = results[point.baseline_point()]
+            if val["eol_op"] >= 0 and base.get("eol_op", -1) >= 0:
+                d["eol"].append(val["eol_op"] / base["eol_op"])
+        d["skew"].append(val["cycle_skew"])
+        d["cyc"].append(val["eff_cycles_max"])
+        d["eol_hit"].append(val["eol_op"] >= 0)
+    return {k: {"tbw_ratio": geomean(d["tbw"]) if d["tbw"] else None,
+                "eol_ratio": geomean(d["eol"]) if d["eol"] else None,
+                "cycle_skew": float(np.mean(d["skew"])),
+                "eff_cycles_max": float(np.mean(d["cyc"])),
+                "eol_frac": float(np.mean(d["eol_hit"])),
+                "is_ref": d["is_ref"],
+                "n": len(d["skew"])}
+            for k, d in agg.items()}
+
+
+def sensitivity_deltas(results: Mapping, center: str = "ips",
+                       metrics=("mean_write_latency_ms", "wa_paper")
+                       ) -> Dict:
+    """Per-axis deltas around `center` (the `sensitivity` grid's report):
+    for every policy in `results` differing from the center's composition
+    on exactly one axis, the geomean of its center-normalized metrics per
+    (axis, policy, mode). The axis attribution is recomputed from the
+    registry, so the table stays honest if compositions change."""
+    from repro_torch.core.ssd.policies.registry import get_spec
+    cspec = get_spec(center)
+    axes = ("allocation", "trigger", "mechanism", "idle")
+    agg: Dict = {}
+    for metric in metrics:
+        for point, ratio in normalize_points(results, metric).items():
+            if point.baseline != center:
+                continue
+            spec = get_spec(point.policy)
+            diff = [a for a in axes
+                    if getattr(spec, a) != getattr(cspec, a)]
+            if len(diff) != 1:
+                continue
+            key = (diff[0], f"{getattr(cspec, diff[0])}->"
+                   f"{getattr(spec, diff[0])}", point.policy, point.mode)
+            agg.setdefault(key, {}).setdefault(metric, []).append(ratio)
+    return {k: {m: geomean(v) for m, v in d.items()}
+            | {"n": max(len(v) for v in d.values())}
+            for k, d in agg.items()}
+
+
+def bootstrap_ci(values, *, n_boot: int = 1000, alpha: float = 0.05,
+                 seed: int = 0):
+    """Percentile-bootstrap CI for the geomean of `values`.
+
+    Resamples the per-cell ratios with replacement; returns (lo, hi) at
+    the (alpha/2, 1-alpha/2) quantiles. Deterministic (fixed RNG seed) so
+    BENCH_*.json artifacts are reproducible run-to-run."""
+    vals = np.maximum(np.asarray(list(values), np.float64), 1e-12)
+    if vals.size == 0:
+        return float("nan"), float("nan")
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, vals.size, (n_boot, vals.size))
+    gms = np.exp(np.log(vals)[idx].mean(axis=1))
+    lo, hi = np.quantile(gms, [alpha / 2, 1 - alpha / 2])
+    return float(lo), float(hi)
+
+
+def policy_geomeans_ci(results: Mapping,
+                       metrics=("mean_write_latency_ms", "wa_paper"), *,
+                       n_boot: int = 1000, alpha: float = 0.05) -> Dict:
+    """Seed-pooled geomeans with bootstrap CIs (ROADMAP seed/variance
+    item). Unlike `policy_geomeans` (headline seed-0 cells only), this
+    pools every seed at default repeat/cache/idle and resamples the
+    per-(trace, seed) baseline-normalized ratios, so `--seeds 0,1,2,...`
+    sweeps report how tight the normalized summary actually is.
+
+    Returns {(mode, policy): {metric: {"geomean", "lo", "hi"},
+                              "n": cells, "n_seeds": distinct seeds}}."""
+    agg: Dict = {}
+    seeds: Dict = {}
+    for metric in metrics:
+        norm = normalize_points(results, metric)
+        for point, ratio in norm.items():
+            if (point.repeat, point.cache_frac,
+                    point.idle_threshold_ms) != (1, 1.0, None):
+                continue
+            key = (point.mode, point.policy)
+            agg.setdefault(key, {}).setdefault(metric, []).append(ratio)
+            seeds.setdefault(key, set()).add(point.seed)
+    out: Dict = {}
+    for key, d in agg.items():
+        out[key] = {}
+        for metric, vals in d.items():
+            lo, hi = bootstrap_ci(vals, n_boot=n_boot, alpha=alpha)
+            out[key][metric] = {"geomean": geomean(vals),
+                                "lo": lo, "hi": hi}
+        out[key]["n"] = max(len(v) for v in d.values())
+        out[key]["n_seeds"] = len(seeds[key])
+    return out
 
 
 def throughput_table(group_timings) -> str:

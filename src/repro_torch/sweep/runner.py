@@ -1,13 +1,21 @@
 """Fleet sweep runner: batch sweep points into fleets — port of the
-reference package's `sweep/runner.py` for the MSR-trace grids.
+reference package's `sweep/runner.py`.
 
 Points are grouped by what selects a different kernel specialisation or
-stacked shape: (mechanism composition, mode, padded trace length). The
-composition is the policy's `PolicySpec`, not its name, so two names
-with one composition share a group. Every group is one `FleetGroup` with
-per-cell `CellParams`, and all of them go to ONE `fleet.run_fleets`
-call — on a CUDA device one launch of the `ssd_step` kernel, one block a
-cell, the longest cells first, every cell of the grid side by side.
+stacked shape: (mechanism composition, mode, padded trace length, wear
+tracking). The composition is the policy's `PolicySpec`, not its name,
+so two names with one composition share a group. Every group is one
+`FleetGroup` with per-cell `CellParams`, and all of them go to ONE
+`fleet.run_fleets` call — on a CUDA device one launch of the `ssd_step`
+kernel, one block a cell, the longest cells first, every cell of the
+grid side by side, the wear form's cells among them. Groups that track
+wear step every padded op (no pad trim, as the reference's fleet).
+
+Traces come from the workload engine through its content-addressed
+cache (`workloads.TraceCache`): a point's `trace` may be an MSR name, a
+scenario name or a trace-file path. The AGC waste calibration of a
+scenario or file is fitted from its daily trace (`workloads.fit_stats`),
+as the reference's runner fits it.
 
 The launch and each group's summary are queued first; the results are
 copied to the host afterwards, group by group. Per-group timings — the
@@ -25,9 +33,12 @@ import torch
 
 from repro_torch import workloads
 from repro_torch.core.ssd import fleet
-from repro_torch.core.ssd.driver import LOGICAL_SPACE_CAP, _agc_waste_p
+from repro_torch.core.ssd.driver import (LOGICAL_SPACE_CAP, _agc_waste_p,
+                                         agc_waste_from_stats)
+from repro_torch.core.ssd.endurance.spec import EnduranceSpec
 from repro_torch.core.ssd.policies.registry import get_spec
-from repro_torch.core.ssd.policies.state import CellParams, can_pack
+from repro_torch.core.ssd.policies.spec import requires_endurance
+from repro_torch.core.ssd.policies.state import can_pack, map_state
 from repro_torch.core.ssd.sim import default_params
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.sweep.grid import SweepPoint
@@ -39,33 +50,54 @@ def _n_logical(cfg) -> int:
     return min(cfg.total_pages, LOGICAL_SPACE_CAP)
 
 
-def _cell_params(cfg, point: SweepPoint):
-    """Per-point CellParams on the host: the AGC waste calibration and the
-    cache_frac scaling (the reference's arithmetic, int() truncation
-    included)."""
-    waste_p = (_agc_waste_p(point.trace)
-               if get_spec(point.policy).idle == "agc" else 0.0)
-    p = default_params(cfg, point.policy, waste_p, device="cpu")
+def _endurance_of(point: SweepPoint):
+    """The point's endurance knobs: its own, or the defaults when its
+    composition requires wear tracking, else None."""
+    if point.endurance is not None:
+        return point.endurance
+    if requires_endurance(get_spec(point.policy)):
+        return EnduranceSpec()
+    return None
+
+
+def _cell_params(cfg, point: SweepPoint, waste_p: float):
+    """Per-point CellParams on the host, in the reference's order and
+    with its int() truncations: the waste probability, the cache_frac
+    scaling, the idle-threshold override, the cap_boost scaling and the
+    endurance knobs."""
+    p = default_params(cfg, point.policy, waste_p, _endurance_of(point),
+                       device="cpu")
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32)
+
     if point.cache_frac != 1.0:
-        def scaled(v, least=0):
-            return torch.tensor(max(int(int(v) * point.cache_frac), least),
-                                dtype=torch.int32)
-        p = p._replace(cap_basic=scaled(p.cap_basic, 4),
-                       cap_trad=scaled(p.cap_trad),
-                       cap_boost=scaled(p.cap_boost))
+        p = p._replace(
+            cap_basic=i32(max(int(int(p.cap_basic) * point.cache_frac), 4)),
+            cap_trad=i32(int(int(p.cap_trad) * point.cache_frac)),
+            cap_boost=i32(int(int(p.cap_boost) * point.cache_frac)))
+    if point.idle_threshold_ms is not None:
+        p = p._replace(idle_thr=torch.tensor(point.idle_threshold_ms,
+                                             dtype=torch.float32))
+    if point.cap_boost_frac is not None:
+        p = p._replace(cap_boost=i32(int(int(p.cap_boost)
+                                         * point.cap_boost_frac)))
     return p
 
 
 def run_sweep(cfg, points: Sequence[SweepPoint], *,
               max_ops: Optional[int] = None, device="cuda",
-              progress=None, timings: Optional[List[Dict]] = None
+              progress=None, timings: Optional[List[Dict]] = None,
+              trace_cache: Optional[workloads.TraceCache] = None
               ) -> Dict[SweepPoint, Dict[str, float]]:
     """Run every sweep point batched; returns {point: metrics}.
 
     `max_ops` truncates traces (smoke runs). `progress` is an optional
-    callable(str) for per-group status lines. `timings`, if given, gets
-    one dict per group: policies, mode, composition, cells, t_len,
-    t_scan, packed, dispatch_s (host clock, building the group's fleet),
+    callable(str) for per-group status lines. `trace_cache` supplies the
+    compiled-trace cache (a fresh one, memory and disk, otherwise).
+    `timings`, if given, gets one dict per group: policies, mode,
+    composition, endurance, cells, t_len, t_scan, packed,
+    dispatch_s (host clock, building the group's fleet),
     launch_s (host clock of the one shared call and the summaries),
     launch_ms (CUDA events around the one launch, the same in every
     group; None on the CPU), kernel_ms (the group's device time: its
@@ -77,55 +109,78 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     length, per kernel time on the card and per call time on the
     CPU.
 
-    Every group scans only its shared live prefix and replays the
-    identical pad tail to its exact fixed point, and carries int16 plane
-    fields whenever every cell's caps provably fit
-    (`policies.state.can_pack`) — the reference runner's defaults.
-    Results are identical either way."""
+    Every group that does not track wear scans only its shared live
+    prefix and replays the identical pad tail to its exact fixed point;
+    every group carries int16 plane fields whenever every cell's caps
+    provably fit (`policies.state.can_pack`) — the reference runner's
+    defaults. Results are identical either way."""
     n_logical = _n_logical(cfg)
     device = torch.device(device)
-    traces: Dict[tuple, dict] = {}
+    cache = (trace_cache if trace_cache is not None
+             else workloads.TraceCache())
 
     def cell_trace(pt: SweepPoint) -> dict:
-        key = (pt.trace, pt.mode, pt.seed, pt.repeat)
-        if key not in traces:
-            tr = workloads.build_ops(
-                pt.trace, n_logical, mode=pt.mode, seed=pt.seed,
-                capacity_pages=cfg.total_pages, repeat=pt.repeat)
-            if max_ops is not None:
-                tr = workloads.truncate_trace(tr, max_ops)
-            traces[key] = tr
-        return traces[key]
+        tr = workloads.build_ops(
+            pt.trace, n_logical, mode=pt.mode, seed=pt.seed,
+            capacity_pages=cfg.total_pages, repeat=pt.repeat, cache=cache)
+        if max_ops is not None:
+            tr = workloads.truncate_trace(tr, max_ops)
+        return tr
+
+    # AGC waste calibration: published stats for MSR names, stats fitted
+    # on the daily variant for scenario and file specs (one fit a recipe)
+    fitted_waste: Dict[tuple, float] = {}
+
+    def cell_waste(pt: SweepPoint) -> float:
+        if pt.waste_p is not None:
+            return pt.waste_p
+        if get_spec(pt.policy).idle != "agc":
+            return 0.0
+        if pt.trace in workloads.TRACES:
+            return _agc_waste_p(pt.trace)
+        key = (pt.trace, pt.seed, pt.repeat)
+        if key not in fitted_waste:
+            ops = workloads.build_ops(
+                pt.trace, n_logical, mode="daily", seed=pt.seed,
+                capacity_pages=cfg.total_pages, repeat=pt.repeat,
+                cache=cache)
+            st = workloads.fit_stats(
+                workloads.ir.trace_from_ops(ops, source=pt.trace),
+                n_logical, cfg.total_pages)
+            fitted_waste[key] = agc_waste_from_stats(st)
+        return fitted_waste[key]
 
     groups: Dict[tuple, list] = defaultdict(list)
     for pt in points:
         groups[(get_spec(pt.policy), pt.mode,
-                len(cell_trace(pt)["arrival_ms"]))].append(pt)
+                len(cell_trace(pt)["arrival_ms"]),
+                _endurance_of(pt) is not None)].append(pt)
 
     # ---- phase 1: build every group's fleet, then one launch for all ----
     pending, fleets = [], []
-    for (spec, mode, t_len), pts in sorted(groups.items(),
-                                           key=lambda kv: kv[0]):
+    for (spec, mode, t_len, endur), pts in sorted(groups.items(),
+                                                  key=lambda kv: kv[0]):
         names = ",".join(sorted({p.policy for p in pts}))
         if progress:
             progress(f"fleet {names}/{mode}: {len(pts)} cells x {t_len} "
                      f"ops on {device}")
         t0 = time.perf_counter()
         cell_traces = [cell_trace(p) for p in pts]
-        params = [_cell_params(cfg, p) for p in pts]
+        params = [_cell_params(cfg, p, cell_waste(p)) for p in pts]
         pack_grp = all(can_pack(cfg, n_logical, p) for p in params)
         ops = fleet.stack_ops(cell_traces, device=device)
-        stacked = CellParams(*(x.to(device)
-                               for x in fleet.stack_params(params)))
+        stacked = map_state(lambda x: x.to(device),
+                            fleet.stack_params(params))
         fleets.append(fleet.FleetGroup(spec, ops, stacked,
                                        closed_loop=(mode == "bursty"),
                                        packed=pack_grp))
+        t_scan = (t_len if endur else fleet._trim_len(np.stack(
+            [t["is_write"] for t in cell_traces])))
         pending.append({
             "pts": pts, "n_ops": [t["n_ops"] for t in cell_traces],
             "names": names, "mode": mode, "spec": spec, "t_len": t_len,
-            "packed": pack_grp, "dispatch_s": time.perf_counter() - t0,
-            "t_scan": fleet._trim_len(np.stack(
-                [t["is_write"] for t in cell_traces]))})
+            "endurance": endur, "packed": pack_grp,
+            "dispatch_s": time.perf_counter() - t0, "t_scan": t_scan})
     n_cells = sum(len(g["pts"]) for g in pending)
     timer = (torch.zeros((n_cells, len(ssd_step.TIMER_COLUMNS)),
                          dtype=torch.int64, device=device)
@@ -138,7 +193,8 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
         if grp["mode"] == "daily":
             states = fleet.flush_fleet(cfg, states, grp["spec"])
         grp["summ"] = fleet.summarize_fleet(latency, fl.ops["is_write"],
-                                            states)
+                                            states, params=fl.params,
+                                            cfg=cfg)
     launch_s = time.perf_counter() - t0
     events = ssd_step.events[n_launch:]
 
@@ -163,7 +219,8 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
             continue
         entry = {
             "policies": grp["names"], "mode": grp["mode"],
-            "composition": grp["spec"].composition, "cells": cells,
+            "composition": grp["spec"].composition,
+            "endurance": grp["endurance"], "cells": cells,
             "t_len": grp["t_len"], "t_scan": grp["t_scan"],
             "packed": grp["packed"], "dispatch_s": grp["dispatch_s"],
             "launch_s": launch_s, "launch_ms": launch_ms,

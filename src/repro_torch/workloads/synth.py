@@ -9,8 +9,10 @@ the paper; the normalized (vs-baseline) latency/WA behaviour — which is
 what we validate — is driven by cache-to-writeset ratios and idle structure,
 which are preserved. Declared in DESIGN.md §2.
 
-A numpy copy of the reference package's `workloads/synth.py` (the
-published-stats path only): the 11 MSR traces compile to tensors
+A numpy copy of the reference package's `workloads/synth.py`,
+`synthesize_stats` and `synthesize_phases` included (the scenario
+generators and `stats.synthesize_like` call them): the 11 MSR traces
+compile to tensors
 identical to the reference's (tests/test_torch_ssd.py), so the
 port's sweep reproduces the committed `BENCH_sweep_paper.json`.
 
@@ -30,7 +32,8 @@ import numpy as np
 from repro_torch.workloads import ir
 
 __all__ = ["TraceStats", "TRACES", "TRACE_NAMES", "synthesize",
-           "synthesize_stats", "synth_trace", "make_trace"]
+           "synthesize_stats", "synthesize_phases", "synth_trace",
+           "make_trace"]
 
 
 @dataclass(frozen=True)
@@ -142,6 +145,33 @@ def _repeat_requests(req: Dict, repeat: int) -> Dict:
         "pages": np.tile(req["pages"], repeat),
         "is_write": np.tile(req["is_write"], repeat),
     }
+
+
+def synthesize_phases(stats_seq, total_logical_pages: int, seed: int = 0,
+                      capacity_pages: int | None = None,
+                      label: str = "phases") -> Dict:
+    """Concatenate per-phase syntheses into one request-level trace.
+
+    Each `TraceStats` in `stats_seq` synthesizes one phase (RNG stream
+    `{label}.{i}`, so phases decorrelate even with identical stats) and
+    phases tile along the arrival axis with cumulative span offsets —
+    the `_repeat_requests` scheme, but with the stats free to drift
+    between phases. Pair with `stats.fit_stats(trace, windows=N)`: the
+    fitted phase sequence replays a non-stationary workload's drift
+    (e.g. the diurnal write-burst/idle alternation the `flush_burst`
+    scenario is built from)."""
+    stats_seq = list(stats_seq)
+    if not stats_seq:
+        raise ValueError("synthesize_phases wants at least one TraceStats")
+    parts, offset = [], 0.0
+    for i, st in enumerate(stats_seq):
+        req = synthesize_stats(st, total_logical_pages, seed,
+                               capacity_pages, label=f"{label}.{i}")
+        arrival = req["arrival_ms"] + offset
+        if len(arrival):
+            offset = float(arrival[-1]) + 1.0
+        parts.append({**req, "arrival_ms": arrival})
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
 def synth_trace(name: str, total_logical_pages: int, mode: str = "daily",

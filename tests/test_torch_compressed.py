@@ -19,7 +19,7 @@ from repro.kernels.ssd_step.ref import run_segments_ref as j_segments_ref
 from repro.workloads.compress import compress_ops as j_compress
 from repro_torch import interop
 from repro_torch.core.ssd import sim as tsim
-from repro_torch.core.ssd.policies.state import SimState, init_state
+from repro_torch.core.ssd.policies.state import init_state, map_state
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.kernels.ssd_step.ref import run_segments_ref
 from repro_torch.workloads.compress import compress_ops as t_compress
@@ -127,11 +127,10 @@ def test_state_from_jax_finishes_identically(policy, mode):
     seg = {k: v.reshape(1, -1, 1) for k, v in
            tsim.as_ops(tail, device="cpu").items()}
     t_lat, t_final = ssd_step.run_stream(
-        CFG_T, policy, seg, SimState(*(x[None] for x in t_half)),
-        closed_loop=closed, params=type(t_params)(*(x[None]
-                                                    for x in t_params)))
+        CFG_T, policy, seg, map_state(lambda x: x[None], t_half),
+        closed_loop=closed, params=map_state(lambda x: x[None], t_params))
     assert_leaf_equal(j_lat, t_lat.reshape(-1), "latency")
-    assert_state_equal(j_final, SimState(*(x[0] for x in t_final)), "final")
+    assert_state_equal(j_final, map_state(lambda x: x[0], t_final), "final")
     _, t_whole = tsim.run_trace(CFG_T, policy, ops, closed_loop=closed,
                                 n_logical=N_LOGICAL, device="cpu")
     assert_state_equal(j_final, t_whole, "whole-trace port run")
@@ -139,8 +138,8 @@ def test_state_from_jax_finishes_identically(policy, mode):
 
 def test_interop_refuses_what_the_port_does_not_carry():
     state = init_state(CFG_T, 64, device="cpu")
-    leaves = [x.numpy() for x in state]
-    with pytest.raises(ValueError, match="wear, telemetry"):
+    leaves = [x.numpy() for x in state if x is not None]
+    with pytest.raises(ValueError, match="telemetry"):
         interop.state_from_jax(leaves + [np.zeros(3, np.float32)],
                                device="cpu")
     bad = list(leaves)

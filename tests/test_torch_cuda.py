@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.configs.ssd_paper import PAPER_SSD
 from repro_torch.core.ssd.policies.spec import PolicySpec
-from repro_torch.core.ssd.policies.state import CellParams, init_state
+from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+from repro_torch.core.ssd.policies.state import init_state, map_state
 from repro_torch.core.ssd.sim import default_params
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.workloads import build_ops, compress_ops, truncate_trace
@@ -67,7 +68,7 @@ def _run(policy, mode, arrays, pad_t, device, packed):
                       for k, v in arrays.items()},
         init_state(CFG, N_LOGICAL, packed=packed, n_cells=2, device=device),
         closed_loop=(mode == "bursty"),
-        params=CellParams(*(torch.stack([x, x]).to(device) for x in p)),
+        params=map_state(lambda x: torch.stack([x, x]).to(device), p),
         n_pad=PAD, pad_t=torch.from_numpy(pad_t).to(device))
 
 
@@ -89,9 +90,7 @@ def test_kernel_equals_plain_version(cuda, streams, policy, mode, form):
     lat_p, st_p = _run(policy, mode, arrays[form], pad_t,
                        torch.device("cpu"), packed)
     assert torch.equal(lat_k.cpu(), lat_p)
-    for field in st_p._fields:
-        got, want = getattr(st_k, field).cpu(), getattr(st_p, field)
-        assert got.dtype == want.dtype and torch.equal(got, want), field
+    _assert_state_equal(st_k, st_p, "")
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, streams):
@@ -147,25 +146,38 @@ def _job(policy, mode, form, trace, n_ops, cells=1):
                  for k, v in arrays.items()},
         init_state(CFG, N_LOGICAL, packed=form == "K=1", n_cells=cells,
                    device="cpu"),
-        mode == "bursty", CellParams(*(torch.stack([x] * cells) for x in p)),
+        mode == "bursty", map_state(lambda x: torch.stack([x] * cells), p),
         n_pad, torch.full((cells,), float(pad_t), dtype=torch.float32))
 
 
 def _on(job, dev):
     return job._replace(
         segs={k: v.to(dev) for k, v in job.segs.items()},
-        state0=type(job.state0)(*(x.to(dev) for x in job.state0)),
-        params=type(job.params)(*(x.to(dev) for x in job.params)),
-        pad_t=job.pad_t.to(dev))
+        state0=map_state(lambda x: x.to(dev), job.state0),
+        params=map_state(lambda x: x.to(dev), job.params),
+        pad_t=None if job.pad_t is None else job.pad_t.to(dev))
+
+
+def _assert_state_equal(got, want, label):
+    """Every leaf of `got` (on the card) equals `want` (the plain run),
+    value and dtype; the wear carry leaf by leaf, absent on both or
+    neither."""
+    for field in want._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        if w is None or isinstance(w, tuple):
+            assert (g is None) == (w is None), f"{label}: {field}"
+            if w is not None:
+                _assert_state_equal(g, w, f"{label}: {field}")
+            continue
+        g = g.cpu()
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{label}: {field}"
 
 
 def _assert_cells_equal(got, want, label):
     lat_k, st_k = got
     lat_p, st_p = want
     assert torch.equal(lat_k.cpu(), lat_p), f"{label}: latency"
-    for field in st_p._fields:
-        g, w = getattr(st_k, field).cpu(), getattr(st_p, field)
-        assert g.dtype == w.dtype and torch.equal(g, w), f"{label}: {field}"
+    _assert_state_equal(st_k, st_p, label)
 
 
 def test_one_launch_of_mixed_jobs_equals_plain_version(cuda):
@@ -217,10 +229,10 @@ def test_a_launch_of_more_cells_than_sms_equals_plain_version(cuda):
                 segs={k: torch.cat([both[c % 2].segs[k]
                                     for c in range(cells)])
                       for k in both[0].segs},
-                state0=type(both[0].state0)(*(torch.cat([x] * cells)
-                                              for x in both[0].state0)),
-                params=type(both[0].params)(*(torch.cat([x] * cells)
-                                              for x in both[0].params)),
+                state0=map_state(lambda x: torch.cat([x] * cells),
+                                 both[0].state0),
+                params=map_state(lambda x: torch.cat([x] * cells),
+                                 both[0].params),
                 pad_t=torch.cat([both[c % 2].pad_t for c in range(cells)]))
             jobs.append(((policy, mode), cells, job))
     assert sum(c for _, c, _ in jobs) == 140
@@ -230,8 +242,118 @@ def test_a_launch_of_more_cells_than_sms_equals_plain_version(cuda):
         for c in range(cells):
             want_lat, want_st = plain[key][c % 2]
             _assert_cells_equal(
-                (lat[c:c + 1], type(final)(*(x[c:c + 1] for x in final))),
+                (lat[c:c + 1], map_state(lambda x: x[c:c + 1], final)),
                 (want_lat, want_st), f"{key} cell {c}")
+
+
+# the wear form: cells that track endurance, the per-op stream only
+WEAR_KNOBS = EnduranceSpec(w_rp=4.0, w_erase=1.0, cycle_budget=3.0,
+                           rp_budget=0.75, read_penalty_ms=0.05,
+                           rp_hysteresis=0.25)
+WEAR_POLICIES = (
+    "ips_raro", "base_wl", "ips", "baseline", "coop", "ips_agc", "dyn_slc",
+    "ips_lazy", PolicySpec("static", "exhaustion", "reprogram_gated", "agc"),
+    PolicySpec("wear_min", "exhaustion", "reprogram", "agc"),
+    PolicySpec("wear_min", "idle_gap", "migrate", "greedy"),
+    PolicySpec("wear_min", "exhaustion", "reprogram_gated", "none"))
+
+
+def _wear_job(policy, mode, trace, n_ops, cells=1, spec=WEAR_KNOBS):
+    """A wear `StreamJob` on the CPU: `cells` copies of one trace's first
+    `n_ops` ops, per-op form, no pad tail, small caches so that the gate,
+    the fallback, the end of life and the read penalty fire."""
+    arrays = {k: np.repeat(v[:n_ops].astype(
+        np.float32 if k == "arrival_ms" else np.int32).reshape(1, n_ops, 1),
+        cells, axis=0) for k, v in trace.items()}
+    p = default_params(CFG, policy, 0.05, spec, device="cpu")
+    p = p._replace(cap_basic=torch.tensor(4, dtype=torch.int32),
+                   cap_trad=torch.tensor(4, dtype=torch.int32))
+    return ssd_step.StreamJob(
+        policy, {k: torch.from_numpy(v) for k, v in arrays.items()},
+        init_state(CFG, N_LOGICAL, packed=True, n_cells=cells,
+                   endurance=True, device="cpu"),
+        mode == "bursty", map_state(lambda x: torch.stack([x] * cells), p))
+
+
+@pytest.mark.parametrize("mode", ("daily", "bursty"))
+@pytest.mark.parametrize("policy", WEAR_POLICIES,
+                         ids=lambda p: getattr(p, "composition", p))
+def test_wear_form_equals_plain_version(cuda, policy, mode):
+    """Every composition's wear form, one cell: each WearState and
+    SimState leaf equals the plain run."""
+    job = _wear_job(policy, mode, _padded("proj_0", 640), 640)
+    before = ssd_step.launches
+    got = ssd_step.run_streams(CFG, [_on(job, cuda)])[0]
+    torch.cuda.synchronize()
+    assert ssd_step.launches == before + 1
+    want = ssd_step.run_streams(CFG, [job])[0]
+    _assert_cells_equal(got, want, f"{policy}/{mode}")
+    assert float(want[1].wear.pe_slc.sum()) > 0
+
+
+@pytest.mark.parametrize("cells", (1, 5, 102))
+def test_wear_form_at_many_cells(cuda, cells):
+    """1, 5 and 102 wear cells of ips_raro (alternating traces, each its
+    own length) in one launch, against the plain run of each trace."""
+    traces = {n: _padded(n, 700) for n in ("hm_0", "proj_0")}
+    plain = {n: ssd_step.run_streams(
+        CFG, [_wear_job("ips_raro", "daily", traces[n], 600)])[0]
+        for n in traces}
+    jobs = [_wear_job("ips_raro", "daily", traces[("hm_0", "proj_0")[c % 2]],
+                      600) for c in range(cells)]
+    got = ssd_step.run_streams(CFG, [_on(j, cuda) for j in jobs])
+    torch.cuda.synchronize()
+    for c, res in enumerate(got):
+        _assert_cells_equal(res, plain[("hm_0", "proj_0")[c % 2]],
+                            f"cell {c}")
+
+
+def test_one_launch_mixes_wear_and_plain_cells(cuda):
+    """One descriptor table holding wear cells (per-op, every op) beside
+    plain cells (per-op and K = 32, with pad tails): each equals its
+    plain run, and the block timers count the wear cells' every op."""
+    jobs, labels = [], []
+    for i, policy in enumerate(("ips_raro", "base_wl", "ips", "coop")):
+        trace = _padded(("hm_0", "proj_0")[i % 2], 300 + 50 * i)
+        jobs.append(_wear_job(policy, ("daily", "bursty")[i % 2], trace,
+                              300 + 50 * i, cells=2))
+        labels.append(f"wear {policy}")
+        for form in ("K=1", "K=32"):
+            jobs.append(_job(("baseline", "ips_agc")[i % 2], "daily", form,
+                             trace, 300 + 50 * i, cells=2))
+            labels.append(f"plain {form} {i}")
+    n_cells = sum(j.segs["lba"].shape[0] for j in jobs)
+    timer = torch.zeros((n_cells, len(ssd_step.TIMER_COLUMNS)),
+                        dtype=torch.int64, device=cuda)
+    before = ssd_step.launches
+    got = ssd_step.run_streams(CFG, [_on(j, cuda) for j in jobs],
+                               timer=timer)
+    torch.cuda.synchronize()
+    assert ssd_step.launches == before + 1
+    for job, res, label in zip(jobs, got, labels):
+        _assert_cells_equal(res, ssd_step.run_streams(CFG, [job])[0], label)
+    t = timer.cpu()
+    col = {c: i for i, c in enumerate(ssd_step.TIMER_COLUMNS)}
+    row = 0
+    for job in jobs:
+        c = job.segs["lba"].shape[0]
+        if job.params.endurance is not None:
+            assert t[row:row + c, col["pads_replayed"]].tolist() == [0] * c
+            assert t[row:row + c, col["scanned_ops"]].tolist() == \
+                [job.segs["lba"].shape[1]] * c
+        row += c
+
+
+def test_wrapper_refuses_what_the_wear_form_does_not_take(cuda):
+    job = _wear_job("ips_raro", "daily", _padded("hm_0", 64), 64)
+    before = ssd_step.launches
+    with pytest.raises(ValueError, match="every op"):
+        ssd_step.run_streams(CFG, [_on(job._replace(
+            n_pad=8, pad_t=torch.zeros(1)), cuda)])
+    with pytest.raises(ValueError, match="endurance"):
+        ssd_step.run_streams(CFG, [_on(job._replace(
+            params=job.params._replace(endurance=None)), cuda)])
+    assert ssd_step.launches == before
 
 
 def test_shared_memory_probe_reads_a_latency(cuda):

@@ -35,13 +35,14 @@ from repro_torch.core.ssd import sim as tsim
 from repro_torch.core.ssd.driver import _agc_waste_p as t_waste
 from repro_torch.core.ssd.policies import registry as treg
 from repro_torch.core.ssd.policies import spec as tspec
-from repro_torch.core.ssd.policies.state import (CellParams, SimState,
-                                                 can_pack, fma32, init_state)
+from repro_torch.core.ssd.policies.state import (CellParams, can_pack,
+                                                 fma32, init_state,
+                                                 map_state)
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.sweep import grid as tgrid
 from repro_torch.sweep import report as treport
 from torch_port_util import (CFG_J, CFG_T, N_LOGICAL, assert_leaf_equal,
-                             assert_state_equal)
+                             assert_state_equal, reference_registry)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy")
@@ -82,9 +83,11 @@ def test_config_matches_reference():
 
 
 def test_registry_matches_reference():
-    assert treg.policy_names() == jreg.policy_names()
+    with reference_registry():
+        names = jreg.policy_names()
+    assert treg.policy_names() == names
     assert treg.PAPER_POLICIES == jreg.PAPER_POLICIES
-    for name in jreg.policy_names():
+    for name in names:
         j, t = jreg.get_spec(name), treg.get_spec(name)
         assert dataclasses.astuple(t) == dataclasses.astuple(j), name
         assert t.composition == j.composition
@@ -106,13 +109,25 @@ def test_default_cell_matches_reference(policy):
 
 @pytest.mark.parametrize("policy", ("ips_raro", "base_wl"))
 def test_wear_compositions_are_refused(policy):
+    """A composition that reads wear is refused without wear knobs, and
+    a wear run has no compressed path (as in the reference); with the
+    default knobs it runs."""
     ops = {"arrival_ms": np.float32([1.0]), "lba": np.int32([3]),
            "is_write": np.int32([1])}
-    with pytest.raises(NotImplementedError, match="endurance"):
+    bare = tsim.default_params(CFG_T, policy, device="cpu")._replace(
+        endurance=None)
+    with pytest.raises(ValueError, match="endurance"):
         tsim.run_trace(CFG_T, policy, ops, closed_loop=False, n_logical=64,
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="endurance"):
-        ssd_step.composition_code(treg.get_spec(policy))
+                       params=bare, device="cpu")
+    with pytest.raises(ValueError, match="endurance"):
+        tsim.run_compressed(CFG_T, policy, twl.compress_ops(
+            twl.ir.pad_ops(dict(ops, req_id=np.int32([0]), n_ops=1,
+                                n_reqs=1))),
+            closed_loop=False, n_logical=64, device="cpu")
+    lat, st = tsim.run_trace(CFG_T, policy, ops, closed_loop=False,
+                             n_logical=64, device="cpu")
+    assert st.wear is not None and float(st.wear.ops_seen) == 1.0
+    assert ssd_step.composition_code(treg.get_spec(policy)) >= 32
 
 
 def test_can_pack_bounds_match_reference():
@@ -165,7 +180,7 @@ def test_workloads_match_reference():
     t = twl.truncate_trace(twl.build_ops("hm_1", N_LOGICAL), 1000)
     assert t["n_ops"] == j["n_ops"] and np.array_equal(t["lba"], j["lba"])
     with pytest.raises(ValueError, match="MSR"):
-        twl.build_ops("adv_ips_base", N_LOGICAL)
+        twl.build_ops("no_such_trace", N_LOGICAL)
 
 
 def test_agc_waste_calibration_matches_reference():
@@ -173,9 +188,12 @@ def test_agc_waste_calibration_matches_reference():
         assert t_waste(name) == j_waste(name), name
 
 
-@pytest.mark.parametrize("grid", ("paper", "quick", "beyond"))
+@pytest.mark.parametrize("grid", ("paper", "quick", "beyond", "matrix",
+                                  "stress", "mixed", "endurance",
+                                  "sensitivity"))
 def test_grids_match_reference(grid):
-    j = jgrid.named_grid(grid)
+    with reference_registry():
+        j = jgrid.named_grid(grid)
     t = tgrid.named_grid(grid)
     assert [p.key for p in t] == [p.key for p in j]
     assert [p.baseline for p in t] == [p.baseline for p in j]
@@ -276,9 +294,9 @@ def test_multiply_add_rounding_matches_reference(site):
     t_lat, t_fin = ssd_step.run_stream(
         CFG_T, policy, {k: torch.from_numpy(v).reshape(1, 1, 1)
                         for k, v in ops.items()}, t_st,
-        closed_loop=False, params=CellParams(*(x[None] for x in p)))
+        closed_loop=False, params=map_state(lambda x: x[None], p))
     assert_leaf_equal(j_lat, t_lat.reshape(-1), f"{site}: latency")
-    assert_state_equal(j_fin, SimState(*(x[0] for x in t_fin)), site)
+    assert_state_equal(j_fin, map_state(lambda x: x[0], t_fin), site)
 
 
 def test_kernel_wrapper_tables():
@@ -294,6 +312,11 @@ def test_kernel_wrapper_tables():
                        (t_.tlc_read_ms + t_.reprogram_ms) * 0.5,
                        t_.erase_ms, t_.slc_read_ms, t_.tlc_read_ms,
                        t_.slc_write_ms, t_.tlc_write_ms, t_.reprogram_ms])
+    # what the reference's compiler divides by: float32 reciprocals of the
+    # three reclaim costs (XLA's `x / c` -> `x * (1 / c)`), and 1 / 8
+    one = np.float32(1.0)
+    want = np.concatenate([want, one / want[:3],
+                           [one / np.float32(CFG_T.wear_buckets)]])
     assert np.array_equal(ssd_step.kernel_constants(CFG_T), want)
     # a cell of the paper's deployment fits one block's shared memory
     assert ssd_step.smem_bytes(128, 1 << 16) == 200192 <= ssd_step.MAX_SMEM
@@ -310,5 +333,5 @@ def test_kernel_wrapper_launches_or_raises_off_the_cpu():
     before = ssd_step.launches
     with pytest.raises(ValueError, match="no kernel for device"):
         ssd_step.run_stream(CFG_T, "ips", segs, st, closed_loop=True,
-                            params=CellParams(*(x[None] for x in p)))
+                            params=map_state(lambda x: x[None], p))
     assert ssd_step.launches == before

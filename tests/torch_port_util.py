@@ -12,6 +12,8 @@ as numpy arrays, value and dtype.
 """
 from __future__ import annotations
 
+import contextlib
+
 import ml_dtypes
 import numpy as np
 import torch
@@ -51,7 +53,15 @@ def fixture_ops(name: str, max_ops: int = MAX_OPS,
 def assert_leaf_equal(ref, got, label: str) -> None:
     """`got` (a torch tensor) equals `ref` (a JAX or numpy array) in value
     and dtype, bf16 by its bits; on a mismatch name the first differing
-    flat index."""
+    flat index. An absent optional field (None) must be absent on both
+    sides; a nested carry (the wear state) is compared leaf by leaf."""
+    if ref is None or got is None:
+        assert ref is None and got is None, \
+            f"{label}: reference {type(ref)} vs port {type(got)}"
+        return
+    if isinstance(got, tuple):
+        assert_state_equal(ref, got, label)
+        return
     ref = np.asarray(ref)
     got = to_numpy(got)
     assert got.dtype == ref.dtype, f"{label}: dtype {got.dtype} != {ref.dtype}"
@@ -90,3 +100,24 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+@contextlib.contextmanager
+def reference_registry():
+    """The reference's policy registry as a fresh process imports it.
+    Another test file in the same worker may register more policies
+    (`repro.search.space.register_space` adds the unnamed compositions,
+    each documented "search: auto-registered ..."), and what is built
+    from the registry (`sensitivity_grid`, the name list) would then
+    grow. Inside the block those entries are set aside."""
+    from repro.core.ssd.policies import registry as jreg
+    saved = dict(jreg._REGISTRY)
+    jreg._REGISTRY.clear()
+    jreg._REGISTRY.update({
+        n: e for n, e in saved.items()
+        if not e.doc.startswith("search: auto-registered")})
+    try:
+        yield
+    finally:
+        jreg._REGISTRY.clear()
+        jreg._REGISTRY.update(saved)
