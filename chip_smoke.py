@@ -48,6 +48,27 @@ then:
    its longest cell's ns and clock64 cycles per op; the launch's own time
    from CUDA events; each grid's bytes bound beside its chain bound (the
    longest cell's stepped ops x one dependent shared-memory load);
+   Then the telemetry phase: the paper grid again through `run_sweep`
+   with the probe on at 1024 ops a window (the kernel's probe form),
+   ONE launch: every cell's summary equal to the probe-off run, its
+   counter windows summing to its counters, its windows equal to the
+   reference's recorded run (`tests/data/torch_reference_timelines.json`:
+   the sha256 of `ops`, `writes`, `lat_hist`, `ctr`, `t_last`, the three
+   float sums' totals and hm_0's series, the cliff dicts), the cliff
+   count printed, the launch ms with the probe off and on; then
+   `telemetry.profiling.profile` (torch.profiler) around the `quick`
+   grid, which must start and record the kernel's device events; then
+   the CLI end to end, `python -m repro_torch.sweep.cli --grid paper
+   --timeline --timeline-overhead-check` into `build/cli_timeline`
+   (`BENCH_torch_timeline.json`, a `BENCH_torch_history.json` record and
+   the overhead ratio: interleaved off/on passes, median of 3). Phase 2
+   also holds the probe form to its plain version, bit for bit: every
+   per-op and K = 32 case with the probe on at 1024 ops a window (8 of
+   12 boundaries among the replayed tail pads) and the wear jobs at 256
+   (wear peaks), each also probe-off against the same plain run (the
+   plain version runs with the probe on: it observes only); each case's
+   timed launches follow an untimed one, which brings the card's clocks
+   back up after the plain version's seconds on the CPU;
 4. build — the serving path's three kernels (`ips_repack`,
    `tiered_decode`, `flash_fwd`): build seconds, ptxas registers and
    spills;
@@ -156,6 +177,11 @@ WEAR_F32_OPS = 136
 WEAR_OPS = 2048                 # ops per phase-2 wear stream
 SMOKE_OPS = 4096                # live ops per phase-2 trace
 SMOKE_PAD = 8192                # identical tail pads per phase-2 trace
+# the probe's windows in phase 2: 12 windows over 4096 ops + 8192 pads, 8
+# of their boundaries among the replayed tail pads; 8 over a wear stream
+PROBE_WINDOW = 1024
+WEAR_PROBE_WINDOW = 256
+TIMELINE_WINDOW = 1024          # the telemetry phase's (the CLI default)
 EXACT = ("wa_paper", "wa_raw", "slc_writes", "tlc_writes", "reprogram_host",
          "reprogram_agc", "reprogram_trad", "migrations", "erases",
          "host_pages", "conflict_ms", "n_ops")
@@ -357,25 +383,44 @@ def wear_jobs(cfg, n_logical, traces, cells_of=None):
 
 def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
     """The kernel's wear form against its plain version: each wear job in
-    its own launch (timed by CUDA events), then all of them in one
-    launch; every leaf, the wear carry's included, equal. (Phase 3's
-    sensitivity grid mixes wear and plain cells in its one launch.)"""
+    its own launch (timed by CUDA events) with the probe off and on, then
+    all of them in one launch with the probe on; every leaf, the wear
+    carry's and the probe's rows (wear peaks included) too, equal. The
+    plain version runs once a job, with the probe on (its latencies and
+    carries are the probe-off ones). (Phase 3's sensitivity grid mixes
+    wear and plain cells in its one launch.)"""
     import time as _time
     import torch
     from repro_torch.kernels.ssd_step import ops as ssd_step
 
     jobs, labels = wear_jobs(cfg, n_logical, traces)
-    kernel_ms, plain_s, err, fired, wants = 0.0, 0.0, 0.0, [], []
+    jobs = [j._replace(window_ops=WEAR_PROBE_WINDOW) for j in jobs]
+    kernel_ms, probe_ms, plain_s, err, fired, wants = (0.0, 0.0, 0.0, 0.0,
+                                                      [], [])
     for job, label in zip(jobs, labels):
-        got = ssd_step.run_streams(cfg, [on_card(job, cuda)])[0]
+        # an untimed launch first: the clocks come back up from the plain
+        # version's seconds on the CPU
+        ssd_step.run_streams(cfg, [on_card(job._replace(window_ops=None),
+                                           cuda)])
+        got_off = ssd_step.run_streams(
+            cfg, [on_card(job._replace(window_ops=None), cuda)])[0]
         torch.cuda.synchronize()
         start, end = ssd_step.events[-1]
         kernel_ms += start.elapsed_time(end)
+        got = ssd_step.run_streams(cfg, [on_card(job, cuda)])[0]
+        torch.cuda.synchronize()
+        start, end = ssd_step.events[-1]
+        probe_ms += start.elapsed_time(end)
         t1 = _time.perf_counter()
         want = ssd_step.run_streams(cfg, [job])[0]
         plain_s += _time.perf_counter() - t1
         wants.append(want)
-        err = max(err, leaves_equal(label, got, want))
+        if want[1].timeline.wear_peak is None:
+            fail(f"{label}: the wear form's probe has no wear peaks")
+        err = max(err, leaves_equal(f"{label} probe", got, want))
+        err = max(err, leaves_equal(
+            f"{label} probe off", got_off,
+            (want[0], want[1]._replace(timeline=None))))
         wear = want[1].wear
         fired.append({"job": label,
                       "eol_op": [float(x) for x in wear.eol_op],
@@ -400,8 +445,9 @@ def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
     bound, by = bound_ms(wear_bytes, n_ops * (CORE_F32_OPS + WEAR_F32_OPS))
     return {"jobs": labels, "cells_per_job": c_cnt, "ops": WEAR_OPS,
             "equal": True, "max_abs_err": err, "kernel_ms": kernel_ms,
+            "probe_window": WEAR_PROBE_WINDOW, "probe_kernel_ms": probe_ms,
             "plain_ms": plain_s * 1e3, "bound_ms": bound, "bound_by": by,
-            "launches": len(jobs) + 1, "fired": fired}
+            "launches": 3 * len(jobs) + 1, "fired": fired}
 
 
 def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
@@ -1780,8 +1826,200 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
                                                "wa_paper") if k in v}
                 for (m, p), v in sorted(policy_geomeans(results).items())}
     line["geomeans"] = geomeans
-    return {"line": line, "geomeans": geomeans,
+    return {"line": line, "geomeans": geomeans, "results": results,
             "trace_cache": cache.stats()}
+
+
+# the counters a summary reports unflushed (a daily cell's flush adds to
+# `migrations` and `erases`), by summary key and counter index
+SUMMARY_COUNTERS = {"host_pages": 0, "slc_writes": 1, "tlc_writes": 2,
+                    "reprogram_host": 3, "reprogram_agc": 4,
+                    "reprogram_trad": 5, "migrations": 6, "erases": 7,
+                    "conflict_ms": 9}
+
+
+def _digest(x) -> str:
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(x, np.float32)).tobytes()).hexdigest()
+
+
+def telemetry_path(cfg, cuda, cache_dir, off) -> dict:
+    """The telemetry phase: the uncut paper grid through `run_sweep` with
+    the probe on at 1024 ops a window, ONE launch (the count zeroed just
+    before, read just after). Every cell's summary equal to the probe-off
+    run of phase 3 (`off`); its counter windows summing exactly to its
+    counters (those a summary reports unflushed); its windows equal to
+    the reference's recorded run (tests/data/torch_reference_timelines.
+    json): the sha256 of the exact series, the float64 totals of the
+    three float sums, the cliff dict, and hm_0's float series in full."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.sweep.runner import run_sweep
+    from repro_torch.telemetry import Tracer, series
+    from repro_torch.workloads import TraceCache
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_reference_timelines.json")) as f:
+        ref = json.load(f)
+    if ref["window_ops"] != TIMELINE_WINDOW:
+        fail("the recorded timelines use another window size")
+    points = named_grid("paper")
+    timelines, timings, tracer = {}, [], Tracer()
+    ssd_step.reset()
+    t1 = time.perf_counter()
+    with tracer.activate():
+        results = run_sweep(cfg, points, device=cuda, timings=timings,
+                            trace_cache=TraceCache(root=cache_dir),
+                            timeline_ops=TIMELINE_WINDOW,
+                            timelines=timelines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ssd_step.launches
+    if launches != 1:
+        fail(f"telemetry: the paper grid with the probe launched the "
+             f"kernel {launches} times; a grid is one launch")
+    float_exact, worst, cliffs = True, 0.0, 0
+    for pt in points:
+        key = pt.key
+        if results[pt] != off[pt]:
+            fail(f"telemetry: {key}'s summary with the probe on differs "
+                 "from the probe-off run")
+        tl = timelines[pt]
+        ctr_sum = tl["ctr"].astype(np.float64).sum(axis=0).astype(
+            np.float32)
+        for name, i in SUMMARY_COUNTERS.items():
+            if name in ("migrations", "erases") and pt.mode == "daily":
+                ok = ctr_sum[i] <= results[pt][name]
+            else:
+                ok = float(ctr_sum[i]) == results[pt][name]
+            if not ok:
+                fail(f"telemetry: {key}: the windows' {name} sum "
+                     f"{float(ctr_sum[i])!r}, the counter "
+                     f"{results[pt][name]!r}")
+        want = ref["cells"][key]
+        if tl["ops"].shape[0] != want["n_windows"]:
+            fail(f"telemetry: {key}: {tl['ops'].shape[0]} windows, the "
+                 f"reference {want['n_windows']}")
+        for name, digest in want["sha256"].items():
+            if _digest(tl[name]) != digest:
+                fail(f"telemetry: {key}: {name} differs from the "
+                     "reference's windows")
+        floats = {name: tl[name] for name in ref["floats"]}
+        for name, total in want["totals"].items():
+            got = float(np.sum(floats[name].astype(np.float64)))
+            float_exact = float_exact and got == total
+            worst = max(worst, abs(got - total) / max(abs(total), 1e-30))
+            if abs(got - total) > 1e-6 * abs(total):
+                fail(f"telemetry: {key}: {name} totals {got!r}, the "
+                     f"reference {total!r}")
+        for name, vals in want.get("series", {}).items():
+            got = floats[name].astype(np.float64)
+            vals = np.asarray(vals, np.float64)
+            float_exact = float_exact and np.array_equal(got, vals)
+            if not np.allclose(got, vals, rtol=1e-6, atol=0.0):
+                fail(f"telemetry: {key}: the {name} series differs from "
+                     "the reference's")
+        cliff = series(tl)["cliff"]
+        if cliff != want["cliff"]:
+            fail(f"telemetry: {key}: cliff {cliff}, the reference "
+                 f"{want['cliff']}")
+        cliffs += bool(cliff["detected"])
+    head_bytes = sum(g["cells"] * g["t_scan"] * 8 for g in timings)
+    return {"grid": "paper", "cells": len(points), "launches": launches,
+            "window_ops": TIMELINE_WINDOW, "wall_s": wall,
+            "launch_ms": timings[0]["launch_ms"],
+            "matches_reference": True, "float_sums_exact": float_exact,
+            "float_sums_max_rel_err": worst, "cliffs": cliffs,
+            "head_bytes": head_bytes,
+            "cliff_cells": sorted(pt.key for pt in points
+                                  if series(timelines[pt])["cliff"]
+                                  ["detected"]),
+            "span_totals": tracer.totals()}
+
+
+def profile_path(cfg, cuda, cache_dir) -> dict:
+    """`profiling.profile` around `run_sweep` on the `quick` grid (uncut,
+    probe on): the capture must start (no `profile.unavailable` event)
+    and its Chrome trace hold the `ssd_step` kernel's device events."""
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.sweep.runner import run_sweep
+    from repro_torch.telemetry import Tracer, profiling
+    from repro_torch.workloads import TraceCache
+
+    trace_dir = os.path.join(ROOT, "build", "profile")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    tracer = Tracer()
+    with tracer.activate():
+        with profiling.profile(trace_dir) as running:
+            run_sweep(cfg, named_grid("quick"), device=cuda,
+                      trace_cache=TraceCache(root=cache_dir),
+                      timeline_ops=TIMELINE_WINDOW)
+        profiling.emit_device_events("profile_path")
+    events = [s["name"] for s in tracer.to_json()]
+    if "profile.unavailable" in events or not running:
+        fail(f"profile: torch.profiler did not start: {tracer.to_json()}")
+    if "profile.stop" not in events:
+        fail(f"profile: the capture did not stop cleanly: {events}")
+    path = os.path.join(trace_dir, profiling.TRACE_FILE)
+    with open(path) as f:
+        trace = json.load(f)
+    kernel_events = [e for e in trace.get("traceEvents", [])
+                     if "ssd_fleet_kernel" in str(e.get("name", ""))
+                     and e.get("cat") == "kernel"]
+    if not kernel_events:
+        fail("profile: the Chrome trace holds no ssd_step kernel event")
+    stats = [s["args"] for s in tracer.to_json()
+             if s["name"] == "device.stats"]
+    return {"trace_bytes": os.path.getsize(path),
+            "kernel_events": len(kernel_events),
+            "kernel_us": sum(float(e.get("dur", 0)) for e in kernel_events),
+            "device_stats": stats[0] if stats else None}
+
+
+def cli_timeline_run(cache_dir) -> dict:
+    """The CLI end to end, as a user runs it on the card: `python -m
+    repro_torch.sweep.cli --grid paper --timeline --timeline-overhead-check`
+    into `build/cli_timeline`; it must write `BENCH_torch_timeline.json`,
+    `BENCH_torch_sweep_paper.json` and a `BENCH_torch_history.json`
+    record, and no reference artifact name."""
+    out_dir = os.path.join(ROOT, "build", "cli_timeline")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TORCH_TRACE_CACHE_DIR=cache_dir)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep.cli", "--grid", "paper",
+         "--timeline", "--timeline-overhead-check", "--out-dir", out_dir],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t1
+    with open(os.path.join(out_dir, "stdout.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"the CLI run exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    files = sorted(n for n in os.listdir(out_dir) if n.endswith(".json"))
+    want = ["BENCH_torch_history.json", "BENCH_torch_sweep_paper.json",
+            "BENCH_torch_timeline.json"]
+    if files != want:
+        fail(f"the CLI run wrote {files}, not {want}")
+    with open(os.path.join(out_dir, "BENCH_torch_timeline.json")) as f:
+        doc = json.load(f)
+    with open(os.path.join(out_dir, "BENCH_torch_history.json")) as f:
+        hist = json.load(f)["records"]
+    cliff_line = [ln for ln in proc.stdout.splitlines()
+                  if ln.strip().startswith("cliffs:")]
+    if len(hist) != 1 or doc["n_cells"] != 102 or not cliff_line:
+        fail("the CLI run's timeline or history record is missing")
+    return {"wall_s": wall, "n_cells": doc["n_cells"],
+            "n_cliffs": doc["n_cliffs"], "cliff_line": cliff_line[0].strip(),
+            "overhead": doc.get("overhead"), "launches": doc["launches"],
+            "history_config": hist[0]["config"],
+            "history_ops_per_s": hist[0]["ops_per_s"]}
 
 
 def main() -> int:
@@ -1857,42 +2095,62 @@ def main() -> int:
                for p, pt in zip(plans, pad_t))
 
     ssd_step.reset()
-    cases, kernel_ms, plain_s, max_err = [], 0.0, 0.0, 0.0
+    cases, kernel_ms, probe_ms, plain_s, max_err = [], 0.0, 0.0, 0.0, 0.0
     for policy in PAPER_POLICIES:
         for mode in ("daily", "bursty"):
             params = map_state(lambda x: torch.stack([x, x]),
                                default_params(cfg, policy, 0.05,
                                               device="cpu"))
             for form, arrays in (("K=1", per_op), ("K=32", seg)):
-                res = {}
-                for dev in (cuda, torch.device("cpu")):
+                # on the card the probe off and on, after one untimed
+                # launch that brings the card's clocks back up from the
+                # plain version's seconds on the CPU; the plain version
+                # once, with the probe on (its latencies and carries are
+                # the probe-off ones: tests/test_torch_telemetry.py)
+                res, card_ms = {}, {}
+                for dev, window in ((cuda, None), (cuda, None),
+                                    (cuda, PROBE_WINDOW),
+                                    (torch.device("cpu"), PROBE_WINDOW)):
                     segs = {k: torch.from_numpy(v).to(dev)
                             for k, v in arrays.items()}
                     state0 = init_state(cfg, n_logical, packed=True,
                                         n_cells=c_cnt, device=dev)
                     t1 = time.perf_counter()
-                    res[dev.type] = ssd_step.run_stream(
+                    res[(dev.type, window)] = ssd_step.run_stream(
                         cfg, policy, segs, state0,
                         closed_loop=(mode == "bursty"),
                         params=map_state(lambda x: x.to(dev), params),
                         n_pad=SMOKE_PAD,
-                        pad_t=torch.from_numpy(pad_t).to(dev))
+                        pad_t=torch.from_numpy(pad_t).to(dev),
+                        window_ops=window)
                     if dev.type == "cuda":
                         torch.cuda.synchronize()
                         start, end = ssd_step.events[-1]
-                        if form == "K=1":
-                            kernel_ms += start.elapsed_time(end)
+                        card_ms[window] = start.elapsed_time(end)
                     elif form == "K=1":
                         plain_s += time.perf_counter() - t1
+                if form == "K=1":
+                    kernel_ms += card_ms[None]
+                    probe_ms += card_ms[PROBE_WINDOW]
                 label = f"{policy}/{mode}/{form}"
-                max_err = max(max_err, leaves_equal(label, res["cuda"],
-                                                    res["cpu"]))
+                want = res[("cpu", PROBE_WINDOW)]
+                rows = want[1].timeline
+                if rows is None or rows.snap.shape[1] != -(-(
+                        SMOKE_OPS + SMOKE_PAD) // PROBE_WINDOW):
+                    fail(f"{label}: the plain version's probe rows are "
+                         "missing or mis-shaped")
+                max_err = max(max_err, leaves_equal(
+                    f"{label} probe", res[("cuda", PROBE_WINDOW)], want))
+                max_err = max(max_err, leaves_equal(
+                    f"{label} probe off", res[("cuda", None)],
+                    (want[0], want[1]._replace(timeline=None))))
                 cases.append(label)
     mixed = mixed_launch_vs_plain(cfg, n_logical, cuda)
     smoke_launches = ssd_step.launches
-    if smoke_launches != len(cases) + 1:
+    if smoke_launches != 3 * len(cases) + 1:
         fail(f"phase 2 launched the kernel {smoke_launches} times for "
-             f"{len(cases)} comparisons and one mixed launch")
+             f"{len(cases)} comparisons (a warm-up, probe off and on) and "
+             "one mixed launch")
     wear = wear_vs_plain(cfg, n_logical, cuda, traces)
     emit({"phase": "wear_vs_plain", **wear})
     probe = ssd_step.smem_chase(1 << 22, cuda)
@@ -1906,7 +2164,9 @@ def main() -> int:
     emit({"phase": "kernel_vs_plain", "cases": len(cases),
           "cells_per_case": c_cnt, "ops": SMOKE_OPS, "pad": SMOKE_PAD,
           "forms": ["K=1", "K=32"], "equal": True, "max_abs_err": max_err,
+          "probe_window": PROBE_WINDOW, "probe_equal": True,
           "launches": smoke_launches, "kernel_ms_k1": kernel_ms,
+          "probe_kernel_ms_k1": probe_ms,
           "plain_ms_k1": plain_s * 1e3, "bound_ms_k1": smoke_bound,
           "mixed_launch": mixed})
 
@@ -1957,6 +2217,22 @@ def main() -> int:
           "paper_cycles_per_op":
               sweeps["paper_warm"]["line"]["longest_cell_cycles_per_op"]})
 
+    # ---- 3b. telemetry: the paper grid with the probe on, one launch ----
+    t_tel = time.perf_counter()
+    tele = telemetry_path(cfg, cuda, cache_dir,
+                          sweeps["paper_warm"]["results"])
+    off_ms = sweeps["paper_warm"]["line"]["kernel_ms"]
+    emit({"phase": "telemetry", **tele, "probe_off_launch_ms": off_ms,
+          "probe_on_launch_ms": tele["launch_ms"],
+          "launch_ratio": tele["launch_ms"] / off_ms})
+    print(f"telemetry: cliffs {tele['cliffs']}/{tele['cells']} cell(s) at "
+          f"{TIMELINE_WINDOW} ops a window; launch {off_ms:.2f} ms probe "
+          f"off, {tele['launch_ms']:.2f} ms on", flush=True)
+    emit({"phase": "profile", **profile_path(cfg, cuda, cache_dir)})
+    cli_run = cli_timeline_run(cache_dir)
+    emit({"phase": "cli_timeline", **cli_run})
+    emit({"phase": "telemetry_wall", "s": time.perf_counter() - t_tel})
+
     # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
           "libraries": {name: {"build_s": lib.build_s,
@@ -1977,8 +2253,10 @@ def main() -> int:
         "name": "ssd_step", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_step/csrc/ssd_step.cu",
         "replaces": "src/repro/kernels/ssd_step/kernel.py:46",
-        # every sweep path's one launch, each counted from 0
-        "launches": sum(s["line"]["launches"] for s in sweeps.values()),
+        # every sweep path's one launch, each counted from 0 (the
+        # telemetry phase's among them)
+        "launches": sum(s["line"]["launches"] for s in sweeps.values())
+        + tele["launches"],
         # ms / plain_ms / bound_ms: the same work — phase 2's eight K = 1
         # launches, which the CPU plain version can also run
         "max_abs_err": max(max_err, wear["max_abs_err"]), "ms": kernel_ms,
@@ -2002,7 +2280,16 @@ def main() -> int:
         "plain_form_ns_per_op": paper["longest_cell_ns_per_op"],
         "main_paths": {run: {k: s["line"][k] for k in (
             "launches", "kernel_ms", "wall_s", "bound_ms", "bound_by",
-            "chain_bound_ms")} for run, s in sweeps.items()}}]
+            "chain_bound_ms")} for run, s in sweeps.items()},
+        # the probe form: phase 2's eight K = 1 launches with the probe on,
+        # the wear jobs' with it on, the paper grid's one launch with it on
+        # (the telemetry phase) and the CLI's overhead check
+        "probe_ms": probe_ms, "probe_wear_ms": wear["probe_kernel_ms"],
+        "probe_main_path_ms": tele["launch_ms"],
+        "probe_main_path_launches": tele["launches"],
+        "probe_overhead": (cli_run["overhead"] or {}).get("ratio"),
+        "probe_launch_ratio": (cli_run["overhead"] or {}).get(
+            "launch_ratio")}]
     for name in ("ips_repack", "tiered_decode", "flash_fwd", "ssd_intra"):
         # launches and main-path times: every serving path that runs it
         paths = {arch: v["kernels"][name] for arch, v in by_path.items()

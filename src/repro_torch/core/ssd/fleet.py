@@ -16,6 +16,11 @@ holds in shared memory for the whole run. A fleet whose cells track wear
 (`CellParams.endurance`) carries a `WearState` too, and steps every
 padded op: the reference's fleet takes no pad trim for it, since tail
 reclamation keeps erasing into the wear state.
+
+`timeline_ops` turns the telemetry probe on for every group of the
+launch (the kernel's probe form): each group's final state then carries
+its `telemetry.probe.WindowedTimeline`, stacked over C, the windows
+tiling the group's padded length.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.core.ssd.policies.state import (CellParams, SimState,
                                                  init_state, map_state)
 from repro_torch.core.ssd.sim import flush_cache, summarize
 from repro_torch.kernels.ssd_step import ops as ssd_step
+from repro_torch.telemetry import probe
 from repro_torch.workloads.compress import TRIM_QUANTUM
 
 __all__ = ["FleetGroup", "stack_params", "stack_ops", "run_fleets",
@@ -84,14 +90,17 @@ def _trim_len(is_write: np.ndarray, quantum: int = TRIM_QUANTUM) -> int:
 
 
 def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
-               trim_pads: bool = False, timer=None) -> list:
+               trim_pads: bool = False, timer=None,
+               timeline_ops: int | None = None) -> list:
     """Simulate several fleets in one launch; returns [(latency (C, T),
     final SimState with leading C)] in group order.
 
     `trim_pads` scans only each group's shared live prefix and replays
     each cell's identical pad tail to its exact fixed point inside the
-    same launch; groups that track wear step every op regardless. `timer`: the kernel's optional (cells, 6) int64 block
-    timers over the groups' cells in order (`ssd_step.run_streams`).
+    same launch; groups that track wear step every op regardless.
+    `timer`: the kernel's optional (cells, 6) int64 block timers over the
+    groups' cells in order (`ssd_step.run_streams`). `timeline_ops`
+    attaches the probe to every group (the final states' `timeline`).
     Results are identical either way, and equal `run_fleet` group by
     group."""
     jobs, shapes = [], []
@@ -112,24 +121,32 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
                             device=device)
         jobs.append(ssd_step.StreamJob(resolve_spec(g.policy), segs, state0,
                                        g.closed_loop, g.params, n_pad,
-                                       pad_t))
+                                       pad_t, timeline_ops))
         shapes.append((n_cells, t_scan, n_pad))
     out = []
-    for (lat, final), (n_cells, t_scan, n_pad) in zip(
-            ssd_step.run_streams(cfg, jobs, timer=timer), shapes):
-        out.append((torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
-                                            (0, n_pad)), final))
+    for g, (lat, final), (n_cells, t_scan, n_pad) in zip(
+            groups, ssd_step.run_streams(cfg, jobs, timer=timer), shapes):
+        latency = torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
+                                          (0, n_pad))
+        if timeline_ops is not None:
+            final = final._replace(timeline=probe.from_rows(
+                final.timeline, latency, g.ops["is_write"],
+                g.ops["arrival_ms"],
+                cap_pages=probe.cap_pages(g.params, cfg.num_planes),
+                window_ops=timeline_ops, t_len=t_scan + n_pad))
+        out.append((latency, final))
     return out
 
 
 def run_fleet(cfg, policy, ops: dict, params: CellParams, *,
               closed_loop: bool, n_logical: int, trim_pads: bool = False,
-              packed: bool = False):
+              packed: bool = False, timeline_ops: int | None = None):
     """Simulate a whole (composition, mode) fleet: `run_fleets` with one
     group. Returns (latency (C, T), final SimState with leading C)."""
     return run_fleets(cfg, [FleetGroup(policy, ops, params, closed_loop,
                                        packed)],
-                      n_logical=n_logical, trim_pads=trim_pads)[0]
+                      n_logical=n_logical, trim_pads=trim_pads,
+                      timeline_ops=timeline_ops)[0]
 
 
 def flush_fleet(cfg, states: SimState, policy) -> SimState:

@@ -36,6 +36,14 @@ place (a Python loop that copied a 192 KB map per op would spend its
 time copying); the reduced carry stays functional. Wear rides the
 per-op executor only: the segment executor refuses a wear carry, as the
 reference's does.
+
+The telemetry probe is observation only: the core also returns the op's
+change in cache-resident pages on the serviced plane (`occ_delta`), the
+idle budget it claimed (`idle_claim`) and, with wear, the plane's peak
+effective cycles (`max_cycles`) — the reference's `engine.py:458-464` —
+and nothing feeds back. The per-op executor turns them into the probe's
+row when the state carries a `TimelineState`; the segment executor emits
+them per lane with `emit_probe`. Off, both emit what they emit today.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from repro_torch.core.ssd.policies.spec import (PolicySpec,
                                                 tracked_region)
 from repro_torch.core.ssd.policies.state import (CTR, CellParams,
                                                  SimState, fma32)
+from repro_torch.telemetry import probe
 
 __all__ = ["StepCtx", "Reduced", "CoreOut", "build_step",
            "build_segment_step", "reduced_of", "with_reduced",
@@ -106,6 +115,11 @@ class CoreOut(NamedTuple):
     loc_val: torch.Tensor       # () i8  — residency value for op's lba
     loc_ep_val: torch.Tensor    # () i16 — epoch stamp for op's lba
     wear: object = None         # the updated WearState, or None
+    # observation-only extras for the telemetry probe
+    occ_delta: torch.Tensor = None   # () f32 — resident pages after - before
+    idle_claim: torch.Tensor = None  # () f32 — idle budget claimed
+    max_cycles: torch.Tensor = None  # () f32 — the plane's peak cycles
+    #                                  (wear only)
 
 
 def core_constants(cfg) -> dict:
@@ -335,7 +349,7 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
         loc_ep_val = torch.where(is_write & track_new, epoch_p.to(_I16),
                                  old_ep)
 
-        wear_new = None
+        wear_new = max_cycles = None
         if use_endurance:
             pe_slc_new = ctx.pe_slc_p.clone()
             pe_slc_new[bkt_slc] += torch.where(to_slc, 1.0, 0.0)
@@ -362,6 +376,12 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
                 eol_op=torch.where((wear.eol_op < 0) & tripped & ~is_pad,
                                    ops_seen, wear.eol_op))
 
+        # observation-only extras for the telemetry probe
+        occ_delta = ((slc_used + trad_used)
+                     - (red.slc_used[plane].to(_I32)
+                        + red.trad_used[plane].to(_I32))).to(_F32)
+        idle_claim = torch.where(is_pad, 0.0, idle_cum - idle_seen_p)
+
         busy = red.busy.clone()
         busy[plane] = torch.where(is_pad, busy_p, busy_new)
         slc = red.slc_used.clone()
@@ -384,7 +404,9 @@ def _build_core(cfg, spec: PolicySpec, *, closed_loop: bool,
             prev_t=torch.where(is_pad, red.prev_t, t),
             idle_cum=idle_cum, idle_seen=seen)
         return new_red, CoreOut(latency=latency, loc_val=loc_val,
-                                loc_ep_val=loc_ep_val, wear=wear_new)
+                                loc_ep_val=loc_ep_val, wear=wear_new,
+                                occ_delta=occ_delta, idle_claim=idle_claim,
+                                max_cycles=max_cycles)
 
     return core
 
@@ -398,24 +420,32 @@ def reduced_of(state: SimState) -> Reduced:
                    idle_cum=state.idle_cum, idle_seen=state.idle_seen)
 
 
-def with_reduced(red: Reduced, loc, loc_ep, wear=None) -> SimState:
-    """Reassemble a SimState from a reduced carry, residency maps and
-    the wear carry (None without endurance)."""
+def with_reduced(red: Reduced, loc, loc_ep, wear=None,
+                 timeline=None) -> SimState:
+    """Reassemble a SimState from a reduced carry, residency maps, the
+    wear carry (None without endurance) and the timeline (None with the
+    probe off)."""
     return SimState(busy=red.busy, slc_used=red.slc_used,
                     rp_done=red.rp_done, trad_used=red.trad_used,
                     valid_mig=red.valid_mig, epoch=red.epoch, loc=loc,
                     loc_ep=loc_ep, counters=red.counters,
                     prev_t=red.prev_t, idle_cum=red.idle_cum,
-                    idle_seen=red.idle_seen, wear=wear)
+                    idle_seen=red.idle_seen, wear=wear, timeline=timeline)
 
 
 def build_step(cfg, policy, *, closed_loop: bool, params: CellParams):
     """The per-op executor specialized to (composition, mode):
     `step(state, op) -> (state, latency)`. The residency maps of `state`
     are updated in place; the wear carry rides along when
-    `params.endurance` is set."""
+    `params.endurance` is set. A state that carries a
+    `telemetry.probe.TimelineState` gets the probe: the step then
+    returns `(state, (latency, (row, counters)))`, the row being
+    `probe.accumulate`'s — occupancy fraction, clamped idle claim and,
+    with wear, the plane's peak cycles."""
     spec = resolve_spec(policy)
     core = _build_core(cfg, spec, closed_loop=closed_loop, params=params)
+    use_endurance = params.endurance is not None
+    cap_tot = probe.cap_pages(params, cfg.num_planes)
 
     def step(state: SimState, op):
         lba = op["lba"]
@@ -423,14 +453,21 @@ def build_step(cfg, policy, *, closed_loop: bool, params: CellParams):
                         state.loc_ep[lba], wear=state.wear)
         state.loc[lba] = out.loc_val
         state.loc_ep[lba] = out.loc_ep_val
-        return with_reduced(red, state.loc, state.loc_ep,
-                            out.wear), out.latency
+        new_state = with_reduced(red, state.loc, state.loc_ep, out.wear)
+        if state.timeline is None:
+            return new_state, out.latency
+        tl, row = probe.accumulate(
+            state.timeline, is_pad=op["is_write"] < 0,
+            counters=red.counters, occ_delta=out.occ_delta,
+            cap_pages=cap_tot, idle_claim=out.idle_claim,
+            wear=out.max_cycles if use_endurance else None)
+        return new_state._replace(timeline=tl), (out.latency, row)
 
     return step
 
 
 def build_segment_step(cfg, policy, *, closed_loop: bool,
-                       params: CellParams):
+                       params: CellParams, emit_probe: bool = False):
     """The compressed-segment executor: `seg_step((red, loc, loc_ep),
     seg) -> ((red, loc, loc_ep), latency (K,))` for one segment of K
     consecutive ops from `workloads.compress` — `arrival_ms`/`lba`/
@@ -439,7 +476,10 @@ def build_segment_step(cfg, policy, *, closed_loop: bool,
 
     Every value a lane consumes equals what the per-op executor would
     have gathered after its predecessor's write-back, so the two
-    executors agree bit for bit."""
+    executors agree bit for bit. With `emit_probe` the step emits
+    `(latency (K,), occ_delta (K,), idle_claim (K,), counters (K, C))`:
+    each lane's probe extras and the cumulative counters after it (the
+    last row is the reference's per-segment snapshot)."""
     spec = resolve_spec(policy)
     if params.endurance is not None:
         raise ValueError("the segment executor does not carry wear state; "
@@ -455,7 +495,7 @@ def build_segment_step(cfg, policy, *, closed_loop: bool,
         old_ep_k = loc_ep[lba_k]                 # (K,) i16
         buf_loc = torch.zeros(k, dtype=_I8, device=loc.device)
         buf_ep = torch.zeros(k, dtype=_I16, device=loc.device)
-        lat = []
+        lat, occ, idle, ctr = [], [], [], []
         for i in range(k):
             src = seg["src"][i]
             use_buf = src >= 0
@@ -468,12 +508,19 @@ def build_segment_step(cfg, policy, *, closed_loop: bool,
             buf_loc[i] = out.loc_val
             buf_ep[i] = out.loc_ep_val
             lat.append(out.latency)
+            if emit_probe:
+                occ.append(out.occ_delta)
+                idle.append(out.idle_claim)
+                ctr.append(red.counters)
         # one duplicate-free scatter: only each lba's final lane carries
         # its real lba; superseded lanes hold a sentinel and drop
         scat = seg["scat_lba"]
         keep = (scat >= 0) & (scat < n_logical)
         loc[scat[keep]] = buf_loc[keep]
         loc_ep[scat[keep]] = buf_ep[keep]
+        if emit_probe:
+            return (red, loc, loc_ep), (torch.stack(lat), torch.stack(occ),
+                                        torch.stack(idle), torch.stack(ctr))
         return (red, loc, loc_ep), torch.stack(lat)
 
     return seg_step

@@ -11,10 +11,14 @@ layout, congruent with the int16 `loc_ep` stamps it is compared against.
 `SimState.wear` is the reference's optional trailing wear carry
 (`endurance.model.WearState`): None unless the cell tracks endurance
 (`CellParams.endurance` set), so a run without it keeps the seed layout.
-The reference's other trailing carries (telemetry timeline, host-tier
-cache) belong to later slices of the port and are absent. Leaves are 0-d
-(one cell) or carry a leading cell axis (a fleet); `map_state` maps a
-function over the tensor leaves, the wear carry's included.
+`SimState.timeline`, after it as in the reference, is the telemetry
+probe's: None with the probe off; the plain version's per-op executor
+carries a `telemetry.probe.TimelineState` in it, the kernel leaves its
+`ProbeRows` there, and the simulator's entry points replace either with
+the `WindowedTimeline`. The reference's host-tier carry belongs to a
+later slice and is absent. Leaves are 0-d (one cell) or carry a leading
+cell axis (a fleet); `map_state` maps a function over the tensor leaves,
+the wear carry's and the timeline's included.
 """
 from __future__ import annotations
 
@@ -58,6 +62,8 @@ class SimState(NamedTuple):
     idle_cum: torch.Tensor    # () f32 — cumulative usable device idle
     idle_seen: torch.Tensor   # (P,) f32 — idle_cum consumed per plane
     wear: object = None       # endurance.model.WearState, or None
+    timeline: object = None   # telemetry.probe.TimelineState /
+    #                           ProbeRows / WindowedTimeline, or None
 
 
 CTR = {name: i for i, name in enumerate(
@@ -117,11 +123,12 @@ def can_pack(cfg, n_logical: int, params: CellParams) -> bool:
 
 def init_state(cfg, n_logical: int, *, packed: bool = False,
                n_cells: int | None = None, endurance: bool = False,
-               device="cuda") -> SimState:
+               timeline: int | None = None, device="cuda") -> SimState:
     """Fresh carry for one cell, or for `n_cells` cells with a leading
     cell axis. `packed` carries the integer plane fields as int16 (gate
     on `can_pack`); results are identical either way. `endurance`
-    attaches a zero `WearState`."""
+    attaches a zero `WearState`; `timeline` (ops per window, or None) a
+    fresh probe carry, `telemetry.probe.TimelineState`."""
     p = cfg.num_planes
     dt_i = torch.int16 if packed else torch.int32
     lead = () if n_cells is None else (n_cells,)
@@ -133,6 +140,12 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
     if endurance:
         from repro_torch.core.ssd.endurance.model import init_wear
         wear = init_wear(cfg, n_cells, device=device)
+    tl = None
+    if timeline:
+        from repro_torch.telemetry.probe import init_timeline
+        tl = init_timeline(timeline, device=device)
+        if n_cells is not None:
+            tl = type(tl)(*(x.expand(n_cells).clone() for x in tl))
     return SimState(
         busy=zeros((p,), torch.float32),
         slc_used=zeros((p,), dt_i),
@@ -148,13 +161,15 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
         idle_cum=zeros((), torch.float32),
         idle_seen=zeros((p,), torch.float32),
         wear=wear,
+        timeline=tl,
     )
 
 
 def map_state(fn, *states):
     """The `SimState` (or `CellParams`) whose every tensor leaf is
-    `fn(*leaves)` of the matching leaves of `states`; the wear carry (or
-    the endurance knobs) is mapped leaf by leaf, None stays None."""
+    `fn(*leaves)` of the matching leaves of `states`; the wear carry,
+    the timeline (or the endurance knobs) mapped leaf by leaf, None stays
+    None."""
     def one(*xs):
         if xs[0] is None:
             return None

@@ -17,6 +17,13 @@ fixed point (`replay_pads`); pads emit latency 0.0 and write their
 residency entry back unchanged, so the result equals scanning every op.
 A run that tracks wear (`CellParams.endurance`) steps every padded op,
 as the reference's does, and has no compressed path.
+
+Telemetry: `timeline_ops` turns the probe on (the kernel's probe form, or
+its plain version) and the final state's `timeline` carries the
+`telemetry.probe.WindowedTimeline` over the padded trace — the scanned
+prefix's rows, the replayed tail's boundary snapshots
+(`replay_pads_windowed`) and the pad contract's zeros for the rest, the
+same windows the reference's full-length scan produces.
 """
 from __future__ import annotations
 
@@ -30,9 +37,11 @@ from repro_torch.core.ssd.policies.state import (CTR, CellParams, SimState,
                                                  ceil_div, default_cell,
                                                  init_state, map_state)
 from repro_torch.kernels.ssd_step import ops as ssd_step
+from repro_torch.telemetry import probe
 
-__all__ = ["default_params", "run_trace", "replay_pads", "run_compressed",
-           "flush_cache", "summarize", "as_ops", "scan_len"]
+__all__ = ["default_params", "run_trace", "replay_pads",
+           "replay_pads_windowed", "run_compressed", "flush_cache",
+           "summarize", "as_ops", "scan_len"]
 
 _F32 = torch.float32
 
@@ -75,11 +84,15 @@ def _one(x):
 
 def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
               waste_p: float = 0.0, params: CellParams | None = None,
-              packed: bool = False, device="cuda"):
+              packed: bool = False, timeline_ops: int | None = None,
+              device="cuda"):
     """Simulate one padded trace. Returns (per-op latency (T,), final
     SimState; its `wear` when `params.endurance` is set). `packed`
     carries the integer plane fields as int16 (gate on
-    `policies.state.can_pack`); results are identical."""
+    `policies.state.can_pack`); results are identical. `timeline_ops`
+    attaches the telemetry probe with that many ops a window: the final
+    state's `timeline` is then the `WindowedTimeline`; every other leaf
+    is what the run gives without it."""
     if params is None:
         params = default_params(cfg, policy, waste_p, device=device)
     endurance = params.endurance is not None
@@ -95,11 +108,19 @@ def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
         init_state(cfg, n_logical, packed=packed, n_cells=1,
                    endurance=endurance, device=device),
         closed_loop=closed_loop, params=map_state(_one, params),
-        n_pad=t_len - n_scan, pad_t=pad_t if n_scan < t_len else None)
+        n_pad=t_len - n_scan, pad_t=pad_t if n_scan < t_len else None,
+        window_ops=timeline_ops)
     latency = torch.cat([lat.reshape(-1),
                          torch.zeros(t_len - n_scan, dtype=_F32,
                                      device=lat.device)])
-    return latency, map_state(lambda x: x[0], final)
+    final = map_state(lambda x: x[0], final)
+    if timeline_ops is not None:
+        full = as_ops(trace, device)
+        final = final._replace(timeline=probe.from_rows(
+            final.timeline, latency, full["is_write"], full["arrival_ms"],
+            cap_pages=probe.cap_pages(params, cfg.num_planes),
+            window_ops=timeline_ops, t_len=t_len))
+    return latency, final
 
 
 def _tree_equal(a, b) -> bool:
@@ -116,31 +137,58 @@ def replay_pads(core, red: Reduced, old0, ep0, pad_t, n_pad: int):
     applying all `n_pad` pads. (Pads are not no-ops before it: migrate
     overrun reclamation drains an above-watermark plane a batch per
     pad.)"""
+    return replay_pads_windowed(core, red, old0, ep0, pad_t, [n_pad])[0]
+
+
+def replay_pads_windowed(core, red: Reduced, old0, ep0, pad_t, counts):
+    """`replay_pads` that also snapshots the cumulative counters at the
+    telemetry windows' boundaries inside the tail. `counts` (from
+    `probe.tail_windows`) partitions the tail: after the first counts[0]
+    pads the first boundary's counters are read, and so on. Returns
+    (final Reduced, (len(counts), C) snapshots). Once the carry reaches
+    its fixed point every later pad is the identity, so every later
+    snapshot is the final counters — the values a full per-op scan
+    reaches at those op indices."""
     dev = red.busy.device
     op = {"arrival_ms": torch.as_tensor(pad_t, dtype=_F32, device=dev),
           "lba": torch.zeros((), dtype=torch.int32, device=dev),
           "is_write": torch.full((), -1, dtype=torch.int32, device=dev)}
-    i, changed = 0, n_pad > 0
-    while i < n_pad and changed:
-        red_n, _ = core(red, op, old0, ep0)
-        changed = not _tree_equal(red_n, red)
-        red, i = red_n, i + 1
-    return red
+    changed, snaps = True, []
+    for cnt in counts:
+        i = 0
+        while i < cnt and changed:
+            red_n, _ = core(red, op, old0, ep0)
+            changed = not _tree_equal(red_n, red)
+            red, i = red_n, i + 1
+        snaps.append(red.counters)
+    if not snaps:
+        return red, torch.zeros((0, len(CTR)), dtype=_F32, device=dev)
+    return red, torch.stack(snaps)
 
 
 def run_compressed(cfg, policy, comp, *, closed_loop: bool, n_logical: int,
                    waste_p: float = 0.0, params: CellParams | None = None,
-                   packed: bool = False, device="cuda"):
+                   packed: bool = False, timeline_ops: int | None = None,
+                   device="cuda"):
     """Simulate one compressed trace (`workloads.compress.compress_ops`):
     the (S, K) segment stream, then the pad tail. Returns (per-op latency
     over the original padded length, final SimState) — identical to
     `run_trace` on the uncompressed trace, leaf for leaf. Runs that
-    track wear have no compressed path, as in the reference."""
+    track wear have no compressed path, as in the reference.
+    `timeline_ops` attaches the probe, as for `run_trace`; the window
+    size must be a multiple of the segment's K lanes (the reference's
+    segment telemetry reads its counters at segment ends)."""
     if params is None:
         params = default_params(cfg, policy, waste_p, device=device)
     if params.endurance is not None:
         raise ValueError("no compressed path for endurance runs; "
                          "use run_trace")
+    if timeline_ops is not None:
+        lanes = next(iter(comp.segs.values())).shape[1]
+        if int(timeline_ops) % lanes:
+            raise ValueError(
+                f"segment telemetry needs window_ops % {lanes} == 0; "
+                f"got {timeline_ops}")
     segs = {k: torch.as_tensor(v, device=device).unsqueeze(0)
             for k, v in comp.segs.items()}
     lat, final = ssd_step.run_stream(
@@ -148,11 +196,26 @@ def run_compressed(cfg, policy, comp, *, closed_loop: bool, n_logical: int,
         init_state(cfg, n_logical, packed=packed, n_cells=1, device=device),
         closed_loop=closed_loop, params=map_state(_one, params),
         n_pad=comp.n_pad,
-        pad_t=torch.tensor([comp.pad_t], dtype=_F32, device=device))
+        pad_t=torch.tensor([comp.pad_t], dtype=_F32, device=device),
+        window_ops=timeline_ops)
     latency = torch.cat([lat.reshape(-1),
                          torch.zeros(comp.n_pad, dtype=_F32,
                                      device=lat.device)])
-    return latency, map_state(lambda x: x[0], final)
+    final = map_state(lambda x: x[0], final)
+    if timeline_ops is not None:
+        # the full-length op arrays, the tail from the pad contract
+        is_write = torch.cat([
+            segs["is_write"].reshape(-1),
+            torch.full((comp.n_pad,), -1, dtype=torch.int32, device=device)])
+        arrival = torch.cat([
+            segs["arrival_ms"].reshape(-1),
+            torch.full((comp.n_pad,), float(comp.pad_t), dtype=_F32,
+                       device=device)])
+        final = final._replace(timeline=probe.from_rows(
+            final.timeline, latency, is_write, arrival,
+            cap_pages=probe.cap_pages(params, cfg.num_planes),
+            window_ops=timeline_ops, t_len=comp.t_len))
+    return latency, final
 
 
 def flush_cache(cfg, state: SimState, policy="baseline") -> SimState:

@@ -10,8 +10,9 @@ the caller converts (`[np.asarray(x) for x in jax.tree.leaves(state)]`).
 A carry may be one cell's or a fleet's (a leading cell axis on every
 leaf). The wear carry (`SimState.wear`) and the endurance knobs
 (`CellParams.endurance`) cross as their eight trailing leaves; optional
-carries the port does not hold yet (telemetry, host tier) show up as
-other extra leaves and are refused.
+carries that do not cross (the telemetry timeline, which the port's
+entry points build themselves, and the host tier) show up as other
+extra leaves and are refused.
 
 The serving path's model parameters and tiered caches cross as nested
 dicts of numpy arrays (`jax.tree.map(np.asarray, params)`):
@@ -58,7 +59,8 @@ def _tensor(name, x, dtypes, device):
     return torch.from_numpy(arr).to(device)
 
 
-_BASE_STATE = SimState._fields[:-1]          # all but `wear`
+# the carry's base fields, by name (`wear` and `timeline` trail them)
+_BASE_STATE = tuple(_STATE_DTYPES)
 _BASE_PARAMS = CellParams._fields[:-1]       # all but `endurance`
 
 
@@ -73,7 +75,7 @@ def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
         raise ValueError(
             f"expected the {n_base} base SimState leaves {_BASE_STATE}, "
             f"or those and the {n_wear} wear leaves, got {len(leaves)}: "
-            "the port carries no telemetry or host-tier state yet")
+            "telemetry and host-tier leaves do not cross")
     wear = None
     if len(leaves) > n_base:
         wear = WearState(*(_tensor(f, x, ("float32",), device) for f, x in

@@ -10,9 +10,10 @@
 // (the per-op stream, K = 1, src = -1, scat_lba = lba — null pointers —
 // or the K-lane segment stream with its hazard plan), length and pad tail.
 // Each block reads its cell's descriptor and dispatches once, before the op
-// loop, to `run_cell<COMP, CLOSED, ONE_LANE, WEAR>` (8 compositions x 2
-// modes x K = 1 or not, and the wear form: 16 compositions x 2 modes at
-// K = 1). The wrapper orders the descriptors longest stream first,
+// loop, to `run_cell<COMP, CLOSED, ONE_LANE, WEAR, PROBE>` (8
+// compositions x 2 modes x K = 1 or not, and the wear form: 16
+// compositions x 2 modes at K = 1; each with the telemetry probe off and
+// on). The wrapper orders the descriptors longest stream first,
 // so a grid of more cells than SMs is scheduled longest-processing-time
 // first. After the stream each cell replays its `n_pad` identical tail pads
 // to their exact fixed point in-kernel, as the reference's
@@ -40,6 +41,27 @@
 // Each block writes %globaltimer at its start and end, and the recurrence
 // thread its op counts and clock64 cycles (total, and waiting on the
 // ring) into an optional (C, 6) int64 timer output.
+//
+// The probe form (a cell whose descriptor sets window_ops > 0): the
+// reference's telemetry probe (`telemetry/probe.py`, the `SimState.timeline`
+// carry that rides its scan) as outputs of the recurrence thread,
+// observation only, in every form of the kernel. Per scanned op it stores
+// two head columns beside the latency: occ_pages, the running float32 sum
+// of the op's change in resident pages (slc + trad, on its plane), and
+// max(idle_claim, 0); the wrapper's window assembly divides occ_pages by
+// the cell's capacity (the reference's occupancy fraction, an IEEE
+// division either way), so the stepping thread pays an add and a store
+// an op. At every window boundary op min((w+1)*wo - 1, t_len - 1) it
+// stores the ten counters, in the pad tail too (once the tail reaches its
+// fixed point every later boundary gets the final counters, as the
+// reference's `replay_pads_windowed`); in the wear form also the plane's
+// peak effective cycles at each boundary. Its state is a register and a
+// boundary index, no shared memory; its stores go to device memory and are
+// never waited on. The probe is a template parameter (PROBE), chosen once
+// a cell from its descriptor: with the probe off a cell runs the code it
+// ran before the probe existed (a run-time predicate in that code cost 11%
+// of the paper grid's launch on an H100 80GB HBM3 at 700 W, 345 -> 384
+// cycles an op).
 //
 // The wear form (a cell whose descriptor names a wear row). The reference
 // tracks endurance per op only, so the wear form is the K = 1 path. Its
@@ -119,7 +141,10 @@ enum {
 // `_DESC_ORDER` (pointers to the cell's own (S, K) op stream and latency)
 enum {
   Q_ARRIVAL = 0, Q_LBA, Q_IS_WRITE, Q_SRC, Q_SCAT, Q_LAT_O, Q_COMP,
-  Q_CLOSED, Q_S, Q_K, Q_N_PAD, Q_ROW, Q_WEAR, N_DESC
+  Q_CLOSED, Q_S, Q_K, Q_N_PAD, Q_ROW, Q_WEAR,
+  // the probe: ops a window (0: off), head (n_ops, 2) f32, counter
+  // snapshots (W, N_CTR) f32, wear peaks (W,) f32 (wear cells only)
+  Q_WO, Q_HEAD, Q_SNAP, Q_PEAK, N_DESC
 };
 
 // pointer table, in the order of the wrapper's `_PTR_ORDER`; every
@@ -193,6 +218,7 @@ struct Carry {
   float* pe_slc; float* pe_rp; float* pe_tlc; float* erase;
   float* pe_trad; float* erase_trad;
   float ops_seen, eol_op;
+  float occ_pages;            // the probe's running resident pages
 };
 
 struct Knobs {
@@ -257,13 +283,23 @@ __device__ __forceinline__ float row_sum(const float (&r)[WEAR_B]) {
 // order. Reads the plane state, computes, then writes it back; returns
 // whether any carry value changed (the fixed-point test of the tail replay;
 // wear cells replay no tail). `plane` is the op's `lba % P`, computed off
-// the chain by the producer.
-template <int COMP, bool CLOSED, bool WEAR>
+// the chain by the producer. With PROBE it also hands out the probe's
+// observations (`Obs`): the op's change in resident pages on its plane,
+// the idle budget it claimed, and (wear form, when `want_peak`) the
+// plane's peak effective cycles.
+struct Obs {
+  int occ_delta;
+  float idle_claim;
+  bool want_peak;
+  float peak;
+};
+
+template <int COMP, bool CLOSED, bool WEAR, bool PROBE>
 __device__ __forceinline__ bool core(
     Carry& c, const Knobs& kn, const float* __restrict__ k, int P,
     const Divisor& ppb,
     float t, int plane, int kind, int old_raw, int old_ep,
-    float& latency_out, int& loc_val_out, int& loc_ep_val_out) {
+    float& latency_out, int& loc_val_out, int& loc_ep_val_out, Obs& obs) {
   constexpr bool dual = COMP & DUAL;
   constexpr bool run_migrate = COMP & MIGRATE;
   constexpr bool gated = COMP & GATED;
@@ -425,6 +461,9 @@ __device__ __forceinline__ bool core(
     }
   }
 
+  // the probe's idle claim: the device idle this op's plane consumed
+  if (PROBE) obs.idle_claim = is_pad ? 0.0f : idle_cum - idle_seen_p;
+
   // generation completion: fully reprogrammed region -> fresh layer
   if (use_rp) {
     const bool fresh = slc_used > 0 && rp_done >= 2 * slc_used;
@@ -503,8 +542,10 @@ __device__ __forceinline__ bool core(
     pe_tlc_p = pe_tlc_p + (to_tlc ? 1.0f : 0.0f);
     pe_trad_p = pe_trad_p + (to_trad ? 1.0f : 0.0f);
     const float ops_seen = c.ops_seen + (is_pad ? 0.0f : 1.0f);
-    if (c.eol_op < 0.0f && !is_pad) {
-      // the worst block's effective cycles against the budget
+    const bool eol_live = c.eol_op < 0.0f && !is_pad;
+    if (eol_live || (PROBE && obs.want_peak)) {
+      // the worst block's effective cycles: against the budget until the
+      // end of life is found, and the probe's peak at a window boundary
       float vmax = __fmaf_rn(kn.w_slc, ws[0], kn.w_rp * wr[0]);
 #pragma unroll
       for (int j = 1; j < WEAR_B; ++j)
@@ -513,7 +554,9 @@ __device__ __forceinline__ bool core(
       const float bucket_max = vmax / kn.per_bucket + erase_term;
       const float trad_cyc =
           __fmaf_rn(kn.w_erase, erase_trad_p, kn.w_slc * pe_trad_p / kn.cap_t_f);
-      if (fmaxf(bucket_max, trad_cyc) >= kn.cycle_budget) c.eol_op = ops_seen;
+      const float peak = fmaxf(bucket_max, trad_cyc);
+      if (eol_live && peak >= kn.cycle_budget) c.eol_op = ops_seen;
+      if (PROBE) obs.peak = peak;
     }
     c.ops_seen = ops_seen;
     float4* s4 = reinterpret_cast<float4*>(c.pe_slc + plane * WEAR_B);
@@ -537,6 +580,7 @@ __device__ __forceinline__ bool core(
   const bool track_new =
       (run_migrate || gated) ? (to_slc || to_rp) : (dual ? to_trad : false);
   const int valid_dec = (is_write && old_ok) ? 1 : 0;
+  if (PROBE) obs.occ_delta = (slc_used + trad_used) - (slc0 + trad0);
 
   ctr[CTR_HOST_W] = ctr[CTR_HOST_W] + (is_write ? 1.0f : 0.0f);
   ctr[CTR_SLC_W] = ctr[CTR_SLC_W] + ((to_slc || to_trad) ? 1.0f : 0.0f);
@@ -741,7 +785,36 @@ __device__ __forceinline__ float* wear_rows(const Smem& s) {
 // the recurrence thread: one cell's stream and pad tail
 // ---------------------------------------------------------------------------
 
-template <int COMP, bool CLOSED, bool ONE_LANE, bool WEAR>
+// The probe's outputs of one cell and where its next window boundary is.
+struct Probe {
+  float2* head;              // (n_ops,) occupancy fraction, idle claim
+  float* snap;               // (W, N_CTR) counters at the boundaries
+  float* peak;               // (W,) wear peaks (wear cells)
+  long long wo, t_len, next; // ops a window, padded length, next boundary
+  int w, n_win;              // next window, window count
+};
+
+// the counters (and, for a wear cell, the peak) at window w's boundary
+__device__ __forceinline__ void snapshot(Probe& pr, const Carry& c,
+                                         bool wear, float peak) {
+  float* out = pr.snap + (size_t)pr.w * N_CTR;
+#pragma unroll
+  for (int i = 0; i < N_CTR; ++i) out[i] = c.ctr[i];
+  if (wear) pr.peak[pr.w] = peak;
+  ++pr.w;
+  pr.next = min(pr.next + pr.wo, pr.t_len - 1);
+}
+
+// after op g of the stream: the head columns, and a snapshot if g ends a
+// window
+__device__ __forceinline__ void observe(Probe& pr, Carry& c, long long g,
+                                        const Obs& obs, bool wear) {
+  c.occ_pages = c.occ_pages + (float)obs.occ_delta;
+  pr.head[g] = make_float2(c.occ_pages, fmaxf(obs.idle_claim, 0.0f));
+  if (g == pr.next) snapshot(pr, c, wear, obs.peak);
+}
+
+template <int COMP, bool CLOSED, bool ONE_LANE, bool WEAR, bool PROBE>
 __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
                                          const Smem& s, int row) {
   static_assert(ONE_LANE || !WEAR, "the wear form is the per-op path");
@@ -791,6 +864,22 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
   float* lat_o = reinterpret_cast<float*>(d[Q_LAT_O]);
   const int K = ONE_LANE ? 1 : static_cast<int>(d[Q_K]);
   const long long n_ops = d[Q_S] * K;
+  // the probe's outputs and its first boundary (PROBE only)
+  Probe pr;
+  Obs obs;
+  obs.want_peak = false;
+  obs.peak = 0.0f;
+  if (PROBE) {
+    pr.head = reinterpret_cast<float2*>(d[Q_HEAD]);
+    pr.snap = reinterpret_cast<float*>(d[Q_SNAP]);
+    pr.peak = reinterpret_cast<float*>(d[Q_PEAK]);
+    pr.wo = d[Q_WO];
+    pr.t_len = n_ops + d[Q_N_PAD];
+    pr.next = min(pr.wo - 1, pr.t_len - 1);
+    pr.w = 0;
+    pr.n_win = static_cast<int>(max((pr.t_len + pr.wo - 1) / pr.wo, 1LL));
+    c.occ_pages = 0.0f;
+  }
   const int per_stage = stage_ops_of(K, WEAR);
   const int stride = stage_cap_of(WEAR) * REC_WORDS;
   long long wait_cycles = 0;
@@ -819,10 +908,13 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
         const int g = rec_gather(w1);
         float latency;
         int lv, lev;
-        core<COMP, CLOSED, WEAR>(c, kn, k, P, ppb, __uint_as_float(w0r),
-                                 rec_plane(w1), rec_kind(w1), s.loc[g],
-                                 s.loc_ep[g], latency, lv, lev);
+        if (PROBE && WEAR) obs.want_peak = base + i == pr.next;
+        core<COMP, CLOSED, WEAR, PROBE>(c, kn, k, P, ppb,
+                                        __uint_as_float(w0r), rec_plane(w1),
+                                        rec_kind(w1), s.loc[g], s.loc_ep[g],
+                                        latency, lv, lev, obs);
         lat[i] = latency;
+        if (PROBE) observe(pr, c, base + i, obs, WEAR);
         if (w2 & KEEP) {
           const int dst = static_cast<int>(w2 & 0xFFFFu);
           s.loc[dst] = static_cast<int8_t>(lv);
@@ -851,11 +943,12 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
           const int old_ep = src >= 0 ? buf_ep[j] : ep_k[i];
           float latency;
           int lv, lev;
-          core<COMP, CLOSED, false>(c, kn, k, P, ppb,
-                                    __uint_as_float(r[REC_WORDS * i]),
-                                    rec_plane(w1), rec_kind(w1), old, old_ep,
-                                    latency, lv, lev);
+          core<COMP, CLOSED, false, PROBE>(c, kn, k, P, ppb,
+                                           __uint_as_float(r[REC_WORDS * i]),
+                                           rec_plane(w1), rec_kind(w1), old,
+                                           old_ep, latency, lv, lev, obs);
           lat[s0 + i] = latency;
+          if (PROBE) observe(pr, c, base + s0 + i, obs, false);
           buf_loc[i] = lv;
           buf_ep[i] = lev;
         }
@@ -887,12 +980,19 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
       int lv, lev;
       while (pads < n_pad) {
         ++pads;
-        const bool changed = core<COMP, CLOSED, false>(
-            c, kn, k, P, ppb, pad_t, 0, -1, old0, ep0, lat_unused, lv, lev);
+        const bool changed = core<COMP, CLOSED, false, false>(
+            c, kn, k, P, ppb, pad_t, 0, -1, old0, ep0, lat_unused, lv, lev,
+            obs);
+        // a boundary among the tail pads: the counters there
+        if (PROBE && n_ops - 1 + pads == pr.next)
+          snapshot(pr, c, false, 0.0f);
         if (!changed) break;
       }
     }
   }
+  // boundaries past a fixed point hold the final counters
+  if (PROBE)
+    while (pr.w < pr.n_win) snapshot(pr, c, false, 0.0f);
   const long long cycles = clock64() - c0;
 #pragma unroll
   for (int i = 0; i < N_CTR; ++i) a.ctr_o[(size_t)row * N_CTR + i] = c.ctr[i];
@@ -912,25 +1012,25 @@ __device__ __forceinline__ void run_cell(const Args& a, const long long* d,
   }
 }
 
-template <int COMP>
+template <int COMP, bool PROBE>
 __device__ __forceinline__ void run_comp(const Args& a, const long long* d,
                                          const Smem& s, int row) {
   const bool closed = d[Q_CLOSED] != 0, one = d[Q_K] == 1;
   if (closed) {
-    if (one) run_cell<COMP, true, true, false>(a, d, s, row);
-    else run_cell<COMP, true, false, false>(a, d, s, row);
+    if (one) run_cell<COMP, true, true, false, PROBE>(a, d, s, row);
+    else run_cell<COMP, true, false, false, PROBE>(a, d, s, row);
   } else {
-    if (one) run_cell<COMP, false, true, false>(a, d, s, row);
-    else run_cell<COMP, false, false, false>(a, d, s, row);
+    if (one) run_cell<COMP, false, true, false, PROBE>(a, d, s, row);
+    else run_cell<COMP, false, false, false, PROBE>(a, d, s, row);
   }
 }
 
-template <int COMP>
+template <int COMP, bool PROBE>
 __device__ __forceinline__ void run_comp_wear(const Args& a,
                                               const long long* d,
                                               const Smem& s, int row) {
-  if (d[Q_CLOSED] != 0) run_cell<COMP, true, true, true>(a, d, s, row);
-  else run_cell<COMP, false, true, true>(a, d, s, row);
+  if (d[Q_CLOSED] != 0) run_cell<COMP, true, true, true, PROBE>(a, d, s, row);
+  else run_cell<COMP, false, true, true, PROBE>(a, d, s, row);
 }
 
 // the compositions the kernel instantiates: the 8 valid ones without wear
@@ -987,16 +1087,25 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1) ssd_fleet_kernel(Args a) {
     produce(d, s, P, N);
   } else if (threadIdx.x == 0) {
     const int comp = static_cast<int>(d[Q_COMP]);
+    const bool probe = d[Q_WO] > 0;
     if (wrow >= 0) {
       switch (comp) {
-#define SSD_CASE(C) case C: run_comp_wear<C>(a, d, s, row); break;
+#define SSD_CASE(C)                                                        \
+  case C:                                                                  \
+    if (probe) run_comp_wear<C, true>(a, d, s, row);                       \
+    else run_comp_wear<C, false>(a, d, s, row);                            \
+    break;
         SSD_WEAR_COMPS(SSD_CASE)
 #undef SSD_CASE
         default: __trap();             // the host refused it
       }
     } else {
       switch (comp) {
-#define SSD_CASE(C) case C: run_comp<C>(a, d, s, row); break;
+#define SSD_CASE(C)                                                        \
+  case C:                                                                  \
+    if (probe) run_comp<C, true>(a, d, s, row);                            \
+    else run_comp<C, false>(a, d, s, row);                                 \
+    break;
         SSD_PLAIN_COMPS(SSD_CASE)
 #undef SSD_CASE
         default: __trap();             // the host refused it
@@ -1149,6 +1258,12 @@ int ssd_fleet_launch(const unsigned long long* ptrs, int n_ptrs,
                  a.endur == nullptr || a.wear == nullptr ||
                  a.wear_o == nullptr))
       return -6;
+    // the probe's outputs: head columns for a stream, snapshots always,
+    // peaks for a wear cell
+    if (d[Q_WO] < 0) return -2;
+    if (d[Q_WO] > 0 && ((d[Q_S] > 0 && d[Q_HEAD] == 0) || d[Q_SNAP] == 0 ||
+                        (wear && d[Q_PEAK] == 0)))
+      return -7;
   }
   const size_t smem = (size_t)block_bytes(a.P, a.N);
   cudaError_t err = cudaFuncSetAttribute(

@@ -8,9 +8,14 @@ per-op form (K = 1, no hazard plan) or the (S, K) segment form — and each
 cell's pad-tail replay. Jobs may differ in all of that. A job whose
 cells track wear (`params.endurance` set, `state0.wear` present) runs the
 kernel's wear form: the per-op stream, no pad tail (it steps every op),
-its `WearState` carried in and out. `run_stream` is the one-job case. For tensors on a CUDA device the wrapper launches the
-kernel or raises; tensors on the CPU go to the plain version,
-`ref.run_stream_ref`, job by job. Nothing falls back.
+its `WearState` carried in and out. A job that sets `window_ops` runs
+the kernel's probe form: its cells' final states carry the telemetry
+probe's `ProbeRows` in `timeline` (head columns per scanned op, counter
+snapshots and, with wear, peak cycles at each window boundary, the pad
+tail's included). `run_stream` is the one-job case. For tensors on a
+CUDA device the wrapper launches the kernel or raises; tensors on the
+CPU go to the plain version, `ref.run_stream_ref`, job by job. Nothing
+falls back.
 
 The kernel is built at first use by `kernels._build` (nvcc into
 `build/kernels/`, loaded with ctypes), with `-fmad=false`: the kernel
@@ -36,6 +41,8 @@ from repro_torch.core.ssd.policies.state import (CTR, OVERRUN_PAGES,
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
                                         Library, check)
 from repro_torch.kernels.ssd_step import ref
+from repro_torch.telemetry import probe
+from repro_torch.telemetry.probe import ProbeRows
 
 __all__ = ["StreamJob", "run_streams", "run_stream", "smem_chase", "reset",
            "launches", "events", "composition_code", "kernel_constants",
@@ -69,11 +76,16 @@ _PTR_ORDER = (
     "epoch_o", "counters_o", "prev_t_o", "idle_cum_o", "idle_seen_o",
     "loc_o", "loc_ep_o", "timer", "endur", "wear", "wear_o")
 _DESC_ORDER = ("arrival_ms", "lba", "is_write", "src", "scat_lba", "lat_o",
-               "comp", "closed", "S", "K", "n_pad", "row", "wear")
+               "comp", "closed", "S", "K", "n_pad", "row", "wear",
+               "window_ops", "head", "snap", "peak")
 _DIM_ORDER = ("C", "P", "N", "ppb")
 _N_FCONST = 15
 _WIDENED = ("slc_used", "rp_done", "trad_used", "valid_mig", "epoch")
-_BASE_STATE = SimState._fields[:-1]                 # all but `wear`
+# the carry's base fields, by name: `wear` and `timeline` trail them and
+# travel in tables of their own
+_BASE_STATE = ("busy", "slc_used", "rp_done", "trad_used", "valid_mig",
+               "epoch", "loc", "loc_ep", "counters", "prev_t", "idle_cum",
+               "idle_seen")
 _BASE_PARAMS = ("cap_basic", "cap_trad", "cap_boost", "idle_thr", "waste_p")
 # a wear cell's state packed into one float32 row, in this order
 # (`wear_words` of csrc/ssd_step.cu)
@@ -88,7 +100,9 @@ class StreamJob(NamedTuple):
     cell axis, packed or unpacked. `params`: CellParams of (C,) tensors.
     `pad_t`: (C,) f32 arrival of each cell's `n_pad` identical tail
     pads. Cells that track wear carry `state0.wear` and
-    `params.endurance` and take the per-op form with no pad tail."""
+    `params.endurance` and take the per-op form with no pad tail.
+    `window_ops` (ops a telemetry window, None: off) turns the probe on;
+    the windows tile each cell's padded length S x K + n_pad."""
     policy: object
     segs: dict
     state0: SimState
@@ -96,6 +110,7 @@ class StreamJob(NamedTuple):
     params: object
     n_pad: int = 0
     pad_t: Optional[torch.Tensor] = None
+    window_ops: Optional[int] = None
 
 
 def composition_code(spec) -> int:
@@ -237,6 +252,9 @@ def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
     if wear and (plan or k != 1 or job.n_pad):
         raise ValueError("ssd_step: a wear job is the per-op stream (K = 1, "
                          "no hazard plan) and steps every op (n_pad = 0)")
+    if job.window_ops is not None and int(job.window_ops) <= 0:
+        raise ValueError(f"ssd_step: window_ops must be positive, got "
+                         f"{job.window_ops}")
     i32, f32 = torch.int32, torch.float32
     plane_int = (torch.int16, torch.int32)
     shp = (c_cnt, s_cnt, k)
@@ -281,10 +299,27 @@ def _check_job(cfg, job: StreamJob, dev, n_logical: int) -> dict:
             "pad_t": pad_t, "wear": wear}
 
 
+def _probe_rows(job: StreamJob, x: dict, dev) -> Optional[ProbeRows]:
+    """Empty outputs of a probe job's cells: head (C, S*K, 2), counter
+    snapshots (C, W, N) and, with wear, peaks (C, W); None with the
+    probe off."""
+    if job.window_ops is None:
+        return None
+    n_ops = x["S"] * x["K"]
+    w_cnt = probe.n_windows(n_ops + job.n_pad, int(job.window_ops))
+    f32 = torch.float32
+    return ProbeRows(
+        head=torch.empty((x["C"], n_ops, 2), dtype=f32, device=dev),
+        snap=torch.empty((x["C"], w_cnt, len(CTR)), dtype=f32, device=dev),
+        wear_peak=(torch.empty((x["C"], w_cnt), dtype=f32, device=dev)
+                   if x["wear"] else None))
+
+
 def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
     """Run every job's cells in one launch; returns [(latency (C, S, K)
     f32, final SimState in the job's `state0` dtypes, its wear carry
-    included)] in job order.
+    included, and for a probe job its `ProbeRows` in `timeline`)] in job
+    order.
 
     On a CUDA device the cells run side by side, one block each, the
     longest stream (S x K) first. `timer`, if given, is a (cells, 6)
@@ -305,7 +340,8 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
         return [ref.run_stream_ref(cfg, resolve_spec(j.policy), j.segs,
                                    j.state0, closed_loop=j.closed_loop,
                                    params=j.params, n_pad=j.n_pad,
-                                   pad_t=j.pad_t) for j in jobs]
+                                   pad_t=j.pad_t, window_ops=j.window_ops)
+                for j in jobs]
     if dev.type != "cuda":
         raise ValueError(f"ssd_step: no kernel for device {dev}")
     p = cfg.num_planes
@@ -361,11 +397,12 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
         ins["endur"] = ins["wear"] = outs["wear_o"] = None
     lats = [torch.empty((x["C"], x["S"], x["K"]), dtype=f32, device=dev)
             for x in info]
+    probes = [_probe_rows(j, x, dev) for j, x in zip(jobs, info)]
 
     # one descriptor a cell (pointers to its own stream: every per-op
     # array is 4 bytes an op), longest stream first
     rows, n_wear = [], 0
-    for j, x, lat in zip(jobs, info, lats):
+    for j, x, lat, pr in zip(jobs, info, lats, probes):
         n_ops = x["S"] * x["K"]
         streams = [j.segs["arrival_ms"], j.segs["lba"], j.segs["is_write"],
                    j.segs["src"] if x["plan"] else None,
@@ -374,10 +411,16 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
             wear_row = -1
             if x["wear"]:
                 wear_row, n_wear = n_wear, n_wear + 1
+            # the probe's outputs: this cell's rows of each (C, ...) tensor
+            outs_c = [0, 0, 0]
+            if pr is not None:
+                outs_c = [t[c].data_ptr() if t is not None and t[c].numel()
+                          else 0 for t in pr]
             rows.append([t.data_ptr() + 4 * c * n_ops
                          if t is not None and n_ops else 0 for t in streams]
                         + [x["code"], int(j.closed_loop), x["S"], x["K"],
-                           int(j.n_pad), len(rows), wear_row])
+                           int(j.n_pad), len(rows), wear_row,
+                           int(j.window_ops or 0)] + outs_c)
     rows.sort(key=lambda r: -r[_DESC_ORDER.index("S")]
               * r[_DESC_ORDER.index("K")])
     desc_host = np.ascontiguousarray(np.array(rows, dtype=np.int64))
@@ -398,26 +441,27 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
                          ctypes.POINTER(ctypes.c_longlong))), dev)
 
     results, lo, wlo = [], 0, 0
-    for j, x, lat in zip(jobs, info, lats):
+    for j, x, lat, pr in zip(jobs, info, lats, probes):
         hi = lo + x["C"]
         wear = None
         if x["wear"]:
             wear = _unpack_wear(outs["wear_o"][wlo:wlo + x["C"]], p)
             wlo += x["C"]
         final = SimState(*(outs[f"{f}_o"][lo:hi].to(
-            getattr(j.state0, f).dtype) for f in _BASE_STATE), wear=wear)
+            getattr(j.state0, f).dtype) for f in _BASE_STATE), wear=wear,
+            timeline=pr)
         results.append((lat, final))
         lo = hi
     return results
 
 
 def run_stream(cfg, policy, segs, state0: SimState, *, closed_loop: bool,
-               params, n_pad: int = 0, pad_t=None):
+               params, n_pad: int = 0, pad_t=None, window_ops=None):
     """Run one fleet's op streams and pad tails: `run_streams` with one
     job (the arguments of `StreamJob`). Returns (latency (C, S, K) f32,
     final SimState in `state0`'s dtypes)."""
     return run_streams(cfg, [StreamJob(policy, segs, state0, closed_loop,
-                                       params, n_pad, pad_t)])[0]
+                                       params, n_pad, pad_t, window_ops)])[0]
 
 
 def smem_chase(steps: int, device="cuda") -> dict:

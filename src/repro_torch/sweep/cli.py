@@ -13,27 +13,31 @@ simulator and writes `BENCH_torch_<name>.json` into `--out-dir`.
       --policies baseline,ips --modes daily
   python -m repro_torch.sweep.cli --traces hm_0 --policies ips,ips_raro \
       --endurance w_rp=4,rp_budget=2
+  python -m repro_torch.sweep.cli --grid paper --timeline   # + windows,
+      # cliffs: BENCH_torch_timeline.json (1024 ops a window)
+  python -m repro_torch.sweep.cli --grid quick --device cpu --max-ops 2048 \
+      --timeline 64 --no-save
   python -m repro_torch.sweep.cli --list-policies | --list-grids
 
 Port of the reference package's `sweep/cli.py`, with the flags of the
-slices ported so far; the host tier, search, telemetry, profiling and
-history flags belong to later slices. Traces come through the port's
-own compiled-trace cache (`$REPRO_TORCH_TRACE_CACHE_DIR`, by default
-`~/.cache/repro_torch/traces`; `--no-trace-cache-disk` keeps it in
-memory). Every artifact it writes is named `BENCH_torch_*.json`, so it
-never overwrites a file of the reference package. On the CPU the fleet
-runs the kernel's plain version, an op at a time in Python: keep
-`--max-ops` small there.
+slices ported so far: the telemetry probe (`--timeline`, the cliff
+table, `--timeline-overhead-check`, `--chrome-trace`), `--profile`
+(`torch.profiler`) and the port's history file (`--history-check`,
+`--no-history`); the host tier, search and `--bench` belong to later
+slices. Traces come through the port's own compiled-trace cache
+(`$REPRO_TORCH_TRACE_CACHE_DIR`, by default `~/.cache/repro_torch/traces`;
+`--no-trace-cache-disk` keeps it in memory). Every artifact it writes
+goes through `sweep.store` and is named `BENCH_torch_*.json` — the
+history too, `BENCH_torch_history.json` — so it never overwrites a file
+of the reference package. On the CPU the fleet runs the kernel's plain
+version, an op at a time in Python: keep `--max-ops` small there.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
-import json
+import contextlib
 import os
-import platform
 import sys
-import time
 from dataclasses import replace
 
 from repro_torch.sweep.grid import GRIDS
@@ -87,24 +91,37 @@ def _parse(argv):
                     help="truncate traces (smoke runs)")
     ap.add_argument("--no-trace-cache-disk", action="store_true",
                     help="keep the compiled-trace cache in memory only")
+    ap.add_argument("--timeline", nargs="?", const=1024, type=int,
+                    default=None, metavar="WINDOW_OPS",
+                    help="attach the telemetry probe: per-window latency/"
+                    "occupancy/WAF series and cliff detection per cell, "
+                    "written to BENCH_torch_<name>_timeline.json (default "
+                    "window: 1024 ops)")
+    ap.add_argument("--chrome-trace", default=None, metavar="PATH",
+                    help="also write the run's span tree as a Chrome "
+                    "trace-event file (chrome://tracing / Perfetto)")
+    ap.add_argument("--timeline-overhead-check", action="store_true",
+                    help="re-run the sweep warm with the probe off and on "
+                    "(interleaved pairs, median of 3) and record the "
+                    "wall-time ratio in the timeline artifact (requires "
+                    "--timeline)")
+    ap.add_argument("--history-check", action="store_true",
+                    help="after appending this run to "
+                    "BENCH_torch_history.json, fail (exit 1) on >20%% "
+                    "throughput drop or any geomean drift vs the trailing "
+                    "same-config baseline")
+    ap.add_argument("--no-history", action="store_true",
+                    help="skip the BENCH_torch_history.json append")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of the sweep into "
+                    "DIR (a Chrome trace; a no-op without a profiler "
+                    "backend)")
     ap.add_argument("--name", default=None, help="artifact name: "
                     "BENCH_torch_<name>.json (default: sweep_<grid>)")
     ap.add_argument("--out-dir", default=".",
                     help="where BENCH_torch_<name>.json is written")
     ap.add_argument("--no-save", action="store_true")
     return ap.parse_args(argv)
-
-
-def _device_meta(device) -> dict:
-    import torch
-    meta = {"torch_version": torch.__version__, "device": str(device),
-            "platform": platform.platform(),
-            "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S")}
-    if torch.device(device).type == "cuda":
-        meta["device_name"] = torch.cuda.get_device_name(device)
-        meta["device_count"] = torch.cuda.device_count()
-        meta["cuda_version"] = torch.version.cuda
-    return meta
 
 
 def _select_points(args, seeds):
@@ -238,27 +255,63 @@ def main(argv=None) -> int:
     if err:
         print(f"error: {err}", file=sys.stderr)
         return 2
+    if args.timeline_overhead_check and not args.timeline:
+        print("error: --timeline-overhead-check requires --timeline",
+              file=sys.stderr)
+        return 2
+    if args.timeline is not None and args.timeline <= 0:
+        print("error: --timeline wants a positive window size (ops)",
+              file=sys.stderr)
+        return 2
+
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.store import save_bench
+    from repro_torch.telemetry import (Tracer, chrome_trace, history,
+                                       profiling, timeline_payload)
+    from repro_torch.telemetry import timeline as tmod
+    from repro_torch.telemetry.spans import span
+
     scale = args.scale or DEFAULT_SCALE
     cfg = PAPER_SSD.scaled(scale)
     cache = workloads.TraceCache(use_disk=not args.no_trace_cache_disk)
+    tracer = Tracer() if (args.timeline or args.chrome_trace) else None
+    timelines = {} if args.timeline else None
     print(f"sweep: {len(points)} cells on a 1/{scale} drive "
           f"({cfg.capacity_gb:.1f} GB) on {args.device}")
     timings = []
-    t0 = time.perf_counter()
-    results = run_sweep(cfg, points, max_ops=args.max_ops,
-                        device=args.device, timings=timings,
-                        trace_cache=cache,
-                        progress=lambda s: print(f"  {s}"))
-    wall = time.perf_counter() - t0
+    launches0 = ssd_step.launches
+    overhead = None
+
+    def sweep(**kw):
+        return run_sweep(cfg, points, max_ops=args.max_ops,
+                         device=args.device, trace_cache=cache, **kw)
+
+    with (tracer.activate() if tracer else contextlib.nullcontext()):
+        with profiling.profile(args.profile):
+            with span("sweep.run", "sweep", cells=len(points)) as rec:
+                results = sweep(timings=timings,
+                                progress=lambda s: print(f"  {s}"),
+                                timeline_ops=args.timeline,
+                                timelines=timelines)
+                if torch.device(args.device).type == "cuda":
+                    torch.cuda.synchronize()
+            profiling.emit_device_events("sweep.done")
+        wall = rec["dur_s"]
+        launches = ssd_step.launches - launches0
+        if args.timeline_overhead_check:
+            overhead = _overhead(sweep, args.timeline, args.device)
+            print(f"  timeline overhead: off {overhead['off_warm_s']:.3f}s "
+                  f"-> on {overhead['on_warm_s']:.3f}s warm, median of "
+                  f"{overhead['pairs']} (ratio {overhead['ratio']:.3f})")
     cstats = cache.stats()
     print(f"  trace cache: {cstats['hits']} hit(s), {cstats['misses']} "
           "miss(es)")
     padded = sum(g["cells"] * g["t_len"] for g in timings)
     throughput = {"wall_s": wall, "ops_per_s": padded / max(wall, 1e-9),
                   "cells_per_s": len(points) / max(wall, 1e-9)}
-    print(f"  {len(timings)} group(s) in {wall:.3f} s: "
-          f"{throughput['ops_per_s'] / 1e6:.3f} Mops/s over the padded "
-          "length")
+    print(f"  {len(timings)} group(s) in {wall:.3f} s, {launches} kernel "
+          f"launch(es): {throughput['ops_per_s'] / 1e6:.3f} Mops/s over "
+          "the padded length")
     print(throughput_table(timings))
     _print_table(results)
     geomeans = {f"{m}/{p}": v for (m, p), v in
@@ -279,23 +332,116 @@ def main(argv=None) -> int:
         _print_ci_table(cis)
         payload["geomeans_ci"] = {f"{m}/{p}": v
                                   for (m, p), v in sorted(cis.items())}
+    meta = {"grid": args.grid or "custom", "n_cells": len(points),
+            "max_ops": args.max_ops, "scale": scale,
+            "device": args.device, "launches": launches}
+    if args.timeline:
+        cells = {pt.key: tmod.series(tl)
+                 for pt, tl in sorted(timelines.items(),
+                                      key=lambda kv: kv[0].key)}
+        _print_cliff_table(cells)
+        tl_doc = timeline_payload(
+            cells, window_ops=args.timeline, tracer=tracer,
+            extra={**meta, **({"overhead": overhead} if overhead else {})})
+        if not args.no_save:
+            tl_name = (f"{args.name}_timeline" if args.name
+                       else "timeline")
+            tl_path = save_bench(tl_name, tl_doc, cfg=cfg,
+                                 directory=args.out_dir, device=args.device)
+            print(f"wrote {tl_path}")
+    if args.chrome_trace:
+        print(f"wrote {chrome_trace(tracer.to_json(), args.chrome_trace)}")
     if not args.no_save:
         name = args.name or f"sweep_{args.grid or 'custom'}"
-        doc = {"name": f"torch_{name}", "meta": _device_meta(args.device),
-               "config": dataclasses.asdict(cfg),
-               "grid": args.grid or "custom", "n_cells": len(points),
-               "max_ops": args.max_ops, "scale": scale,
-               "trace_cache": cstats, "group_timings": timings,
+        doc = {**meta, "trace_cache": cstats, "group_timings": timings,
                "throughput": throughput,
                "results": {pt.key: v for pt, v in sorted(
                    results.items(), key=lambda kv: kv[0].key)},
                **payload}
-        os.makedirs(args.out_dir, exist_ok=True)
-        path = os.path.join(args.out_dir, f"BENCH_torch_{name}.json")
-        with open(path, "w") as f:
-            json.dump(doc, f, indent=1, sort_keys=True)
+        path = save_bench(name, doc, cfg=cfg, directory=args.out_dir,
+                          device=args.device)
         print(f"\nwrote {path}")
+        if not args.no_history:
+            # fidelity geomeans flattened to scalars: the history gate
+            # treats any drift as a regression
+            flat_gm = {f"{k}/{metric}": v[metric]
+                       for k, v in geomeans.items()
+                       for metric in ("mean_write_latency_ms", "wa_paper")
+                       if metric in v}
+            rec = history.append_record(
+                "sweep", f"{args.grid or 'custom'}:scale={scale}"
+                         f":max_ops={args.max_ops}:seeds={len(seeds)}"
+                         f":device={torch.device(args.device).type}",
+                directory=args.out_dir,
+                ops_per_s=throughput["ops_per_s"],
+                cells_per_s=throughput["cells_per_s"], geomeans=flat_gm,
+                meta={"n_cells": len(points), "timeline": args.timeline,
+                      "launches": launches})
+            print(f"history: appended {rec['kind']}:{rec['config']} "
+                  f"@ {str(rec['git_sha'])[:12]}")
+    if args.history_check:
+        failures = history.check_regression(
+            history.load_history(args.out_dir)["records"])
+        if failures:
+            for line in failures:
+                print(f"REGRESSION {line}", file=sys.stderr)
+            return 1
+        print("history: no regression vs trailing baseline")
     return 0
+
+
+def _overhead(sweep, window_ops: int, device) -> dict:
+    """The probe's cost: the sweep warm with the probe off and on, in
+    interleaved off/on pairs (the host's load drifts on the scale of one
+    pass, and sequential one-shot timings alias that drift into the
+    ratio), median of 3. On the card each pass's kernel launch is timed
+    by its CUDA events too."""
+    import torch
+
+    from repro_torch.telemetry.spans import span
+    cuda = torch.device(device).type == "cuda"
+
+    def timed(**kw):
+        timings = []
+        with span("overhead.pass", "bench", **kw) as rec:
+            sweep(timings=timings, **kw)
+            if cuda:
+                torch.cuda.synchronize()
+        return rec["dur_s"], timings[0]["launch_ms"] if timings else None
+
+    timed()                             # warm: traces built, kernel loaded
+    offs, ons = [], []
+    for _ in range(3):
+        offs.append(timed())
+        ons.append(timed(timeline_ops=window_ops))
+
+    def med(xs, i):
+        return sorted(x[i] for x in xs)[1]
+
+    off_s, on_s = med(offs, 0), med(ons, 0)
+    out = {"off_warm_s": off_s, "on_warm_s": on_s, "pairs": 3,
+           "ratio": on_s / max(off_s, 1e-9)}
+    if cuda:
+        off_ms, on_ms = med(offs, 1), med(ons, 1)
+        out.update({"off_launch_ms": off_ms, "on_launch_ms": on_ms,
+                    "launch_ratio": on_ms / max(off_ms, 1e-9)})
+    return out
+
+
+def _print_cliff_table(cells) -> None:
+    print("\n=== timeline: performance-cliff detection ===")
+    rows = [(k, s["cliff"]) for k, s in cells.items()
+            if s["cliff"]["detected"]]
+    if rows:
+        print(f"{'cell':<40}{'window':>7}{'ratio':>8}{'steady':>9}"
+              f"{'t_ops':>9}{'recov':>8}")
+        for key, c in rows:
+            recov = ("" if c["recovery_slope"] is None
+                     else f"{c['recovery_slope']:>8.3f}")
+            print(f"{key:<40}{c['window']:>7}{c['ratio']:>8.2f}"
+                  f"{c['steady_lat_ms']:>9.3f}"
+                  f"{c['time_to_cliff_ops']:>9}{recov}")
+    print(f"  cliffs: {len(rows)}/{len(cells)} cell(s)")
 
 
 def _print_table(results) -> None:

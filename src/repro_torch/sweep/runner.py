@@ -19,12 +19,18 @@ as the reference's runner fits it.
 
 The launch and each group's summary are queued first; the results are
 copied to the host afterwards, group by group. Per-group timings — the
-host time of building the group's fleet and the group's device time from
-the kernel's per-block timers — are appended to `timings`.
+host time of building the group's fleet (`dispatch_s`) and of copying
+its results back (`block_s`), both measured through `telemetry.spans`,
+and the group's device time from the kernel's per-block timers — are
+appended to `timings`.
+
+`timeline_ops` turns the telemetry probe on for the whole launch (the
+kernel's probe form): each point's per-window series come back through
+`timelines` as the reference's runner returns them.
 """
 from __future__ import annotations
 
-import time
+import warnings
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
 
@@ -42,6 +48,8 @@ from repro_torch.core.ssd.policies.state import can_pack, map_state
 from repro_torch.core.ssd.sim import default_params
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.sweep.grid import SweepPoint
+from repro_torch.telemetry import timeline as tmod
+from repro_torch.telemetry.spans import span
 
 __all__ = ["run_sweep"]
 
@@ -88,7 +96,9 @@ def _cell_params(cfg, point: SweepPoint, waste_p: float):
 def run_sweep(cfg, points: Sequence[SweepPoint], *,
               max_ops: Optional[int] = None, device="cuda",
               progress=None, timings: Optional[List[Dict]] = None,
-              trace_cache: Optional[workloads.TraceCache] = None
+              trace_cache: Optional[workloads.TraceCache] = None,
+              timeline_ops: Optional[int] = None,
+              timelines: Optional[Dict] = None
               ) -> Dict[SweepPoint, Dict[str, float]]:
     """Run every sweep point batched; returns {point: metrics}.
 
@@ -99,6 +109,7 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     composition, endurance, cells, t_len, t_scan, packed,
     dispatch_s (host clock, building the group's fleet),
     launch_s (host clock of the one shared call and the summaries),
+    block_s (host clock, copying the group's results back),
     launch_ms (CUDA events around the one launch, the same in every
     group; None on the CPU), kernel_ms (the group's device time: its
     latest block end minus its earliest block start), max_cell_ops and
@@ -113,7 +124,13 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     prefix and replays the identical pad tail to its exact fixed point;
     every group carries int16 plane fields whenever every cell's caps
     provably fit (`policies.state.can_pack`) — the reference runner's
-    defaults. Results are identical either way."""
+    defaults. Results are identical either way.
+
+    `timeline_ops` attaches the telemetry probe to every group with that
+    window size; pass a dict as `timelines` to receive each point's
+    per-window accumulators ({point: numpy timeline dict}, feed to
+    `telemetry.timeline.series`). The probe only observes: the results
+    are the same with it on."""
     n_logical = _n_logical(cfg)
     device = torch.device(device)
     cache = (trace_cache if trace_cache is not None
@@ -161,41 +178,51 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     for (spec, mode, t_len, endur), pts in sorted(groups.items(),
                                                   key=lambda kv: kv[0]):
         names = ",".join(sorted({p.policy for p in pts}))
+        if timeline_ops is not None and endur:
+            warnings.warn(
+                f"sweep group {names}/{mode}: timeline requested on an "
+                "endurance group — wear tracking has no trimmed fast path, "
+                "so its cells step every padded op (the kernel's wear "
+                "form)", RuntimeWarning, stacklevel=2)
         if progress:
             progress(f"fleet {names}/{mode}: {len(pts)} cells x {t_len} "
                      f"ops on {device}")
-        t0 = time.perf_counter()
-        cell_traces = [cell_trace(p) for p in pts]
-        params = [_cell_params(cfg, p, cell_waste(p)) for p in pts]
-        pack_grp = all(can_pack(cfg, n_logical, p) for p in params)
-        ops = fleet.stack_ops(cell_traces, device=device)
-        stacked = map_state(lambda x: x.to(device),
-                            fleet.stack_params(params))
-        fleets.append(fleet.FleetGroup(spec, ops, stacked,
-                                       closed_loop=(mode == "bursty"),
-                                       packed=pack_grp))
-        t_scan = (t_len if endur else fleet._trim_len(np.stack(
-            [t["is_write"] for t in cell_traces])))
+        with span("sweep.dispatch", "sweep", group=names, mode=mode,
+                  cells=len(pts), t_len=t_len) as rec:
+            cell_traces = [cell_trace(p) for p in pts]
+            params = [_cell_params(cfg, p, cell_waste(p)) for p in pts]
+            pack_grp = all(can_pack(cfg, n_logical, p) for p in params)
+            ops = fleet.stack_ops(cell_traces, device=device)
+            stacked = map_state(lambda x: x.to(device),
+                                fleet.stack_params(params))
+            fleets.append(fleet.FleetGroup(spec, ops, stacked,
+                                           closed_loop=(mode == "bursty"),
+                                           packed=pack_grp))
+            t_scan = (t_len if endur else fleet._trim_len(np.stack(
+                [t["is_write"] for t in cell_traces])))
         pending.append({
             "pts": pts, "n_ops": [t["n_ops"] for t in cell_traces],
             "names": names, "mode": mode, "spec": spec, "t_len": t_len,
             "endurance": endur, "packed": pack_grp,
-            "dispatch_s": time.perf_counter() - t0, "t_scan": t_scan})
+            "dispatch_s": rec["dur_s"], "t_scan": t_scan})
     n_cells = sum(len(g["pts"]) for g in pending)
     timer = (torch.zeros((n_cells, len(ssd_step.TIMER_COLUMNS)),
                          dtype=torch.int64, device=device)
              if device.type == "cuda" else None)
     n_launch = len(ssd_step.events)
-    t0 = time.perf_counter()
-    runs = fleet.run_fleets(cfg, fleets, n_logical=n_logical,
-                            trim_pads=True, timer=timer)
-    for grp, fl, (latency, states) in zip(pending, fleets, runs):
-        if grp["mode"] == "daily":
-            states = fleet.flush_fleet(cfg, states, grp["spec"])
-        grp["summ"] = fleet.summarize_fleet(latency, fl.ops["is_write"],
-                                            states, params=fl.params,
-                                            cfg=cfg)
-    launch_s = time.perf_counter() - t0
+    with span("sweep.launch", "sweep", groups=len(pending),
+              cells=n_cells, timeline_ops=timeline_ops) as rec:
+        runs = fleet.run_fleets(cfg, fleets, n_logical=n_logical,
+                                trim_pads=True, timer=timer,
+                                timeline_ops=timeline_ops)
+        for grp, fl, (latency, states) in zip(pending, fleets, runs):
+            if grp["mode"] == "daily":
+                states = fleet.flush_fleet(cfg, states, grp["spec"])
+            grp["summ"] = fleet.summarize_fleet(latency, fl.ops["is_write"],
+                                                states, params=fl.params,
+                                                cfg=cfg)
+            grp["tl"] = states.timeline
+    launch_s = rec["dur_s"]
     events = ssd_step.events[n_launch:]
 
     # ---- phase 2: copy each group's results to the host, oldest first ----
@@ -207,7 +234,13 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     padded_total = sum(len(g["pts"]) * g["t_len"] for g in pending)
     row = 0
     for grp in pending:
-        summ = {k: v.cpu().numpy() for k, v in grp["summ"].items()}
+        with span("sweep.block", "sweep", group=grp["names"],
+                  mode=grp["mode"]) as rec:
+            summ = {k: v.cpu().numpy() for k, v in grp["summ"].items()}
+            if timelines is not None and grp["tl"] is not None:
+                tl_np = tmod.timeline_to_numpy(grp["tl"])
+                for i, pt in enumerate(grp["pts"]):
+                    timelines[pt] = tmod.cell_timeline(tl_np, i)
         for i, pt in enumerate(grp["pts"]):
             out = {k: float(v[i]) for k, v in summ.items()}
             out["n_ops"] = int(grp["n_ops"][i])
@@ -223,7 +256,8 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
             "endurance": grp["endurance"], "cells": cells,
             "t_len": grp["t_len"], "t_scan": grp["t_scan"],
             "packed": grp["packed"], "dispatch_s": grp["dispatch_s"],
-            "launch_s": launch_s, "launch_ms": launch_ms,
+            "launch_s": launch_s, "block_s": rec["dur_s"],
+            "launch_ms": launch_ms,
             "kernel_ms": None, "max_cell_ops": None, "ns_per_op": None,
             "cycles": None, "wait_cycles": None}
         if rows is not None:

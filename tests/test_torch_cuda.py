@@ -365,6 +365,66 @@ def test_shared_memory_probe_reads_a_latency(cuda):
     assert 500.0 < probe["clock_mhz"] < 3000.0
 
 
+# the probe form: the telemetry probe's rows out of the recurrence
+def _with_probe(job, window):
+    return job._replace(window_ops=window)
+
+
+@pytest.mark.parametrize("form,window", (("K=1", 96), ("K=32", 64),
+                                         ("wear", 64)))
+@pytest.mark.parametrize("mode", ("daily", "bursty"))
+@pytest.mark.parametrize("policy", ("baseline", "ips", "ips_agc", "coop"))
+def test_probe_form_equals_plain_version(cuda, policy, mode, form, window):
+    """The probe form of each kernel form, two cells: head columns,
+    counter snapshots (the pad tail's boundaries among them) and wear
+    peaks equal the plain run bit for bit; latencies and carries equal
+    the probe-off launch (the probe only observes)."""
+    trace = _padded("hm_0", 448)
+    if form == "wear":
+        job = _wear_job({"ips": "ips_raro", "coop": "base_wl"}.get(
+            policy, policy), mode, trace, 448, cells=2)
+    else:
+        job = _job(policy, mode, form, trace, 448, cells=2)
+    on = _with_probe(job, window)
+    before = ssd_step.launches
+    got = ssd_step.run_streams(CFG, [_on(on, cuda)])[0]
+    off = ssd_step.run_streams(CFG, [_on(job, cuda)])[0]
+    torch.cuda.synchronize()
+    assert ssd_step.launches == before + 2
+    want = ssd_step.run_streams(CFG, [on])[0]
+    _assert_cells_equal(got, want, f"{policy}/{mode}/{form} probe")
+    rows = got[1].timeline
+    n_win = -(-(job.segs["lba"][0].numel() + job.n_pad) // window)
+    assert rows.snap.shape == (2, n_win, 10)
+    assert (rows.wear_peak is not None) == (form == "wear")
+    assert torch.equal(got[0], off[0])
+    _assert_state_equal(got[1]._replace(timeline=None),
+                        map_state(lambda x: x.cpu(), off[1]),
+                        f"{policy}/{mode}/{form} on vs off")
+
+
+def test_one_launch_mixes_probe_and_plain_jobs(cuda):
+    """Probe jobs (per-op with a pad tail, K = 32, wear) beside jobs with
+    the probe off, in ONE launch: each equals its own plain run, and the
+    probe-off jobs equal their plain results, with no timeline."""
+    jobs = []
+    for i, (policy, form) in enumerate((("ips", "K=1"), ("coop", "K=32"),
+                                        ("baseline", "K=1"))):
+        trace = _padded(("hm_0", "proj_0")[i % 2], 320 + 64 * i)
+        job = _job(policy, "daily", form, trace, 320 + 64 * i)
+        jobs += [_with_probe(job, 64 * (i + 1)), job]
+    jobs.append(_with_probe(_wear_job("ips_raro", "daily",
+                                      _padded("proj_0", 300), 300), 128))
+    before = ssd_step.launches
+    got = ssd_step.run_streams(CFG, [_on(j, cuda) for j in jobs])
+    torch.cuda.synchronize()
+    assert ssd_step.launches == before + 1
+    for i, (job, res) in enumerate(zip(jobs, got)):
+        want = ssd_step.run_streams(CFG, [job])[0]
+        _assert_cells_equal(res, want, f"job {i}")
+        assert (res[1].timeline is None) == (job.window_ops is None)
+
+
 # ---------------------------------------------------------------------------
 # the serving path's kernels: ips_repack, tiered_decode, flash_fwd
 # ---------------------------------------------------------------------------

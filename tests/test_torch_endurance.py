@@ -141,7 +141,8 @@ def test_zero_wear_is_observation_only(wear_ops, policy):
                                n_logical=N_LOGICAL, params=tp, device="cpu")
     assert st0.wear is None and st1.wear is not None
     assert torch.equal(lat0, lat1)
-    for field in st0._fields[:-1]:
+    # the base leaves: every field before the trailing wear and timeline
+    for field in st0._fields[:st0._fields.index("wear")]:
         assert torch.equal(getattr(st0, field), getattr(st1, field)), field
 
 

@@ -66,8 +66,12 @@ def test_cli_writes_its_own_artifact(tmp_path, capsys, monkeypatch):
     assert tcli.main(["--grid", "quick", "--device", "cpu", "--max-ops",
                       "96", "--out-dir", str(tmp_path)]) == 0
     files = sorted(p.name for p in tmp_path.iterdir() if p.is_file())
-    assert files == ["BENCH_torch_sweep_quick.json"]
-    doc = json.loads((tmp_path / files[0]).read_text())
+    # the sweep's artifact, and the run's record in the port's history
+    # (with its append lock), as the reference's CLI keeps its own
+    assert files == ["BENCH_torch_history.json",
+                     "BENCH_torch_history.json.lock",
+                     "BENCH_torch_sweep_quick.json"]
+    doc = json.loads((tmp_path / "BENCH_torch_sweep_quick.json").read_text())
     assert doc["n_cells"] == len(doc["results"]) == 8
     assert set(doc["geomeans"]) == {"bursty/ips", "daily/ips"}
     assert doc["meta"]["device"] == "cpu"
