@@ -61,7 +61,24 @@ then:
    the CLI end to end, `python -m repro_torch.sweep.cli --grid paper
    --timeline --timeline-overhead-check` into `build/cli_timeline`
    (`BENCH_torch_timeline.json`, a `BENCH_torch_history.json` record and
-   the overhead ratio: interleaved off/on passes, median of 3). Phase 2
+   the overhead ratio: interleaved off/on passes, median of 3). Then the
+   host-tier phase: the `host_tier` kernel against its plain version, bit
+   for bit (the `hostcache` grid's four host-cache specs x both modes on
+   flush_burst cut to 4096 ops, and a 1024 x 8 cell whose state works in
+   device memory, one launch), its time beside the plain version's and
+   its bytes, operations and chain bounds; the 40-cell `hostcache` grid
+   uncut through `run_sweep` as ONE `host_tier` launch and ONE `ssd_step`
+   launch (both counts zeroed just before and read just after), every
+   cell against the committed `BENCH_sweep_hostcache.json` (which live
+   JAX 0.9.0 reproduces: every leaf exact but seven mean latencies, within
+   1e-7), the host-tier columns and `host_dev_lat_ms` exact, and the
+   report's host-tier table; the CLI's `--traces hm_0 --hostcache
+   mode=wb,flush=idle` into `build/cli_hostcache` against the reference
+   CLI's recorded run (`tests/data/torch_reference_sweeps.json`); the
+   search engine at the `quick` budget (`--search quick`) against the
+   reference's recorded run (`tests/data/torch_reference_search.json`:
+   survivors, front, rounds, scenario history; scores within rtol 1e-6),
+   no new kernel specialisation after its first round. Phase 2
    also holds the probe form to its plain version, bit for bit: every
    per-op and K = 32 case with the probe on at 1024 ops a window (8 of
    12 boundaries among the replayed tail pads) and the wear jobs at 256
@@ -191,6 +208,16 @@ WEAR_EXACT = ("eff_cycles_max", "tbw_proj_gb", "eol_op", "pe_slc_total",
               "pe_rp_total", "pe_tlc_total", "pe_trad_total",
               "erase_events")
 WEAR_CLOSE = ("eff_cycles_mean", "cycle_skew", "mean_write_latency_ms")
+# the host-tier columns of a host cell: exact
+HOST_EXACT = ("host_hit_rate", "host_absorbed", "host_absorbed_w",
+              "host_dev_ops", "host_flush_w", "host_evict_w",
+              "host_dev_write_frac", "host_dev_lat_ms")
+HOST_TIER_OPS = 4096            # trace ops a host_tier cell held to the
+#                                 plain version (the plain version steps
+#                                 some 0.3 ms an op on the CPU)
+# integer operations of one trace op of host_tier.cu beyond its set scans
+# (lookup and victim: 2 a way; each flush slot: 3 a way), rounded up
+TIER_BASE_OPS = 40
 
 
 CARD = None     # `nvidia-smi --query-gpu=name,power.limit`, once known
@@ -1749,19 +1776,28 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
     from repro_torch.sweep.runner import run_sweep
     from repro_torch.workloads import TraceCache
 
+    from repro_torch.kernels.host_tier import ops as host_tier
+
     points = named_grid(grid)
+    host_cells = sum(pt.hostcache is not None for pt in points)
     cache = TraceCache(root=cache_dir)
     timings = []
     ssd_step.reset()
+    host_tier.reset()
     t1 = time.perf_counter()
     results = run_sweep(cfg, points, device=cuda, timings=timings,
                         trace_cache=cache)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = ssd_step.launches
+    tier_launches = host_tier.launches
     if launches != 1:
         fail(f"{grid}: the sweep launched the kernel {launches} times for "
              f"{len(timings)} groups; a grid is one launch")
+    if tier_launches != (1 if host_cells else 0):
+        fail(f"{grid}: the sweep launched host_tier {tier_launches} times "
+             f"for {host_cells} host cells; a grid's host cells are one "
+             "launch")
     worst = 0.0
     for pt in points:
         got, want = results[pt], ref.get(pt.key)
@@ -1770,7 +1806,7 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
         if set(got) != set(want):
             fail(f"{grid}: {pt.key} reports {sorted(set(got) ^ set(want))} "
                  "on one side only")
-        for key in EXACT + WEAR_EXACT:
+        for key in EXACT + WEAR_EXACT + HOST_EXACT:
             if key in want and got[key] != want[key]:
                 fail(f"{grid}: {pt.key}: {key} = {got[key]!r}, reference "
                      f"{want[key]!r}")
@@ -1786,11 +1822,12 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
         fail(f"{grid}: the launch's events or block timers are missing")
     padded_ops = sum(g["cells"] * g["t_len"] for g in timings)
     wear_cells = sum(g["cells"] for g in timings if g["endurance"])
-    grid_bytes = sum(stream_bytes(g["cells"], g["t_scan"], False,
-                                  cfg.num_planes, n_logical)
+    # a host cell's device pass steps K sub-ops a trace op
+    grid_bytes = sum(stream_bytes(g["cells"], g["t_scan"] * g["k_slots"],
+                                  False, cfg.num_planes, n_logical)
                      for g in timings)
     grid_bound, grid_by = bound_ms(
-        grid_bytes, sum(g["cells"] * g["t_scan"]
+        grid_bytes, sum(g["cells"] * g["t_scan"] * g["k_slots"]
                         * (CORE_F32_OPS + (WEAR_F32_OPS if g["endurance"]
                                            else 0)) for g in timings))
     # the chain bound: the longest cell's stepped ops (scanned and pads
@@ -1801,6 +1838,8 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
     line = {
         "grid": grid, "cells": len(points), "groups": len(timings),
         "launches": launches, "wear_cells": wear_cells,
+        "host_cells": host_cells, "tier_launches": tier_launches,
+        "tier_ms": timings[0]["tier_ms"],
         "matches_reference": True, "close_max_rel_err": worst,
         "wall_s": wall, "ops_per_s": padded_ops / wall,
         "kernel_ms": grid_ms, "bound_ms": grid_bound, "bound_by": grid_by,
@@ -1812,6 +1851,7 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
         "trace_cache": cache.stats(),
         "group_kernel_ms": [{"group": f"{g['composition']}/{g['mode']}",
                              "endurance": g["endurance"],
+                             "hostcache": g["hostcache"],
                              "cells": g["cells"], "t_len": g["t_len"],
                              "t_scan": g["t_scan"],
                              "kernel_ms": g["kernel_ms"],
@@ -2022,6 +2062,228 @@ def cli_timeline_run(cache_dir) -> dict:
             "history_ops_per_s": hist[0]["ops_per_s"]}
 
 
+def host_tier_vs_plain(cfg, n_logical, cuda, smem_cycles,
+                       max_sm_mhz) -> dict:
+    """The host_tier kernel against its plain version on the same inputs:
+    the hostcache grid's four host-cache specs x both modes on
+    flush_burst, each cut to HOST_TIER_OPS trace ops, and one cell of a
+    geometry whose state takes the device-memory path (1024 x 8), in ONE
+    launch; every output (the sub-op streams, the absorbed flags, the
+    host rows and the final HCState) bit for bit. The launch is timed by
+    CUDA events after an untimed one, beside the plain version's time on
+    the CPU and the bounds: bytes (the traces read, the sub-op streams,
+    flags and rows written, the state in and out, each once), operations
+    and the chain (per trace op 3 + flush_per_op dependent shared-memory
+    loads at the card's highest clock)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ssd.fleet import stack_ops
+    from repro_torch.core.ssd.policies.state import map_state
+    from repro_torch.hostcache.model import H_CTR, as_hc_params, init_hc
+    from repro_torch.hostcache.spec import HostCacheSpec
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.host_tier import ref as tier_ref
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.workloads import build_ops, truncate_trace
+
+    specs = list(dict.fromkeys(pt.hostcache for pt in named_grid("hostcache")
+                               if pt.hostcache is not None))
+    cells = [(spec, mode) for spec in specs for mode in ("daily", "bursty")]
+    cells.append((HostCacheSpec(sets=1024, ways=8, flush_per_op=4), "daily"))
+    jobs = []
+    for spec, mode in cells:
+        tr = truncate_trace(build_ops("flush_burst", n_logical, mode=mode,
+                                      capacity_pages=cfg.total_pages),
+                            HOST_TIER_OPS)
+        jobs.append(tier_ref.TierJob(
+            spec, stack_ops([tr], device="cpu"),
+            map_state(lambda x: x[None], as_hc_params(spec, "cpu")),
+            init_hc(spec, 1, device="cpu"), mode == "bursty", rows=True))
+    on_card = [j._replace(ops={k: v.to(cuda) for k, v in j.ops.items()},
+                          params=map_state(lambda x: x.to(cuda), j.params),
+                          hc0=map_state(lambda x: x.to(cuda), j.hc0))
+               for j in jobs]
+    if not any(host_tier._array_bytes(sp) > host_tier.SMEM_BUDGET
+               for sp, _ in cells):
+        fail("host_tier: no cell took the device-memory path")
+    host_tier.reset()
+    host_tier.tier_pass(on_card)                   # untimed: clocks up
+    got = host_tier.tier_pass(on_card)
+    torch.cuda.synchronize()
+    start, end = host_tier.events[-1]
+    ms = start.elapsed_time(end)
+    if host_tier.launches != 2:
+        fail(f"host_tier: {host_tier.launches} launches for two passes")
+    t1 = time.perf_counter()
+    want = [tier_ref.tier_pass_ref(j) for j in jobs]
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    err = 0.0
+    for (spec, mode), g, w in zip(cells, got, want):
+        label = f"host_tier {spec.tag}/{mode}"
+        for k in w.sub:
+            if not torch.equal(g.sub[k].cpu(), w.sub[k]):
+                fail(f"{label}: sub-op {k} differs from the plain version")
+        if not (torch.equal(g.absorbed.cpu(), w.absorbed)
+                and torch.equal(g.rows.cpu(), w.rows)):
+            fail(f"{label}: absorbed flags or host rows differ")
+        for f in w.hc._fields:
+            x, y = getattr(g.hc, f), getattr(w.hc, f)
+            if (x is None) != (y is None) or (
+                    y is not None and not torch.equal(x.cpu(), y)):
+                fail(f"{label}: final {f} differs from the plain version")
+        err = max(err, float((g.rows.cpu() - w.rows).abs().max()))
+    t_ops = sum(j.ops["lba"].numel() for j in jobs)
+    moved = sum(j.ops["lba"].numel() * (12 + 1 + 12 * (2 + j.spec.flush_per_op)
+                                        + 4 * (len(H_CTR) + 1))
+                + 2 * 4 * host_tier.state_words(j.spec.sets, j.spec.ways)
+                for j in jobs)
+    ops = sum(j.ops["lba"].numel() * (
+        TIER_BASE_OPS + 2 * j.spec.ways
+        + 3 * j.spec.ways * j.spec.flush_per_op) for j in jobs)
+    bound, by = bound_ms(moved, ops)
+    chain = max(j.ops["lba"].numel() * (3 + j.spec.flush_per_op)
+                for j in jobs) * smem_cycles / (max_sm_mhz * 1e3)
+    fired = sum(w.hc.hctr.sum(0) for w in want)
+    return {"cells": len(jobs), "ops_per_cell": HOST_TIER_OPS,
+            "specs": [f"{sp.tag}/{m}" for sp, m in cells], "equal": True,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "chain_bound_ms": chain,
+            "trace_ops": t_ops, "ns_per_op_longest": ms * 1e6 / HOST_TIER_OPS,
+            "host_counters": dict(zip(H_CTR, fired.tolist()))}
+
+
+def cli_hostcache_run(cache_dir, recorded) -> dict:
+    """`python -m repro_torch.sweep.cli --traces hm_0 --hostcache
+    mode=wb,flush=idle` on the card, into `build/cli_hostcache`: every
+    cell of its artifact equal to the reference CLI's recorded run
+    (`tests/data/torch_reference_sweeps.json`, `cli_hostcache`), the
+    host-tier table written, one launch of each kernel."""
+    out_dir = os.path.join(ROOT, "build", "cli_hostcache")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               REPRO_TORCH_TRACE_CACHE_DIR=cache_dir)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sweep.cli", "--traces", "hm_0",
+         "--hostcache", "mode=wb,flush=idle", "--no-history", "--out-dir",
+         out_dir], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t1
+    with open(os.path.join(out_dir, "stdout.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"the --hostcache CLI run exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    with open(os.path.join(out_dir, "BENCH_torch_sweep_custom.json")) as f:
+        doc = json.load(f)
+    want = recorded["results"]
+    if set(doc["results"]) != set(want) or "hostcache" not in doc:
+        fail("the --hostcache CLI run's cells or host-tier table differ "
+             "from the reference's")
+    worst = 0.0
+    for key, w in want.items():
+        g = doc["results"][key]
+        for m, v in w.items():
+            if m in WEAR_CLOSE:
+                if abs(g[m] - v) > 1e-6 * abs(v):
+                    fail(f"--hostcache CLI: {key}: {m} = {g[m]!r}, "
+                         f"reference {v!r}")
+                worst = max(worst, abs(g[m] - v) / max(abs(v), 1e-30))
+            elif g[m] != v:
+                fail(f"--hostcache CLI: {key}: {m} = {g[m]!r}, reference "
+                     f"{v!r}")
+    if doc["launches"] != 1:
+        fail(f"the --hostcache CLI run took {doc['launches']} ssd_step "
+             "launches")
+    return {"wall_s": wall, "cells": len(want), "matches_reference": True,
+            "close_max_rel_err": worst, "launches": doc["launches"],
+            "hostcache": doc["hostcache"]}
+
+
+def search_path(cache_dir) -> dict:
+    """The search engine at the `quick` budget on the card, through the
+    CLI's entry (`--search quick`, in this process, the kernels' counts
+    zeroed just before and read just after): the survivors, the Pareto
+    front, each round's candidates, survivors, cells, groups and best,
+    and the scenario search's history and flip equal to the reference's
+    recorded run (`tests/data/torch_reference_search.json`), the scores
+    within rtol 1e-6; the rounds after the first need no new kernel
+    specialisation; one ssd_step launch a round and a scenario
+    evaluation."""
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.cli import main as cli_main
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_reference_search.json")) as f:
+        ref = json.load(f)
+    out_dir = os.path.join(ROOT, "build", "cli_search")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.environ["REPRO_TORCH_TRACE_CACHE_DIR"] = cache_dir
+    ssd_step.reset()
+    host_tier.reset()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli_main(["--search", "quick", "--no-history", "--out-dir",
+                       out_dir])
+    wall = time.perf_counter() - t1
+    if rc != 0:
+        fail(f"--search quick exited {rc}")
+    launches = ssd_step.launches
+    with open(os.path.join(out_dir, "BENCH_torch_search.json")) as f:
+        doc = json.load(f)
+
+    def close(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None and abs(a - b) <= 1e-6 * abs(b))
+
+    if doc["survivors"] != ref["survivors"]:
+        fail(f"search: survivors {doc['survivors']} != {ref['survivors']}")
+    if [f["label"] for f in doc["front"]] != [f["label"]
+                                              for f in ref["front"]]:
+        fail("search: the Pareto front differs from the reference's")
+    worst = 0.0
+    for label, want in ref["scores"].items():
+        got = doc["scores"].get(label)
+        if got is None or got["n"] != want["n"]:
+            fail(f"search: {label} scored on other cells")
+        for m in ("lat", "waf", "tbw"):
+            if not close(got[m], want[m]):
+                fail(f"search: {label} {m} = {got[m]!r}, reference "
+                     f"{want[m]!r}")
+            if want[m]:
+                worst = max(worst, abs(got[m] - want[m]) / abs(want[m]))
+    keys = ("round", "traces", "modes", "max_ops", "candidates",
+            "survivors", "cells", "groups", "best")
+    if [{k: r[k] for k in keys} for r in doc["rounds"]] != \
+            [{k: r[k] for k in keys} for r in ref["rounds"]]:
+        fail("search: the rounds differ from the reference's")
+    if any(r["compiles"] for r in doc["rounds"][1:]):
+        fail("search: a later round needed new kernel specialisations")
+    scen, want = doc["scenario_search"], ref["scenario_search"]
+    if scen["history"] != want["history"] or \
+            scen["flipped"] != want["flipped"] or \
+            not close(scen["best_ratio"], want["best_ratio"]):
+        fail("search: the scenario search differs from the reference's")
+    from repro_torch.search import SCHEDULES
+    sc_iters = SCHEDULES["quick"]["scenario"]["iters"]
+    if launches != len(doc["rounds"]) + 2 + sc_iters:
+        fail(f"search: {launches} ssd_step launches for "
+             f"{len(doc['rounds'])} rounds and {2 + sc_iters} scenario "
+             "evaluations")
+    return {"wall_s": wall, "launches": launches,
+            "tier_launches": host_tier.launches,
+            "rounds": [{k: r[k] for k in ("round", "candidates",
+                                          "survivors", "cells", "groups",
+                                          "compiles", "wall_s")}
+                       for r in doc["rounds"]],
+            "scenario_wall_s": scen["wall_s"],
+            "front": [f["label"] for f in doc["front"]],
+            "matches_reference": True, "close_max_rel_err": worst,
+            "specialisations": doc["specialisations"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2037,6 +2299,7 @@ def main() -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.core.ssd.policies.state import init_state, map_state
     from repro_torch.core.ssd.sim import default_params
+    from repro_torch.kernels.host_tier import ops as host_tier
     from repro_torch.kernels.ssd_step import ops as ssd_step
     from repro_torch.workloads import build_ops, compress_ops, truncate_trace
 
@@ -2055,14 +2318,18 @@ def main() -> int:
     max_sm_mhz = float(clocks[0]) if clocks else float("nan")
     serve_libs = serving_libraries()
     t0 = time.perf_counter()
-    paths = build_all([ssd_step.LIB] + [lib for _, lib in serve_libs])
+    paths = build_all([ssd_step.LIB, host_tier.LIB]
+                      + [lib for _, lib in serve_libs])
     build_wall = time.perf_counter() - t0
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_wall_s": build_wall, "build_s": ssd_step.LIB.build_s,
           "library": os.path.relpath(paths[0], ROOT), "max_sm_mhz": max_sm_mhz,
-          **ssd_step.LIB.ptxas()})
+          **ssd_step.LIB.ptxas(),
+          "host_tier": {"build_s": host_tier.LIB.build_s,
+                        "library": os.path.relpath(paths[1], ROOT),
+                        **host_tier.LIB.ptxas()}})
 
     cfg = PAPER_SSD.scaled(128)
     n_logical = min(cfg.total_pages, 1 << 16)
@@ -2233,6 +2500,33 @@ def main() -> int:
     emit({"phase": "cli_timeline", **cli_run})
     emit({"phase": "telemetry_wall", "s": time.perf_counter() - t_tel})
 
+    # ---- 3c. the host tier: its kernel, the hostcache grid, the CLI's
+    # --hostcache, the search engine ----
+    t_host = time.perf_counter()
+    tier = host_tier_vs_plain(cfg, n_logical, cuda, probe["cycles_per_load"],
+                              max_sm_mhz)
+    emit({"phase": "kernel_vs_plain", "kernel": "host_tier", **tier})
+    with open(os.path.join(ROOT, "BENCH_sweep_hostcache.json")) as f:
+        hc_bench = json.load(f)
+    sweeps["hostcache"] = sweep_path(cfg, n_logical, cuda, "hostcache",
+                                     hc_bench["results"], cache_dir,
+                                     probe["cycles_per_load"], max_sm_mhz)
+    emit({"phase": "main_path", "run": "hostcache",
+          **sweeps["hostcache"]["line"]})
+    from repro_torch.sweep.report import hostcache_summary
+    for key, v in hostcache_summary(sweeps["hostcache"]["results"]).items():
+        want = hc_bench["hostcache"]["/".join(key)]
+        for metric in ("host_hit_rate", "host_dev_write_frac", "lat_vs_off",
+                       "wa_vs_off"):
+            if abs(v[metric] - want[metric]) > 1e-6 * abs(want[metric]):
+                fail(f"hostcache {key} {metric} = {v[metric]!r}, reference "
+                     f"{want[metric]!r}")
+    cli_hc = cli_hostcache_run(cache_dir, recorded["cli_hostcache"])
+    emit({"phase": "cli_hostcache", **cli_hc})
+    search = search_path(cache_dir)
+    emit({"phase": "search", **search})
+    emit({"phase": "host_tier_wall", "s": time.perf_counter() - t_host})
+
     # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
           "libraries": {name: {"build_s": lib.build_s,
@@ -2290,6 +2584,24 @@ def main() -> int:
         "probe_overhead": (cli_run["overhead"] or {}).get("ratio"),
         "probe_launch_ratio": (cli_run["overhead"] or {}).get(
             "launch_ratio")}]
+    hc_line = sweeps["hostcache"]["line"]
+    table.append({
+        "name": "host_tier", "route": "cuda",
+        "source": "src/repro_torch/kernels/host_tier/csrc/host_tier.cu",
+        # no pallas_call: the reference runs its tier inside the composed
+        # lax.scan step
+        "replaces": "src/repro/hostcache/pipeline.py:55",
+        "launches": hc_line["tier_launches"],
+        # ms / plain_ms / bound_ms: the same work — the grid's specs x
+        # both modes and a device-memory cell, HOST_TIER_OPS ops each
+        "max_abs_err": tier["max_abs_err"], "ms": tier["ms"],
+        "plain_ms": tier["plain_ms"], "bound_ms": tier["bound_ms"],
+        "bound_by": tier["bound_by"], "library_ms": None,
+        "chain_bound_ms": tier["chain_bound_ms"],
+        # the hostcache grid's one tier pass, and its one ssd_step launch
+        "main_path_ms": hc_line["tier_ms"],
+        "main_path_ssd_step_ms": hc_line["kernel_ms"],
+        "search_launches": search["tier_launches"]})
     for name in ("ips_repack", "tiered_decode", "flash_fwd", "ssd_intra"):
         # launches and main-path times: every serving path that runs it
         paths = {arch: v["kernels"][name] for arch, v in by_path.items()

@@ -21,6 +21,14 @@ reclamation keeps erasing into the wear state.
 launch (the kernel's probe form): each group's final state then carries
 its `telemetry.probe.WindowedTimeline`, stacked over C, the windows
 tiling the group's padded length.
+
+A group that carries a `HostCacheSpec` (`FleetGroup.hostcache`) puts the
+host tier in front of its cells (`hostcache.pipeline`): every host group
+of the call goes through the tier in ONE launch of the `host_tier`
+kernel, then each cell's (T*K) device sub-op stream joins the other
+groups' streams in the one `ssd_step` launch, as a per-op stream over
+the whole padded trace (no pad trim, as the reference's tier runs). Its
+final state carries `hostcache`, and with the probe its host windows.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ class FleetGroup(NamedTuple):
     params: CellParams
     closed_loop: bool
     packed: bool = False
+    hostcache: object = None    # a HostCacheSpec: the host tier in front
 
 
 def stack_params(params: Sequence[CellParams]) -> CellParams:
@@ -102,12 +111,25 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
     groups' cells in order (`ssd_step.run_streams`). `timeline_ops`
     attaches the probe to every group (the final states' `timeline`).
     Results are identical either way, and equal `run_fleet` group by
-    group."""
+    group. Host-cache groups run the tier pass first (one launch for
+    all of them), then their sub-op streams in the same `ssd_step`
+    launch as every other group."""
+    from repro_torch.hostcache import pipeline
+    from repro_torch.kernels.host_tier import ops as host_tier
+    host = [g for g in groups if g.hostcache is not None]
+    tier_outs = dict(zip(map(id, host), host_tier.tier_pass(
+        [pipeline.tier_job(g, rows=timeline_ops is not None)
+         for g in host])))
     jobs, shapes = [], []
     for g in groups:
         n_cells, t_len = g.ops["lba"].shape
         device = g.ops["lba"].device
         endurance = g.params.endurance is not None
+        if g.hostcache is not None:
+            jobs.append(pipeline.stream_job(cfg, g, tier_outs[id(g)],
+                                            n_logical, timeline_ops))
+            shapes.append(None)
+            continue
         t_scan = t_len
         if trim_pads and not endurance:
             t_scan = _trim_len(g.ops["is_write"].cpu().numpy())
@@ -124,8 +146,13 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
                                        pad_t, timeline_ops))
         shapes.append((n_cells, t_scan, n_pad))
     out = []
-    for g, (lat, final), (n_cells, t_scan, n_pad) in zip(
+    for g, (lat, final), shape in zip(
             groups, ssd_step.run_streams(cfg, jobs, timer=timer), shapes):
+        if g.hostcache is not None:
+            out.append(pipeline.assemble(cfg, g, tier_outs[id(g)], lat,
+                                         final, timeline_ops))
+            continue
+        n_cells, t_scan, n_pad = shape
         latency = torch.nn.functional.pad(lat.reshape(n_cells, t_scan),
                                           (0, n_pad))
         if timeline_ops is not None:
@@ -140,11 +167,14 @@ def run_fleets(cfg, groups: Sequence[FleetGroup], *, n_logical: int,
 
 def run_fleet(cfg, policy, ops: dict, params: CellParams, *,
               closed_loop: bool, n_logical: int, trim_pads: bool = False,
-              packed: bool = False, timeline_ops: int | None = None):
+              packed: bool = False, timeline_ops: int | None = None,
+              hostcache=None):
     """Simulate a whole (composition, mode) fleet: `run_fleets` with one
-    group. Returns (latency (C, T), final SimState with leading C)."""
+    group. Returns (latency (C, T), final SimState with leading C).
+    `hostcache` (a `HostCacheSpec`) puts the host tier in front of every
+    cell; `params.hostcache` then holds its (C,) knobs."""
     return run_fleets(cfg, [FleetGroup(policy, ops, params, closed_loop,
-                                       packed)],
+                                       packed, hostcache)],
                       n_logical=n_logical, trim_pads=trim_pads,
                       timeline_ops=timeline_ops)[0]
 

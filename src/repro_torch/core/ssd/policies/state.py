@@ -15,10 +15,11 @@ layout, congruent with the int16 `loc_ep` stamps it is compared against.
 probe's: None with the probe off; the plain version's per-op executor
 carries a `telemetry.probe.TimelineState` in it, the kernel leaves its
 `ProbeRows` there, and the simulator's entry points replace either with
-the `WindowedTimeline`. The reference's host-tier carry belongs to a
-later slice and is absent. Leaves are 0-d (one cell) or carry a leading
-cell axis (a fleet); `map_state` maps a function over the tensor leaves,
-the wear carry's and the timeline's included.
+the `WindowedTimeline`. `SimState.hostcache`, last, is the host tier's
+carry (`hostcache.model.HCState`), None unless the cell has a host cache
+in front of it (`CellParams.hostcache` set). Leaves are 0-d (one cell)
+or carry a leading cell axis (a fleet); `map_state` maps a function over
+the tensor leaves, the nested carries' included.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ class CellParams(NamedTuple):
     #                           unlocked above the watermark (0 otherwise)
     endurance: object = None  # endurance.model.EnduranceParams, or None:
     #                           wear tracking off
+    hostcache: object = None  # hostcache.model.HCParams, or None: no host
+    #                           cache in front of the device
 
 
 class SimState(NamedTuple):
@@ -64,6 +67,7 @@ class SimState(NamedTuple):
     wear: object = None       # endurance.model.WearState, or None
     timeline: object = None   # telemetry.probe.TimelineState /
     #                           ProbeRows / WindowedTimeline, or None
+    hostcache: object = None  # hostcache.model.HCState, or None
 
 
 CTR = {name: i for i, name in enumerate(
@@ -123,12 +127,14 @@ def can_pack(cfg, n_logical: int, params: CellParams) -> bool:
 
 def init_state(cfg, n_logical: int, *, packed: bool = False,
                n_cells: int | None = None, endurance: bool = False,
-               timeline: int | None = None, device="cuda") -> SimState:
+               timeline: int | None = None, hostcache=None,
+               device="cuda") -> SimState:
     """Fresh carry for one cell, or for `n_cells` cells with a leading
     cell axis. `packed` carries the integer plane fields as int16 (gate
     on `can_pack`); results are identical either way. `endurance`
     attaches a zero `WearState`; `timeline` (ops per window, or None) a
-    fresh probe carry, `telemetry.probe.TimelineState`."""
+    fresh probe carry, `telemetry.probe.TimelineState`; `hostcache` (a
+    `HostCacheSpec`, or None) an empty host tier of its geometry."""
     p = cfg.num_planes
     dt_i = torch.int16 if packed else torch.int32
     lead = () if n_cells is None else (n_cells,)
@@ -146,6 +152,10 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
         tl = init_timeline(timeline, device=device)
         if n_cells is not None:
             tl = type(tl)(*(x.expand(n_cells).clone() for x in tl))
+    hc = None
+    if hostcache is not None:
+        from repro_torch.hostcache.model import init_hc
+        hc = init_hc(hostcache, n_cells, device=device)
     return SimState(
         busy=zeros((p,), torch.float32),
         slc_used=zeros((p,), dt_i),
@@ -162,6 +172,7 @@ def init_state(cfg, n_logical: int, *, packed: bool = False,
         idle_seen=zeros((p,), torch.float32),
         wear=wear,
         timeline=tl,
+        hostcache=hc,
     )
 
 

@@ -24,6 +24,13 @@ its plain version) and the final state's `timeline` carries the
 prefix's rows, the replayed tail's boundary snapshots
 (`replay_pads_windowed`) and the pad contract's zeros for the rest, the
 same windows the reference's full-length scan produces.
+
+Host tier: `run_trace(hostcache=spec)` puts the host-tier block cache in
+front of the device (`hostcache.pipeline`): every padded op through the
+tier, each with its K device sub-ops — on the CPU the composed step, op
+by op; on a card the `host_tier` kernel's pass, then its sub-op stream
+through `ssd_step` (`fleet.run_fleets`). The final state carries
+`hostcache`, and with the probe on its host windows.
 """
 from __future__ import annotations
 
@@ -85,16 +92,23 @@ def _one(x):
 def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
               waste_p: float = 0.0, params: CellParams | None = None,
               packed: bool = False, timeline_ops: int | None = None,
-              device="cuda"):
+              hostcache=None, device="cuda"):
     """Simulate one padded trace. Returns (per-op latency (T,), final
     SimState; its `wear` when `params.endurance` is set). `packed`
     carries the integer plane fields as int16 (gate on
     `policies.state.can_pack`); results are identical. `timeline_ops`
     attaches the telemetry probe with that many ops a window: the final
     state's `timeline` is then the `WindowedTimeline`; every other leaf
-    is what the run gives without it."""
+    is what the run gives without it. `hostcache` (a `HostCacheSpec`)
+    puts the host tier in front of the device: the final state then
+    carries `hostcache` (with its host windows when the probe is on);
+    None keeps the device-only run, bit for bit."""
     if params is None:
         params = default_params(cfg, policy, waste_p, device=device)
+    if hostcache is not None:
+        return _run_trace_hostcache(cfg, policy, trace, closed_loop,
+                                    n_logical, params, timeline_ops,
+                                    hostcache, device)
     endurance = params.endurance is not None
     t_len = len(trace["lba"])
     n_scan = t_len if endurance else scan_len(trace)
@@ -121,6 +135,50 @@ def run_trace(cfg, policy, trace, *, closed_loop: bool, n_logical: int,
             cap_pages=probe.cap_pages(params, cfg.num_planes),
             window_ops=timeline_ops, t_len=t_len))
     return latency, final
+
+
+def _run_trace_hostcache(cfg, policy, trace, closed_loop, n_logical,
+                         params, timeline_ops, spec, device):
+    """`run_trace` with the host tier: every padded op, no pad trim (the
+    reference's tier runs the whole padded trace)."""
+    from repro_torch.hostcache.model import as_hc_params, host_windows
+    from repro_torch.hostcache.pipeline import build_tier_step
+    if params.hostcache is None:
+        params = params._replace(hostcache=as_hc_params(spec, device))
+    ops = as_ops(trace, device)
+    t_len = ops["lba"].shape[0]
+    if torch.device(device).type != "cpu":
+        from repro_torch.core.ssd.fleet import FleetGroup, run_fleets
+        (lat, final), = run_fleets(
+            cfg, [FleetGroup(policy, {k: v[None] for k, v in ops.items()},
+                             map_state(_one, params), closed_loop,
+                             hostcache=spec)],
+            n_logical=n_logical, timeline_ops=timeline_ops)
+        return lat[0], map_state(lambda x: x[0], final)
+    step = build_tier_step(cfg, policy, spec, closed_loop=closed_loop,
+                           params=params)
+    state = init_state(cfg, n_logical, endurance=params.endurance is not None,
+                       timeline=timeline_ops, hostcache=spec, device=device)
+    lat, heads, ctrs, hrows = [], [], [], []
+    for i in range(t_len):
+        state, out = step(state, {k: v[i] for k, v in ops.items()})
+        if timeline_ops is not None:
+            out, (row, ctr), hrow = out
+            heads.append(row)
+            ctrs.append(ctr)
+            hrows.append(hrow)
+        lat.append(out)
+    latency = torch.stack(lat)
+    if timeline_ops is None:
+        return latency, state
+    timeline = probe.windowed(
+        (torch.stack(heads), torch.stack(ctrs)), latency, ops["is_write"],
+        ops["arrival_ms"], window_ops=timeline_ops, t_len=t_len,
+        endurance=False)
+    hw = host_windows(torch.stack(hrows), window_ops=timeline_ops,
+                      t_len=t_len)
+    return latency, state._replace(
+        timeline=timeline, hostcache=state.hostcache._replace(hwin=hw))
 
 
 def _tree_equal(a, b) -> bool:
@@ -183,6 +241,10 @@ def run_compressed(cfg, policy, comp, *, closed_loop: bool, n_logical: int,
     if params.endurance is not None:
         raise ValueError("no compressed path for endurance runs; "
                          "use run_trace")
+    if params.hostcache is not None:
+        raise ValueError("no compressed path for host-cache runs; the "
+                         "host tier rewrites the device op stream — use "
+                         "run_trace")
     if timeline_ops is not None:
         lanes = next(iter(comp.segs.values())).shape[1]
         if int(timeline_ops) % lanes:
@@ -241,7 +303,9 @@ def summarize(latency, is_write, state: SimState, *,
     accumulated in float64 and rounded once, so it does not depend on
     the reduction order of the device. When the run carried wear and the
     caller passes its `CellParams` and config, the lifetime metrics of
-    `endurance.model.wear_summary` join the summary."""
+    `endurance.model.wear_summary` join the summary; a run that carried
+    a host cache (`state.hostcache`) adds `hostcache.model.host_summary`
+    the same way."""
     is_w = torch.as_tensor(is_write, device=latency.device) == 1
     lat_w = torch.where(is_w, latency, 0.0)
     n_w = torch.clamp_min(is_w.sum(-1), 1)
@@ -261,7 +325,12 @@ def summarize(latency, is_write, state: SimState, *,
         wear_metrics = wear_summary(state.wear, cell.endurance,
                                     cell.cap_basic, cell.cap_trad,
                                     cfg.page_bytes, ctr("host_w"))
-    return wear_metrics | {
+    host_metrics = {}
+    if state.hostcache is not None:
+        from repro_torch.hostcache.model import host_summary
+        host_metrics = host_summary(state.hostcache, ctr("host_w"),
+                                    is_w.sum(-1).to(_F32))
+    return wear_metrics | host_metrics | {
         "mean_write_latency_ms": mean_lat,
         "wa_paper": 1.0 + extra_paper / host,
         "wa_raw": 1.0 + extra_raw / host,

@@ -61,7 +61,8 @@ def _tensor(name, x, dtypes, device):
 
 # the carry's base fields, by name (`wear` and `timeline` trail them)
 _BASE_STATE = tuple(_STATE_DTYPES)
-_BASE_PARAMS = CellParams._fields[:-1]       # all but `endurance`
+_BASE_PARAMS = tuple(_PARAM_DTYPES)          # `endurance` and `hostcache`
+#                                              trail them
 
 
 def state_from_jax(leaves: Sequence, *, device="cuda") -> SimState:
@@ -103,8 +104,8 @@ def params_from_jax(leaves: Sequence, *, device="cuda") -> CellParams:
     if len(leaves) not in (n_base, n_base + n_end):
         raise ValueError(
             f"expected the CellParams leaves {_BASE_PARAMS}, or those and "
-            f"the {n_end} endurance knobs, got {len(leaves)}: the port "
-            "takes no host-tier knobs yet")
+            f"the {n_end} endurance knobs, got {len(leaves)}: host-tier "
+            "knobs do not cross (`hostcache.model.as_hc_params`)")
     endurance = None
     if len(leaves) > n_base:
         endurance = EnduranceParams(*(

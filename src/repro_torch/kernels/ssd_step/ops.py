@@ -20,6 +20,13 @@ falls back.
 The kernel is built at first use by `kernels._build` (nvcc into
 `build/kernels/`, loaded with ctypes), with `-fmad=false`: the kernel
 fuses exactly the reference's multiply-adds itself (ROADMAP §C).
+
+`specialisations()` counts the distinct `run_cell<COMP, CLOSED,
+ONE_LANE, WEAR, PROBE>` instantiations the process's jobs have asked for
+so far (recorded for every job `run_streams` takes, the plain version's
+too): the port's counterpart of the reference's `fleet.compile_count`,
+which grows with the specialised programs a sweep needs and never with
+its knobs.
 """
 from __future__ import annotations
 
@@ -46,7 +53,8 @@ from repro_torch.telemetry.probe import ProbeRows
 
 __all__ = ["StreamJob", "run_streams", "run_stream", "smem_chase", "reset",
            "launches", "events", "composition_code", "kernel_constants",
-           "smem_bytes", "block_smem_bytes", "MAX_LANES", "MAX_PAGES", "WEAR_BUCKETS", "TIMER_COLUMNS",
+           "smem_bytes", "block_smem_bytes", "specialisations",
+           "MAX_LANES", "MAX_PAGES", "WEAR_BUCKETS", "TIMER_COLUMNS",
            "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -200,9 +208,19 @@ LAUNCHER = Launcher(LIB, "ssd_step")
 LAUNCHER.record = True
 
 
+# the run_cell keys the process's jobs asked for: (composition code,
+# closed loop, one lane, wear, probe)
+_SPECIALISATIONS: set = set()
+
+
 def reset() -> None:
     """Zero the launch count and drop the recorded launch events."""
     LAUNCHER.reset()
+
+
+def specialisations() -> int:
+    """Distinct kernel specialisations the process's jobs have needed."""
+    return len(_SPECIALISATIONS)
 
 
 def __getattr__(name):
@@ -336,6 +354,11 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
         raise ValueError(f"ssd_step: the jobs lie on several devices: "
                          f"{sorted(map(str, devs))}")
     dev = devs.pop()
+    for j in jobs:
+        _SPECIALISATIONS.add((
+            composition_code(resolve_spec(j.policy)), bool(j.closed_loop),
+            j.segs["lba"].shape[-1] == 1, j.params.endurance is not None,
+            j.window_ops is not None))
     if dev.type == "cpu":
         return [ref.run_stream_ref(cfg, resolve_spec(j.policy), j.segs,
                                    j.state0, closed_loop=j.closed_loop,

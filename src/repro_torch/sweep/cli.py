@@ -8,6 +8,9 @@ simulator and writes `BENCH_torch_<name>.json` into `--out-dir`.
   python -m repro_torch.sweep.cli --grid mixed              # + bootstrap CIs
   python -m repro_torch.sweep.cli --grid endurance          # wear columns
   python -m repro_torch.sweep.cli --grid sensitivity        # one-axis deltas
+  python -m repro_torch.sweep.cli --grid hostcache          # host-tier columns
+  python -m repro_torch.sweep.cli --grid hostcache --device cpu --max-ops 512
+  python -m repro_torch.sweep.cli --traces hm_0 --hostcache mode=wb,flush=idle
   python -m repro_torch.sweep.cli --traces hm_0,gc_pressure --seeds 0,1,2
   python -m repro_torch.sweep.cli --trace-file tests/data/sample_msr.csv \
       --policies baseline,ips --modes daily
@@ -18,13 +21,19 @@ simulator and writes `BENCH_torch_<name>.json` into `--out-dir`.
   python -m repro_torch.sweep.cli --grid quick --device cpu --max-ops 2048 \
       --timeline 64 --no-save
   python -m repro_torch.sweep.cli --list-policies | --list-grids
+  python -m repro_torch.sweep.cli --search quick            # autotuning:
+      # successive halving to a Pareto front (latency/WAF/TBW vs declared
+      # baselines) and the scenario search: BENCH_torch_search.json
+  python -m repro_torch.sweep.cli --search smoke --device cpu --max-ops 256
 
-Port of the reference package's `sweep/cli.py`, with the flags of the
-slices ported so far: the telemetry probe (`--timeline`, the cliff
-table, `--timeline-overhead-check`, `--chrome-trace`), `--profile`
-(`torch.profiler`) and the port's history file (`--history-check`,
-`--no-history`); the host tier, search and `--bench` belong to later
-slices. Traces come through the port's own compiled-trace cache
+Port of the reference package's `sweep/cli.py`: the grids, the workload,
+wear and host-cache flags (`--hostcache`, the host-tier table), the
+telemetry probe (`--timeline`, the cliff table,
+`--timeline-overhead-check`, `--chrome-trace`), `--profile`
+(`torch.profiler`), the port's history file (`--history-check`,
+`--no-history`) and the search engine (`--search`, `--search-scenario`);
+the reference's `--bench` (its fleet against a loop of single cells) is
+not ported. Traces come through the port's own compiled-trace cache
 (`$REPRO_TORCH_TRACE_CACHE_DIR`, by default `~/.cache/repro_torch/traces`;
 `--no-trace-cache-disk` keeps it in memory). Every artifact it writes
 goes through `sweep.store` and is named `BENCH_torch_*.json` — the
@@ -73,6 +82,23 @@ def _parse(argv):
                     "EnduranceSpec fields, e.g. w_rp=4,rp_budget=2,"
                     "read_penalty_ms=0.05 (bare flag: defaults). Overrides "
                     "a named grid's pinned knobs")
+    ap.add_argument("--hostcache", nargs="?", const="", default=None,
+                    metavar="K=V[,K=V...]",
+                    help="put the host-tier block cache in front of every "
+                    "cell; optional knobs over HostCacheSpec fields, e.g. "
+                    "mode=wb,flush=watermark,sets=128,ways=8,wm_hi=0.75 "
+                    "(bare flag: write-back defaults). Overrides a named "
+                    "grid's pinned specs")
+    ap.add_argument("--search", choices=("smoke", "quick", "full"),
+                    default=None, metavar="BUDGET",
+                    help="run the search engine instead of a sweep: "
+                    "successive-halving policy autotuning to a Pareto "
+                    "front and the adversarial scenario search at the "
+                    "named budget (smoke|quick|full); writes "
+                    "BENCH_torch_search.json")
+    ap.add_argument("--search-scenario", default="ips:baseline",
+                    metavar="A:B", help="policy pair for the scenario "
+                    "search (default ips:baseline); 'none' skips it")
     ap.add_argument("--list-policies", action="store_true",
                     help="print the policy registry and exit")
     ap.add_argument("--list-grids", action="store_true",
@@ -126,10 +152,11 @@ def _parse(argv):
 
 def _select_points(args, seeds):
     """The sweep's points from --grid or --traces/--trace-file, with
-    --policies/--modes/--cache-fracs/--endurance applied as the
-    reference's CLI applies them; returns (points, error message)."""
+    --policies/--modes/--cache-fracs/--endurance/--hostcache applied as
+    the reference's CLI applies them; returns (points, error message)."""
     from repro_torch import workloads
     from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+    from repro_torch.hostcache.spec import HostCacheSpec
     from repro_torch.core.ssd.policies.registry import (baseline_of,
                                                         policy_names)
     from repro_torch.sweep.grid import SweepPoint, expand_grid, named_grid
@@ -155,13 +182,15 @@ def _select_points(args, seeds):
                 sum(((p, baseline_of(p)) for p in req), ())))
             coords = list(dict.fromkeys(
                 (pt.trace, pt.mode, pt.seed, pt.repeat, pt.cache_frac,
-                 pt.idle_threshold_ms, pt.cap_boost_frac, pt.endurance)
+                 pt.idle_threshold_ms, pt.cap_boost_frac, pt.endurance,
+                 pt.hostcache)
                 for pt in points))
             points = [SweepPoint(trace=t, mode=m, policy=p, seed=s,
                                  repeat=r, cache_frac=c,
                                  idle_threshold_ms=i, cap_boost_frac=b,
-                                 endurance=e, baseline=baseline_of(p))
-                      for (t, m, s, r, c, i, b, e) in coords
+                                 endurance=e, hostcache=h,
+                                 baseline=baseline_of(p))
+                      for (t, m, s, r, c, i, b, e, h) in coords
                       for p in wanted]
     else:
         traces = tuple(args.traces.split(",") if args.traces else
@@ -214,6 +243,12 @@ def _select_points(args, seeds):
         except ValueError as e:
             return None, str(e)
         points = [replace(pt, endurance=endurance) for pt in points]
+    if args.hostcache is not None:
+        try:
+            hostcache = HostCacheSpec.parse(args.hostcache)
+        except ValueError as e:
+            return None, f"--hostcache: {e}"
+        points = [replace(pt, hostcache=hostcache) for pt in points]
     return points, None
 
 
@@ -225,7 +260,8 @@ def main(argv=None) -> int:
     from repro_torch.configs.ssd_paper import PAPER_SSD
     from repro_torch.core.ssd.driver import DEFAULT_SCALE
     from repro_torch.core.ssd.policies.registry import get_entry, policy_names
-    from repro_torch.sweep.report import (endurance_summary, policy_geomeans,
+    from repro_torch.sweep.report import (endurance_summary,
+                                          hostcache_summary, policy_geomeans,
                                           policy_geomeans_ci,
                                           sensitivity_deltas,
                                           throughput_table)
@@ -251,6 +287,29 @@ def main(argv=None) -> int:
               "pass --device cpu for the plain version", file=sys.stderr)
         return 2
     seeds = tuple(int(s) for s in args.seeds.split(","))
+    if args.search:
+        conflicts = [flag for flag, used in (
+            ("--grid", args.grid), ("--traces", args.traces),
+            ("--trace-file", args.trace_file),
+            ("--policies", args.policies),
+            ("--endurance", args.endurance is not None),
+            ("--hostcache", args.hostcache is not None),
+            ("--modes", args.modes != "bursty,daily"),
+            ("--cache-fracs", args.cache_fracs != "1.0"),
+            ("--timeline", args.timeline is not None),
+            ("--timeline-overhead-check", args.timeline_overhead_check),
+            ("--seeds (search scores one seed)", len(seeds) > 1),
+        ) if used]
+        if conflicts:
+            print("error: --search runs its own candidate space and round "
+                  "schedule (repro_torch.search.SPACES/SCHEDULES); drop "
+                  + ", ".join(conflicts), file=sys.stderr)
+            return 2
+        return _run_search(args, seeds[0])
+    if args.search_scenario != "ips:baseline":
+        print("error: --search-scenario only applies to --search runs",
+              file=sys.stderr)
+        return 2
     points, err = _select_points(args, seeds)
     if err:
         print(f"error: {err}", file=sys.stderr)
@@ -322,6 +381,11 @@ def main(argv=None) -> int:
         _print_endurance_table(endur)
         payload["endurance"] = {f"{m}/{p}": v for (m, p), v in
                                 sorted(endur.items())}
+    if any("host_hit_rate" in v for v in results.values()):
+        hc = hostcache_summary(results)
+        _print_hostcache_table(hc)
+        payload["hostcache"] = {f"{m}/{p}/{t}": v for (m, p, t), v in
+                                sorted(hc.items())}
     if args.grid == "sensitivity":
         deltas = sensitivity_deltas(results)
         _print_sensitivity_table(deltas)
@@ -368,6 +432,11 @@ def main(argv=None) -> int:
                        for k, v in geomeans.items()
                        for metric in ("mean_write_latency_ms", "wa_paper")
                        if metric in v}
+            # the host-tier ratios are deterministic too
+            flat_gm |= {f"hc:{k}/{metric}": v[metric]
+                        for k, v in payload.get("hostcache", {}).items()
+                        for metric in ("lat_vs_off", "wa_vs_off")
+                        if v.get(metric) is not None}
             rec = history.append_record(
                 "sweep", f"{args.grid or 'custom'}:scale={scale}"
                          f":max_ops={args.max_ops}:seeds={len(seeds)}"
@@ -473,6 +542,123 @@ def _print_endurance_table(endur) -> None:
         print(f"{mode:>7} {policy:<9}{fmt(v['tbw_ratio']):>9}"
               f"{fmt(v['eol_ratio']):>9}{v['eff_cycles_max']:>9.1f}"
               f"{v['cycle_skew']:>7.3f}{v['eol_frac']:>6.0%}")
+
+
+def _print_hostcache_table(hc) -> None:
+    print("\n=== host-tier cache: hit rate + device-visible writes ===")
+    print(f"{'mode':>7} {'policy':<9}{'hostcache':<22}{'hit':>7}"
+          f"{'devw':>7}{'lat/off':>9}{'wa/off':>8}")
+    for (mode, policy, tag), v in sorted(hc.items()):
+        def fmt(x):
+            return f"{x:.3f}" if x is not None else "n/a"
+        print(f"{mode:>7} {policy:<9}{tag:<22}"
+              f"{v['host_hit_rate']:>7.3f}{v['host_dev_write_frac']:>7.3f}"
+              f"{fmt(v['lat_vs_off']):>9}{fmt(v['wa_vs_off']):>8}")
+
+
+def _run_search(args, seed: int) -> int:
+    """`--search BUDGET`: policy autotuning and the scenario search ->
+    BENCH_torch_search.json."""
+    import torch
+
+    from repro_torch import workloads
+    from repro_torch.configs.ssd_paper import PAPER_SSD
+    from repro_torch.core.ssd.driver import DEFAULT_SCALE
+    from repro_torch.core.ssd.policies.registry import policy_names
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.search import (SCHEDULES, build_space,
+                                    group_candidates, separation_search,
+                                    successive_halving)
+    from repro_torch.sweep.report import (search_front_table,
+                                          search_rounds_table)
+    from repro_torch.sweep.store import save_bench
+    from repro_torch.telemetry import Tracer, chrome_trace, history
+    from repro_torch.telemetry.spans import span
+
+    budget = args.search
+    sched = SCHEDULES[budget]
+    scen_pair = None
+    if args.search_scenario.lower() != "none":
+        scen_pair = tuple(args.search_scenario.split(":"))
+        unknown = sorted(set(scen_pair) - set(policy_names()))
+        if len(scen_pair) != 2 or unknown:
+            print(f"error: --search-scenario wants A:B over registered "
+                  f"policies, got {args.search_scenario!r}"
+                  + (f" (unknown: {','.join(unknown)})" if unknown else ""),
+                  file=sys.stderr)
+            return 2
+    rounds = [dict(r) for r in sched["rounds"]]
+    if args.max_ops:                 # smoke tightening: cap every round
+        for r in rounds:
+            r["max_ops"] = (args.max_ops if r["max_ops"] is None
+                            else min(r["max_ops"], args.max_ops))
+    scale = args.scale or DEFAULT_SCALE
+    cfg = PAPER_SSD.scaled(scale)
+    space = build_space(budget)
+    print(f"search[{budget}]: {len(space)} candidate(s) in "
+          f"{len(group_candidates(space))} composition group(s), "
+          f"{len(rounds)} round(s) on a 1/{scale} drive on {args.device}")
+    cache = workloads.TraceCache(use_disk=not args.no_trace_cache_disk)
+    tracer = Tracer() if args.chrome_trace else None
+    spec0 = ssd_step.specialisations()
+    with (tracer.activate() if tracer else contextlib.nullcontext()):
+        tune = successive_halving(
+            cfg, space, rounds, seed=seed, keep_frac=sched["keep_frac"],
+            min_keep=sched["min_keep"], trace_cache=cache,
+            progress=lambda s: print(f"  {s}"), device=args.device)
+    doc = tune.to_json()
+    if args.chrome_trace:
+        print(f"wrote {chrome_trace(tracer.to_json(), args.chrome_trace)}")
+    print("\n=== search rounds (survivors / new kernel specialisations per "
+          "round) ===")
+    print(search_rounds_table(tune.rounds))
+    print("\n=== Pareto front: lat/waf/tbw vs declared baselines ===")
+    print(search_front_table(doc["front"]))
+
+    scen = None
+    if scen_pair is not None:
+        sc = sched["scenario"]
+        max_ops = (min(sc["max_ops"], args.max_ops) if args.max_ops
+                   else sc["max_ops"])
+        print(f"\nscenario search: separate {scen_pair[0]} vs "
+              f"{scen_pair[1]} ({sc['iters']} iter(s) x {sc['pop']})")
+        with span("search.scenario", "search") as rec:
+            scen = separation_search(
+                cfg, scen_pair[0], scen_pair[1], seed=seed,
+                iters=sc["iters"], pop=sc["pop"], max_ops=max_ops,
+                progress=lambda s: print(f"  {s}"), device=args.device)
+            if torch.device(args.device).type == "cuda":
+                torch.cuda.synchronize()
+        scen["wall_s"] = rec["dur_s"]
+        print(f"  msr geomean {scen['msr_geomean']:.3f} -> found "
+              f"{scen['best_ratio']:.3f}: ranking "
+              f"{'FLIPS' if scen['flipped'] else 'does not flip'}")
+
+    specialisations = ssd_step.specialisations() - spec0
+    payload = {"search": budget, "n_candidates": len(space),
+               "space": [c.to_json() for c in space],
+               "trace_cache": cache.stats(), "device": args.device,
+               "specialisations": specialisations, **doc}
+    if scen is not None:
+        payload["scenario_search"] = scen
+    if not args.no_save:
+        path = save_bench(args.name or "search", payload, cfg=cfg,
+                          directory=args.out_dir, device=args.device)
+        print(f"\nwrote {path}")
+        if not args.no_history:
+            total_cells = sum(r.get("cells", 0) for r in doc["rounds"])
+            wall = sum(r.get("wall_s", 0.0) for r in doc["rounds"])
+            rec = history.append_record(
+                "search", f"{budget}:scale={scale}:max_ops={args.max_ops}"
+                          f":device={torch.device(args.device).type}",
+                directory=args.out_dir,
+                cells_per_s=(total_cells / wall if wall else None),
+                compiles=specialisations,
+                meta={"n_candidates": len(space),
+                      "front_size": len(doc["front"])})
+            print(f"history: appended {rec['kind']}:{rec['config']} "
+                  f"@ {str(rec['git_sha'])[:12]}")
+    return 0
 
 
 def _print_sensitivity_table(deltas) -> None:

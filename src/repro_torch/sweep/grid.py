@@ -1,15 +1,14 @@
 """Sweep-grid definition: the cell is a `SweepPoint`, grids are lists.
 
-Port of the reference package's `sweep/grid.py`: every device-only grid
-(`paper`, `quick`, `matrix`, `stress`, `mixed`, `beyond`, `endurance`,
-`sensitivity`). A point pins one simulated cell: workload spec, access
-mode, policy, RNG seed, write-volume repeat factor (paper Fig. 12a),
-cache-size fraction (Fig. 12b), an optional idle-threshold override,
-pinned AGC waste probability, cap_boost scaling and endurance knobs —
-plus the cell's declared normalization `baseline`. Its `key` is the
-reference's, so results of the two packages pair up by key. The
-reference's host-tier knob and its `hostcache` grid belong to a later
-slice of the port (ROADMAP A4).
+Port of the reference package's `sweep/grid.py`: every grid (`paper`,
+`quick`, `matrix`, `stress`, `mixed`, `beyond`, `endurance`,
+`sensitivity`, `hostcache`). A point pins one simulated cell: workload
+spec, access mode, policy, RNG seed, write-volume repeat factor (paper
+Fig. 12a), cache-size fraction (Fig. 12b), an optional idle-threshold
+override, pinned AGC waste probability, cap_boost scaling, endurance
+knobs and the host-tier cache in front of the device — plus the cell's
+declared normalization `baseline`. Its `key` is the reference's, so
+results of the two packages pair up by key.
 """
 from __future__ import annotations
 
@@ -18,10 +17,12 @@ from dataclasses import dataclass, field, replace
 from typing import Iterable, Optional, Sequence
 
 from repro_torch.core.ssd.endurance.spec import EnduranceSpec
+from repro_torch.hostcache.spec import HostCacheSpec
 
 __all__ = ["SweepPoint", "expand_grid", "matrix_grid", "paper_grid",
            "quick_grid", "stress_grid", "mixed_grid", "beyond_grid",
-           "endurance_grid", "sensitivity_grid", "named_grid", "GRIDS"]
+           "endurance_grid", "sensitivity_grid", "hostcache_grid",
+           "named_grid", "GRIDS"]
 
 
 @dataclass(frozen=True)
@@ -39,6 +40,8 @@ class SweepPoint:
     # endurance-model knobs; None disables wear tracking unless the
     # policy's composition requires it (the runner then attaches defaults)
     endurance: Optional[EnduranceSpec] = None
+    # the host-tier block cache in front of the device; None: none
+    hostcache: Optional[HostCacheSpec] = None
     # declared normalization policy — metadata, not cell identity
     baseline: str = field(default="baseline", compare=False)
 
@@ -58,6 +61,8 @@ class SweepPoint:
             quals.append(f"boost={self.cap_boost_frac:g}")
         if self.endurance is not None:
             quals.append(f"endur={self.endurance.tag}")
+        if self.hostcache is not None:
+            quals.append(f"hc={self.hostcache.tag}")
         base = f"{self.trace}/{self.mode}/{self.policy}"
         return base + (f"&{','.join(quals)}" if quals else "")
 
@@ -176,15 +181,31 @@ def sensitivity_grid() -> list[SweepPoint]:
                        policies=(center, *neighbors), baseline=center)
 
 
+def hostcache_grid() -> list[SweepPoint]:
+    """Host-tier cache hierarchy: the diurnal flush-burst scenario under
+    all four paper policies, crossed with the host-cache axis — off (the
+    device-only cell every host cell's columns normalize against),
+    write-back under both flush schedulers (watermark bursts, idle-gap
+    draining), write-through and write-around — in both access modes.
+    The flush axis exists only for write-back (wt/wa hold no dirty
+    lines), so wt/wa carry the inert default."""
+    hcs = (None,
+           HostCacheSpec(mode="wb", flush="watermark"),
+           HostCacheSpec(mode="wb", flush="idle"),
+           HostCacheSpec(mode="wt"),
+           HostCacheSpec(mode="wa"))
+    pts = expand_grid(traces=("flush_burst",),
+                      policies=("baseline", "ips", "ips_agc", "coop"))
+    return [replace(p, hostcache=hc) for p in pts for hc in hcs]
+
+
 GRIDS = {"paper": paper_grid, "quick": quick_grid, "matrix": matrix_grid,
          "stress": stress_grid, "mixed": mixed_grid, "beyond": beyond_grid,
-         "endurance": endurance_grid, "sensitivity": sensitivity_grid}
+         "endurance": endurance_grid, "sensitivity": sensitivity_grid,
+         "hostcache": hostcache_grid}
 
 
 def named_grid(name: str) -> list[SweepPoint]:
-    if name == "hostcache":
-        raise ValueError("the hostcache grid needs the host tier, which "
-                         "the port has not ported yet (ROADMAP A4)")
     try:
         return GRIDS[name]()
     except KeyError:

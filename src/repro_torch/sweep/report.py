@@ -1,7 +1,6 @@
-"""Reporting: baseline normalization, geomeans, lifetime and sensitivity
-tables, bootstrap CIs — numpy copies of the reference package's
-`sweep/report.py` (its search and host-tier tables belong to later
-slices of the port).
+"""Reporting: baseline normalization, geomeans, lifetime, host-tier and
+sensitivity tables, bootstrap CIs, the search's tables — numpy copies of
+the reference package's `sweep/report.py`.
 
 The paper reports every policy metric normalized per (workload, mode) to
 the Turbo-Write baseline; the geometric mean aggregates the ratios.
@@ -9,13 +8,15 @@ the Turbo-Write baseline; the geometric mean aggregates the ratios.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Dict, Mapping
 
 import numpy as np
 
 __all__ = ["geomean", "normalize_points", "policy_geomeans",
-           "endurance_summary", "sensitivity_deltas", "bootstrap_ci",
-           "policy_geomeans_ci", "throughput_table"]
+           "endurance_summary", "hostcache_summary", "sensitivity_deltas",
+           "bootstrap_ci", "policy_geomeans_ci", "search_rounds_table",
+           "search_front_table", "throughput_table"]
 
 
 def geomean(values) -> float:
@@ -49,6 +50,8 @@ def policy_geomeans(results: Mapping, metrics=("mean_write_latency_ms",
             if (point.seed, point.repeat, point.cache_frac,
                     point.idle_threshold_ms) != (0, 1, 1.0, None):
                 continue
+            if point.hostcache is not None:
+                continue        # host-tier cells report via hostcache_summary
             agg.setdefault((point.mode, point.policy), {}).setdefault(
                 metric, []).append(ratio)
     return {k: {m: geomean(v) for m, v in d.items()}
@@ -95,6 +98,33 @@ def endurance_summary(results: Mapping) -> Dict:
                 "eol_frac": float(np.mean(d["eol_hit"])),
                 "is_ref": d["is_ref"],
                 "n": len(d["skew"])}
+            for k, d in agg.items()}
+
+
+def hostcache_summary(results: Mapping) -> Dict:
+    """Per-(mode, policy, host-cache tag) host-tier columns over cells
+    that carried a host cache: `host_hit_rate` and `host_dev_write_frac`
+    (means over cells), and `lat_vs_off` / `wa_vs_off`, the geomean of
+    the cell's latency / paper WAF against the same trace/mode/policy
+    cell with `hostcache=None` — the host tier's value end to end."""
+    agg: Dict = {}
+    for point, val in results.items():
+        if point.hostcache is None or "host_hit_rate" not in val:
+            continue
+        off = results.get(replace(point, hostcache=None))
+        d = agg.setdefault((point.mode, point.policy, point.hostcache.tag),
+                           {"hit": [], "devw": [], "lat": [], "wa": []})
+        d["hit"].append(val["host_hit_rate"])
+        d["devw"].append(val["host_dev_write_frac"])
+        if off is not None:
+            d["lat"].append(val["mean_write_latency_ms"]
+                            / max(off["mean_write_latency_ms"], 1e-12))
+            d["wa"].append(val["wa_paper"] / max(off["wa_paper"], 1e-12))
+    return {k: {"host_hit_rate": float(np.mean(d["hit"])),
+                "host_dev_write_frac": float(np.mean(d["devw"])),
+                "lat_vs_off": geomean(d["lat"]) if d["lat"] else None,
+                "wa_vs_off": geomean(d["wa"]) if d["wa"] else None,
+                "n": len(d["hit"])}
             for k, d in agg.items()}
 
 
@@ -163,6 +193,8 @@ def policy_geomeans_ci(results: Mapping,
             if (point.repeat, point.cache_frac,
                     point.idle_threshold_ms) != (1, 1.0, None):
                 continue
+            if point.hostcache is not None:
+                continue        # host-tier cells report via hostcache_summary
             key = (point.mode, point.policy)
             agg.setdefault(key, {}).setdefault(metric, []).append(ratio)
             seeds.setdefault(key, set()).add(point.seed)
@@ -176,6 +208,33 @@ def policy_geomeans_ci(results: Mapping,
         out[key]["n"] = max(len(v) for v in d.values())
         out[key]["n_seeds"] = len(seeds[key])
     return out
+
+
+def search_rounds_table(rounds) -> str:
+    """Successive-halving round summary (the search artifact's `rounds`):
+    survivors, batched cells and groups, new kernel specialisations and
+    wall seconds per round."""
+    lines = [f"{'round':>5} {'cands':>6}{'keep':>6}{'cells':>7}"
+             f"{'groups':>7}{'compiles':>9}{'wall_s':>8}  best"]
+    for r in rounds:
+        lines.append(
+            f"{r['round']:>5} {r['candidates']:>6}{r['survivors']:>6}"
+            f"{r['cells']:>7}{r['groups']:>7}{r['compiles']:>9}"
+            f"{r['wall_s']:>8.1f}  {r['best']} ({r['best_lat']:.3f})")
+    return "\n".join(lines)
+
+
+def search_front_table(front) -> str:
+    """Pareto-front table (the search artifact's `front`): each
+    candidate's objectives as ratios vs its declared baseline (lat/waf
+    lower is better, tbw higher)."""
+    lines = [f"{'candidate':<34}{'lat':>8}{'waf':>8}{'tbw':>8}{'n':>4}"]
+    for f in front:
+        tbw = f.get("tbw")
+        lines.append(f"{f['label']:<34}{f['lat']:>8.3f}{f['waf']:>8.3f}"
+                     f"{(f'{tbw:.3f}' if tbw is not None else 'n/a'):>8}"
+                     f"{f['n']:>4}")
+    return "\n".join(lines)
 
 
 def throughput_table(group_timings) -> str:

@@ -3,13 +3,17 @@ reference package's `sweep/runner.py`.
 
 Points are grouped by what selects a different kernel specialisation or
 stacked shape: (mechanism composition, mode, padded trace length, wear
-tracking). The composition is the policy's `PolicySpec`, not its name,
-so two names with one composition share a group. Every group is one
-`FleetGroup` with per-cell `CellParams`, and all of them go to ONE
-`fleet.run_fleets` call — on a CUDA device one launch of the `ssd_step`
-kernel, one block a cell, the longest cells first, every cell of the
-grid side by side, the wear form's cells among them. Groups that track
-wear step every padded op (no pad trim, as the reference's fleet).
+tracking, host-cache spec). The composition is the policy's
+`PolicySpec`, not its name, so two names with one composition share a
+group. Every group is one `FleetGroup` with per-cell `CellParams`, and
+all of them go to ONE `fleet.run_fleets` call — on a CUDA device one
+launch of the `ssd_step` kernel, one block a cell, the longest cells
+first, every cell of the grid side by side, the wear form's cells among
+them; the host-cache groups' cells first go through the host tier, all
+of them in one launch of the `host_tier` kernel, and their device
+sub-op streams join that `ssd_step` launch. Groups that track wear or
+carry a host cache step every padded op (no pad trim, as the reference's
+fleet; host groups carry unpacked plane fields, as there).
 
 Traces come from the workload engine through its content-addressed
 cache (`workloads.TraceCache`): a point's `trace` may be an MSR name, a
@@ -46,6 +50,7 @@ from repro_torch.core.ssd.policies.registry import get_spec
 from repro_torch.core.ssd.policies.spec import requires_endurance
 from repro_torch.core.ssd.policies.state import can_pack, map_state
 from repro_torch.core.ssd.sim import default_params
+from repro_torch.kernels.host_tier import ops as host_tier
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.sweep.grid import SweepPoint
 from repro_torch.telemetry import timeline as tmod
@@ -71,8 +76,8 @@ def _endurance_of(point: SweepPoint):
 def _cell_params(cfg, point: SweepPoint, waste_p: float):
     """Per-point CellParams on the host, in the reference's order and
     with its int() truncations: the waste probability, the cache_frac
-    scaling, the idle-threshold override, the cap_boost scaling and the
-    endurance knobs."""
+    scaling, the idle-threshold override, the cap_boost scaling, the
+    endurance knobs and the host-cache knobs."""
     p = default_params(cfg, point.policy, waste_p, _endurance_of(point),
                        device="cpu")
 
@@ -90,6 +95,10 @@ def _cell_params(cfg, point: SweepPoint, waste_p: float):
     if point.cap_boost_frac is not None:
         p = p._replace(cap_boost=i32(int(int(p.cap_boost)
                                          * point.cap_boost_frac)))
+    if point.hostcache is not None:
+        from repro_torch.hostcache.model import as_hc_params
+        p = p._replace(hostcache=as_hc_params(point.hostcache,
+                                              device="cpu"))
     return p
 
 
@@ -110,8 +119,12 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     dispatch_s (host clock, building the group's fleet),
     launch_s (host clock of the one shared call and the summaries),
     block_s (host clock, copying the group's results back),
-    launch_ms (CUDA events around the one launch, the same in every
-    group; None on the CPU), kernel_ms (the group's device time: its
+    launch_ms (CUDA events around the one `ssd_step` launch, the same in
+    every group; None on the CPU), tier_ms (CUDA events around the one
+    `host_tier` launch, in every group when the grid has host cells;
+    None otherwise), hostcache (the group's spec tag, or None),
+    k_slots (the device sub-ops a trace op issues: 2 + flush_per_op for
+    a host group, else 1), kernel_ms (the group's device time: its
     latest block end minus its earliest block start), max_cell_ops and
     ns_per_op (its longest cell's stepped ops, scanned and pads
     replayed, and device ns per op), cycles and wait_cycles (the clock64
@@ -171,12 +184,12 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     for pt in points:
         groups[(get_spec(pt.policy), pt.mode,
                 len(cell_trace(pt)["arrival_ms"]),
-                _endurance_of(pt) is not None)].append(pt)
+                _endurance_of(pt) is not None, pt.hostcache)].append(pt)
 
     # ---- phase 1: build every group's fleet, then one launch for all ----
     pending, fleets = [], []
-    for (spec, mode, t_len, endur), pts in sorted(groups.items(),
-                                                  key=lambda kv: kv[0]):
+    for (spec, mode, t_len, endur, hc), pts in sorted(
+            groups.items(), key=lambda kv: (kv[0][:4], str(kv[0][4]))):
         names = ",".join(sorted({p.policy for p in pts}))
         if timeline_ops is not None and endur:
             warnings.warn(
@@ -191,25 +204,28 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
                   cells=len(pts), t_len=t_len) as rec:
             cell_traces = [cell_trace(p) for p in pts]
             params = [_cell_params(cfg, p, cell_waste(p)) for p in pts]
-            pack_grp = all(can_pack(cfg, n_logical, p) for p in params)
+            pack_grp = hc is None and all(can_pack(cfg, n_logical, p)
+                                          for p in params)
             ops = fleet.stack_ops(cell_traces, device=device)
             stacked = map_state(lambda x: x.to(device),
                                 fleet.stack_params(params))
             fleets.append(fleet.FleetGroup(spec, ops, stacked,
                                            closed_loop=(mode == "bursty"),
-                                           packed=pack_grp))
-            t_scan = (t_len if endur else fleet._trim_len(np.stack(
-                [t["is_write"] for t in cell_traces])))
+                                           packed=pack_grp, hostcache=hc))
+            t_scan = (t_len if endur or hc is not None
+                      else fleet._trim_len(np.stack(
+                          [t["is_write"] for t in cell_traces])))
         pending.append({
             "pts": pts, "n_ops": [t["n_ops"] for t in cell_traces],
             "names": names, "mode": mode, "spec": spec, "t_len": t_len,
-            "endurance": endur, "packed": pack_grp,
+            "endurance": endur, "hostcache": hc, "packed": pack_grp,
             "dispatch_s": rec["dur_s"], "t_scan": t_scan})
     n_cells = sum(len(g["pts"]) for g in pending)
     timer = (torch.zeros((n_cells, len(ssd_step.TIMER_COLUMNS)),
                          dtype=torch.int64, device=device)
              if device.type == "cuda" else None)
     n_launch = len(ssd_step.events)
+    n_tier = len(host_tier.events)
     with span("sweep.launch", "sweep", groups=len(pending),
               cells=n_cells, timeline_ops=timeline_ops) as rec:
         runs = fleet.run_fleets(cfg, fleets, n_logical=n_logical,
@@ -224,6 +240,7 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
             grp["tl"] = states.timeline
     launch_s = rec["dur_s"]
     events = ssd_step.events[n_launch:]
+    tier_events = host_tier.events[n_tier:]
 
     # ---- phase 2: copy each group's results to the host, oldest first ----
     results: Dict[SweepPoint, Dict[str, float]] = {}
@@ -231,6 +248,8 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     blocks = timer.cpu().numpy() if timer is not None else None
     launch_ms = (sum(s.elapsed_time(e) for s, e in events)
                  if events else None)
+    tier_ms = (sum(s.elapsed_time(e) for s, e in tier_events)
+               if tier_events else None)
     padded_total = sum(len(g["pts"]) * g["t_len"] for g in pending)
     row = 0
     for grp in pending:
@@ -253,11 +272,16 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
         entry = {
             "policies": grp["names"], "mode": grp["mode"],
             "composition": grp["spec"].composition,
-            "endurance": grp["endurance"], "cells": cells,
+            "endurance": grp["endurance"],
+            "hostcache": (None if grp["hostcache"] is None
+                          else grp["hostcache"].tag),
+            "k_slots": (1 if grp["hostcache"] is None
+                        else 2 + grp["hostcache"].flush_per_op),
+            "cells": cells,
             "t_len": grp["t_len"], "t_scan": grp["t_scan"],
             "packed": grp["packed"], "dispatch_s": grp["dispatch_s"],
             "launch_s": launch_s, "block_s": rec["dur_s"],
-            "launch_ms": launch_ms,
+            "launch_ms": launch_ms, "tier_ms": tier_ms,
             "kernel_ms": None, "max_cell_ops": None, "ns_per_op": None,
             "cycles": None, "wait_cycles": None}
         if rows is not None:

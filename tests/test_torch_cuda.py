@@ -426,6 +426,177 @@ def test_one_launch_mixes_probe_and_plain_jobs(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the host tier: host_tier.cu, and its sub-op streams through ssd_step.cu
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.ssd import fleet as fleet_mod  # noqa: E402
+from repro_torch.hostcache.model import as_hc_params, init_hc  # noqa: E402
+from repro_torch.hostcache.spec import HostCacheSpec  # noqa: E402
+from repro_torch.kernels.host_tier import ops as host_tier  # noqa: E402
+from repro_torch.kernels.host_tier import ref as tier_ref  # noqa: E402
+from repro_torch.workloads import ir as ir_mod  # noqa: E402
+from repro_torch.workloads.generators import flush_burst  # noqa: E402
+
+# the CPU tests' geometries (tests/torch_port_util.HOST_CASES: every mode
+# x promote x flush), the default 128 x 8, 12 x 3 and 32 x 16 (the way
+# count read at run time, and the largest the kernel specialises), and
+# 1024 x 8, whose arrays (104 KB) exceed the kernel's shared-memory
+# budget: its cells work in device memory
+HOST_SPECS = tuple(
+    HostCacheSpec(mode=m, promote=p, flush=f, sets=(8, 16)[i % 2],
+                  ways=(2, 4)[i % 2], flush_per_op=(1, 2, 4)[i % 3],
+                  flush_gap_ms=0.5)
+    for i, (m, p, f) in enumerate(
+        (m, p, f) for m in ("wb", "wt", "wa") for p in ("always", "nth")
+        for f in ("watermark", "idle"))) + (
+    HostCacheSpec(), HostCacheSpec(sets=12, ways=3, flush_per_op=2),
+    HostCacheSpec(sets=32, ways=16, flush="idle", flush_gap_ms=0.5),
+    HostCacheSpec(sets=1024, ways=8, flush_per_op=4))
+
+
+def _host_trace(name, access, n_ops, n_pad=64):
+    """flush_burst (its generator; bursty: the sequential rewrite) or an
+    MSR name, the first `n_ops` ops and `n_pad` tail pads."""
+    if name == "flush_burst":
+        tr = flush_burst(N_LOGICAL, capacity_pages=CFG.total_pages)
+        if access == "bursty":
+            tr = tr.to_bursty(N_LOGICAL)
+        ops = tr.truncate(n_ops).compile()
+    else:
+        ops = build_ops(name, N_LOGICAL, mode=access,
+                        capacity_pages=CFG.total_pages)
+    return ir_mod.repad_ops({k: (v[:n_ops] if isinstance(v, np.ndarray)
+                                 else v) for k, v in ops.items()},
+                            n_ops + n_pad)
+
+
+def _tier_jobs(dev, n_ops=600):
+    jobs = []
+    for spec in HOST_SPECS:
+        for access in ("daily", "bursty"):
+            ops = fleet_mod.stack_ops(
+                [_host_trace(n, access, n_ops)
+                 for n in ("flush_burst", "hm_1")], device=dev)
+            p = map_state(lambda x: torch.stack([x, x]),
+                          as_hc_params(spec, dev))
+            jobs.append(tier_ref.TierJob(spec, ops, p,
+                                         init_hc(spec, 2, device=dev),
+                                         access == "bursty", rows=True))
+    return jobs
+
+
+def test_host_tier_kernel_equals_plain_version(cuda):
+    """Every spec x both access modes x two traces in ONE launch, cells in
+    shared memory and in device memory side by side: the sub-op streams,
+    the absorbed flags, the host rows and the final HCState equal the
+    plain version's, bit for bit."""
+    assert any(host_tier._array_bytes(s) > host_tier.SMEM_BUDGET
+               for s in HOST_SPECS)
+    jobs = _tier_jobs("cpu")
+    before = host_tier.launches
+    got = host_tier.tier_pass([tier_ref.TierJob(
+        j.spec, {k: v.to(cuda) for k, v in j.ops.items()},
+        map_state(lambda x: x.to(cuda), j.params),
+        map_state(lambda x: x.to(cuda), j.hc0), j.closed_loop, True)
+        for j in jobs])
+    torch.cuda.synchronize()
+    assert host_tier.launches == before + 1
+    for job, res in zip(jobs, got):
+        want = tier_ref.tier_pass_ref(job)
+        label = f"{job.spec.tag}/{'bursty' if job.closed_loop else 'daily'}"
+        for k in want.sub:
+            assert torch.equal(res.sub[k].cpu(), want.sub[k]), (label, k)
+        assert torch.equal(res.absorbed.cpu(), want.absorbed), label
+        assert torch.equal(res.rows.cpu(), want.rows), label
+        _assert_state_equal(res.hc, want.hc, label)
+
+
+def test_host_tier_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    job = _tier_jobs(cuda, n_ops=32)[0]
+    before = host_tier.launches
+    with pytest.raises(TypeError, match="lba"):
+        host_tier.tier_pass([job._replace(ops=dict(
+            job.ops, lba=job.ops["lba"].to(torch.int64)))])
+    with pytest.raises(ValueError, match="tag"):
+        host_tier.tier_pass([job._replace(hc0=job.hc0._replace(
+            tag=job.hc0.tag[:, :4]))])
+    assert host_tier.launches == before
+
+
+@pytest.mark.parametrize("mode", ("daily", "bursty"))
+@pytest.mark.parametrize("policy", ("baseline", "ips", "ips_agc", "coop"))
+def test_interior_pad_streams_equal_plain_version(cuda, policy, mode):
+    """A host cell's sub-op stream — pads at every absorbed op and every
+    empty slot, carrying the trace op's arrival and lba 0 — through the
+    per-op form, the probe form (K slots a trace op a window) and the
+    wear form: equal to the plain version, and the cell runs to its
+    end, not to its first pad."""
+    spec = HostCacheSpec(sets=8, ways=2)
+    trace = _host_trace("flush_burst", mode, 300)
+    ops = fleet_mod.stack_ops([trace], device="cpu")
+    out = tier_ref.tier_pass_ref(tier_ref.TierJob(
+        spec, ops, map_state(lambda x: x[None], as_hc_params(spec, "cpu")),
+        init_hc(spec, 1, device="cpu"), mode == "bursty"))
+    kinds = out.sub["is_write"]
+    assert bool((kinds[0, :100] < 0).any()) and bool((kinds >= 0).any())
+    n_sub = kinds.shape[1]
+    segs = {k: v.reshape(1, n_sub, 1) for k, v in out.sub.items()}
+    for window, wear in ((None, False), (4 * 64, False), (4 * 128, True)):
+        p = default_params(CFG, policy, 0.05,
+                           EnduranceSpec() if wear else None, device="cpu")
+        job = ssd_step.StreamJob(
+            policy, segs, init_state(CFG, N_LOGICAL, n_cells=1,
+                                     endurance=wear, device="cpu"),
+            mode == "bursty", map_state(lambda x: x[None], p), 0, None,
+            window)
+        timer = torch.zeros((1, len(ssd_step.TIMER_COLUMNS)),
+                            dtype=torch.int64, device=cuda)
+        got = ssd_step.run_streams(CFG, [_on(job, cuda)], timer=timer)[0]
+        torch.cuda.synchronize()
+        _assert_cells_equal(got, ssd_step.run_streams(CFG, [job])[0],
+                            f"{policy}/{mode}/{window}/{wear}")
+        col = ssd_step.TIMER_COLUMNS.index("scanned_ops")
+        assert int(timer[0, col]) == n_sub
+
+
+def test_host_grid_on_the_card_equals_the_cpu(cuda):
+    """`run_fleets` with every host spec's fleet and a device-only fleet:
+    ONE host_tier launch and ONE ssd_step launch on the card, every
+    result (probe on: timelines and host windows too) equal to the same
+    call on the CPU, bit for bit."""
+    groups = []
+    for i, spec in enumerate(HOST_SPECS):
+        policy = ("baseline", "ips", "ips_agc", "coop")[i % 4]
+        for access in ("daily", "bursty"):
+            ops = fleet_mod.stack_ops(
+                [_host_trace(n, access, 128)
+                 for n in ("flush_burst", "hm_1")], device="cpu")
+            p = default_params(CFG, policy, 0.05, device="cpu")._replace(
+                hostcache=as_hc_params(spec, "cpu"))
+            groups.append(fleet_mod.FleetGroup(
+                policy, ops, map_state(lambda x: torch.stack([x, x]), p),
+                access == "bursty", hostcache=spec))
+    groups.append(fleet_mod.FleetGroup(
+        "ips", groups[0].ops,
+        map_state(lambda x: torch.stack([x, x]),
+                  default_params(CFG, "ips", 0.05, device="cpu")), False))
+
+    def on(g):
+        return g._replace(ops={k: v.to(cuda) for k, v in g.ops.items()},
+                          params=map_state(lambda x: x.to(cuda), g.params))
+
+    t0, s0 = host_tier.launches, ssd_step.launches
+    got = fleet_mod.run_fleets(CFG, [on(g) for g in groups],
+                               n_logical=N_LOGICAL, timeline_ops=64)
+    torch.cuda.synchronize()
+    assert (host_tier.launches - t0, ssd_step.launches - s0) == (1, 1)
+    want = fleet_mod.run_fleets(CFG, groups, n_logical=N_LOGICAL,
+                                timeline_ops=64)
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_cells_equal(g, w, f"group {i}")
+
+
+# ---------------------------------------------------------------------------
 # the serving path's kernels: ips_repack, tiered_decode, flash_fwd
 # ---------------------------------------------------------------------------
 

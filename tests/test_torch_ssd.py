@@ -50,9 +50,9 @@ PORTED = ("baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy")
 
 def test_port_imports_neither_jax_nor_the_reference():
     """`import repro_torch` and every submodule — the serving launcher, the
-    kernel packages, the Mamba2 and hybrid models, the telemetry package
-    and the sweep store among them — and chip_smoke.py pull in no `jax`
-    and no `repro.` module."""
+    kernel packages, the Mamba2 and hybrid models, the telemetry package,
+    the sweep store, the host tier and the search engine among them — and
+    chip_smoke.py pull in no `jax` and no `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -67,6 +67,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.telemetry, repro_torch.sweep.store\n"
         "import repro_torch.telemetry.history, repro_torch.telemetry.probe\n"
         "import repro_torch.telemetry.profiling\n"
+        "import repro_torch.hostcache.pipeline, repro_torch.kernels.host_tier.ops\n"
+        "import repro_torch.search, repro_torch.search.tune\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

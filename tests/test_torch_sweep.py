@@ -142,7 +142,7 @@ def test_cli_trace_file_and_listings(tmp_path, capsys, monkeypatch):
     assert tcli.main(["--list-grids"]) == 0
     out = capsys.readouterr().out
     for grid in ("paper", "matrix", "stress", "mixed", "endurance",
-                 "sensitivity"):
+                 "sensitivity", "hostcache"):
         assert grid in out
     assert tcli.main(["--list-policies"]) == 0
     assert "ips_raro" in capsys.readouterr().out
@@ -154,8 +154,11 @@ def test_cli_trace_file_and_listings(tmp_path, capsys, monkeypatch):
     assert tcli.main(["--traces", "hm_0", "--endurance", "w_rp=x",
                       "--device", "cpu", "--no-save"]) == 2
     assert "w_rp" in capsys.readouterr().err
-    with pytest.raises(ValueError, match="A4"):
-        t_named_grid("hostcache")
+    # the host tier is ported: its grid builds, a bad knob is refused
+    assert len(t_named_grid("hostcache")) == 40
+    assert tcli.main(["--traces", "hm_0", "--hostcache", "mode=xx",
+                      "--device", "cpu", "--no-save"]) == 2
+    assert "--hostcache" in capsys.readouterr().err
 
 
 def test_cli_endurance_flag_and_tables(tmp_path, capsys, monkeypatch):

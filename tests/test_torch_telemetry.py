@@ -480,14 +480,14 @@ def test_prefix_and_segment_assembly_match_reference(fn):
 
 
 def test_state_field_order_guard():
-    """`wear` and `timeline` trail the carry's base fields, in the
-    reference's order; the kernel wrapper names its base fields rather
-    than slicing `SimState._fields` (a new trailing field must never
-    land in its argument table)."""
+    """`wear`, `timeline` and `hostcache` trail the carry's base fields,
+    in the reference's order; the kernel wrapper names its base fields
+    rather than slicing `SimState._fields` (a new trailing field must
+    never land in its argument table)."""
     from repro.core.ssd.policies.state import SimState as JSimState
-    assert SimState._fields[-2:] == ("wear", "timeline")
-    assert SimState._fields == JSimState._fields[:len(SimState._fields)]
-    assert ssd_step._BASE_STATE == SimState._fields[:-2]
+    assert SimState._fields[-3:] == ("wear", "timeline", "hostcache")
+    assert SimState._fields == JSimState._fields
+    assert ssd_step._BASE_STATE == SimState._fields[:-3]
     from repro_torch import interop
     assert interop._BASE_STATE == ssd_step._BASE_STATE
 

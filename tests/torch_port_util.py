@@ -121,3 +121,47 @@ def reference_registry():
     finally:
         jreg._REGISTRY.clear()
         jreg._REGISTRY.update(saved)
+
+
+def host_trace(name: str, mode: str, max_ops: int, n_pad: int = 64) -> dict:
+    """A trace as the reference's host-tier tests build it
+    (tests/test_hostcache.py): `flush_burst` from its generator (bursty:
+    the sequential-rewrite transform) or an MSR name, truncated to
+    `max_ops` ops, then `n_pad` tail pads (`with_pad_tail`); numpy op
+    arrays."""
+    from repro.core.ssd.workloads import make_trace, truncate_trace
+    from repro.workloads.generators import flush_burst
+    if name == "flush_burst":
+        tr = flush_burst(N_LOGICAL, capacity_pages=CFG_J.total_pages)
+        if mode == "bursty":
+            tr = tr.to_bursty(N_LOGICAL)
+        ops = tr.truncate(max_ops).compile()
+    else:
+        ops = truncate_trace(make_trace(name, N_LOGICAL, mode=mode,
+                                        capacity_pages=CFG_J.total_pages),
+                             max_ops)
+    ops = {k: np.asarray(ops[k])[:max_ops]
+           for k in ("arrival_ms", "lba", "is_write")}
+    return with_pad_tail(ops, n_pad)
+
+
+# every host-tier mode x promote x flush, on small geometries whose
+# evictions, watermark bursts, idle-gap flushes (a 0.5 ms gap) and `nth`
+# promotions all fire within a thousand flush_burst ops; flush_per_op 1,
+# 2 and 4 (K = 3, 4, 6); the four paper policies in turn, so a dual (coop)
+# and an AGC (ips_agc, coop) composition take every mode
+HOST_CASES = tuple(
+    (dict(mode=mode, promote=promote, flush=flush,
+          sets=(8, 16)[i % 2], ways=(2, 4)[i % 2], flush_per_op=(1, 2, 4)[i % 3],
+          flush_gap_ms=0.5), PAPER_POLICIES[i % 4])
+    for i, (mode, promote, flush) in enumerate(
+        (m, p, f) for m in ("wb", "wt", "wa") for p in ("always", "nth")
+        for f in ("watermark", "idle")))
+HOST_OPS = {"daily": 1024, "bursty": 512}
+HOST_WINDOW = 256
+
+
+def host_case_id(case) -> str:
+    kw, policy = case
+    return (f"{kw['mode']}-{kw['promote']}-{kw['flush']}-"
+            f"{kw['sets']}x{kw['ways']}-f{kw['flush_per_op']}-{policy}")
