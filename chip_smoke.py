@@ -114,7 +114,20 @@ then:
    kernel also a CUDA graph of the launches, its device time alone), its
    plain version's, its bound, and for flash PyTorch's
    `scaled_dot_product_attention` on the same inputs as a yardstick the
-   port never calls;
+   port never calls. The latent form of the tiered decode
+   (`latent_decode`, MLA's absorbed decode over the int4 latent) at
+   deepseek-v2-lite's decode shape (H 16, r 512, p 64, group 64) over the
+   serving tier, B 1 and 4, dense_len 0, 1, 255, 1536 and 2048, and at r
+   128, p 32, H 4, within 2e-5 of max |output|, its time at B 4 and
+   dense_len 2048 (events and graph) beside its bound; flash at MLA's
+   prefill widths (B 4, S 2048, H = Hkv = 16, q and k 192, v 128,
+   zero-padded to the 256 form) within 1e-2, its time with and without
+   the padding beside SDPA's on the unpadded inputs. arctic-480b's shapes
+   too: the tiered partials at B 4, Hkv 8, G 7, hd 128 (2e-4), flash at
+   B 4, S 2048, H 56, Hkv 8, hd 128 (bf16, 1e-2), and the in-place repack
+   at its K and V (1 slot x B 4 x Hkv 8 x hd 128) and at deepseek's
+   latent (27 slots x B 4, one headless channel of 512, group 64), bit
+   for bit;
 6. the serving path — gemma-2b at full width and depth (random weights
    from a seed), a batch of 4 prompts of 2048 tokens prefilled and 128
    tokens decoded greedily under each of the four cache policies, with
@@ -158,7 +171,29 @@ then:
    strict causal mask: L's diagonal dropped) must be caught by the path
    check or the logits check; the script records both. Each path starts
    with one warm-up prefill, so no timed prefill pays the process's
-   set-up.
+   set-up;
+9. the MoE paths, as phase 6 — deepseek-v2-lite-16b at full width and
+   depth (27 layers, the first dense; MLA over the int4 latent tier; 64
+   routed experts top-6 and 2 shared) under the four policies, then one
+   arctic-480b layer at its published widths (128 experts top-2 and the
+   dense residual; GQA 56 over 8 heads) under IPS, its weights drawn
+   after deepseek's are freed. The plain, floor and fault runs replay
+   the kernel run's MoE routes (`Routes`: routing is discontinuous) and
+   count the (layer, token) top-k sets their own routing would have
+   chosen otherwise. deepseek launches flash 27 times a prefill (MLA's
+   widths, padded) and `latent_decode` 27 a step, the repack once a fill
+   or event (the latent alone; the RoPE key is a raw channel); arctic
+   flash 1 a prefill and `tiered_decode` 1 a step. The flips are counted
+   per MoE layer, with the router's gap between the k-th and (k+1)-th
+   expert's probability at the flipped sets and over all sets, and the
+   floor run's own routes are also held to the plain run's own: two
+   honest runs that differ only in summation order. Under IPS the latent
+   kernel dropping 32 dense tokens must fail the rms check at every step.
+   arctic's one layer has a floor of exactly 0 at every decode step (its
+   cache is projected before the prefill attention, whose softmax chunks
+   are the floor's only difference): the script fails if it is not, and
+   holds that path to the max-based check alone, which must catch its
+   tiered call dropping 32 dense tokens at every step.
 
 Each phase prints JSON lines, each with the card's name and power
 limit, and any mismatch fails the run. The line
@@ -170,6 +205,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -526,6 +562,11 @@ def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
 # ---------------------------------------------------------------------------
 
 SERVE_ARCHS = ("gemma-2b", "mamba2-370m", "zamba2-1.2b")
+# the MoE paths (phase 9): deepseek-v2-lite at full width and depth under
+# the four policies; one arctic-480b layer at its published widths (35
+# layers, some 470 B parameters, need more than one card) under IPS
+MOE_ARCHS = (("deepseek-v2-lite-16b", None, None),
+             ("arctic-480b", 1, ("IPS",)))
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 128
 # the floor runs' other summation order: the prefill's attention softmax
 # in chunks of 256 instead of 512, the SSD scan in chunks of 128, not 256
@@ -557,7 +598,8 @@ def serving_libraries():
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     return [("ips_repack", repack.LIB), ("tiered_decode", tiered.LIB),
-            ("flash_fwd", flash.LIB), ("ssd_intra", ssd.LIB)]
+            ("latent_decode", tiered.LATENT_LIB), ("flash_fwd", flash.LIB),
+            ("ssd_intra", ssd.LIB)]
 
 
 def _launchers():
@@ -566,6 +608,7 @@ def _launchers():
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     return {"ips_repack": repack.LAUNCHER, "tiered_decode": tiered.LAUNCHER,
+            "latent_decode": tiered.LATENT_LAUNCHER,
             "flash_fwd": flash.LAUNCHER, "ssd_intra": ssd.LAUNCHER}
 
 
@@ -670,12 +713,28 @@ def tiered_bound(b, hkv, g, hd, dense_len):
     return bound_ms(moved, 4 * b * hkv * g * dense_len * hd)
 
 
-def flash_bound(b, s, h, hkv, hd, itemsize):
+def latent_bound(b, h, r, p, dense_len):
+    """The latent form: dense_len tokens' packed latent, bf16 scales and
+    bf16 RoPE key read once, q_lat and q_rope in, (m, l, acc) out; 2 * H
+    * (2r + p) float32 operations a token (its scores against the latent
+    and the RoPE key, its share of acc), on the CUDA cores as the kernel
+    runs them. Returns (ms, by, the bound with the products on the bf16
+    tensor cores)."""
+    moved = (b * dense_len * (r // 2 + (r // GROUP) * 2 + p * 2)
+             + b * h * (r + p) * 4 + b * h * (r + 2) * 4)
+    ops = 2 * b * h * dense_len * (2 * r + p)
+    return bound_ms(moved, ops) + (bound_ms(moved, ops, BF16_OPS_PER_S)[0],)
+
+
+def flash_bound(b, s, h, hkv, hd, itemsize, hd_v=None):
     """q, k, v read once, out (float32) and lse written once; the causal
-    half of the two products at the inputs' type (bf16 tensor cores)."""
-    moved = ((b * s * h * hd + 2 * b * s * hkv * hd) * itemsize
-             + b * h * s * hd * 4 + b * h * s * 4)
-    ops = 4 * b * h * s * s * hd // 2
+    half of the two products at the inputs' type (bf16 tensor cores). At
+    MLA's widths q and k are hd wide, v and out hd_v (no padding
+    counted)."""
+    hd_v = hd if hd_v is None else hd_v
+    moved = ((b * s * h * hd + b * s * hkv * (hd + hd_v)) * itemsize
+             + b * h * s * hd_v * 4 + b * h * s * 4)
+    ops = 2 * b * h * s * s * (hd + hd_v) // 2
     return bound_ms(moved, ops, BF16_OPS_PER_S if itemsize == 2
                     else F32_OPS_PER_S)
 
@@ -852,9 +911,10 @@ def repack_event_split(cuda, arch, slots, hkv, hd) -> dict:
 
 def repack_vs_plain(cuda, gen, launcher) -> dict:
     """Phase 5's `ips_repack`: every bf16 pattern (`repack_exhaustive`);
-    every group the reference takes; the in-place form (K and V in one
-    launch, from the strided hot-tier slice into bf16-scaled dense tiers)
-    at gemma-2b's and zamba2-1.2b's serving shapes; the arena form at 128
+    every group the reference takes; the in-place form (K and V, or
+    MLA's one latent, in one launch, from the strided hot-tier slice into
+    bf16-scaled dense tiers) at gemma-2b's, zamba2-1.2b's, arctic-480b's
+    and deepseek-v2-lite's serving shapes; the arena form at 128
     pages of 256 x 1024 with its stale tail; each against its plain
     version on the card, bit for bit. Times: the tier form at gemma-2b's
     prefill fill (73,728 x 256 bf16, bf16 scales) per launch (events, the
@@ -885,20 +945,25 @@ def repack_vs_plain(cuda, gen, launcher) -> dict:
                  "plain version")
         cases.append(f"group {group}")
 
-    # the in-place form at the serving shapes: K and V from the hot tier's
-    # first t tokens into the dense tier at the watermark, one launch
+    # the in-place form at the serving shapes: each channel (GQA's K and
+    # V; MLA's latent, with no head axis) from the hot tier's first t
+    # tokens into the dense tier at the watermark, one launch
     s_dense = SERVE_PROMPT + SERVE_STEPS + 1024
     in_place = {}
-    for label, (slots, hkv, hd) in (("gemma-2b", (18, 1, 256)),
-                                    ("zamba2-1.2b", (6, 32, 64))):
+    for label, (slots, heads, hd, n_chan) in (
+            ("gemma-2b", (18, (1,), 256, 2)),
+            ("zamba2-1.2b", (6, (32,), 64, 2)),
+            ("arctic-480b", (1, (8,), 128, 2)),
+            ("deepseek-v2-lite-16b", (27, (), 512, 1))):
         for t, start in ((256, 1024), (1024, 0)):
             chans, want = [], []
-            for _ in range(2):
-                hot = randn(slots, SERVE_BATCH, 1024, hkv, hd, scale=3.0)
-                pk = torch.randint(0, 256, (slots, SERVE_BATCH, s_dense, hkv,
-                                            hd // 2), dtype=torch.uint8,
-                                   generator=gen, device=cuda)
-                sc = randn(slots, SERVE_BATCH, s_dense, hkv, hd // GROUP)
+            for _ in range(n_chan):
+                hot = randn(slots, SERVE_BATCH, 1024, *heads, hd, scale=3.0)
+                pk = torch.randint(0, 256, (slots, SERVE_BATCH, s_dense,
+                                            *heads, hd // 2),
+                                   dtype=torch.uint8, generator=gen,
+                                   device=cuda)
+                sc = randn(slots, SERVE_BATCH, s_dense, *heads, hd // GROUP)
                 chans.append((hot[:, :, :t], pk, sc))
                 want.append((hot[:, :, :t], pk.clone(), sc.clone()))
             quantize_into_ref(want, start, GROUP)
@@ -906,26 +971,28 @@ def repack_vs_plain(cuda, gen, launcher) -> dict:
             repack.quantize_into(chans, start, GROUP)
             torch.cuda.synchronize()
             if launcher.launches != before + 1:
-                fail("ips_repack in-place form: K and V took more than one "
-                     "launch")
+                fail(f"ips_repack in-place form {label}: its channels took "
+                     "more than one launch")
             for (_, pk, sc), (_, wpk, wsc) in zip(chans, want):
                 if not (torch.equal(pk, wpk) and torch.equal(sc, wsc)):
                     fail(f"ips_repack in-place form {label} t {t}: the dense "
                          "tier differs from the plain version's")
             cases.append(f"in place {label} t {t} start {start}")
             if t == 256:
-                rows = 2 * slots * SERVE_BATCH * t * hkv
+                rows = n_chan * slots * SERVE_BATCH * t * math.prod(heads)
                 bnd, by = repack_bound(rows, hd)
 
                 def call(chans=chans, start=start):
                     repack.quantize_into(chans, start, GROUP)
+                what = ("K and V" if n_chan == 2 else "the latent")
                 in_place[label] = {
                     "ms": kernel_ms(launcher, call),
                     "cold_ms": cold_ms(call, flush), "bound_ms": bnd,
                     "bound_by": by,
-                    "timed_shape": f"K and V, {slots} slots x B "
-                                   f"{SERVE_BATCH} x {t} tokens x Hkv {hkv}"
-                                   f" x hd {hd}, strided hot slice"}
+                    "timed_shape": f"{what}, {slots} slots x B "
+                                   f"{SERVE_BATCH} x {t} tokens x "
+                                   f"{'Hkv %d x ' % heads[0] if heads else ''}"
+                                   f"F {hd}, strided hot slice"}
 
     # the arena form at 128 pages of the TPU default 256 x 1024, a stale
     # tail after each
@@ -1019,14 +1086,16 @@ def serve_kernels_vs_plain(cuda) -> dict:
 
     out["ips_repack"] = repack_vs_plain(cuda, gen, launchers["ips_repack"])
 
-    # -- tiered_decode at gemma-2b's decode shape (B 4, Hkv 1, G 8, hd 256)
-    #    and zamba2-1.2b's shared block's (B 4, Hkv 32, G 1, hd 64), over
-    #    the serving dense tier, both dequantized forms, dense_len from the
-    #    empty tier through one token and either side of one split to full
+    # -- tiered_decode at gemma-2b's decode shape (B 4, Hkv 1, G 8, hd 256),
+    #    zamba2-1.2b's shared block's (B 4, Hkv 32, G 1, hd 64) and
+    #    arctic-480b's (B 4, Hkv 8, G 7, hd 128), over the serving dense
+    #    tier, both dequantized forms, dense_len from the empty tier
+    #    through one token and either side of one split to full
     s_dense = SERVE_PROMPT + SERVE_STEPS + 1024
     err, cases, timed = 0.0, [], {}
     for label, (b, hkv, g, hd) in (("gemma-2b", (SERVE_BATCH, 1, 8, 256)),
-                                   ("zamba2-1.2b", (SERVE_BATCH, 32, 1, 64))):
+                                   ("zamba2-1.2b", (SERVE_BATCH, 32, 1, 64)),
+                                   ("arctic-480b", (SERVE_BATCH, 8, 7, 128))):
         k4, ksc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
                                           dtype=torch.bfloat16), GROUP)
         v4, vsc = quantize_rows_ref(randn(b * s_dense * hkv, hd, scale=2.0,
@@ -1080,22 +1149,29 @@ def serve_kernels_vs_plain(cuda) -> dict:
                    "tiered_decode.cu"),
         "replaces": "src/repro/kernels/tiered_attention/kernel.py:37",
         "max_abs_err": err, "library_ms": None, **gemma,
-        "zamba2_shape": timed["zamba2-1.2b"]}
+        "zamba2_shape": timed["zamba2-1.2b"],
+        "arctic_shape": timed["arctic-480b"]}
     emit({"phase": "kernel_vs_plain", "kernel": "tiered_decode",
           "cases": cases, "tolerance": 2e-4, **out["tiered_decode"]})
 
-    # -- flash_fwd: bf16 (the tensor-core form) at gemma-2b's and zamba2's
-    #    prefill shapes, S off the 128-row tile and below it; float32
+    out["latent_decode"] = latent_vs_plain(cuda, gen, s_dense,
+                                           launchers["latent_decode"])
+
+    # -- flash_fwd: bf16 (the tensor-core form) at gemma-2b's, zamba2's and
+    #    arctic's prefill shapes, S off the 128-row tile and below it;
+    #    float32
     hgmma = flash.LIB.sass_count("HGMMA")
     if hgmma == 0:
         fail("flash_fwd: the built library issues no HGMMA (wgmma)")
     err_bf16 = err_f32 = 0.0
     cases = []
     shapes = {"gemma-2b": (SERVE_BATCH, SERVE_PROMPT, 8, 1, 256),
-              "zamba2-1.2b": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 64)}
+              "zamba2-1.2b": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 64),
+              "arctic-480b": (SERVE_BATCH, SERVE_PROMPT, 56, 8, 128)}
     for b_, s_, h_, hkv_, hd_, dt, tol in (
             shapes["gemma-2b"] + (torch.bfloat16, 1e-2),
             shapes["zamba2-1.2b"] + (torch.bfloat16, 1e-2),
+            shapes["arctic-480b"] + (torch.bfloat16, 1e-2),
             (2, 1000, 8, 1, 256, torch.bfloat16, 1e-2),
             (2, 1000, 6, 2, 64, torch.bfloat16, 1e-2),
             (2, 333, 6, 2, 64, torch.bfloat16, 1e-2),
@@ -1132,6 +1208,9 @@ def serve_kernels_vs_plain(cuda) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), TIMED),
             "timed_shape": f"B {b}, S {s}, H {h}, Hkv {hkv}, hd {hd}, bf16"}
+    mla = flash_mla_vs_plain(cuda, randn, launchers["flash_fwd"])
+    err_bf16 = max(err_bf16, mla.pop("max_abs_err"))
+    cases += mla.pop("cases")
     out["flash_fwd"] = {
         "name": "flash_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_fwd.cu",
@@ -1140,10 +1219,128 @@ def serve_kernels_vs_plain(cuda) -> dict:
         **timed["gemma-2b"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
-        "sass_hgmma": hgmma, "zamba2_shape": timed["zamba2-1.2b"]}
+        "sass_hgmma": hgmma, "zamba2_shape": timed["zamba2-1.2b"],
+        "arctic_shape": timed["arctic-480b"], "mla_shape": mla}
     emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": cases,
           "tolerance": {"bf16": 1e-2, "float32": 2e-5}, **out["flash_fwd"]})
     return out
+
+
+LATENT_TOL = 2e-5               # of max |output|, as for ssd_intra
+
+
+def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
+    """The latent form of the tiered decode against its plain version on
+    the card: deepseek-v2-lite's decode shape (H 16, r 512, p 64, group
+    64) over the serving tier at B 1 and 4 and dense_len 0, 1, 255, 1536
+    and 2048, and a smaller r, p and H; within LATENT_TOL of max
+    |output|. Its time at B 4, dense_len 2048 beside its bound."""
+    import torch
+    from repro_torch.kernels.ips_repack.ref import quantize_rows_ref
+    from repro_torch.kernels.tiered_attention import ops as tiered
+    from repro_torch.kernels.tiered_attention.ref import (
+        latent_tier_partial_ref)
+
+    def tier(b, s, h, r, p, group):
+        c4, sc = quantize_rows_ref(2.0 * torch.randn(
+            (b * s, r), generator=gen, device=cuda), group)
+
+        def bf16(*shape):
+            return torch.randn(shape, generator=gen, device=cuda).to(
+                torch.bfloat16)
+        return (bf16(b, h, r).float(), bf16(b, h, p).float(),
+                c4.reshape(b, s, r // 2),
+                sc.reshape(b, s, r // group).to(torch.bfloat16),
+                bf16(b, s + SERVE_PROMPT // 2, p))
+
+    scale = 1.0 / 192 ** 0.5
+    err, rel, cases = 0.0, 0.0, []
+    for b, s, h, r, p, group, lens in (
+            (SERVE_BATCH, s_dense, 16, 512, 64, GROUP,
+             (0, 1, 255, 1536, 2048)),
+            (1, s_dense, 16, 512, 64, GROUP, (0, 1, 255, 1536, 2048)),
+            (2, 700, 4, 128, 32, 32, (0, 33, 699))):
+        t = tier(b, s, h, r, p, group)
+        for dense_len in lens:
+            got = tiered.latent_tier_partial(*t, dense_len, group=group,
+                                             scale=scale)
+            want = latent_tier_partial_ref(*t, dense_len, group, scale)
+            for name, a, w in zip(("m", "l", "acc"), got, want):
+                top = max(float(w.abs().max()), 1e-30)
+                e = float((a - w).abs().max())
+                if not torch.isfinite(a).all() or e > LATENT_TOL * top:
+                    fail(f"latent_decode B {b} H {h} r {r} p {p} dense_len "
+                         f"{dense_len} {name}: {e} of {top} (tolerance "
+                         f"{LATENT_TOL} of max |output|)")
+                err, rel = max(err, e), max(rel, e / top)
+            if dense_len == 0 and not (bool((got[0] == -1e30).all())
+                                       and bool((got[1] == 0).all())
+                                       and bool((got[2] == 0).all())):
+                fail("latent_decode: an empty tier must give m -1e30, l 0, "
+                     "acc 0")
+            cases.append(f"B {b} H {h} r {r} p {p} dense_len {dense_len}")
+    t = tier(SERVE_BATCH, s_dense, 16, 512, 64, GROUP)
+    timed_len = SERVE_PROMPT
+
+    def call():
+        return tiered.latent_tier_partial(*t, timed_len, group=GROUP,
+                                          scale=scale)
+    bnd, by, tc_bnd = latent_bound(SERVE_BATCH, 16, 512, 64, timed_len)
+    tokens, splits = tiered.latent_split_plan(timed_len, SERVE_BATCH)
+    line = {"name": "latent_decode", "route": "cuda",
+            "source": ("src/repro_torch/kernels/tiered_attention/csrc/"
+                       "latent_decode.cu"),
+            "replaces": "src/repro/kernels/tiered_attention/kernel.py:37",
+            "max_abs_err": err, "max_err_over_max_abs": rel,
+            "ms": kernel_ms(launcher, call), "device_ms": graph_ms(call),
+            "plain_ms": time_ms(lambda: latent_tier_partial_ref(
+                *t, timed_len, GROUP, scale), PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "bound_ms_tensor_cores": tc_bnd, "library_ms": None,
+            "timed_shape": (f"B {SERVE_BATCH}, H 16, r 512, p 64, group "
+                            f"{GROUP}, S {s_dense}, dense_len {timed_len}"),
+            "split_tokens": tokens, "blocks": SERVE_BATCH * splits}
+    emit({"phase": "kernel_vs_plain", "kernel": "latent_decode",
+          "cases": cases, "tolerance": f"{LATENT_TOL} of max |output|",
+          **line})
+    return line
+
+
+def flash_mla_vs_plain(cuda, randn, launcher) -> dict:
+    """`flash_fwd` at MLA's prefill widths (deepseek-v2-lite: B 4, S 2048,
+    H = Hkv = 16, q and k 192, v 128, scale 1/sqrt(192)), zero-padded to
+    the 256 form, against its plain version (1e-2, bf16); the kernel's
+    time, the wrapper's with the padding, and PyTorch's
+    `scaled_dot_product_attention` on the unpadded inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.flash_attention.ref import flash_ref
+    b, s, h, hd, hd_v = SERVE_BATCH, SERVE_PROMPT, 16, 192, 128
+    scale = 1.0 / hd ** 0.5
+    q = randn(b, s, h, hd, dtype=torch.bfloat16)
+    k = randn(b, s, h, hd, dtype=torch.bfloat16)
+    v = randn(b, s, h, hd_v, dtype=torch.bfloat16)
+    got = flash.flash_fwd(q, k, v, scale=scale)
+    want = flash_ref(q, k, v, chunk=512, scale=scale)
+    err = max(_within(f"flash MLA {name}", a.contiguous(), w, 1e-2)
+              for name, a, w in zip(("out", "lse"), got, want))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bnd, by = flash_bound(b, s, h, h, hd, 2, hd_v)
+
+    def call():
+        return flash.flash_fwd(q, k, v, scale=scale)
+    return {"max_abs_err": err,
+            "cases": [f"bf16 B{b} S{s} H{h} qk{hd} v{hd_v} padded to 256"],
+            "ms": kernel_ms(launcher, call),
+            "wrapper_ms": time_ms(call, TIMED),
+            "plain_ms": time_ms(lambda: flash_ref(q, k, v, chunk=512,
+                                                  scale=scale), PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), TIMED),
+            "timed_shape": (f"B {b}, S {s}, H {h}, Hkv {h}, qk {hd}, v "
+                            f"{hd_v}, bf16 (kernel at hd 256)")}
 
 
 def ssd_kernel_vs_plain(cuda) -> dict:
@@ -1227,22 +1424,26 @@ def ssd_kernel_vs_plain(cuda) -> dict:
     return row
 
 
-def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd,
-               state_bytes=0):
+def plan_trace(policy, spec, prompt, steps, per_tok, chans, state_bytes=0):
     """Closed-form count of a policy's plan with integers (`plan_for`):
     the dense_len each decode step attends over, the repack events, the
     final watermarks, the metrics added in float32 in the engine's order,
-    and their exact integer totals. `n_layers` is the number of tiered
-    slots; `state_bytes`, a hybrid model's Mamba2 state bytes, are added
-    after each step's tick, as the engine adds them."""
+    and their exact integer totals. `per_tok` is the rows a token writes
+    in each channel (tiered slots x batch x KV heads); `chans` the
+    channels' (width, quantized): GQA's K and V, MLA's latent and its raw
+    RoPE key. `state_bytes`, a hybrid model's Mamba2 state bytes, are
+    added after each step's tick, as the engine adds them."""
     import numpy as np
     from repro_torch.core.tiercache.layout import split_for_prefill
     from repro_torch.core.tiercache.manager import METRICS
     from repro_torch.core.tiercache.policy import plan_for
     plan = plan_for(policy, spec.hot_window, spec.page_tokens)
-    per_tok = n_layers * b * hkv
-    hot_b = per_tok * hd * 2                        # one channel, bf16
-    dense_b = per_tok * (hd // 2 + (hd // spec.group) * 2)
+    # bytes a token of every channel: bf16 in the hot tier (and a raw
+    # channel's dense region), packed int4 and bf16 scales in the dense
+    # tier
+    hot_b = sum(per_tok * f * 2 for f, _ in chans)
+    dense_b = sum(per_tok * ((f // 2 + (f // spec.group) * 2) if quant
+                             else f * 2) for f, quant in chans)
     dense, _ = split_for_prefill(prompt, spec)
     fill = dense > 0
     total = prompt
@@ -1267,13 +1468,13 @@ def plan_trace(policy, spec, prompt, steps, n_layers, b, hkv, hd,
             if not due:
                 continue
             events.append(t)
-            add("hbm_read_bytes", 2 * t * hot_b)
-            add("hbm_write_bytes", 2 * t * dense_b * (2 if staged else 1))
+            add("hbm_read_bytes", t * hot_b)
+            add("hbm_write_bytes", t * dense_b * (2 if staged else 1))
             add("repack_tokens", t)
             if sync:
                 add("stall_events", 1)
             dense += t
-        add("hbm_write_bytes", 2 * per_tok * hd * 2)
+        add("hbm_write_bytes", hot_b)
         add("appended_tokens", 1)
         if state_bytes:
             add("hbm_write_bytes", state_bytes)
@@ -1326,20 +1527,122 @@ def plain_versions():
         (flash, "flash_fwd", flash.ref.flash_ref),
         (repack, "quantize_into", repack.ref.quantize_into_ref),
         (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref),
+        (tiered, "latent_tier_partial", tiered.ref.latent_tier_partial_ref),
         (ssd, "ssd_intra", ssd.ref.intra_chunk_ref))
+
+
+class Routes:
+    """MoE routes teacher-forced as tokens are. `record()` keeps each
+    `_routing` call's (weights, experts) of the kernel run, on the card;
+    `replay()` hands them back, in order, to the runs compared with it
+    (the plain run, the floor run, a planted fault), each named by `use`
+    and read from its own cursor, with each run's own aux loss. Routing is
+    discontinuous: a near-tie between the k-th and (k+1)-th expert that
+    rounds the other way in the plain run would move its logits for no
+    fault of a kernel. `flips[name]` counts the (layer, token) top-k sets
+    that run's own routing would have chosen otherwise (a tensor on the
+    card, read once at the end)."""
+
+    def __init__(self, layers: int):
+        self.layers = layers            # MoE layers: `_routing` calls a pass
+        self.log, self.cursor, self.flips, self.sets = [], {}, {}, {}
+        self.own, self.stats = {}, {}
+        self.active = None
+
+    def record(self):
+        from repro_torch.models import moe
+        orig = moe._routing
+        for kept in (self.log, self.cursor, self.flips, self.sets,
+                     self.own, self.stats):
+            kept.clear()
+
+        def route(router_w, x, m):
+            out = orig(router_w, x, m)
+            self.log.append(out[:2])
+            return out
+        return _replaced((moe, "_routing", route))
+
+    def use(self, name):
+        import torch
+        self.active = name
+        if name not in self.cursor:
+            self.cursor[name] = 0
+            self.sets[name] = 0
+            self.flips[name] = torch.zeros(self.layers, dtype=torch.int64,
+                                           device=self.log[0][1].device)
+            # gap sums at the flipped sets and over all, the flipped sets'
+            # largest gap, and the floor run's flips against the plain
+            # run's own routes
+            self.stats[name] = torch.zeros(4, dtype=torch.float64,
+                                           device=self.log[0][1].device)
+            self.own[name] = []
+
+    def replay(self):
+        import torch
+        from repro_torch.models import moe
+        orig = moe._routing
+
+        def route(router_w, x, m):
+            weights, experts, aux = orig(router_w, x, m)
+            name = self.active
+            at = self.cursor[name]
+            w, e = self.log[at]
+            self.cursor[name] += 1
+            own = torch.sort(experts, dim=-1).values
+            differ = (own != torch.sort(e, dim=-1).values).any(dim=-1)
+            self.flips[name][at % self.layers] += differ.sum()
+            self.sets[name] += differ.numel()
+            # the router's gap p_k - p_(k+1) of this run's own softmax
+            probs = torch.softmax(x.to(torch.float32) @ router_w, dim=-1)
+            top = torch.topk(probs, m.top_k + 1, dim=-1).values
+            gap = (top[..., -2] - top[..., -1]).double()
+            st = self.stats[name]
+            st[0] += (gap * differ).sum()
+            st[1] += gap.sum()
+            st[2] = torch.maximum(st[2], (gap * differ).max())
+            if name == "plain":
+                self.own[name].append(own)
+            elif name == "floor" and at < len(self.own.get("plain", ())):
+                st[3] += (own != self.own["plain"][at]).any(dim=-1).sum()
+            return w, e, aux
+        return _replaced((moe, "_routing", route))
+
+    def counts(self):
+        out = {}
+        for name, flips in self.flips.items():
+            per_layer = flips.tolist()
+            flipped = sum(per_layer)
+            st = self.stats[name].tolist()
+            out[name] = {
+                "flipped": flipped, "sets": self.sets[name],
+                "calls": self.cursor[name],
+                "flipped_per_layer": per_layer,
+                "gap_mean_flipped": st[0] / flipped if flipped else None,
+                "gap_max_flipped": st[2] if flipped else None,
+                "gap_mean_all": st[1] / max(self.sets[name], 1)}
+            if name == "floor":
+                out[name]["flipped_vs_plain_own"] = int(st[3])
+        return out
 
 
 def planted_faults(arch):
     """Wrong forms of a kernel's call on `arch`'s path, each still
-    launching the kernel, to read how far the logits check sees a wrong
-    kernel: (name, context, whether the check must catch it).
+    launching the kernel, to read how far the logits checks see a wrong
+    kernel: (name, context, whether the max-based check or the path
+    check must catch it — True at some check, "every step" the max-based
+    check at every decode step —, whether the rms check must catch it at
+    every step).
 
     gemma-2b, the tiered call: dropping the last 256 tokens (a page) of
     the dense tier must be caught by the max-based check at some step,
-    and dropping 256 or 32 by the rms check at every step
-    (`rms_must_catch`). The float32 dequantized form in place of the bf16
-    one is read only: on an H100 it stays under both limits (PERF.md §6),
-    and phase 5 holds the kernel to its plain version at 2e-4.
+    and dropping 256 or 32 by the rms check at every step. The float32
+    dequantized form in place of the bf16 one is read only: on an H100 it
+    stays under both limits (PERF.md §6), and phase 5 holds the kernel to
+    its plain version at 2e-4. deepseek-v2-lite, the latent call:
+    dropping 32 dense tokens must be caught by the rms check at every
+    step. arctic's one layer, the tiered call: dropping 32 must be caught
+    by the max-based check at every step (its floor is 0, so no rms
+    check).
     mamba2-370m, the `ssd_intra` call: a strict causal mask (the kernel's
     y less its diagonal term C_i.B_i dt_i x_i, L's diagonal being
     exp(0) = 1) must be caught."""
@@ -1355,30 +1658,36 @@ def planted_faults(arch):
             return y - diag[..., None] * x, states, cum
 
         return [("ssd_intra strict mask (L's diagonal dropped)",
-                 _replaced((ssd, "ssd_intra", strict)), True)]
+                 _replaced((ssd, "ssd_intra", strict)), True, False)]
+
+    def short(name, drop):
+        kernel = getattr(tiered, name)
+
+        def call(*args, **kw):
+            args = list(args)
+            args[5] = max(int(args[5]) - drop, 0)     # dense_len
+            return kernel(*args, **kw)
+        return _replaced((tiered, name, call))
+
+    if arch == "deepseek-v2-lite-16b":
+        return [("latent dense_len - 32",
+                 short("latent_tier_partial", 32), False, True)]
+    if arch == "arctic-480b":
+        return [("tiered dense_len - 32",
+                 short("dense_tier_partial", 32), "every step", False)]
     if arch != "gemma-2b":
         return []
     kernel = tiered.dense_tier_partial
-
-    def short(drop):
-        def call(q, k4, k4_sc, v4, v4_sc, dense_len, **kw):
-            return kernel(q, k4, k4_sc, v4, v4_sc,
-                          max(int(dense_len) - drop, 0), **kw)
-        return call
 
     def float32_form(*args, **kw):
         return kernel(*args, **{**kw, "deq_dtype": torch.float32})
 
     return [(f"tiered dense_len - {drop}",
-             _replaced((tiered, "dense_tier_partial", short(drop))),
-             drop == 256) for drop in (32, 256)] + [
+             short("dense_tier_partial", drop), drop == 256, True)
+            for drop in (32, 256)] + [
             ("tiered float32 dequant",
-             _replaced((tiered, "dense_tier_partial", float32_form)), False)]
-
-
-def rms_must_catch(fault: str) -> bool:
-    """Whether the rms check must see `fault` at every decode step."""
-    return fault.startswith("tiered dense_len")
+             _replaced((tiered, "dense_tier_partial", float32_form)), False,
+             False)]
 
 
 def shadow_intra(log):
@@ -1428,13 +1737,13 @@ def _decode_run(bundle, params, cache, prefill_logits, spec, policy,
 
 
 def _path_setup(cfg, b, prompt):
-    """What a path implies, per policy: the tiered slots and their
-    shapes, the Mamba2 state bytes a decode step writes, the expected
-    launches, and how the floor model differs."""
+    """What a path implies, per policy: the tiered slots, the rows a token
+    writes in each and the channels' widths, the decode kernel, the
+    Mamba2 state bytes a decode step writes, and the Mamba2 layers."""
     from repro_torch.models.hybrid import hybrid_structure
     s = cfg.ssm
     setup = {"slots": 0, "hkv": cfg.num_kv_heads, "hd": cfg.head_dim,
-             "mamba_layers": 0, "state_bytes": 0}
+             "mamba_layers": 0, "state_bytes": 0, "decode_kernel": None}
     if s is not None:
         d_xc = s.d_inner(cfg.d_model) + 2 * s.d_state
         nh = s.num_heads(cfg.d_model)
@@ -1444,7 +1753,7 @@ def _path_setup(cfg, b, prompt):
         setup["intra_shape"] = (b, prompt // min(s.chunk_size, prompt),
                                 min(s.chunk_size, prompt), nh, s.head_dim,
                                 s.d_state)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         setup["slots"] = cfg.num_layers
     elif cfg.family == "hybrid":
         n_macro, _ = hybrid_structure(cfg)
@@ -1453,14 +1762,31 @@ def _path_setup(cfg, b, prompt):
         setup["state_bytes"] = n_macro * cfg.hybrid.attn_every * per_layer
     else:
         setup["state_bytes"] = cfg.num_layers * per_layer
+    if cfg.mla is not None:
+        m = cfg.mla
+        setup.update(decode_kernel="latent_decode",
+                     per_tok=setup["slots"] * b,
+                     chans=((m.kv_lora_rank, True),
+                            (m.qk_rope_head_dim, False)),
+                     quant_feat=m.kv_lora_rank, quant_rows=b,
+                     flash_hd=(m.qk_nope_head_dim + m.qk_rope_head_dim,
+                               m.v_head_dim), flash_hkv=cfg.num_heads)
+    elif setup["slots"]:
+        hkv, hd = cfg.num_kv_heads, cfg.head_dim
+        setup.update(decode_kernel="tiered_decode",
+                     per_tok=setup["slots"] * b * hkv,
+                     chans=((hd, True), (hd, True)), quant_feat=hd,
+                     quant_rows=2 * b * hkv, flash_hd=(hd, hd),
+                     flash_hkv=hkv)
     return setup
 
 
-def serve_main_path(cuda, arch) -> dict:
-    """Phases 6 and 8: `arch` served under each policy (an ssm model, which
-    has no KV cache, under one), with the kernels and then teacher-forced
-    with the plain versions; returns each kernel's main-path launches,
-    time and bound."""
+def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
+    """Phases 6, 8 and 9: `arch` (cut to `layers` when given) served under
+    each of `policies` (names; by default every policy, or one for an ssm
+    model, which has no KV cache), with the kernels and then
+    teacher-forced with the plain versions, a MoE model's routes too;
+    returns each kernel's main-path launches, time and bound."""
     import dataclasses
 
     import numpy as np
@@ -1471,7 +1797,10 @@ def serve_main_path(cuda, arch) -> dict:
     from repro_torch.models.model_zoo import build_model, make_train_batch
     from repro_torch.serve.engine import make_serve_step, make_tier_spec
 
+    t_path = time.perf_counter()
     cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     b, prompt, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     setup = _path_setup(cfg, b, prompt)
     slots, hkv, hd = setup["slots"], setup["hkv"], setup["hd"]
@@ -1491,7 +1820,8 @@ def serve_main_path(cuda, arch) -> dict:
     launchers = _launchers()
     totals = {name: {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
               for name in launchers}
-    flash_b = (flash_bound(b, prompt, cfg.num_heads, hkv, hd, 2)[0]
+    flash_b = (flash_bound(b, prompt, cfg.num_heads, setup["flash_hkv"],
+                           setup["flash_hd"][0], 2, setup["flash_hd"][1])[0]
                if slots else 0.0)
     intra_b = (ssd_intra_bound(*setup["intra_shape"])[0]
                if setup["mamba_layers"] else 0.0)
@@ -1500,8 +1830,23 @@ def serve_main_path(cuda, arch) -> dict:
                          device=cuda)
     plain_logits = torch.empty_like(logits)
     faults = []
-    policies = list(Policy) if slots else [Policy.IPS_AGC]
+    policies = ([Policy[name] for name in policies] if policies else
+                list(Policy) if slots else [Policy.IPS_AGC])
     fault_policy = Policy.IPS if slots else Policy.IPS_AGC
+    routes = (Routes(cfg.num_layers - min(cfg.moe.first_k_dense,
+                                          cfg.num_layers))
+              if cfg.moe is not None else None)
+
+    def replayed(name):
+        """The routes of the kernel run, for the run `name`."""
+        if routes is None:
+            return contextlib.nullcontext()
+        routes.use(name)
+        return routes.replay()
+
+    def use(name):
+        if routes is not None:
+            routes.use(name)
     path_check = None
     # warm-up: one prefill with the kernels (the counts are zeroed before
     # each counted run), so that no timed prefill pays the process's
@@ -1518,14 +1863,17 @@ def serve_main_path(cuda, arch) -> dict:
     for policy in policies:
         spec = make_tier_spec(model, prompt + steps, policy)
         if slots:
-            trace = plan_trace(policy, spec, prompt, steps, slots, b, hkv,
-                               hd, setup["state_bytes"])
+            trace = plan_trace(policy, spec, prompt, steps,
+                               setup["per_tok"], setup["chans"],
+                               setup["state_bytes"])
         else:
             trace = ssm_trace(prompt, steps, setup["state_bytes"])
         expect = {"flash_fwd": slots if cfg.family != "ssm" else 0,
-                  "tiered_decode": slots * steps,
+                  "tiered_decode": 0, "latent_decode": 0,
                   "ips_repack": int(trace["fill"]) + len(trace["events"]),
                   "ssd_intra": setup["mamba_layers"]}
+        if slots:
+            expect[setup["decode_kernel"]] = slots * steps
 
         # -- with the kernels, timed on the host clock with no CUDA events
         #    recorded: the counts zeroed just before, read just after
@@ -1533,16 +1881,18 @@ def serve_main_path(cuda, arch) -> dict:
         for launcher in launchers.values():
             launcher.reset()
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        cache, prefill_logits = model.prefill(params, batch, spec)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t1) * 1e3
-        t1 = time.perf_counter()
-        cache, metrics, token = _decode_run(model, params, cache,
-                                            prefill_logits, spec, policy,
-                                            steps, inputs=inputs, out=logits)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t1
+        with (routes.record() if routes is not None
+              else contextlib.nullcontext()):
+            t1 = time.perf_counter()
+            cache, prefill_logits = model.prefill(params, batch, spec)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t1) * 1e3
+            t1 = time.perf_counter()
+            cache, metrics, token = _decode_run(
+                model, params, cache, prefill_logits, spec, policy, steps,
+                inputs=inputs, out=logits)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t1
         counts = {n: launcher.launches for n, launcher in launchers.items()}
         peak = torch.cuda.max_memory_allocated(cuda)
         if counts != expect:
@@ -1577,13 +1927,15 @@ def serve_main_path(cuda, arch) -> dict:
                  f"{timed_counts}")
 
         # -- teacher-forced with the plain versions (no kernel launches),
-        #    beside the floor
-        with plain_versions():
+        #    beside the floor; a MoE model's routes replayed from the
+        #    kernel run
+        with plain_versions(), replayed("plain"):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             cache, plain_prefill = model.prefill(params, batch, spec)
             torch.cuda.synchronize()
             plain_prefill_ms = (time.perf_counter() - t1) * 1e3
+            use("floor")
             cache_f, floor_prefill = floor_model.prefill(params, batch, spec)
             err, floor, prefill_limit = _logits_close(
                 f"{arch} {policy.name} prefill", prefill_logits,
@@ -1594,8 +1946,10 @@ def serve_main_path(cuda, arch) -> dict:
             agree, limits, floor_rms, err_rms = 0, [], [], 0.0
             over_limit = over_floor_rms = 0.0
             for i in range(steps):
+                use("plain")
                 nxt, lg, cache, metrics = step(params, cache, inputs[i],
                                                metrics)
+                use("floor")
                 _, lg_f, cache_f, metrics_f = step_f(params, cache_f,
                                                      inputs[i], metrics_f)
                 e, f, lim = _logits_close(f"{arch} {policy.name} step {i}",
@@ -1612,7 +1966,22 @@ def serve_main_path(cuda, arch) -> dict:
                 agree += int((nxt == chosen).sum())
             torch.cuda.synchronize()
         del cache_f
-        if over_floor_rms > RMS_LIMIT:
+        # the rms check needs a floor that reaches the decode steps: a
+        # one-layer model's cache is projected before its prefill
+        # attention, so the floor's other softmax chunking never reaches a
+        # step, and its floor must be exactly 0 at every one of them (the
+        # path is deterministic); that path is held to the max-based check
+        # alone, its planted fault at every step
+        zero_floor = sum(f == 0.0 for f in floor_rms)
+        rms_checked = zero_floor == 0
+        if not rms_checked and (cfg.num_layers > 1 or zero_floor < steps):
+            fail(f"{arch} {policy.name}: the floor is 0 at {zero_floor} of "
+                 f"{steps} decode steps ({cfg.num_layers} layers): the rms "
+                 "check needs it nonzero at every step, a one-layer path "
+                 "0 at every step")
+        if not rms_checked:
+            over_floor_rms = None
+        elif over_floor_rms > RMS_LIMIT:
             fail(f"{arch} {policy.name}: rms of the logits' error is "
                  f"{over_floor_rms} x the floor's at some step (limit "
                  f"{RMS_LIMIT})")
@@ -1648,9 +2017,9 @@ def serve_main_path(cuda, arch) -> dict:
         #    against the plain run's logits: the prefill's, then each
         #    step's; an `ssd_intra` fault also meets the path check
         if policy is fault_policy:
-            for name, context, must_catch in planted_faults(arch):
+            for name, context, must_catch, rms_must in planted_faults(arch):
                 log = []
-                with context:
+                with context, replayed(f"fault: {name}"):
                     if setup["mamba_layers"]:
                         with shadow_intra(log):
                             model.prefill(params, batch, spec)
@@ -1662,10 +2031,12 @@ def serve_main_path(cuda, arch) -> dict:
                         for i in range(steps)]
                 rms = [_rms(logits[i] - plain_logits[i])
                        for i in range(steps)]
-                caught = (sum(e > lim for e, lim in zip(errs, limits))
-                          + int(prefill_err > prefill_limit))
-                rms_ratio = [r / max(f, 1e-30) for r, f in zip(rms, floor_rms)]
-                rms_caught = sum(r > RMS_LIMIT for r in rms_ratio)
+                steps_caught = sum(e > lim for e, lim in zip(errs, limits))
+                caught = steps_caught + int(prefill_err > prefill_limit)
+                rms_ratio = ([r / max(f, 1e-30) for r, f in zip(rms, floor_rms)]
+                             if rms_checked else None)
+                rms_caught = (sum(r > RMS_LIMIT for r in rms_ratio)
+                              if rms_checked else None)
                 faults.append({"fault": name, "arch": arch,
                                "policy": policy.name,
                                "logits_max_abs_err": max(errs + [prefill_err]),
@@ -1676,23 +2047,29 @@ def serve_main_path(cuda, arch) -> dict:
                                "min_err_over_limit": min(
                                    e / lim for e, lim in zip(errs, limits)),
                                "logits_rms_err": max(rms),
-                               "min_rms_over_floor_rms": min(rms_ratio),
+                               "min_rms_over_floor_rms":
+                                   min(rms_ratio) if rms_checked else None,
                                "rms_over_floor_rms": rms_ratio,
                                "rms_limit": RMS_LIMIT,
                                "rms_caught_steps": rms_caught,
-                               "rms_must_catch": rms_must_catch(name),
+                               "rms_must_catch": rms_must,
                                "checks_caught": caught,
+                               "steps_caught": steps_caught,
                                "checks": steps + 1,
                                "path_check_err_over_max_abs":
                                    max(log) if log else None,
                                "caught_by_path_check": path_caught,
                                "must_catch": must_catch})
                 emit({"phase": "serve_planted_fault", **faults[-1]})
-                if rms_must_catch(name) and rms_caught < steps:
+                if rms_must and rms_caught < steps:
                     fail(f"planted fault '{name}' passed the rms check at "
                          f"{steps - rms_caught} of {steps} steps (ratios "
                          f"{min(rms_ratio)}-{max(rms_ratio)}, limit "
                          f"{RMS_LIMIT})")
+                if must_catch == "every step" and steps_caught < steps:
+                    fail(f"planted fault '{name}' passed the max-based "
+                         f"logits check at {steps - steps_caught} of {steps}"
+                         " steps")
                 if must_catch and not (caught or path_caught):
                     fail(f"planted fault '{name}' passed the logits check "
                          f"(max error {max(errs + [prefill_err])}, limits "
@@ -1700,17 +2077,24 @@ def serve_main_path(cuda, arch) -> dict:
                          f"{max(limits + [prefill_limit])}) and the path "
                          "check")
 
-        # rows per repack launch, K and V together: the prefill fill's w0
-        # tokens, then each event's
-        rows = ([2 * slots * b * hkv * trace["attended"][0]]
-                if trace["fill"] else []) + [2 * slots * b * hkv * t
-                                             for t in trace["events"]]
+        # rows per repack launch (GQA's K and V together, MLA's latent):
+        # the prefill fill's w0 tokens, then each event's
+        per_row = slots * setup.get("quant_rows", 0)
+        rows = ([per_row * trace["attended"][0]] if trace["fill"] else []
+                ) + [per_row * t for t in trace["events"]]
         g = cfg.num_heads // hkv if slots else 1
+        decode_b = [
+            (latent_bound(b, cfg.num_heads, cfg.mla.kv_lora_rank,
+                          cfg.mla.qk_rope_head_dim, d)[0]
+             if cfg.mla is not None else tiered_bound(b, hkv, g, hd, d)[0])
+            for d in trace["attended"] for _ in range(slots)]
         bounds = {"flash_fwd": [flash_b] * expect["flash_fwd"],
-                  "tiered_decode": [tiered_bound(b, hkv, g, hd, d)[0]
-                                    for d in trace["attended"]
-                                    for _ in range(slots)],
-                  "ips_repack": [repack_bound(r, hd)[0] for r in rows],
+                  "tiered_decode": decode_b if expect["tiered_decode"]
+                  else [],
+                  "latent_decode": decode_b if expect["latent_decode"]
+                  else [],
+                  "ips_repack": [repack_bound(r, setup.get("quant_feat", 1))[0]
+                                 for r in rows],
                   "ssd_intra": [intra_b] * expect["ssd_intra"]}
         for name in launchers:
             totals[name]["launches"] += counts[name]
@@ -1739,8 +2123,11 @@ def serve_main_path(cuda, arch) -> dict:
               "logits_floor_max_abs": floor,
               "logits_rms_err": err_rms,
               "logits_floor_rms": max(floor_rms),
+              "logits_floor_rms_min": min(floor_rms),
+              "logits_floor_rms_zero_steps": zero_floor,
               "logits_max_err_over_limit": over_limit,
               "logits_max_rms_over_floor_rms": over_floor_rms,
+              "logits_rms_checked": rms_checked,
               "logits_rms_limit": RMS_LIMIT,
               "logits_limit_min": min(limits + [prefill_limit]),
               "logits_tolerance": (f"{LOGITS_TOL} of max |logit|, or twice "
@@ -1752,8 +2139,15 @@ def serve_main_path(cuda, arch) -> dict:
               "total_len": trace["total_len"],
               "repack_events": len(trace["events"]),
               "metrics": {k: float(fast_metrics[k]) for k in METRICS},
-              "metrics_exact_integers": trace["exact"]})
+              "metrics_exact_integers": trace["exact"],
+              # the (layer, token) top-k sets the compared runs' own
+              # routing would have chosen otherwise (their routes are the
+              # kernel run's)
+              "route_flips": routes.counts() if routes is not None
+              else None})
     emit({"phase": "serve_summary", "arch": arch, "init_s": init_s,
+          "layers": cfg.num_layers,
+          "wall_s": time.perf_counter() - t_path,
           "main_path": totals, "planted_faults": faults,
           "path_check": path_check})
     return {"kernels": {n: {"launches": v["launches"],
@@ -2290,6 +2684,13 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs the port on the card")
+    # each phase's wall, from the start: the script must end within its
+    # 1200 s
+    t_start = time.perf_counter()
+    walls = {}
+
+    def wall(name):
+        walls[name] = time.perf_counter() - t_start
     bench_path = os.path.join(ROOT, "BENCH_sweep_paper.json")
     if not os.path.exists(bench_path):
         fail(f"{bench_path} is missing: run from the root of a checkout")
@@ -2335,6 +2736,8 @@ def main() -> int:
     n_logical = min(cfg.total_pages, 1 << 16)
     cuda = torch.device("cuda", 0)
     torch.set_num_threads(1)       # the plain version runs 0-d tensor ops
+
+    wall("1 build")
 
     # ---- 2. kernel vs plain version, same inputs ----
     def padded(name):
@@ -2437,6 +2840,8 @@ def main() -> int:
           "plain_ms_k1": plain_s * 1e3, "bound_ms_k1": smoke_bound,
           "mixed_launch": mixed})
 
+    wall("2 ssd_step vs plain")
+
     # ---- 3. the sweep paths: every device-only grid on the card ----
     with open(bench_path) as f:
         bench = json.load(f)
@@ -2485,6 +2890,7 @@ def main() -> int:
               sweeps["paper_warm"]["line"]["longest_cell_cycles_per_op"]})
 
     # ---- 3b. telemetry: the paper grid with the probe on, one launch ----
+    wall("3 sweeps")
     t_tel = time.perf_counter()
     tele = telemetry_path(cfg, cuda, cache_dir,
                           sweeps["paper_warm"]["results"])
@@ -2502,6 +2908,7 @@ def main() -> int:
 
     # ---- 3c. the host tier: its kernel, the hostcache grid, the CLI's
     # --hostcache, the search engine ----
+    wall("3b telemetry")
     t_host = time.perf_counter()
     tier = host_tier_vs_plain(cfg, n_logical, cuda, probe["cycles_per_load"],
                               max_sm_mhz)
@@ -2527,6 +2934,8 @@ def main() -> int:
     emit({"phase": "search", **search})
     emit({"phase": "host_tier_wall", "s": time.perf_counter() - t_host})
 
+    wall("3c host tier and search")
+
     # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
           "libraries": {name: {"build_s": lib.build_s,
@@ -2534,12 +2943,25 @@ def main() -> int:
                                **lib.ptxas()}
                         for name, lib in serve_libs}})
     kernels = serve_kernels_vs_plain(cuda)
+    wall("5 serving kernels vs plain")
     by_path = {SERVE_ARCHS[0]: serve_main_path(cuda, SERVE_ARCHS[0])}
     torch.cuda.empty_cache()
+    wall("6 gemma-2b")
     kernels["ssd_intra"] = ssd_kernel_vs_plain(cuda)
     for arch in SERVE_ARCHS[1:]:
         by_path[arch] = serve_main_path(cuda, arch)
         torch.cuda.empty_cache()
+        wall(f"8 {arch}")
+
+    # ---- 9. the MoE paths: deepseek-v2-lite (MLA over the int4 latent),
+    # then one arctic layer (its weights drawn after deepseek's are freed)
+    t_moe = time.perf_counter()
+    for arch, layers, policies in MOE_ARCHS:
+        by_path[arch] = serve_main_path(cuda, arch, layers, policies)
+        torch.cuda.empty_cache()
+        wall(f"9 {arch}")
+    emit({"phase": "moe_wall", "s": time.perf_counter() - t_moe})
+    emit({"phase": "walls", "s_from_start": walls})
 
     # ---- the kernel table, then the contract's last line ----
     paper = sweeps["paper_warm"]["line"]
@@ -2602,7 +3024,8 @@ def main() -> int:
         "main_path_ms": hc_line["tier_ms"],
         "main_path_ssd_step_ms": hc_line["kernel_ms"],
         "search_launches": search["tier_launches"]})
-    for name in ("ips_repack", "tiered_decode", "flash_fwd", "ssd_intra"):
+    for name in ("ips_repack", "tiered_decode", "latent_decode",
+                 "flash_fwd", "ssd_intra"):
         # launches and main-path times: every serving path that runs it
         paths = {arch: v["kernels"][name] for arch, v in by_path.items()
                  if v["kernels"][name]["launches"]}

@@ -1,7 +1,7 @@
 """Tiered KV-cache arena layout (the port of the reference's
-`repro/core/tiercache/layout.py`, GQA channels).
+`repro/core/tiercache/layout.py`: the `gqa` and `mla` kinds).
 
-Two tiers per cache channel (k, v):
+Two tiers per cache channel (k, v, or MLA's latent):
 
 * dense tier — packed int4 + groupwise bf16 scales, absolute-indexed
   positions [0, dense_len). The TLC analogue.
@@ -13,7 +13,10 @@ An "in-place switch" (repack) converts the oldest hot pages to int4 at
 the dense watermark and slides the hot window (manager.py). All state is
 a flat dict of tensors with a leading layer dimension, plus the scalars
 `dense_len` / `total_len`, which the port keeps on the host as ints.
-The MLA and encoder-decoder channels wait for their slices.
+Raw channels (MLA's RoPE key) follow the same dense/hot split without
+quantization, in one buffer: the dense region [0, s_dense) at absolute
+positions, the hot region from s_dense. The encoder-decoder channels
+wait for their slice.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from repro_torch.kernels.ips_repack import ops as repack_ops
 
 __all__ = ["TierSpec", "QUANT_CHANNELS", "RAW_CHANNELS", "gqa_layer_zeros",
-           "split_for_prefill", "fill_quant_channels"]
+           "mla_layer_zeros", "split_for_prefill", "fill_quant_channels",
+           "fill_raw_channel"]
 
 
 @dataclass(frozen=True)
@@ -46,9 +50,11 @@ class TierSpec:
 # channels; single-buffer names for raw channels.
 QUANT_CHANNELS = {
     "gqa": (("k4", "k4_sc", "kh"), ("v4", "v4_sc", "vh")),
+    "mla": (("c4", "c4_sc", "ch"),),
 }
 RAW_CHANNELS = {
     "gqa": (),
+    "mla": ("krope",),
 }
 
 
@@ -65,6 +71,22 @@ def gqa_layer_zeros(n_slots, b, spec: TierSpec, hkv, hd,
             "v4_sc": z(spec.s_dense, hd // g, sc_dtype),
             "kh": z(spec.hot_window, hd, torch.bfloat16),
             "vh": z(spec.hot_window, hd, torch.bfloat16)}
+
+
+def mla_layer_zeros(n_slots, b, spec: TierSpec, rank, rope_dim,
+                    sc_dtype=torch.bfloat16, device="cuda"):
+    g = spec.group
+
+    def z(s, f, dt):
+        return torch.zeros((n_slots, b, s, f), dtype=dt, device=device)
+
+    return {"c4": z(spec.s_dense, rank // 2, torch.uint8),
+            "c4_sc": z(spec.s_dense, rank // g, sc_dtype),
+            "ch": z(spec.hot_window, rank, torch.bfloat16),
+            # raw channel: dense region [0, s_dense) absolute + hot
+            # [s_dense, s_dense + W)
+            "krope": z(spec.s_dense + spec.hot_window, rope_dim,
+                       torch.bfloat16)}
 
 
 def split_for_prefill(s: int, spec: TierSpec):
@@ -97,4 +119,22 @@ def fill_quant_channels(buffers, channels, values, spec: TierSpec):
     if tail:
         for v, (_, _, hot) in zip(values, channels):
             buffers[hot][:, :, :tail] = v[:, :, w0:].to(buffers[hot].dtype)
+    return buffers, w0
+
+
+def fill_raw_channel(buffers, name, values, spec: TierSpec):
+    """Raw (unquantized) channel: values (n_slots, B, S, feat) -> the
+    dense part at absolute positions, the hot part from s_dense; in place.
+    Returns (buffers, w0)."""
+    s = values.shape[2]
+    w0, tail = split_for_prefill(s, spec)
+    buf = buffers[name]
+    if w0 > spec.s_dense or spec.s_dense + tail > buf.shape[2]:
+        raise ValueError(f"a prefill of {s} tokens does not fit the raw "
+                         f"channel {name} ({buf.shape[2]} rows)")
+    if w0:
+        buf[:, :, :w0] = values[:, :, :w0].to(buf.dtype)
+    if tail:
+        buf[:, :, spec.s_dense:spec.s_dense + tail] = values[:, :, w0:].to(
+            buf.dtype)
     return buffers, w0

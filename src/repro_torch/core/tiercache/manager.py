@@ -1,6 +1,6 @@
 """Tiered-cache manager: append, in-place switch (repack), policy ticks
 and traffic metrics (the port of the reference's
-`repro/core/tiercache/manager.py`, GQA channels).
+`repro/core/tiercache/manager.py`: the `gqa` and `mla` kinds).
 
 Caches are flat dicts of tensors with a leading layer dimension plus the
 watermarks `dense_len` / `total_len`. The reference traces both repack
@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.tiercache.layout import QUANT_CHANNELS, TierSpec
+from repro_torch.core.tiercache.layout import (QUANT_CHANNELS, RAW_CHANNELS,
+                                               TierSpec)
 from repro_torch.core.tiercache.policy import Policy, plan_for
 from repro_torch.kernels.ips_repack import ops as repack_ops
 from repro_torch.kernels.ips_repack.ref import update_start
@@ -55,9 +56,11 @@ def _update_dim2(buf, update, idx: int) -> None:
 def repack_pages(layers, kind, spec: TierSpec, dense_len: int, n_pages: int,
                  staging_copy: bool):
     """Move the oldest n_pages*page_tokens hot tokens into the dense tier,
-    in place: every channel quantized straight from the hot tier into its
+    in place: every quantized channel straight from the hot tier into its
     dense tier at the watermark in one `ips_repack` launch, then each hot
-    window rolled. Returns (layers, read_bytes, write_bytes)."""
+    window rolled; a raw channel's first hot tokens copied to the
+    watermark, then its hot region rolled. Returns (layers, read_bytes,
+    write_bytes)."""
     t = n_pages * spec.page_tokens
     chans = QUANT_CHANNELS[kind]
     vals = [layers[hot][:, :, :t] for (_, _, hot) in chans]
@@ -75,16 +78,32 @@ def repack_pages(layers, kind, spec: TierSpec, dense_len: int, n_pages: int,
         # the reference rolls into a new buffer; the port rolls into a
         # temporary and copies back into the same storage
         layers[hot].copy_(torch.roll(layers[hot], -t, dims=2))
+    for name in RAW_CHANNELS[kind]:
+        buf = layers[name]
+        hs, w = spec.s_dense, spec.hot_window
+        # a copy first, as the reference slices before it updates
+        moved = buf[:, :, hs:hs + t].clone()
+        _update_dim2(buf, moved, dense_len)
+        hot = buf[:, :, hs:hs + w]
+        hot.copy_(torch.roll(hot, -t, dims=2))
+        read_b += _nbytes(moved.shape, buf.dtype)
+        write_b += (_nbytes(moved.shape, buf.dtype)
+                    * (2.0 if staging_copy else 1.0))
     return layers, read_b, write_b
 
 
 def _append_token(layers, kind, spec: TierSpec, kv_new, hot_idx: int):
     """kv_new: tuple of (n_slots, B, 1, ...) matching the kind's
-    channels."""
+    channels, the quantized ones first, then the raw ones (written at
+    s_dense + hot_idx)."""
     write_b = 0.0
-    for (pk, sc, hot), val in zip(QUANT_CHANNELS[kind], kv_new):
+    quant = QUANT_CHANNELS[kind]
+    for (pk, sc, hot), val in zip(quant, kv_new[:len(quant)]):
         _update_dim2(layers[hot], val, hot_idx)
         write_b += _nbytes(val.shape, layers[hot].dtype)
+    for name, val in zip(RAW_CHANNELS[kind], kv_new[len(quant):]):
+        _update_dim2(layers[name], val, spec.s_dense + hot_idx)
+        write_b += _nbytes(val.shape, layers[name].dtype)
     return layers, write_b
 
 

@@ -120,20 +120,29 @@ _W = ("bfloat16", "float32")
 _F32 = ("float32",)
 _MAMBA = {"in_proj": _W, "conv_w": _W, "conv_b": _W, "A_log": _F32,
           "D": _F32, "dt_bias": _F32, "norm": _W, "out_proj": _W}
-_ATTN = {k: _W for k in ("wq", "wk", "wv", "wo")}
+# GQA's {wq, wk, wv, wo} and MLA's {wq, w_dkv, w_uk, w_uv, wo, kv_norm}
+_ATTN = {k: _W for k in ("wq", "wk", "wv", "wo", "w_dkv", "w_uk", "w_uv",
+                         "kv_norm")}
 _MLP = {k: _W for k in ("w_gate", "w_up", "w_down")}
-# the parameter trees of the dense, ssm and hybrid families: leaf name ->
-# the dtypes it may have
+_MOE = {"router": _F32, "w_gate": _W, "w_up": _W, "w_down": _W,
+        "shared": _MLP, "dense_residual": _MLP}
+_LAYERS = {"ln1": _W, "ln2": _W, "attn": _ATTN, "mlp": _MLP, "moe": _MOE,
+           "ln": _W, "mamba": _MAMBA}
+# the parameter trees of the dense, moe, ssm and hybrid families: leaf
+# name -> the dtypes it may have
 _MODEL_LEAVES = {
     "embed": _W, "final_norm": _W, "unembed": _W,
-    "layers": {"ln1": _W, "ln2": _W, "attn": _ATTN, "mlp": _MLP,
-               "ln": _W, "mamba": _MAMBA},
+    "first_dense": _LAYERS, "layers": _LAYERS,
     "macro": {"ln": _W, "mamba": _MAMBA},
     "tail": {"ln": _W, "mamba": _MAMBA},
     "shared": {"attn": _ATTN, "mlp": _MLP, "ln1": _W, "ln2": _W}}
+# the gqa tiers {k4, k4_sc, v4, v4_sc, kh, vh} and the mla tiers {c4,
+# c4_sc, ch, krope}
 _TIER_LEAVES = {"k4": ("uint8",), "v4": ("uint8",), "k4_sc": _W,
-                "v4_sc": _W, "kh": ("bfloat16",), "vh": ("bfloat16",)}
-# the caches: "layers" (gqa) or "attn" (hybrid) hold the tiers; the
+                "v4_sc": _W, "kh": ("bfloat16",), "vh": ("bfloat16",),
+                "c4": ("uint8",), "c4_sc": _W, "ch": ("bfloat16",),
+                "krope": ("bfloat16",)}
+# the caches: "layers" (gqa, mla) or "attn" (hybrid) hold the tiers; the
 # Mamba2 states are conv (bf16) and ssm (float32)
 _CACHE_LEAVES = {"layers": _TIER_LEAVES, "attn": _TIER_LEAVES,
                  "conv": ("bfloat16",), "ssm": _F32,
@@ -149,7 +158,7 @@ def _tree(name, tree, schema, device):
         path = f"{name}/{key}" if name else key
         if key not in schema:
             raise ValueError(f"{path}: the port does not hold this leaf "
-                             "(the dense, ssm and hybrid families cross)")
+                             "(the dense, moe, ssm and hybrid families cross)")
         if isinstance(schema[key], dict):
             out[key] = _tree(path, x, schema[key], device)
         else:
@@ -158,14 +167,14 @@ def _tree(name, tree, schema, device):
 
 
 def model_params_from_jax(tree, *, device="cuda"):
-    """The reference's parameter tree of a dense, ssm or hybrid model
+    """The reference's parameter tree of a dense, moe, ssm or hybrid model
     (numpy leaves) as the port's tree of tensors on `device`."""
     return _tree("", tree, _MODEL_LEAVES, device)
 
 
 def cache_from_jax(tree, *, device="cuda"):
-    """A reference serving cache (numpy leaves): the tiered gqa cache
-    ({"layers", "dense_len", "total_len"}), the ssm states ({"conv",
+    """A reference serving cache (numpy leaves): the tiered gqa or mla
+    cache ({"layers", "dense_len", "total_len"}), the ssm states ({"conv",
     "ssm", ...}) or the hybrid's ({"attn", "macro_conv", "macro_ssm",
     "tail_conv", "tail_ssm", ...}), as the port's: tensors on `device`,
     the watermarks as ints."""

@@ -82,13 +82,16 @@ def flash_fwd_chunks(q, k, v, qf, q_positions, kv_positions, kv_valid,
     return acc / l_safe[..., None], m + torch.log(l_safe)
 
 
-def flash_ref(q, k, v, *, chunk: int = 256):
-    """q: (B, S, H, hd); k/v: (B, S, Hkv, hd); causal, positions 0..S-1.
-    Returns (out (B, H, S, hd) float32, lse (B, H, S) float32)."""
+def flash_ref(q, k, v, *, chunk: int = 256, scale=None):
+    """q: (B, S, H, hd); k: (B, S, Hkv, hd); v: (B, S, Hkv, hd_v); causal,
+    positions 0..S-1; scores scaled by `scale` (default 1/sqrt(hd)).
+    Returns (out (B, H, S, hd_v) float32, lse (B, H, S) float32)."""
     s = q.shape[1]
     chunk = min(chunk, s)
     pos = torch.arange(s, dtype=torch.int32, device=q.device)
-    qf = q.to(torch.float32) * (1.0 / (q.shape[-1] ** 0.5))
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    qf = q.to(torch.float32) * scale
     pad = (-s) % chunk
     kv_valid = None
     kv_pos = pos

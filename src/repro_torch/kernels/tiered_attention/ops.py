@@ -1,5 +1,6 @@
-"""Wrapper of the `tiered_decode` CUDA kernel (`csrc/tiered_decode.cu`),
-and the full tiered decode attention around it.
+"""Wrappers of the `tiered_decode` CUDA kernel (`csrc/tiered_decode.cu`)
+and of its latent form (`csrc/latent_decode.cu`), and the full tiered
+decode attention around each.
 
 `dense_tier_partial` computes the int4 dense tier's online-softmax
 partials: for tensors on a CUDA device it launches the kernel or raises;
@@ -7,7 +8,10 @@ tensors on the CPU go to the plain version, `ref.dense_tier_partial_ref`.
 Nothing falls back. `tiered_decode_attention` merges that partial with
 the bf16 hot tail's and the current token's, which stay plain PyTorch
 (as in the reference's `tiered_attention/ops.py`: the tail is at most a
-few thousand tokens).
+few thousand tokens). `latent_tier_partial` and `latent_decode_attention`
+are the same for MLA's absorbed decode (one int4 latent serving as key
+and value of every head, plus a raw bf16 RoPE key); its plain version is
+`ref.latent_tier_partial_ref`.
 """
 from __future__ import annotations
 
@@ -22,11 +26,14 @@ from repro_torch.kernels.tiered_attention import ref
 from repro_torch.kernels.tiered_attention.ref import merge_partials
 
 __all__ = ["dense_tier_partial", "tiered_decode_attention",
-           "merge_partials", "split_plan", "LIB", "LAUNCHER", "reset",
-           "SOURCE"]
+           "latent_tier_partial", "latent_decode_attention",
+           "merge_partials", "split_plan", "latent_split_plan", "LIB",
+           "LAUNCHER", "LATENT_LIB", "LATENT_LAUNCHER", "reset", "SOURCE",
+           "LATENT_SOURCE"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "tiered_decode.cu")
+LATENT_SOURCE = os.path.join(os.path.dirname(SOURCE), "latent_decode.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_G = 16
 # blocks of 128 threads the split is sized for: eight on each of the
@@ -43,13 +50,31 @@ def _bind(lib) -> None:
     lib.tiered_dense_partial.restype = i
 
 
+def _bind_latent(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.latent_tier_partial.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                        i, i, i, i, i, i, i, i, i, i,
+                                        ctypes.c_float, p]
+    lib.latent_tier_partial.restype = i
+
+
 LIB = Library("tiered_decode", SOURCE, BASE_FLAGS + LINK_FLAGS, _bind)
 LAUNCHER = Launcher(LIB, "tiered_decode")
+LATENT_LIB = Library("latent_decode", LATENT_SOURCE,
+                     BASE_FLAGS + LINK_FLAGS, _bind_latent)
+LATENT_LAUNCHER = Launcher(LATENT_LIB, "latent_decode")
+# the latent form's limits (csrc/latent_decode.cu)
+LATENT_MAX_H = 16
+LATENT_MAX_R = 512
+LATENT_ROPE_DIMS = (16, 32, 64)
+# blocks the latent split is sized for: one a SM (two fit)
+LATENT_TARGET_BLOCKS = 132
 
 
 def reset() -> None:
-    """Zero the launch count and drop the recorded launch events."""
+    """Zero the launch counts and drop the recorded launch events."""
     LAUNCHER.reset()
+    LATENT_LAUNCHER.reset()
 
 
 def split_plan(dense_len: int, b: int, hkv: int, g: int):
@@ -170,3 +195,112 @@ def tiered_decode_attention(q, lc, dense_len: int, total_len: int, k_new,
     self_p = _bf16_partial(qg, k_new, v_new, self_valid)
     out, _, _ = merge_partials([dense, hot, self_p])        # (B,Hkv,G,hd)
     return out.reshape(b, 1, h, hd)
+
+
+def latent_split_plan(dense_len: int, b: int):
+    """(tokens a block, number of splits) of the latent kernel's split of
+    [0, dense_len): a multiple of its 32-token tile, so that B * splits
+    comes near LATENT_TARGET_BLOCKS, and at most MAX_SPLITS splits; one
+    split (empty) when dense_len is 0."""
+    def up(n, m):
+        return -(-n // m) * m
+    tokens = max(32, up(-(-dense_len * b // LATENT_TARGET_BLOCKS), 32),
+                 up(-(-dense_len // MAX_SPLITS), 32))
+    return tokens, max(1, -(-dense_len // tokens))
+
+
+def latent_tier_partial(q_lat, q_rope, c4, c4_sc, krope, dense_len: int, *,
+                        group: int = 64, scale: float = 1.0):
+    """The contract of `ref.latent_tier_partial_ref`: q_lat (B, H, r) and
+    q_rope (B, H, p) float32; c4 (B, S, r//2) uint8, c4_sc (B, S,
+    r//group) bf16; krope (B, S_raw, p) bf16 with S_raw >= S, its first
+    dense_len rows the dense tokens. Returns float32 (m (B, H), l (B, H),
+    acc (B, H, r)) over tokens [0, dense_len)."""
+    dense_len = int(dense_len)
+    if q_lat.device.type == "cpu":
+        return ref.latent_tier_partial_ref(q_lat, q_rope, c4, c4_sc, krope,
+                                           dense_len, group, scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"latent_decode: no kernel for device "
+                         f"{q_lat.device}")
+    if q_lat.dim() != 3 or q_rope.dim() != 3 or c4.dim() != 3 or (
+            krope.dim() != 3):
+        raise ValueError("latent_decode: q_lat must be (B, H, r), q_rope "
+                         "(B, H, p), c4 (B, S, r//2) and krope (B, S_raw, "
+                         "p)")
+    b, h, r = q_lat.shape
+    p = q_rope.shape[2]
+    s, s_raw = c4.shape[1], krope.shape[1]
+    if not 1 <= h <= LATENT_MAX_H:
+        raise ValueError(f"latent_decode: {h} heads; the kernel takes "
+                         f"1..{LATENT_MAX_H}")
+    if r % 64 or not 64 <= r <= LATENT_MAX_R:
+        raise ValueError(f"latent_decode: rank {r}; the kernel takes a "
+                         f"multiple of 64 up to {LATENT_MAX_R}")
+    if p not in LATENT_ROPE_DIMS:
+        raise ValueError(f"latent_decode: rope dim {p}; the kernel takes "
+                         f"{LATENT_ROPE_DIMS}")
+    if group < 2 or group % 2 or r % group:
+        raise ValueError(f"latent_decode: group {group} does not divide "
+                         f"rank {r} in even groups")
+    if not 0 <= dense_len <= s or s_raw < s:
+        raise ValueError(f"latent_decode: dense_len {dense_len} outside "
+                         f"[0, {s}] or krope shorter ({s_raw}) than the "
+                         "tier")
+    if b > 65535:
+        raise ValueError(f"latent_decode: batch {b}; the grid takes at "
+                         "most 65535")
+    dev = q_lat.device
+    check("latent_decode", "q_lat", q_lat, torch.float32, (b, h, r), dev)
+    check("latent_decode", "q_rope", q_rope, torch.float32, (b, h, p), dev)
+    check("latent_decode", "c4", c4, torch.uint8, (b, s, r // 2), dev)
+    check("latent_decode", "c4_sc", c4_sc, torch.bfloat16,
+          (b, s, r // group), dev)
+    check("latent_decode", "krope", krope, torch.bfloat16, (b, s_raw, p),
+          dev)
+    m = torch.empty((b, h), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h), dtype=torch.float32, device=dev)
+    acc = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    tokens, splits = latent_split_plan(dense_len, b)
+    parts = (None, None, None)
+    if splits > 1:                   # each split's partial, then the merge
+        parts = tuple(torch.empty((b, splits, h) + extra,
+                                  dtype=torch.float32, device=dev)
+                      for extra in ((), (), (r,)))
+    LATENT_LAUNCHER.launch(
+        "latent_tier_partial",
+        (q_lat.data_ptr(), q_rope.data_ptr(), c4.data_ptr(),
+         c4_sc.data_ptr(), krope.data_ptr(), m.data_ptr(), l.data_ptr(),
+         acc.data_ptr(),
+         *(None if t is None else t.data_ptr() for t in parts),
+         b, s, s_raw, h, r, p, group, dense_len, tokens, splits,
+         float(scale)), dev)
+    return m, l, acc
+
+
+def latent_decode_attention(q_lat, q_rope, lc, dense_len: int,
+                            total_len: int, c_new, kr_new, *,
+                            group: int = 64, scale: float = 1.0):
+    """MLA's absorbed decode attention over one layer's tiered latent
+    cache. q_lat (B, H, r) and q_rope (B, H, p) float32; lc {c4, c4_sc,
+    ch, krope} (`layout.mla_layer_zeros`: krope's dense rows at absolute
+    positions, its hot rows from s_dense); c_new (B, 1, r) and kr_new (B,
+    1, p), the current token. Returns the (B, H, r) float32 context in
+    the latent (before W_uv)."""
+    s_dense, w = lc["c4"].shape[1], lc["ch"].shape[1]
+    dense = latent_tier_partial(q_lat, q_rope, lc["c4"], lc["c4_sc"],
+                                lc["krope"], dense_len, group=group,
+                                scale=scale)
+    hot_valid = (dense_len + torch.arange(w, device=q_lat.device)
+                 < total_len)
+    hot = ref.latent_partial(q_lat, q_rope, lc["ch"],
+                             lc["krope"][:, s_dense:s_dense + w], hot_valid,
+                             scale)
+    # the current token as the cache holds it (the reference appends it
+    # cast to the cache's dtype)
+    self_valid = torch.ones((1,), dtype=torch.bool, device=q_lat.device)
+    self_p = ref.latent_partial(q_lat, q_rope, c_new.to(lc["ch"].dtype),
+                                kr_new.to(lc["krope"].dtype), self_valid,
+                                scale)
+    out, _, _ = merge_partials([dense, hot, self_p])
+    return out

@@ -4,7 +4,9 @@ partial (the port of the reference's
 
 The partial is the online-softmax statistics (m, l, acc) of one decode
 query per KV head against the int4 tier only; `ops.py` merges them with
-the bf16 hot tail and the current token.
+the bf16 hot tail and the current token. `latent_tier_partial_ref` is
+the same partial for MLA's absorbed decode: every query head against
+the one int4 latent (key and value at once) plus a raw bf16 RoPE key.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 
 from repro_torch.core.tiercache.quant import dequantize_int4
 
-__all__ = ["NEG_INF", "dense_tier_partial_ref", "merge_partials",
+__all__ = ["NEG_INF", "dense_tier_partial_ref", "latent_partial",
+           "latent_tier_partial_ref", "merge_partials",
            "split_partials_ref", "merge_splits"]
 
 NEG_INF = -1e30
@@ -39,6 +42,38 @@ def dense_tier_partial_ref(q, k4, k4_sc, v4, v4_sc, dense_len: int,
     l = p.sum(dim=-1)
     acc = torch.einsum("bkgs,bskd->bkgd", p, v)
     return m, l, acc
+
+
+def latent_partial(q_lat, q_rope, c, k_rope, valid, scale: float):
+    """MLA's partial over bf16 (or float32) latent tokens: q_lat (B, H, r)
+    and q_rope (B, H, p) float32; c (B, T, r) and k_rope (B, T, p); valid
+    (T,) or (B, T) bool. s = (q_lat . c + q_rope . k_rope) * scale; the
+    latent is the value too. Returns float32 (m (B, H), l (B, H), acc (B,
+    H, r))."""
+    cf = c.to(torch.float32)
+    scores = (torch.einsum("bhr,btr->bht", q_lat, cf)
+              + torch.einsum("bhp,btp->bht", q_rope,
+                             k_rope.to(torch.float32))) * scale
+    mask = valid[None, None, :] if valid.dim() == 1 else valid[:, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    return m, p.sum(dim=-1), torch.einsum("bht,btr->bhr", p, cf)
+
+
+def latent_tier_partial_ref(q_lat, q_rope, c4, c4_sc, krope, dense_len: int,
+                            group: int = 64, scale: float = 1.0):
+    """The latent form's contract: q_lat (B, H, r) and q_rope (B, H, p)
+    float32, holding bf16-rounded values; c4 (B, S, r//2) uint8 and c4_sc
+    (B, S, r//group); krope (B, S_raw, p) bf16, whose first dense_len rows
+    are the dense tokens at their absolute positions. The latent is
+    dequantized to bf16, as the serving path's `dequantize_int4` rounds
+    it. Returns float32 (m (B, H), l (B, H), acc (B, H, r)) over tokens
+    [0, dense_len); an empty tier gives m = -1e30, l = 0, acc = 0."""
+    s = c4.shape[1]
+    c = dequantize_int4(c4, c4_sc, group, torch.bfloat16)
+    valid = torch.arange(s, device=q_lat.device) < dense_len
+    return latent_partial(q_lat, q_rope, c, krope[:, :s], valid, scale)
 
 
 def merge_partials(parts):

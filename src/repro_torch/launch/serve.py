@@ -4,9 +4,13 @@ metrics (WA analogue, stalls). The port of the reference's
 `repro/launch/serve.py`, with the same flags plus `--device` and
 `--seed`; weights and prompts are random, drawn from the seed.
 
-Usage (`--arch` takes a dense, ssm or hybrid config; for an ssm model,
-which has no KV cache, the policy changes nothing):
+Usage (`--arch` takes a dense, moe, ssm or hybrid config; for an ssm
+model, which has no KV cache, the policy changes nothing):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b \\
+      --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --reduced --device cpu

@@ -88,7 +88,8 @@ def attend_chunked(q, k, v, *, q_positions, kv_positions, kv_valid=None,
 
 
 def _project(x, w):
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+    """einsum("bsd,dhk->bshk") as one matrix product (MLA's latent
+    up-projections, "bsr,rhn->bshn", too)."""
     d = w.shape[0]
     return (x @ w.reshape(d, -1)).reshape(*x.shape[:-1], *w.shape[1:])
 

@@ -1,12 +1,13 @@
 """Model API of the serving path (the port of the reference's
-`repro/models/model_zoo.py`: the dense, ssm and hybrid families).
+`repro/models/model_zoo.py`: the dense, moe, ssm and hybrid families).
 
 ModelBundle exposes init / prefill / decode / decode-cache builders and
 the tiered-cache kind, so the serve engine is model-agnostic (the loss
 waits for the training slice). The port runs the `dense` family
-(gemma-2b and the other dense configs), `ssm` (mamba2-370m) and
-`hybrid` (zamba2-1.2b); the others raise, naming the slice that brings
-them.
+(gemma-2b and the other dense configs), `moe` (deepseek-v2-lite-16b with
+MLA attention and the `mla` cache kind, arctic-480b with GQA), `ssm`
+(mamba2-370m) and `hybrid` (zamba2-1.2b); the others raise, naming the
+slice that brings them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiercache.layout import (QUANT_CHANNELS, TierSpec,
                                                fill_quant_channels,
+                                               fill_raw_channel,
                                                gqa_layer_zeros,
+                                               mla_layer_zeros,
                                                split_for_prefill)
 from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import transformer as tx
@@ -26,14 +29,13 @@ from repro_torch.models import transformer as tx
 __all__ = ["ModelBundle", "default_tier_spec", "build_model",
            "make_train_batch"]
 
-_WAITING = {"moe": "the MoE slice", "vlm": "the VLM slice",
-            "audio": "the encoder-decoder slice"}
+_WAITING = {"vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
 
 
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ArchConfig
-    cache_kind: str                     # gqa | ssm | hybrid (mla | encdec_self later)
+    cache_kind: str                     # gqa | mla | ssm | hybrid (encdec_self later)
     init: Callable                      # generator -> params
     prefill: Callable                   # (params, batch, spec) -> (cache, logits)
     decode: Callable                    # (params, token, cache, spec) -> (logits, kv_new)
@@ -46,21 +48,37 @@ def default_tier_spec(seq_len: int, hot_window: int = 1024,
                     page_tokens=page_tokens, group=group)
 
 
-def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+def _tx_bundle(cfg: ArchConfig, moe_dispatch: str, attn_chunk: int,
+               device) -> ModelBundle:
+    is_mla = cfg.mla is not None
+    kind = "mla" if is_mla else "gqa"
+
     def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
-        layers = gqa_layer_zeros(cfg.num_layers, b, spec, cfg.num_kv_heads,
-                                 cfg.head_dim, device=device)
+        if is_mla:
+            layers = mla_layer_zeros(cfg.num_layers, b, spec,
+                                     cfg.mla.kv_lora_rank,
+                                     cfg.mla.qk_rope_head_dim, device=device)
+        else:
+            layers = gqa_layer_zeros(cfg.num_layers, b, spec,
+                                     cfg.num_kv_heads, cfg.head_dim,
+                                     device=device)
         w0, _ = split_for_prefill(seq_len, spec)
         return {"layers": layers, "total_len": seq_len, "dense_len": w0}
 
     def prefill(params, batch, spec: TierSpec):
-        hidden, _, (k, v) = tx.lm_hidden(params, cfg, batch["tokens"],
-                                         attn_chunk=attn_chunk,
-                                         collect_kv=True)
+        hidden, _, kvs = tx.lm_hidden(params, cfg, batch["tokens"],
+                                      moe_dispatch=moe_dispatch,
+                                      attn_chunk=attn_chunk, collect_kv=True)
         b, s = hidden.shape[:2]
         layers = make_decode_cache(b, 0, spec, hidden.device)["layers"]
-        layers, w0 = fill_quant_channels(layers, QUANT_CHANNELS["gqa"],
-                                         (k, v), spec)
+        if is_mla:
+            c_kv, k_rope = kvs
+            layers, w0 = fill_quant_channels(layers, QUANT_CHANNELS["mla"],
+                                             (c_kv,), spec)
+            layers, _ = fill_raw_channel(layers, "krope", k_rope, spec)
+        else:
+            layers, w0 = fill_quant_channels(layers, QUANT_CHANNELS["gqa"],
+                                             kvs, spec)
         cache = {"layers": layers, "total_len": s, "dense_len": w0}
         return cache, _last_logits(params, hidden)
 
@@ -68,7 +86,7 @@ def _tx_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
         g = spec.group if spec is not None else 64
         return tx.lm_decode_step(params, cfg, token, cache, quant_group=g)
 
-    return ModelBundle(cfg=cfg, cache_kind="gqa",
+    return ModelBundle(cfg=cfg, cache_kind=kind,
                        init=lambda gen: tx.init_lm(gen, cfg),
                        prefill=prefill, decode=decode,
                        make_decode_cache=make_decode_cache)
@@ -166,12 +184,14 @@ def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                        make_decode_cache=make_decode_cache)
 
 
-def build_model(cfg: ArchConfig, *, attn_chunk: int = 512,
-                device="cuda") -> ModelBundle:
+def build_model(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
+                attn_chunk: int = 512, device="cuda") -> ModelBundle:
     """The bundle of `cfg`; `make_decode_cache` allocates on `device`
-    unless told otherwise, and `prefill` beside its inputs."""
-    if cfg.family == "dense":
-        return _tx_bundle(cfg, attn_chunk, torch.device(device))
+    unless told otherwise, and `prefill` beside its inputs. A MoE
+    prefill dispatches by `moe_dispatch` (decode always by `gather`)."""
+    if cfg.family in ("dense", "moe"):
+        return _tx_bundle(cfg, moe_dispatch, attn_chunk,
+                          torch.device(device))
     if cfg.family == "ssm":
         return _ssm_bundle(cfg, torch.device(device))
     if cfg.family == "hybrid":

@@ -1,11 +1,14 @@
-"""Decoder-only LM assembly, dense family (the port of the reference's
-`repro/models/transformer.py`; MLA and MoE layers wait for their slices).
+"""Decoder-only LM assembly: the dense and MoE families, GQA or MLA
+attention (the port of the reference's `repro/models/transformer.py`).
 
 Per-layer params are stacked along a leading layer axis, as the
 reference's `lax.scan` keeps them; the port walks the layers in a Python
-loop. Decode consumes the tiered KV cache (dense int4 tier + hot bf16
-tail) through the `tiered_decode` kernel, with the dequantized tier
-rounded to bf16 as the reference's serving path rounds it.
+loop. A MoE config with `first_k_dense` keeps those leading layers apart
+(`first_dense`: the same attention, a dense FFN of `d_ff_first_dense`).
+Decode consumes the tiered KV cache (dense int4 tier + hot bf16 tail):
+GQA through the `tiered_decode` kernel, MLA's latent through its latent
+form, the dequantized tier rounded to bf16 as the reference's serving
+path rounds it; MoE layers dispatch by `gather` at decode.
 """
 from __future__ import annotations
 
@@ -13,42 +16,58 @@ import torch
 
 from repro_torch.kernels.tiered_attention.ops import tiered_decode_attention
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
                                        init_mlp, rms_norm)
 
-__all__ = ["init_lm", "unembed_matrix", "embed_tokens", "lm_hidden",
-           "gqa_decode_tiered", "lm_decode_step", "layer_params"]
+__all__ = ["init_lm", "unembed_matrix", "embed_tokens", "apply_layer",
+           "lm_hidden", "gqa_decode_tiered", "lm_decode_step",
+           "layer_params"]
 
 
-def _check_family(cfg) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention waits for the MLA slice "
-            "(deepseek-v2-lite)")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers wait for the "
-                                  "MoE slice")
+def _init_layers(gen, cfg, n: int, dense_ffn=None, dtype=torch.bfloat16):
+    """n stacked decoder layers: attention (MLA or GQA), ln1, ln2, and a
+    dense FFN of `dense_ffn` (deepseek's first layers), the MoE FFN, or
+    the config's dense FFN."""
+    d, dev = cfg.d_model, gen.device
+    attn = (mla_lib.init_mla(gen, cfg, dtype=dtype, n_stack=n)
+            if cfg.mla is not None else
+            attn_lib.init_attention(gen, cfg, dtype=dtype, n_stack=n))
+    params = {"attn": attn,
+              "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
+              "ln2": torch.zeros((n, d), dtype=dtype, device=dev)}
+    if dense_ffn is not None:
+        params["mlp"] = init_mlp(gen, d, dense_ffn, cfg.act, dtype,
+                                 n_stack=n)
+    elif cfg.moe is not None:
+        params["moe"] = moe_lib.init_moe_layer(gen, cfg, dtype=dtype,
+                                               n_stack=n)
+    else:
+        params["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, n_stack=n)
+    return params
 
 
 def init_lm(gen, cfg, dtype=torch.bfloat16):
     """Random parameters drawn from `gen` on its device, in the
-    reference's tree: embed, final_norm, layers {attn {wq, wk, wv, wo},
-    ln1, ln2, mlp {w_gate, w_up, w_down}} stacked over layers, and
-    unembed when the embeddings are not tied."""
-    _check_family(cfg)
-    n, d = cfg.num_layers, cfg.d_model
-    dev = gen.device
+    reference's tree: embed, final_norm, first_dense (MoE configs with
+    first_k_dense), layers {attn, ln1, ln2, mlp or moe} stacked over
+    layers, and unembed when the embeddings are not tied."""
+    m = cfg.moe
+    first_k = m.first_k_dense if m else 0
+    d = cfg.d_model
     params = {"embed": init_embedding(gen, cfg.vocab_size, d, dtype),
-              "final_norm": torch.zeros((d,), dtype=dtype, device=dev)}
-    params["layers"] = {
-        "attn": attn_lib.init_attention(gen, cfg, dtype=dtype, n_stack=n),
-        "ln1": torch.zeros((n, d), dtype=dtype, device=dev),
-        "ln2": torch.zeros((n, d), dtype=dtype, device=dev),
-        "mlp": init_mlp(gen, d, cfg.d_ff, cfg.act, dtype, n_stack=n)}
+              "final_norm": torch.zeros((d,), dtype=dtype,
+                                        device=gen.device)}
+    if first_k:
+        params["first_dense"] = _init_layers(
+            gen, cfg, first_k, dense_ffn=m.d_ff_first_dense, dtype=dtype)
+    params["layers"] = _init_layers(gen, cfg, cfg.num_layers - first_k,
+                                    dtype=dtype)
     if not cfg.tie_embeddings:
         params["unembed"] = (0.02 * torch.randn(
             (d, cfg.vocab_size), generator=gen, dtype=torch.float32,
-            device=dev)).to(dtype)
+            device=gen.device)).to(dtype)
     return params
 
 
@@ -73,35 +92,65 @@ def embed_tokens(params, cfg, tokens):
     return x
 
 
-def apply_layer(params, cfg, x, positions, *, attn_chunk=512):
-    """Full-sequence layer (prefill). Returns (x, (k, v))."""
+def apply_layer(params, cfg, x, positions, *, moe_dispatch="einsum",
+                attn_chunk=512):
+    """Full-sequence layer (prefill). Returns (x, aux, kv): kv is (k, v)
+    for GQA, (c_kv, k_rope) for MLA; aux the MoE layer's load-balance
+    loss, float32 0 for a dense FFN."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    a, kv = attn_lib.apply_attention(params["attn"], cfg, h, positions,
-                                     chunk=attn_chunk)
+    if cfg.mla is not None:
+        a, kv = mla_lib.apply_mla(params["attn"], cfg, h, positions,
+                                  chunk=attn_chunk)
+    else:
+        a, kv = attn_lib.apply_attention(params["attn"], cfg, h, positions,
+                                         chunk=attn_chunk)
     x = x + a
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + apply_mlp(params["mlp"], h, cfg.act), kv
+    if "moe" in params:
+        f, aux = moe_lib.apply_moe(params["moe"], cfg, h,
+                                   dispatch=moe_dispatch)
+    else:
+        f = apply_mlp(params["mlp"], h, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux, kv
 
 
-def lm_hidden(params, cfg, tokens, *, attn_chunk=512, collect_kv=False):
+def _stacks(params):
+    """(stacked layer params, count) in the order the layers run:
+    first_dense, then layers."""
+    return [(params[k], params[k]["ln1"].shape[0])
+            for k in ("first_dense", "layers") if k in params]
+
+
+def lm_hidden(params, cfg, tokens, *, moe_dispatch="einsum", attn_chunk=512,
+              collect_kv=False):
     """tokens (B, S) -> final hidden states.
 
-    Returns (hidden (B, S, D), aux_loss 0.0, kvs): kvs is (k, v), each
-    (L, B, S, Hkv, hd) after RoPE, when `collect_kv`, else None."""
-    _check_family(cfg)
+    Returns (hidden (B, S, D), aux_loss (float32: the first layers' sum
+    plus the rest's, each summed in layer order, as the reference's two
+    scans sum them), kvs): kvs is the per-layer cache pair stacked over
+    every layer, first layers first ((k, v) each (L, B, S, Hkv, hd) after
+    RoPE; MLA's (c_kv (L, B, S, r), k_rope (L, B, S, rope_dim))), when
+    `collect_kv`, else None."""
     x = embed_tokens(params, cfg, tokens)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    ks, vs = [], []
-    for i in range(params["layers"]["ln1"].shape[0]):
-        x, (k, v) = apply_layer(layer_params(params["layers"], i), cfg, x,
-                                positions, attn_chunk=attn_chunk)
-        if collect_kv:
-            ks.append(k)
-            vs.append(v)
+    kv0, kv1 = [], []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stacked, n in _stacks(params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n):
+            x, a, kv = apply_layer(layer_params(stacked, i), cfg, x,
+                                   positions, moe_dispatch=moe_dispatch,
+                                   attn_chunk=attn_chunk)
+            aux = aux + a
+            if collect_kv:
+                kv0.append(kv[0])
+                kv1.append(kv[1])
+        aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-    return x, 0.0, kvs
+    kvs = (torch.stack(kv0), torch.stack(kv1)) if collect_kv else None
+    return x, aux_total, kvs
 
 
 def gqa_decode_tiered(attn_params, cfg, x, positions, lc, dense_len: int,
@@ -122,27 +171,41 @@ def lm_decode_step(params, cfg, token, cache, *, quant_group=64):
     """One decode token against the tiered cache.
 
     token: (B, 1) int. cache: {"layers": tier dict with a leading layer
-    axis, "dense_len": int, "total_len": int}. Returns (logits (B, V)
-    float32, (k_new, v_new) stacked over layers, each (L, B, 1, Hkv,
-    hd)); appending and repacking are the tiercache manager's job."""
-    _check_family(cfg)
+    axis, "dense_len": int, "total_len": int}; the first_dense layers use
+    its leading slots. Returns (logits (B, V) float32, the new cache
+    pair stacked over layers: (k_new, v_new) each (L, B, 1, Hkv, hd), or
+    MLA's (c_new (L, B, 1, r), k_rope_new (L, B, 1, rope_dim))); appending
+    and repacking are the tiercache manager's job."""
     total_len, dense_len = int(cache["total_len"]), int(cache["dense_len"])
     x = embed_tokens(params, cfg, token)
     positions = torch.full((1,), total_len, dtype=torch.int32,
                            device=x.device)
-    k_news, v_news = [], []
-    for i in range(params["layers"]["ln1"].shape[0]):
-        lp = layer_params(params["layers"], i)
-        lc = layer_params(cache["layers"], i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, (k_new, v_new) = gqa_decode_tiered(
-            lp["attn"], cfg, hn, positions, lc, dense_len, total_len,
-            quant_group)
-        x = x + a
-        hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], hn, cfg.act)
-        k_news.append(k_new)
-        v_news.append(v_new)
+    new0, new1 = [], []
+    slot = 0
+    for stacked, n in _stacks(params):
+        for i in range(n):
+            lp = layer_params(stacked, i)
+            lc = layer_params(cache["layers"], slot)
+            slot += 1
+            hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            if cfg.mla is not None:
+                a, kv_new = mla_lib.apply_mla_decode(
+                    lp["attn"], cfg, hn, positions, lc, dense_len,
+                    total_len, quant_group)
+            else:
+                a, kv_new = gqa_decode_tiered(
+                    lp["attn"], cfg, hn, positions, lc, dense_len,
+                    total_len, quant_group)
+            x = x + a
+            hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            if "moe" in lp:
+                f, _ = moe_lib.apply_moe(lp["moe"], cfg, hn,
+                                         dispatch="gather")
+            else:
+                f = apply_mlp(lp["mlp"], hn, cfg.act)
+            x = x + f
+            new0.append(kv_new[0])
+            new1.append(kv_new[1])
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, 0] @ unembed_matrix(params)).to(torch.float32)
-    return logits, (torch.stack(k_news), torch.stack(v_news))
+    return logits, (torch.stack(new0), torch.stack(new1))

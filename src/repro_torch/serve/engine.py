@@ -1,6 +1,6 @@
 """Serving engine: prefill + greedy decode over the IPS tiered KV cache
-(the port of the reference's `repro/serve/engine.py`: the `gqa`, `ssm`
-and `hybrid` cache kinds).
+(the port of the reference's `repro/serve/engine.py`: the `gqa`, `mla`,
+`ssm` and `hybrid` cache kinds).
 
 serve_step = model decode + cache maintenance tick (append + policy-driven
 in-place switch). The tick is where the paper's four schemes differ:
@@ -45,12 +45,12 @@ def make_serve_step(bundle: ModelBundle, spec: TierSpec, policy: Policy):
     """Returns serve_step(params, cache, token, metrics) ->
     (next_token, logits, cache, metrics)."""
     kind = bundle.cache_kind
-    if kind not in ("gqa", "ssm", "hybrid"):
+    if kind not in ("gqa", "mla", "ssm", "hybrid"):
         raise NotImplementedError(f"cache kind {kind!r} waits for its slice")
 
     def serve_step(params, cache, token, metrics):
         logits, kv_new = bundle.decode(params, token, cache, spec)
-        if kind == "gqa":
+        if kind in ("gqa", "mla"):
             cache, metrics = serve_tick(cache, kind, spec, policy, kv_new,
                                         metrics)
         elif kind == "ssm":

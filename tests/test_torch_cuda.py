@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card:
-`ssd_step`, the serving path's `ips_repack`, `tiered_decode` and
-`flash_fwd`, and the Mamba2 path's `ssd_intra` (plus the reduced
-serving paths of gemma-2b, mamba2-370m and zamba2 through them).
+`ssd_step`, the serving path's `ips_repack`, `tiered_decode` (and its
+latent form, `latent_decode`) and `flash_fwd` (MLA's padded widths
+among its shapes), and the Mamba2 path's `ssd_intra` (plus the reduced
+serving paths of gemma-2b, mamba2-370m, zamba2, deepseek-v2-lite and
+arctic through them).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 and `nvcc`, and skips elsewhere. On a machine with a card:
@@ -12,6 +14,8 @@ and `nvcc`, and skips elsewhere. On a machine with a card:
 lengths and the serving shapes, then the whole paper grid and gemma-2b,
 mamba2-370m and zamba2-1.2b served at full size.)
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -607,7 +611,7 @@ from repro_torch.kernels.ips_repack.ref import (  # noqa: E402
     page_layout, quantize_into_ref, quantize_rows_ref, repack_ref)
 from repro_torch.kernels.tiered_attention import ops as tiered_ops  # noqa: E402
 from repro_torch.kernels.tiered_attention.ref import (  # noqa: E402
-    dense_tier_partial_ref)
+    dense_tier_partial_ref, latent_tier_partial_ref)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 
@@ -920,9 +924,35 @@ class TestFlashKernel:
                                           dtype=torch.bfloat16),) * 3)
         assert flash_ops.LIB.sass_count("HGMMA") > 0
 
+    @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                           (torch.float32, 2e-5)])
+    @pytest.mark.parametrize("s,h,hd,hd_v", [(2048, 16, 192, 128),
+                                             (333, 4, 48, 32),
+                                             (17, 2, 40, 40)])
+    def test_padded_widths_equal_plain_version(self, cuda, monkeypatch, s,
+                                               h, hd, hd_v, dtype, tol):
+        """Widths the kernel has no form for (MLA's prefill: q and k 192,
+        v 128, scale 1/sqrt(192)) run zero-padded to the next form (256)
+        and cut back."""
+        b = 2 if s < 2048 else 1
+        gen = _gen(hd * s + h)
+        q = _randn(gen, b, s, h, hd, dtype=dtype)
+        k = _randn(gen, b, s, h, hd, dtype=dtype)
+        v = _randn(gen, b, s, h, hd_v, dtype=dtype)
+        scale = 1.0 / hd ** 0.5
+        want = flash_ref(q, k, v, chunk=64, scale=scale)
+        _refuse_plain(monkeypatch, flash_ops, "flash_ref")
+        before = flash_ops.LAUNCHER.launches
+        out, lse = flash_ops.flash_fwd(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHER.launches == before + 1
+        assert out.shape == (b, h, s, hd_v)
+        torch.testing.assert_close(out, want[0], rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, want[1], rtol=tol, atol=tol)
+
     def test_refused_launches_raise(self, cuda):
-        q = torch.zeros((1, 16, 4, 48), device="cuda")
-        k = torch.zeros((1, 16, 2, 48), device="cuda")
+        q = torch.zeros((1, 16, 4, 288), device="cuda")
+        k = torch.zeros((1, 16, 2, 288), device="cuda")
         before = flash_ops.LAUNCHER.launches
         with pytest.raises(ValueError, match="head_dim"):
             flash_ops.flash_fwd(q, k, k)
@@ -1092,10 +1122,120 @@ class TestSsdIntraKernel:
         assert ssd_ops.LAUNCHER.launches == before + 1
 
 
+class TestLatentDecodeKernel:
+    """The latent form (MLA's absorbed decode over the int4 latent): its
+    partials within 2e-5 of max |output| of the plain version's, as
+    `chip_smoke.py` holds it."""
+
+    @staticmethod
+    def _tier(gen, b, s, h, r, p, group, extra=64):
+        c4, sc = quantize_rows_ref(_randn(gen, b * s, r, scale=2.0), group)
+        q_lat = _randn(gen, b, h, r, dtype=torch.bfloat16).float()
+        q_rope = _randn(gen, b, h, p, dtype=torch.bfloat16).float()
+        krope = _randn(gen, b, s + extra, p, dtype=torch.bfloat16)
+        return (q_lat, q_rope, c4.reshape(b, s, r // 2),
+                sc.reshape(b, s, r // group).to(torch.bfloat16), krope)
+
+    @staticmethod
+    def _close(got, want, label):
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            bound = 2e-5 * max(float(w.abs().max()), 1e-30)
+            err = float((a - w).abs().max())
+            assert err <= bound, f"{label} {name}: {err} > {bound}"
+
+    @pytest.mark.parametrize("dense_len", (0, 1, 255, 1536, 2048))
+    @pytest.mark.parametrize("b", (1, 4))
+    def test_deepseek_shape_equals_plain_version(self, cuda, monkeypatch, b,
+                                                 dense_len):
+        """B 1 and 4, H 16, r 512, p 64, group 64 over a 3200-token tier
+        (deepseek-v2-lite's decode)."""
+        tier = self._tier(_gen(b * 7 + dense_len), b, 3200, 16, 512, 64, 64)
+        scale = 1.0 / 192 ** 0.5
+        want = latent_tier_partial_ref(*tier, dense_len, 64, scale)
+        _refuse_plain(monkeypatch, tiered_ops, "latent_tier_partial_ref")
+        before = tiered_ops.LATENT_LAUNCHER.launches
+        got = tiered_ops.latent_tier_partial(*tier, dense_len, group=64,
+                                             scale=scale)
+        torch.cuda.synchronize()
+        assert tiered_ops.LATENT_LAUNCHER.launches == before + 1
+        self._close(got, want, f"B {b} dense_len {dense_len}")
+        if dense_len == 0:
+            assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
+            assert bool((got[2] == 0).all())
+
+    @pytest.mark.parametrize("b,s,h,r,p,group,dense_len", [
+        (2, 300, 4, 128, 32, 32, 299), (3, 100, 3, 192, 16, 6, 77),
+        (1, 70, 16, 64, 64, 2, 70), (2, 5000, 8, 256, 32, 64, 4999),
+        (2, 40, 1, 448, 16, 64, 33)])
+    def test_other_shapes_equal_plain_version(self, cuda, monkeypatch, b, s,
+                                              h, r, p, group, dense_len):
+        tier = self._tier(_gen(r + p + h), b, s, h, r, p, group)
+        want = latent_tier_partial_ref(*tier, dense_len, group, 0.125)
+        _refuse_plain(monkeypatch, tiered_ops, "latent_tier_partial_ref")
+        got = tiered_ops.latent_tier_partial(*tier, dense_len, group=group,
+                                             scale=0.125)
+        torch.cuda.synchronize()
+        self._close(got, want, f"r {r} p {p} H {h}")
+
+    def test_refused_launches_raise(self, cuda):
+        tier = self._tier(_gen(3), 1, 64, 4, 128, 32, 32)
+        before = tiered_ops.LATENT_LAUNCHER.launches
+        with pytest.raises(ValueError, match="dense_len"):
+            tiered_ops.latent_tier_partial(*tier, 65, group=32)
+        with pytest.raises(ValueError, match="rank"):
+            tiered_ops.latent_tier_partial(
+                tier[0][..., :96].contiguous(), tier[1],
+                tier[2][..., :48].contiguous(),
+                tier[3][..., :3].contiguous(), tier[4], 8, group=32)
+        with pytest.raises(ValueError, match="heads"):
+            tiered_ops.latent_tier_partial(
+                torch.zeros((1, 17, 128), device="cuda"),
+                torch.zeros((1, 17, 32), device="cuda"), *tier[2:], 8,
+                group=32)
+        with pytest.raises(TypeError, match="c4_sc"):
+            tiered_ops.latent_tier_partial(*tier[:3], tier[3].float(),
+                                           tier[4], 8, group=32)
+        assert tiered_ops.LATENT_LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        tier = self._tier(_gen(4), 1, 64, 4, 128, 32, 32)
+        before = tiered_ops.LATENT_LAUNCHER.launches
+        cpu = tiered_ops.latent_tier_partial(*(t.cpu() for t in tier), 20,
+                                             group=32)
+        assert cpu[0].device.type == "cpu"
+        assert tiered_ops.LATENT_LAUNCHER.launches == before
+        tiered_ops.latent_tier_partial(*tier, 20, group=32)
+        assert tiered_ops.LATENT_LAUNCHER.launches == before + 1
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+@contextlib.contextmanager
+def _routes(log, replay):
+    """Record the port's MoE routes (the card run) or replay them (the
+    CPU run): a near-tie that rounds the other way on the CPU would move
+    the logits for no fault of a kernel."""
+    from repro_torch.models import moe
+    orig = moe._routing
+    it = iter(list(log))
+
+    def route(router_w, x, m):
+        w, e, aux = orig(router_w, x, m)
+        if replay:
+            rw, re = next(it)
+            return rw.to(w.device), re.to(e.device), aux
+        log.append((w.cpu(), e.cpu()))
+        return w, e, aux
+
+    moe._routing = route
+    try:
+        yield
+    finally:
+        moe._routing = orig
 
 
 def _serve_on_both(cfg, prompt, steps, policy):
@@ -1113,25 +1253,28 @@ def _serve_on_both(cfg, prompt, steps, policy):
     launchers = {"ssd_intra": ssd_ops.LAUNCHER,
                  "flash_fwd": flash_ops.LAUNCHER,
                  "tiered_decode": tiered_ops.LAUNCHER,
+                 "latent_decode": tiered_ops.LATENT_LAUNCHER,
                  "ips_repack": repack_ops.LAUNCHER}
-    runs, launches = {}, None
+    runs, launches, routes = {}, None, []
     for dev in ("cuda", "cpu"):
         before = {k: v.launches for k, v in launchers.items()}
         bundle = build_model(cfg, device=dev)
         spec = make_tier_spec(bundle, prompt + steps, policy, hot_window=16,
                               page_tokens=8, group=16)
         p = _to(params, dev)
-        cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)}, spec)
-        step = make_serve_step(bundle, spec, policy)
-        metrics = zero_metrics()
-        token = torch.argmax(logits, -1).to(torch.int32)[:, None]
-        forced = runs["cuda"]["inputs"] if runs else None
-        inputs, seq = [], [logits.cpu()]
-        for i in range(steps):
-            tok = forced[i].to(dev) if forced else token
-            inputs.append(tok.cpu())
-            token, lg, cache, metrics = step(p, cache, tok, metrics)
-            seq.append(lg.cpu())
+        with _routes(routes, replay=dev == "cpu"):
+            cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)},
+                                           spec)
+            step = make_serve_step(bundle, spec, policy)
+            metrics = zero_metrics()
+            token = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            forced = runs["cuda"]["inputs"] if runs else None
+            inputs, seq = [], [logits.cpu()]
+            for i in range(steps):
+                tok = forced[i].to(dev) if forced else token
+                inputs.append(tok.cpu())
+                token, lg, cache, metrics = step(p, cache, tok, metrics)
+                seq.append(lg.cpu())
         runs[dev] = {"inputs": inputs, "logits": seq, "cache": cache,
                      "metrics": metrics}
         if dev == "cuda":
@@ -1180,3 +1323,30 @@ def test_mamba2_serving_paths_on_the_card(cuda, arch, layers):
             n_macro, _ = hybrid_structure(cfg)
             assert launches["flash_fwd"] == n_macro
             assert launches["tiered_decode"] == n_macro * 40
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
+def test_moe_serving_paths_on_the_card(cuda, arch):
+    """deepseek-v2-lite (MLA over the int4 latent: the latent form, its
+    rank widened to 128 so that the kernel takes it) and arctic (GQA with
+    the dense residual) reduced, served on the card and on the CPU as
+    above under each policy, the CPU's MoE routes replayed from the
+    card's: logits within 2e-2, the counters equal; flash once a layer a
+    prefill, the attention kernel once a layer a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.core.tiercache.policy import Policy
+    cfg = get_arch(arch).reduced()
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=MLAConfig(
+            kv_lora_rank=128, qk_nope_head_dim=32, qk_rope_head_dim=16,
+            v_head_dim=32))
+    for policy in Policy:
+        _, launches = _serve_on_both(cfg, 24, 40, policy)
+        assert launches["flash_fwd"] == cfg.num_layers
+        kernel = "latent_decode" if cfg.mla is not None else "tiered_decode"
+        other = "tiered_decode" if cfg.mla is not None else "latent_decode"
+        assert launches[kernel] == cfg.num_layers * 40
+        assert launches[other] == 0

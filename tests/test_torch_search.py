@@ -114,11 +114,14 @@ def test_halving_matches_reference(halving):
     assert len({round(s["lat"], 6) for s in t.scores.values()}) > 1
 
 
-def test_knob_only_round_adds_no_specialisation():
+def test_knob_only_round_adds_no_specialisation(monkeypatch):
     """A second round over the same compositions and modes — other knob
     values, another workload budget — needs no kernel specialisation the
     first did not: the reference's "knob-only rounds compile nothing"
-    contract, on the port's count."""
+    contract, on the port's count. The count starts empty, as in a fresh
+    process: other test files in the same worker may have needed a
+    specialisation this test counts as new."""
+    monkeypatch.setattr(ssd_step, "_SPECIALISATIONS", set())
     cands = [tspace.Candidate("ips"), tspace.Candidate("ips", cache_frac=0.5),
              tspace.Candidate("coop")]
     rounds = [{"traces": ("hm_0",), "modes": ("daily",), "max_ops": 128},

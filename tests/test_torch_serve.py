@@ -130,8 +130,9 @@ def test_free_running_counters_equal_the_reference(model, policy):
 
 
 def test_other_families_are_refused():
-    for name in ("deepseek-v2-lite-16b", "whisper-tiny", "llava-next-34b",
-                 "arctic-480b"):
+    """The encoder-decoder and VLM families wait for their slices (the
+    MoE family serves: tests/test_torch_moe.py, tests/test_torch_mla.py)."""
+    for name in ("whisper-tiny", "llava-next-34b"):
         cfg = T_ARCHS[name].reduced()
         with pytest.raises(NotImplementedError):
             t_build(cfg, device="cpu")

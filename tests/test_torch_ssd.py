@@ -51,8 +51,9 @@ PORTED = ("baseline", "ips", "ips_agc", "coop", "dyn_slc", "ips_lazy")
 def test_port_imports_neither_jax_nor_the_reference():
     """`import repro_torch` and every submodule — the serving launcher, the
     kernel packages, the Mamba2 and hybrid models, the telemetry package,
-    the sweep store, the host tier and the search engine among them — and
-    chip_smoke.py pull in no `jax` and no `repro.` module."""
+    the sweep store, the host tier, the search engine, the MoE and MLA
+    models among them — and chip_smoke.py pull in no `jax` and no
+    `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -69,6 +70,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.telemetry.profiling\n"
         "import repro_torch.hostcache.pipeline, repro_torch.kernels.host_tier.ops\n"
         "import repro_torch.search, repro_torch.search.tune\n"
+        "import repro_torch.models.moe, repro_torch.models.mla\n"
+        "import repro_torch.models.transformer, repro_torch.interop\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

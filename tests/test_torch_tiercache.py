@@ -393,12 +393,13 @@ def test_cache_from_jax_refuses_unknown_leaves():
     jc = jax.tree.map(np.asarray, _j_cache(spec))
     got = cache_from_jax(jc, device="cpu")
     _assert_cache(jc, got, "crossed")
-    with pytest.raises(ValueError, match="krope"):
+    # the mla tiers cross (tests/test_torch_mla.py); the encoder-decoder's
+    # static cross-attention cache waits for its slice, in the layers or
+    # beside them; the Mamba2 states cross, each in its own dtype only
+    with pytest.raises(ValueError, match="ck4"):
         cache_from_jax({**jc, "layers": {**jc["layers"],
-                                         "krope": jc["layers"]["kh"]}},
+                                         "ck4": jc["layers"]["k4"]}},
                        device="cpu")
-    # the encoder-decoder's static cross-attention cache waits for its
-    # slice; the Mamba2 states cross, each in its own dtype only
     with pytest.raises(ValueError, match="ck4"):
         cache_from_jax({**jc, "ck4": jc["layers"]["k4"]}, device="cpu")
     with pytest.raises(TypeError, match="macro_ssm"):

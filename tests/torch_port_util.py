@@ -165,3 +165,70 @@ def host_case_id(case) -> str:
     kw, policy = case
     return (f"{kw['mode']}-{kw['promote']}-{kw['flush']}-"
             f"{kw['sets']}x{kw['ways']}-f{kw['flush_per_op']}-{policy}")
+
+
+# ---------------------------------------------------------------------------
+# MoE routes, teacher-forced as tokens are
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_routes(j_moe, log: list):
+    """Within the context, the reference's `_routing` appends each call's
+    (weights, experts) to `log` as numpy, in call order (an ordered debug
+    callback, so jitted and scanned calls record too). Functions jitted
+    within the context keep the recording."""
+    import jax
+
+    orig = j_moe._routing
+
+    def record(router_w, x, m):
+        weights, experts, aux = orig(router_w, x, m)
+        jax.debug.callback(lambda w, e: log.append((np.asarray(w),
+                                                    np.asarray(e))),
+                           weights, experts, ordered=True)
+        return weights, experts, aux
+
+    j_moe._routing = record
+    try:
+        yield
+    finally:
+        j_moe._routing = orig
+
+
+@contextlib.contextmanager
+def replayed_routes(t_moe, log: list, flips: list):
+    """Within the context, each call of the port's `_routing` returns the
+    next recorded (weights, experts) of the reference, with its own aux
+    loss: routing is discontinuous, and a near-tie between the k-th and
+    the (k+1)-th expert that rounds the other way in one package would
+    move the logits for no fault of either. `flips` gets [calls, (token)
+    top-k sets, sets that the port's own routing would have chosen
+    otherwise]."""
+    orig = t_moe._routing
+    it = iter(log)
+    flips[:] = [0, 0, 0]
+
+    def replay(router_w, x, m):
+        weights, experts, aux = orig(router_w, x, m)
+        jw, je = next(it)
+        if je.shape != tuple(experts.shape):
+            raise AssertionError(f"route {flips[0]}: recorded {je.shape}, "
+                                 f"the port routes {tuple(experts.shape)}")
+        own = np.sort(experts.cpu().numpy(), axis=-1)
+        differ = (own != np.sort(je, axis=-1)).any(axis=-1)
+        flips[0] += 1
+        flips[1] += differ.size
+        flips[2] += int(differ.sum())
+        return (torch.from_numpy(np.array(jw, np.float32)).to(weights.device),
+                torch.from_numpy(np.array(je, np.int64)).to(experts.device),
+                aux)
+
+    t_moe._routing = replay
+    try:
+        yield
+    finally:
+        t_moe._routing = orig
+    if next(it, None) is not None:
+        raise AssertionError("the port routed fewer times than the "
+                             "reference recorded")
