@@ -72,7 +72,11 @@ then:
    cell against the committed `BENCH_sweep_hostcache.json` (which live
    JAX 0.9.0 reproduces: every leaf exact but seven mean latencies, within
    1e-7), the host-tier columns and `host_dev_lat_ms` exact, and the
-   report's host-tier table; the CLI's `--traces hm_0 --hostcache
+   report's host-tier table; where a trace op's cycles go at the grid's
+   size (its four specs x both modes uncut, 131,072 ops a cell: the
+   kernel's probe form, clock64 cycles of waiting on inputs, set scan,
+   promotion filter, flush scan and stores) beside the launch's time and
+   its chain bound; the CLI's `--traces hm_0 --hostcache
    mode=wb,flush=idle` into `build/cli_hostcache` against the reference
    CLI's recorded run (`tests/data/torch_reference_sweeps.json`); the
    search engine at the `quick` budget (`--search quick`) against the
@@ -117,9 +121,12 @@ then:
    port never calls. The latent form of the tiered decode
    (`latent_decode`, MLA's absorbed decode over the int4 latent) at
    deepseek-v2-lite's decode shape (H 16, r 512, p 64, group 64) over the
-   serving tier, B 1 and 4, dense_len 0, 1, 255, 1536 and 2048, and at r
-   128, p 32, H 4, within 2e-5 of max |output|, its time at B 4 and
-   dense_len 2048 (events and graph) beside its bound; flash at MLA's
+   serving tier, B 1 and 4, dense_len 0, 1, 15, 17, 255, 1536 and 2048,
+   and H 1, 5 and 16, r 64 to 512, p 16, 32 and 64, groups 2 to 64, q
+   bf16-exact and float32, within 2e-5 of max |output|; the count of
+   HMMA instructions in the built library, which must not be 0; its time
+   at B 4 and dense_len 2048 (events and graph) beside its tensor-core
+   bound, under the wrapper's split plan; flash at MLA's
    prefill widths (B 4, S 2048, H = Hkv = 16, q and k 192, v 128,
    zero-padded to the 256 form) within 1e-2, its time with and without
    the padding beside SDPA's on the unpadded inputs. arctic-480b's shapes
@@ -144,7 +151,11 @@ then:
    `total_len` and the five traffic metrics exact, and equal to a
    closed-form count of the policy's plan; launch counts equal to what
    the path implies (flash 18 per prefill, tiered 18 per step, repack 1
-   per fill or repack event, K and V together). Under IPS, faults planted
+   per fill or repack event, K and V together). The event-timed run
+   follows one event-timed prefill that is not counted (it pays the
+   first use of the events around a prefill's launches), and each
+   kernel's slowest launch of the counted run is printed beside its
+   main-path ms, which counts every launch. Under IPS, faults planted
    in the tiered kernel's call show how far the logits checks see a
    wrong kernel: dropping 32 or 256 dense tokens must fail the rms check
    at every step;
@@ -716,14 +727,14 @@ def tiered_bound(b, hkv, g, hd, dense_len):
 def latent_bound(b, h, r, p, dense_len):
     """The latent form: dense_len tokens' packed latent, bf16 scales and
     bf16 RoPE key read once, q_lat and q_rope in, (m, l, acc) out; 2 * H
-    * (2r + p) float32 operations a token (its scores against the latent
-    and the RoPE key, its share of acc), on the CUDA cores as the kernel
-    runs them. Returns (ms, by, the bound with the products on the bf16
-    tensor cores)."""
+    * (2r + p) operations a token (its scores against the latent and the
+    RoPE key, its share of acc) on the bf16 tensor cores, as the kernel
+    runs them. Returns (ms, by, the bound with the operations in float32
+    on the CUDA cores)."""
     moved = (b * dense_len * (r // 2 + (r // GROUP) * 2 + p * 2)
              + b * h * (r + p) * 4 + b * h * (r + 2) * 4)
     ops = 2 * b * h * dense_len * (2 * r + p)
-    return bound_ms(moved, ops) + (bound_ms(moved, ops, BF16_OPS_PER_S)[0],)
+    return bound_ms(moved, ops, BF16_OPS_PER_S) + (bound_ms(moved, ops)[0],)
 
 
 def flash_bound(b, s, h, hkv, hd, itemsize, hd_v=None):
@@ -1232,35 +1243,47 @@ LATENT_TOL = 2e-5               # of max |output|, as for ssd_intra
 def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
     """The latent form of the tiered decode against its plain version on
     the card: deepseek-v2-lite's decode shape (H 16, r 512, p 64, group
-    64) over the serving tier at B 1 and 4 and dense_len 0, 1, 255, 1536
-    and 2048, and a smaller r, p and H; within LATENT_TOL of max
-    |output|. Its time at B 4, dense_len 2048 beside its bound."""
+    64) over the serving tier at B 1 and 4, dense_len from the empty tier
+    through one token, either side of the 16-token k-step, to 2048; H 1,
+    5 and 16, r 64, 128, 192 and 512, p 16, 32 and 64, groups 2, 6, 16,
+    32 and 64; q bf16-exact (as the serving path forms it) and float32
+    that is not (the kernel's q_lo products); within LATENT_TOL of max
+    |output|. Its time at B 4, dense_len 2048 beside its bound, under the
+    wrapper's split plan."""
     import torch
     from repro_torch.kernels.ips_repack.ref import quantize_rows_ref
     from repro_torch.kernels.tiered_attention import ops as tiered
     from repro_torch.kernels.tiered_attention.ref import (
         latent_tier_partial_ref)
 
-    def tier(b, s, h, r, p, group):
+    def tier(b, s, h, r, p, group, exact=True):
         c4, sc = quantize_rows_ref(2.0 * torch.randn(
             (b * s, r), generator=gen, device=cuda), group)
 
         def bf16(*shape):
             return torch.randn(shape, generator=gen, device=cuda).to(
                 torch.bfloat16)
-        return (bf16(b, h, r).float(), bf16(b, h, p).float(),
-                c4.reshape(b, s, r // 2),
+
+        def q(*shape):
+            return (bf16(*shape).float() if exact else torch.randn(
+                shape, generator=gen, device=cuda))
+        return (q(b, h, r), q(b, h, p), c4.reshape(b, s, r // 2),
                 sc.reshape(b, s, r // group).to(torch.bfloat16),
                 bf16(b, s + SERVE_PROMPT // 2, p))
 
     scale = 1.0 / 192 ** 0.5
     err, rel, cases = 0.0, 0.0, []
-    for b, s, h, r, p, group, lens in (
-            (SERVE_BATCH, s_dense, 16, 512, 64, GROUP,
-             (0, 1, 255, 1536, 2048)),
-            (1, s_dense, 16, 512, 64, GROUP, (0, 1, 255, 1536, 2048)),
-            (2, 700, 4, 128, 32, 32, (0, 33, 699))):
-        t = tier(b, s, h, r, p, group)
+    for b, s, h, r, p, group, exact, lens in (
+            (SERVE_BATCH, s_dense, 16, 512, 64, GROUP, True,
+             (0, 1, 15, 17, 255, 1536, 2048)),
+            (1, s_dense, 16, 512, 64, GROUP, True, (0, 1, 255, 2048)),
+            (SERVE_BATCH, s_dense, 16, 512, 64, GROUP, False, (17, 2048)),
+            (2, 700, 5, 128, 32, 32, True, (0, 15, 33, 699)),
+            (2, 300, 1, 64, 16, GROUP, False, (1, 17, 299)),
+            (3, 100, 5, 192, 16, 6, True, (77,)),
+            (1, 70, 16, 64, 64, 2, False, (70,)),
+            (2, 600, 16, 512, 32, 16, False, (599,))):
+        t = tier(b, s, h, r, p, group, exact)
         for dense_len in lens:
             got = tiered.latent_tier_partial(*t, dense_len, group=group,
                                              scale=scale)
@@ -1269,23 +1292,29 @@ def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
                 top = max(float(w.abs().max()), 1e-30)
                 e = float((a - w).abs().max())
                 if not torch.isfinite(a).all() or e > LATENT_TOL * top:
-                    fail(f"latent_decode B {b} H {h} r {r} p {p} dense_len "
-                         f"{dense_len} {name}: {e} of {top} (tolerance "
-                         f"{LATENT_TOL} of max |output|)")
+                    fail(f"latent_decode B {b} H {h} r {r} p {p} group "
+                         f"{group} q {'bf16' if exact else 'float32'} "
+                         f"dense_len {dense_len} {name}: {e} of {top} "
+                         f"(tolerance {LATENT_TOL} of max |output|)")
                 err, rel = max(err, e), max(rel, e / top)
             if dense_len == 0 and not (bool((got[0] == -1e30).all())
                                        and bool((got[1] == 0).all())
                                        and bool((got[2] == 0).all())):
                 fail("latent_decode: an empty tier must give m -1e30, l 0, "
                      "acc 0")
-            cases.append(f"B {b} H {h} r {r} p {p} dense_len {dense_len}")
+            cases.append(f"B {b} H {h} r {r} p {p} group {group} q "
+                         f"{'bf16' if exact else 'float32'} dense_len "
+                         f"{dense_len}")
+    sass_hmma = tiered.LATENT_LIB.sass_count("HMMA")
+    if sass_hmma == 0:
+        fail("latent_decode: the built library issues no HMMA (mma.sync)")
     t = tier(SERVE_BATCH, s_dense, 16, 512, 64, GROUP)
     timed_len = SERVE_PROMPT
 
     def call():
         return tiered.latent_tier_partial(*t, timed_len, group=GROUP,
                                           scale=scale)
-    bnd, by, tc_bnd = latent_bound(SERVE_BATCH, 16, 512, 64, timed_len)
+    bnd, by, f32_bnd = latent_bound(SERVE_BATCH, 16, 512, 64, timed_len)
     tokens, splits = tiered.latent_split_plan(timed_len, SERVE_BATCH)
     line = {"name": "latent_decode", "route": "cuda",
             "source": ("src/repro_torch/kernels/tiered_attention/csrc/"
@@ -1296,10 +1325,11 @@ def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
             "plain_ms": time_ms(lambda: latent_tier_partial_ref(
                 *t, timed_len, GROUP, scale), PLAIN_TIMED),
             "bound_ms": bnd, "bound_by": by,
-            "bound_ms_tensor_cores": tc_bnd, "library_ms": None,
+            "bound_ms_cuda_cores": f32_bnd, "library_ms": None,
             "timed_shape": (f"B {SERVE_BATCH}, H 16, r 512, p 64, group "
                             f"{GROUP}, S {s_dense}, dense_len {timed_len}"),
-            "split_tokens": tokens, "blocks": SERVE_BATCH * splits}
+            "split_tokens": tokens, "blocks": SERVE_BATCH * splits,
+            "sass_hmma": sass_hmma}
     emit({"phase": "kernel_vs_plain", "kernel": "latent_decode",
           "cases": cases, "tolerance": f"{LATENT_TOL} of max |output|",
           **line})
@@ -1911,10 +1941,19 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
         del cache
 
         # -- the same run with each launch timed by CUDA events, the counts
-        #    zeroed just before and read just after
+        #    zeroed just before and read just after; first one event-timed
+        #    prefill, not counted, that pays whatever the first events
+        #    around the prefill's launches cost (its slowest launch is
+        #    recorded beside the counted run's)
         for launcher in launchers.values():
             launcher.reset()
             launcher.record = True
+        model.prefill(params, batch, spec)
+        warm_max = {n: max(v) for n, v in
+                    ((n, launcher.ms()) for n, launcher in launchers.items())
+                    if v}
+        for launcher in launchers.values():
+            launcher.reset()
         run()
         timed_counts = {n: launcher.launches
                         for n, launcher in launchers.items()}
@@ -2118,6 +2157,9 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
                   n: sum(v) / len(v) if v else None
                   for n, v in bounds.items()},
               "kernel_ms_total": {n: sum(v) for n, v in per_launch.items()},
+              "kernel_max_launch_ms": {
+                  n: max(v) if v else None for n, v in per_launch.items()},
+              "warm_prefill_max_launch_ms": warm_max,
               "plain_prefill_ms": plain_prefill_ms,
               "logits_max_abs_err": err,
               "logits_floor_max_abs": floor,
@@ -2546,6 +2588,74 @@ def host_tier_vs_plain(cfg, n_logical, cuda, smem_cycles,
             "host_counters": dict(zip(H_CTR, fired.tolist()))}
 
 
+def host_tier_split(cfg, n_logical, cuda, smem_cycles, max_sm_mhz) -> dict:
+    """Where a trace op's cycles go in the `host_tier` kernel at the
+    hostcache grid's size: its four host-cache specs x both modes on
+    flush_burst uncut (131,072 trace ops a cell, flush_per_op 2), one
+    launch timed by CUDA events after an untimed one, then one launch of
+    the probe form (clock64 stamps around each part of an op: the wait on
+    its inputs, the set scan with the row's update, the promotion filter,
+    the flush scan, the stores). Per part the cycles an op of the cell
+    with the most cycles; beside the launch, two chain bounds at the
+    card's highest clock: the serial form's (per trace op 3 +
+    flush_per_op dependent shared-memory loads) and the warp form's (per
+    trace op one shared-memory load, whose round takes the set's and the
+    flush sets' ways together, and the store the next op's load waits
+    on; the ballot and min-reduce between them are not counted, so it is
+    a floor)."""
+    import torch
+    from repro_torch.core.ssd.fleet import stack_ops
+    from repro_torch.core.ssd.policies.state import map_state
+    from repro_torch.hostcache.model import as_hc_params, init_hc
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.host_tier import ref as tier_ref
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.workloads import build_ops
+
+    specs = list(dict.fromkeys(pt.hostcache for pt in named_grid("hostcache")
+                               if pt.hostcache is not None))
+    jobs, labels = [], []
+    for spec in specs:
+        for mode in ("daily", "bursty"):
+            tr = build_ops("flush_burst", n_logical, mode=mode,
+                           capacity_pages=cfg.total_pages)
+            jobs.append(tier_ref.TierJob(
+                spec, stack_ops([tr], device=cuda),
+                map_state(lambda x: x[None].to(cuda),
+                          as_hc_params(spec, "cpu")),
+                init_hc(spec, 1, device=cuda), mode == "bursty", rows=False))
+            labels.append(f"{spec.tag}/{mode}")
+    host_tier.tier_pass(jobs)                      # untimed: clocks up
+    host_tier.reset()
+    host_tier.tier_pass(jobs)
+    torch.cuda.synchronize()
+    start, end = host_tier.events[-1]
+    ms = start.elapsed_time(end)
+    cols = {c: i for i, c in enumerate(host_tier.PROBE_COLUMNS)}
+    probe = torch.zeros((sum(j.ops["lba"].shape[0] for j in jobs),
+                         len(cols)), dtype=torch.int64, device=cuda)
+    host_tier.tier_pass(jobs, probe=probe)
+    torch.cuda.synchronize()
+    start, end = host_tier.events[-1]
+    probe_ms = start.elapsed_time(end)
+    rows = probe.cpu().numpy()
+    c = int(rows[:, cols["cycles"]].argmax())
+    n = int(rows[c, cols["ops"]])
+    t_len = max(j.ops["lba"].shape[1] for j in jobs)
+    f_max = max(j.spec.flush_per_op for j in jobs)
+    chain = t_len * (3 + f_max) * smem_cycles / (max_sm_mhz * 1e3)
+    warp_chain = t_len * 2 * smem_cycles / (max_sm_mhz * 1e3)
+    return {"cells": len(jobs), "specs": labels, "ops_per_cell": t_len,
+            "ms": ms, "ns_per_op": ms * 1e6 / t_len,
+            "chain_bound_ms": chain, "warp_chain_bound_ms": warp_chain,
+            "probe_ms": probe_ms,
+            "probe_cell": labels[c],
+            "cycles_per_op": float(rows[c, cols["cycles"]]) / n,
+            "split_cycles_per_op": {
+                part: float(rows[c, cols[part]]) / n
+                for part in ("wait", "scan", "promote", "flush", "store")}}
+
+
 def cli_hostcache_run(cache_dir, recorded) -> dict:
     """`python -m repro_torch.sweep.cli --traces hm_0 --hostcache
     mode=wb,flush=idle` on the card, into `build/cli_hostcache`: every
@@ -2913,6 +3023,9 @@ def main() -> int:
     tier = host_tier_vs_plain(cfg, n_logical, cuda, probe["cycles_per_load"],
                               max_sm_mhz)
     emit({"phase": "kernel_vs_plain", "kernel": "host_tier", **tier})
+    split = host_tier_split(cfg, n_logical, cuda, probe["cycles_per_load"],
+                            max_sm_mhz)
+    emit({"phase": "host_tier_split", **split})
     with open(os.path.join(ROOT, "BENCH_sweep_hostcache.json")) as f:
         hc_bench = json.load(f)
     sweeps["hostcache"] = sweep_path(cfg, n_logical, cuda, "hostcache",
@@ -3020,8 +3133,15 @@ def main() -> int:
         "plain_ms": tier["plain_ms"], "bound_ms": tier["bound_ms"],
         "bound_by": tier["bound_by"], "library_ms": None,
         "chain_bound_ms": tier["chain_bound_ms"],
-        # the hostcache grid's one tier pass, and its one ssd_step launch
+        # the hostcache grid's one tier pass beside its own chain bounds
+        # (the serial form's and the warp form's floor), and
+        # its one ssd_step launch; the grid's cells alone (8 of them, one
+        # launch) and where an op's cycles go there
         "main_path_ms": hc_line["tier_ms"],
+        "main_path_chain_bound_ms": split["chain_bound_ms"],
+        "main_path_warp_chain_bound_ms": split["warp_chain_bound_ms"],
+        "grid_cells_ms": split["ms"], "grid_ns_per_op": split["ns_per_op"],
+        "grid_split_cycles_per_op": split["split_cycles_per_op"],
         "main_path_ssd_step_ms": hc_line["kernel_ms"],
         "search_launches": search["tier_launches"]})
     for name in ("ips_repack", "tiered_decode", "latent_decode",

@@ -36,7 +36,7 @@ from repro_torch.kernels.host_tier.ref import TierJob, TierOut, n_slots
 
 __all__ = ["tier_pass", "prepare", "finish", "state_words", "reset",
            "launches", "events", "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER",
-           "SMEM_BUDGET", "DESC_FIELDS", "N_KNOB"]
+           "SMEM_BUDGET", "DESC_FIELDS", "N_KNOB", "PROBE_COLUMNS"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "host_tier.cu")
@@ -50,6 +50,10 @@ DESC_FIELDS = ("arrival_ms", "lba", "is_write", "sub_t", "sub_lba",
                "flush_per_op", "mode", "promote", "flush", "closed", "smem",
                "knob_row")
 N_KNOB = 6
+# the probe form's columns (csrc/host_tier.cu, N_PROBE): clock64 cycles
+# of the whole pass and of each part of an op, summed over the cell's ops
+PROBE_COLUMNS = ("cycles", "wait", "scan", "promote", "flush", "store",
+                 "ops", "unused")
 _MODES = {"wb": 0, "wt": 1, "wa": 2}
 _PROMOTES = {"always": 0, "nth": 1}
 _FLUSHES = {"watermark": 0, "idle": 1}
@@ -69,7 +73,7 @@ def _array_bytes(spec) -> int:
 def _bind(lib) -> None:
     p = ctypes.c_void_p
     lib.host_tier_launch.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int,
-                                     p, ctypes.c_ulonglong]
+                                     p, p, ctypes.c_ulonglong]
     lib.host_tier_launch.restype = ctypes.c_int
 
 
@@ -208,9 +212,30 @@ def finish(buf: dict) -> list:
     return results
 
 
-def tier_pass(jobs: Sequence[TierJob]) -> list:
+def _check_probe(probe, jobs, dev) -> None:
+    """Raise unless `probe` is None or what the probe form writes: a
+    contiguous (cells, N_PROBE) int64 tensor on the jobs' card device."""
+    if probe is None:
+        return
+    cells = sum(j.ops["lba"].shape[0] for j in jobs)
+    want = (cells, len(PROBE_COLUMNS))
+    if dev.type != "cuda" or probe.device != dev:
+        raise ValueError(f"host_tier: the probe form runs on the card: "
+                         f"probe on {probe.device}, jobs on {dev}")
+    if probe.dtype != torch.int64 or tuple(probe.shape) != want or (
+            not probe.is_contiguous()):
+        raise ValueError(f"host_tier: probe must be a contiguous {want} "
+                         f"int64 tensor (a row a cell), not "
+                         f"{tuple(probe.shape)} {probe.dtype}")
+
+
+def tier_pass(jobs: Sequence[TierJob], probe=None) -> list:
     """Every job's traces through the host tier in one launch; returns
-    [`ref.TierOut`] in job order."""
+    [`ref.TierOut`] in job order. `probe`, a contiguous (cells,
+    N_PROBE) int64 tensor on the jobs' card, one row a cell in job
+    order, selects the kernel's probe form, which adds each cell's
+    clock64 cycles by part of an op (`PROBE_COLUMNS`); it has no CPU
+    form."""
     jobs = list(jobs)
     if not jobs:
         return []
@@ -219,6 +244,7 @@ def tier_pass(jobs: Sequence[TierJob]) -> list:
         raise ValueError(f"host_tier: the jobs lie on several devices: "
                          f"{sorted(map(str, devs))}")
     dev = devs.pop()
+    _check_probe(probe, jobs, dev)
     if dev.type == "cpu":
         return [ref.tier_pass_ref(j) for j in jobs]
     if dev.type != "cuda":
@@ -228,5 +254,6 @@ def tier_pass(jobs: Sequence[TierJob]) -> list:
         buf["desc"].data_ptr(), buf["knobs"].data_ptr(),
         buf["state_in"].data_ptr(), buf["state_out"].data_ptr(),
         len(buf["desc_host"]), buf["smem_bytes"],
-        buf["desc_host"].ctypes.data), dev)
+        buf["desc_host"].ctypes.data,
+        None if probe is None else probe.data_ptr()), dev)
     return finish(buf)

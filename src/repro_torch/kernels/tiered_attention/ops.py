@@ -27,7 +27,8 @@ from repro_torch.kernels.tiered_attention.ref import merge_partials
 
 __all__ = ["dense_tier_partial", "tiered_decode_attention",
            "latent_tier_partial", "latent_decode_attention",
-           "merge_partials", "split_plan", "latent_split_plan", "LIB",
+           "merge_partials", "split_plan", "latent_split_plan",
+           "latent_check", "LIB",
            "LAUNCHER", "LATENT_LIB", "LATENT_LAUNCHER", "reset", "SOURCE",
            "LATENT_SOURCE"]
 
@@ -67,7 +68,9 @@ LATENT_LAUNCHER = Launcher(LATENT_LIB, "latent_decode")
 LATENT_MAX_H = 16
 LATENT_MAX_R = 512
 LATENT_ROPE_DIMS = (16, 32, 64)
-# blocks the latent split is sized for: one a SM (two fit)
+# the latent kernel's tile of tokens, and the blocks its split is sized
+# for: one a SM (a block takes some 162 KB of shared memory)
+LATENT_TILE = 64
 LATENT_TARGET_BLOCKS = 132
 
 
@@ -199,30 +202,22 @@ def tiered_decode_attention(q, lc, dense_len: int, total_len: int, k_new,
 
 def latent_split_plan(dense_len: int, b: int):
     """(tokens a block, number of splits) of the latent kernel's split of
-    [0, dense_len): a multiple of its 32-token tile, so that B * splits
-    comes near LATENT_TARGET_BLOCKS, and at most MAX_SPLITS splits; one
-    split (empty) when dense_len is 0."""
+    [0, dense_len): whole 64-token tiles, so that B * splits comes near
+    LATENT_TARGET_BLOCKS, and at most MAX_SPLITS splits; one split
+    (empty) when dense_len is 0."""
     def up(n, m):
         return -(-n // m) * m
-    tokens = max(32, up(-(-dense_len * b // LATENT_TARGET_BLOCKS), 32),
-                 up(-(-dense_len // MAX_SPLITS), 32))
+    tile = LATENT_TILE
+    tokens = max(tile, up(-(-dense_len * b // LATENT_TARGET_BLOCKS), tile),
+                 up(-(-dense_len // MAX_SPLITS), tile))
     return tokens, max(1, -(-dense_len // tokens))
 
 
-def latent_tier_partial(q_lat, q_rope, c4, c4_sc, krope, dense_len: int, *,
-                        group: int = 64, scale: float = 1.0):
-    """The contract of `ref.latent_tier_partial_ref`: q_lat (B, H, r) and
-    q_rope (B, H, p) float32; c4 (B, S, r//2) uint8, c4_sc (B, S,
-    r//group) bf16; krope (B, S_raw, p) bf16 with S_raw >= S, its first
-    dense_len rows the dense tokens. Returns float32 (m (B, H), l (B, H),
-    acc (B, H, r)) over tokens [0, dense_len)."""
-    dense_len = int(dense_len)
-    if q_lat.device.type == "cpu":
-        return ref.latent_tier_partial_ref(q_lat, q_rope, c4, c4_sc, krope,
-                                           dense_len, group, scale)
-    if q_lat.device.type != "cuda":
-        raise ValueError(f"latent_decode: no kernel for device "
-                         f"{q_lat.device}")
+def latent_check(q_lat, q_rope, c4, c4_sc, krope, dense_len: int,
+                 group: int) -> None:
+    """Raise on what the latent kernel does not take (the C entry's
+    refusals: heads, rank and RoPE width, group, dense_len, batch; then
+    each tensor's device, dtype, shape and layout)."""
     if q_lat.dim() != 3 or q_rope.dim() != 3 or c4.dim() != 3 or (
             krope.dim() != 3):
         raise ValueError("latent_decode: q_lat must be (B, H, r), q_rope "
@@ -258,23 +253,50 @@ def latent_tier_partial(q_lat, q_rope, c4, c4_sc, krope, dense_len: int, *,
           (b, s, r // group), dev)
     check("latent_decode", "krope", krope, torch.bfloat16, (b, s_raw, p),
           dev)
-    m = torch.empty((b, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, h), dtype=torch.float32, device=dev)
-    acc = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+
+
+def latent_tier_partial(q_lat, q_rope, c4, c4_sc, krope, dense_len: int, *,
+                        group: int = 64, scale: float = 1.0):
+    """The contract of `ref.latent_tier_partial_ref`: q_lat (B, H, r) and
+    q_rope (B, H, p) float32; c4 (B, S, r//2) uint8, c4_sc (B, S,
+    r//group) bf16; krope (B, S_raw, p) bf16 with S_raw >= S, its first
+    dense_len rows the dense tokens. Returns float32 (m (B, H), l (B, H),
+    acc (B, H, r)) over tokens [0, dense_len)."""
+    dense_len = int(dense_len)
+    if q_lat.device.type == "cpu":
+        return ref.latent_tier_partial_ref(q_lat, q_rope, c4, c4_sc, krope,
+                                           dense_len, group, scale)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"latent_decode: no kernel for device "
+                         f"{q_lat.device}")
+    latent_check(q_lat, q_rope, c4, c4_sc, krope, dense_len, group)
+    # q, latent and RoPE rows go by 16-byte copies: an unaligned view is
+    # copied into a fresh buffer first
+    q_lat, q_rope, c4, krope = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                for t in (q_lat, q_rope, c4, krope))
+    b, h, r = q_lat.shape
+    dev = q_lat.device
     tokens, splits = latent_split_plan(dense_len, b)
+
+    def alloc(n):
+        """(acc (n, r), m (n,), l (n,)) float32 in one allocation, acc
+        first (16-byte aligned)."""
+        buf = torch.empty(n * (r + 2), dtype=torch.float32, device=dev)
+        return buf[:n * r], buf[n * r:n * (r + 1)], buf[n * (r + 1):]
+    acc, m, l = alloc(b * h)
+    acc, m, l = acc.view(b, h, r), m.view(b, h), l.view(b, h)
     parts = (None, None, None)
     if splits > 1:                   # each split's partial, then the merge
-        parts = tuple(torch.empty((b, splits, h) + extra,
-                                  dtype=torch.float32, device=dev)
-                      for extra in ((), (), (r,)))
+        acc_p, m_p, l_p = alloc(b * splits * h)
+        parts = (m_p, l_p, acc_p)
     LATENT_LAUNCHER.launch(
         "latent_tier_partial",
         (q_lat.data_ptr(), q_rope.data_ptr(), c4.data_ptr(),
          c4_sc.data_ptr(), krope.data_ptr(), m.data_ptr(), l.data_ptr(),
          acc.data_ptr(),
          *(None if t is None else t.data_ptr() for t in parts),
-         b, s, s_raw, h, r, p, group, dense_len, tokens, splits,
-         float(scale)), dev)
+         b, c4.shape[1], krope.shape[1], h, r, q_rope.shape[2], group,
+         dense_len, tokens, splits, float(scale)), dev)
     return m, l, acc
 
 

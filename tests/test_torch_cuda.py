@@ -524,7 +524,50 @@ def test_host_tier_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="tag"):
         host_tier.tier_pass([job._replace(hc0=job.hc0._replace(
             tag=job.hc0.tag[:, :4]))])
+    cells = job.ops["lba"].shape[0]
+    n_probe = len(host_tier.PROBE_COLUMNS)
+    for probe in (torch.zeros((1, n_probe), dtype=torch.int64, device=cuda),
+                  torch.zeros((cells, n_probe), dtype=torch.int32,
+                              device=cuda),
+                  torch.zeros((n_probe, cells), dtype=torch.int64,
+                              device=cuda).t(),
+                  torch.zeros((cells, n_probe), dtype=torch.int64)):
+        with pytest.raises(ValueError, match="probe"):
+            host_tier.tier_pass([job], probe=probe)
     assert host_tier.launches == before
+
+
+def test_host_tier_probe_form_equals_probe_off(cuda):
+    """The probe form, every spec x both access modes x two traces (two
+    cells a job) in ONE launch: every output bit for bit the probe-off
+    launch's, each cell's row counting its T ops, and its parts' cycles
+    within its whole."""
+    jobs = _tier_jobs(cuda)
+    off = host_tier.tier_pass(jobs)
+    cells = sum(j.ops["lba"].shape[0] for j in jobs)
+    probe = torch.zeros((cells, len(host_tier.PROBE_COLUMNS)),
+                        dtype=torch.int64, device=cuda)
+    before = host_tier.launches
+    on = host_tier.tier_pass(jobs, probe=probe)
+    torch.cuda.synchronize()
+    assert host_tier.launches == before + 1
+    for job, a, b in zip(jobs, on, off):
+        label = f"{job.spec.tag}/{'bursty' if job.closed_loop else 'daily'}"
+        for k in b.sub:
+            assert torch.equal(a.sub[k], b.sub[k]), (label, k)
+        assert torch.equal(a.absorbed, b.absorbed), label
+        assert torch.equal(a.rows, b.rows), label
+        _assert_state_equal(a.hc, map_state(lambda x: x.cpu(), b.hc),
+                            label)
+    col = {c: i for i, c in enumerate(host_tier.PROBE_COLUMNS)}
+    rows = probe.cpu()
+    t_len = torch.tensor([j.ops["lba"].shape[1] for j in jobs
+                          for _ in range(j.ops["lba"].shape[0])])
+    assert torch.equal(rows[:, col["ops"]], t_len)
+    parts = rows[:, [col[c] for c in ("wait", "scan", "promote", "flush",
+                                      "store")]]
+    assert bool((parts >= 0).all()) and bool((rows[:, col["cycles"]] > 0).all())
+    assert bool((parts.sum(1) <= rows[:, col["cycles"]]).all())
 
 
 @pytest.mark.parametrize("mode", ("daily", "bursty"))
@@ -1128,10 +1171,13 @@ class TestLatentDecodeKernel:
     `chip_smoke.py` holds it."""
 
     @staticmethod
-    def _tier(gen, b, s, h, r, p, group, extra=64):
+    def _tier(gen, b, s, h, r, p, group, extra=64, exact=True):
         c4, sc = quantize_rows_ref(_randn(gen, b * s, r, scale=2.0), group)
-        q_lat = _randn(gen, b, h, r, dtype=torch.bfloat16).float()
-        q_rope = _randn(gen, b, h, p, dtype=torch.bfloat16).float()
+        # q bf16-exact, as the serving path forms it, or float32 that is
+        # not (the kernel's second and third q terms)
+        q_dt = torch.bfloat16 if exact else torch.float32
+        q_lat = _randn(gen, b, h, r, dtype=q_dt).float()
+        q_rope = _randn(gen, b, h, p, dtype=q_dt).float()
         krope = _randn(gen, b, s + extra, p, dtype=torch.bfloat16)
         return (q_lat, q_rope, c4.reshape(b, s, r // 2),
                 sc.reshape(b, s, r // group).to(torch.bfloat16), krope)
@@ -1143,7 +1189,7 @@ class TestLatentDecodeKernel:
             err = float((a - w).abs().max())
             assert err <= bound, f"{label} {name}: {err} > {bound}"
 
-    @pytest.mark.parametrize("dense_len", (0, 1, 255, 1536, 2048))
+    @pytest.mark.parametrize("dense_len", (0, 1, 15, 17, 255, 1536, 2048))
     @pytest.mark.parametrize("b", (1, 4))
     def test_deepseek_shape_equals_plain_version(self, cuda, monkeypatch, b,
                                                  dense_len):
@@ -1163,13 +1209,17 @@ class TestLatentDecodeKernel:
             assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
             assert bool((got[2] == 0).all())
 
-    @pytest.mark.parametrize("b,s,h,r,p,group,dense_len", [
-        (2, 300, 4, 128, 32, 32, 299), (3, 100, 3, 192, 16, 6, 77),
-        (1, 70, 16, 64, 64, 2, 70), (2, 5000, 8, 256, 32, 64, 4999),
-        (2, 40, 1, 448, 16, 64, 33)])
+    @pytest.mark.parametrize("b,s,h,r,p,group,dense_len,exact", [
+        (2, 300, 4, 128, 32, 32, 299, True), (3, 100, 3, 192, 16, 6, 77, True),
+        (1, 70, 16, 64, 64, 2, 70, True), (2, 5000, 8, 256, 32, 64, 4999, True),
+        (2, 40, 1, 448, 16, 64, 33, True), (2, 300, 5, 128, 32, 32, 15, True),
+        (2, 300, 1, 64, 16, 64, 17, False),
+        (4, 3200, 16, 512, 64, 64, 2048, False),
+        (2, 600, 16, 512, 32, 16, 599, False)])
     def test_other_shapes_equal_plain_version(self, cuda, monkeypatch, b, s,
-                                              h, r, p, group, dense_len):
-        tier = self._tier(_gen(r + p + h), b, s, h, r, p, group)
+                                              h, r, p, group, dense_len,
+                                              exact):
+        tier = self._tier(_gen(r + p + h), b, s, h, r, p, group, exact=exact)
         want = latent_tier_partial_ref(*tier, dense_len, group, 0.125)
         _refuse_plain(monkeypatch, tiered_ops, "latent_tier_partial_ref")
         got = tiered_ops.latent_tier_partial(*tier, dense_len, group=group,

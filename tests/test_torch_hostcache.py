@@ -408,23 +408,49 @@ def test_probe_off_matches_reference(route):
     assert float(t_st.hostcache.hctr[H_CTR["flush_w"]]) > 0
 
 
-def _host_library(tmp_path):
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """`csrc/host_tier.cu` built for the CPU: its warp recurrence with the
+    32 lanes emulated by loops (`host_tier_run_host`)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler")
-    lib = tmp_path / "libhost_tier_host.so"
+    lib = tmp_path_factory.mktemp("host_tier") / "libhost_tier_host.so"
     subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2",
                     "-ffp-contract=off", "-shared", "-fPIC", "-o", str(lib),
                     host_tier.SOURCE], check=True)
-    return ctypes.CDLL(str(lib))
+    out = ctypes.CDLL(str(lib))
+    out.host_tier_run_host.restype = ctypes.c_int
+    return out
 
 
-def test_kernel_recurrence_compiled_for_the_host(tmp_path):
-    """`csrc/host_tier.cu`'s recurrence (`tier_cell`, host and device
-    code) built for the CPU: every output equal to the plain version's,
-    over every mode, promotion and flush scheduler, both access modes,
-    in one call of many cells."""
-    lib = _host_library(tmp_path)
+def _run_host(lib, jobs):
+    """The jobs through the host-compiled kernel, in one call; each job's
+    `TierOut`."""
+    buf = host_tier.prepare(jobs, torch.device("cpu"))
+    rc = lib.host_tier_run_host(
+        ctypes.c_void_p(buf["desc_host"].ctypes.data),
+        ctypes.c_void_p(buf["knobs"].data_ptr()),
+        ctypes.c_void_p(buf["state_in"].data_ptr()),
+        ctypes.c_void_p(buf["state_out"].data_ptr()),
+        len(buf["desc_host"]))
+    assert rc == 0
+    return host_tier.finish(buf)
+
+
+def _assert_tier_equal(got, ref, label):
+    for k in ref.sub:
+        assert torch.equal(got.sub[k], ref.sub[k]), (label, k)
+    assert torch.equal(got.absorbed, ref.absorbed), label
+    assert torch.equal(got.rows, ref.rows), label
+    assert_state_equal(ref.hc, got.hc, label)
+
+
+def test_kernel_recurrence_compiled_for_the_host(host_lib):
+    """`csrc/host_tier.cu`'s warp recurrence (`tier_warp`, host and device
+    code, its lanes emulated) built for the CPU: every output equal to the
+    plain version's, over every mode, promotion and flush scheduler, both
+    access modes, in one call of many cells."""
     jobs = []
     for i, (mode, promote, flush) in enumerate(
             (m, p, f) for m in ("wb", "wt", "wa")
@@ -445,25 +471,81 @@ def test_kernel_recurrence_compiled_for_the_host(tmp_path):
                                          init_hc(spec, 2, device="cpu"),
                                          access == "bursty", rows=True))
     want = [tier_ref.tier_pass_ref(j) for j in jobs]
-    buf = host_tier.prepare(jobs, torch.device("cpu"))
-    lib.host_tier_run_host.restype = ctypes.c_int
-    rc = lib.host_tier_run_host(
-        ctypes.c_void_p(buf["desc_host"].ctypes.data),
-        ctypes.c_void_p(buf["knobs"].data_ptr()),
-        ctypes.c_void_p(buf["state_in"].data_ptr()),
-        ctypes.c_void_p(buf["state_out"].data_ptr()),
-        len(buf["desc_host"]))
-    assert rc == 0
     fired = np.zeros(len(H_CTR))
-    for j, got, ref in zip(jobs, host_tier.finish(buf), want):
-        for k in ref.sub:
-            assert torch.equal(got.sub[k], ref.sub[k]), (j.spec.tag, k)
-        assert torch.equal(got.absorbed, ref.absorbed), j.spec.tag
-        assert torch.equal(got.rows, ref.rows), j.spec.tag
-        assert_state_equal(ref.hc, got.hc, j.spec.tag)
+    for j, got, ref in zip(jobs, _run_host(host_lib, jobs), want):
+        _assert_tier_equal(got, ref, j.spec.tag)
         fired += ref.hc.hctr.sum(0).numpy()
     # every counter moved somewhere: hits, absorption, flushes, evictions
     assert (fired > 0).all(), fired
+
+
+# the warp form's geometries: the hostcache grid's four specs x both
+# access modes (the pass the card runs), then way counts 2, 3 (the generic
+# form), 4 and 16 with flush sets in one round and in two (16 x 3 and
+# 8 x 5 lanes exceed the warp), the 1024 x 8 cell whose state the card
+# keeps in device memory, and 8 ways from a tick near 2^26 (the one-round
+# form's packed keys would overflow: the generic form takes the cell)
+WARP_CASES = ([(f"grid-{sp.tag}-{access}", sp, access, 1200)
+               for sp in dict.fromkeys(pt.hostcache
+                                       for pt in tgrid.named_grid("hostcache")
+                                       if pt.hostcache is not None)
+               for access in ("daily", "bursty")]
+              + [("ways2-f4", HostCacheSpec(sets=8, ways=2, flush_per_op=4),
+                  "daily", 400),
+                 ("ways3-idle", HostCacheSpec(sets=12, ways=3, flush="idle",
+                                              flush_gap_ms=0.5), "daily",
+                  400),
+                 ("ways4-f1", HostCacheSpec(sets=8, ways=4, flush_per_op=1),
+                  "bursty", 400),
+                 ("ways16-f3", HostCacheSpec(sets=8, ways=16,
+                                             flush_per_op=3), "daily", 400),
+                 ("ways8-f5", HostCacheSpec(sets=16, ways=8,
+                                            flush_per_op=5), "bursty", 400),
+                 ("1024x8-f4", HostCacheSpec(sets=1024, ways=8,
+                                             flush_per_op=4), "daily",
+                  400),
+                 ("ways8-tick2^26", HostCacheSpec(sets=16, ways=8), "daily",
+                  400)])
+
+
+@pytest.mark.parametrize("label,spec,access,n_ops", WARP_CASES,
+                         ids=[c[0] for c in WARP_CASES])
+def test_warp_form_compiled_for_the_host(host_lib, label, spec, access,
+                                         n_ops):
+    """The host-compiled warp form bit for bit against `ref.tier_pass_ref`
+    (sub-op streams, absorbed flags, host rows, final state) at each of
+    its geometries; the small ones flush."""
+    names = ("flush_burst",) if label.startswith("grid") else (
+        "flush_burst", "hm_1")
+    ops = tfleet.stack_ops([host_trace(n, access, n_ops) for n in names],
+                           device="cpu")
+    c_cnt = len(names)
+    hc0 = init_hc(spec, c_cnt, device="cpu")
+    if label.endswith("tick2^26"):
+        hc0 = hc0._replace(tick=torch.full_like(hc0.tick, (1 << 26) - 100))
+    job = tier_ref.TierJob(
+        spec, ops, map_state(lambda x: torch.stack([x] * c_cnt),
+                             as_hc_params(spec, "cpu")),
+        hc0, access == "bursty", rows=True)
+    ref = tier_ref.tier_pass_ref(job)
+    _assert_tier_equal(_run_host(host_lib, [job])[0], ref, label)
+    if not label.startswith(("grid", "1024")):
+        assert float(ref.hc.hctr.sum(0)[H_CTR["flush_w"]]) > 0, label
+
+
+def test_tier_pass_probe_runs_on_the_card_only():
+    """The probe form has no CPU form: a probe beside CPU jobs raises
+    instead of being ignored."""
+    spec = HostCacheSpec()
+    trace = host_trace("hm_0", "daily", 64)
+    job = tier_ref.TierJob(
+        spec, {k: v[None] for k, v in tsim.as_ops(trace, "cpu").items()},
+        map_state(_one, as_hc_params(spec, "cpu")),
+        init_hc(spec, 1, device="cpu"), False, rows=True)
+    probe = torch.zeros((1, len(host_tier.PROBE_COLUMNS)),
+                        dtype=torch.int64)
+    with pytest.raises(ValueError, match="probe form runs on the card"):
+        host_tier.tier_pass([job], probe=probe)
 
 
 def test_run_compressed_refuses_host_cache_params():

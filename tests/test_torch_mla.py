@@ -35,6 +35,7 @@ from repro_torch.configs import ARCHS as T_ARCHS
 from repro_torch.core.tiercache import layout as tlayout
 from repro_torch.core.tiercache import manager as tmanager
 from repro_torch.core.tiercache.policy import Policy as TPolicy
+from repro_torch.core.tiercache.quant import dequantize_int4 as t_dequant
 from repro_torch.interop import cache_from_jax, model_params_from_jax
 from repro_torch.kernels.tiered_attention import ops as tiered
 from repro_torch.kernels.tiered_attention import ref as tiered_ref
@@ -280,12 +281,13 @@ def test_latent_tier_partial_ref_contract():
                                          (1536, 4), (2048, 4), (2048, 1),
                                          (40000, 4)])
 def test_latent_split_plan(dense_len, b):
-    """Tokens a block: a multiple of the kernel's 32-token tile; splits
-    cover [0, dense_len) with none empty (one, empty, at 0), at most
-    MAX_SPLITS; at deepseek's decode (B 4, dense_len 2048) 64 tokens a
-    block: 128 blocks on the 132 SMs."""
+    """Tokens a block: whole 64-token tiles; splits cover [0, dense_len)
+    with none empty (one, empty, at 0), at most MAX_SPLITS, as the C entry
+    requires (else it returns -7); at deepseek's decode (B 4, dense_len
+    2048) one tile a block: 128 blocks, one on each of 128 of the 132
+    SMs."""
     tokens, splits = tiered.latent_split_plan(dense_len, b)
-    assert tokens % 32 == 0 and tokens >= 32
+    assert tokens % tiered.LATENT_TILE == 0 and tokens >= tiered.LATENT_TILE
     assert 1 <= splits <= tiered.MAX_SPLITS
     if dense_len:
         assert (splits - 1) * tokens < dense_len <= splits * tokens
@@ -293,6 +295,160 @@ def test_latent_split_plan(dense_len, b):
         assert splits == 1
     if (dense_len, b) == (2048, 4):
         assert (tokens, splits) == (64, 32)
+
+
+def _latent_args(b=1, h=4, r=128, p=32, s=40, s_raw=48, group=32):
+    return (torch.zeros((b, h, r)), torch.zeros((b, h, p)),
+            torch.zeros((b, s, r // 2), dtype=torch.uint8),
+            torch.zeros((b, s, r // group), dtype=torch.bfloat16),
+            torch.zeros((b, s_raw, p), dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("kw,dense_len,group,match", [
+    ({"h": 0}, 8, 32, "heads"), ({"h": 17}, 8, 32, "heads"),
+    ({"r": 96, "group": 32}, 8, 32, "rank"),
+    ({"r": 576, "group": 64}, 8, 64, "rank"),
+    ({"p": 48}, 8, 32, "rope dim"),
+    ({"group": 2}, 8, 3, "group"), ({"group": 64}, 8, 6, "group"),
+    ({}, 41, 32, "dense_len"), ({"s_raw": 39}, 8, 32, "krope shorter"),
+    ({"b": 65536, "s": 1, "s_raw": 1, "h": 1}, 1, 32, "batch")])
+def test_latent_check_refuses_what_the_kernel_does_not_take(kw, dense_len,
+                                                            group, match):
+    """The wrapper's checks before a launch, mirroring the C entry's
+    return codes: heads outside 1..16 (-2), a rank that is not a multiple
+    of 64 up to 512 or a RoPE width other than 16, 32, 64 (-3), an odd
+    group or one that does not divide the rank (-4), dense_len past the
+    tier or a RoPE key shorter than it (-5), more than 65535 batch rows
+    (-6); and a tensor of another dtype."""
+    args = _latent_args(**kw)
+    with pytest.raises(ValueError, match=match):
+        tiered.latent_check(*args, dense_len, group)
+    args = _latent_args()
+    tiered.latent_check(*args, 40, 32)
+    with pytest.raises(TypeError, match="c4_sc"):
+        tiered.latent_check(*args[:3], args[3].float(), args[4], 40, 32)
+
+
+def _latent_kernel_emulation(q_lat, q_rope, c4, c4_sc, krope, dense_len,
+                             group, scale, q_terms=3, p_terms=2):
+    """`csrc/latent_decode.cu`'s arithmetic in torch: the wrapper's split
+    plan, tiles of 64 tokens, C exact in bf16, q in `q_terms` bf16 terms
+    (the kernel: q_hi, q_lo and q_lo2), the float32 p of each tile's online
+    softmax in `p_terms` bf16 terms (the kernel: p_hi and p_lo), every
+    product summed in float32; then the merge of the splits in order."""
+    def terms(x, n):
+        out, rest = [], x
+        for _ in range(n):
+            t = rest.to(torch.bfloat16).to(torch.float32)
+            out.append(t)
+            rest = rest - t
+        return out
+    b, h, r = q_lat.shape
+    c = t_dequant(c4, c4_sc, group, torch.bfloat16).float()
+    kr = krope.float()
+    qs = terms(q_lat, q_terms)
+    qr = terms(q_rope, q_terms)
+    tokens, splits = tiered.latent_split_plan(dense_len, b)
+    parts = []
+    for i in range(splits):
+        m = torch.full((b, h), -1e30)
+        l = torch.zeros((b, h))
+        acc = torch.zeros((b, h, r))
+        end = min((i + 1) * tokens, dense_len)
+        for t0 in range(i * tokens, end, tiered.LATENT_TILE):
+            sl = slice(t0, min(t0 + tiered.LATENT_TILE, end))
+            s = sum(torch.einsum("bhr,btr->bht", q, c[:, sl]) for q in qs)
+            s = s + sum(torch.einsum("bhp,btp->bht", q, kr[:, sl])
+                        for q in qr)
+            s = s * scale
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new[..., None])
+            l = l * corr + pr.sum(-1)
+            acc = acc * corr[..., None] + sum(
+                torch.einsum("bht,btr->bhr", pt, c[:, sl])
+                for pt in terms(pr, p_terms))
+            m = m_new
+        parts.append((m, l, acc))
+    return tiered_ref.merge_splits(parts)
+
+
+def _deepseek_latent_inputs(exact_q: bool, seed=7):
+    """deepseek-v2-lite's decode (B 4, H 16, r 512, p 64, group 64) over
+    a 2048-token latent tier, from numpy: the latent quantized as the
+    tier quantizes it; q bf16-exact (as the serving path forms it) or
+    float32 that is not."""
+    from repro_torch.kernels.ips_repack.ref import quantize_rows_ref
+    rng = np.random.default_rng(seed)
+    b, s, h, r, p = 4, 2048, 16, 512, 64
+    c4, sc = quantize_rows_ref(torch.from_numpy(
+        2.0 * rng.standard_normal((b * s, r)).astype(np.float32)), 64)
+    q = [torch.from_numpy(rng.standard_normal((b, h, n)).astype(np.float32))
+         for n in (r, p)]
+    if exact_q:
+        q = [x.to(torch.bfloat16).float() for x in q]
+    kr = to_torch(_normal(rng, (b, s, p), ml_dtypes.bfloat16))
+    return (*q, c4.reshape(b, s, r // 2),
+            sc.reshape(b, s, r // 64).to(torch.bfloat16), kr)
+
+
+def _latent_err(got, want):
+    return max(float((a - w).abs().max()) / float(w.abs().max())
+               for a, w in zip(got, want))
+
+
+LATENT_TOL = 2e-5               # of max |output|, as chip_smoke.py holds it
+
+
+@pytest.mark.parametrize("exact_q", [True, False], ids=["q_bf16", "q_f32"])
+def test_latent_kernel_arithmetic_meets_the_bar(exact_q):
+    """The kernel's split arithmetic (three bf16 terms of q, two of p, C
+    exact in bf16, float32 sums) within 2e-5 of max |output| of
+    `latent_tier_partial_ref` at deepseek's shape, for the served q
+    (bf16-exact: q_lo is 0) and a float32 q that is not."""
+    args = _deepseek_latent_inputs(exact_q)
+    scale = 1.0 / 192 ** 0.5
+    want = tiered_ref.latent_tier_partial_ref(*args, 2048, 64, scale)
+    got = _latent_kernel_emulation(*args, 2048, 64, scale)
+    assert _latent_err(got, want) <= LATENT_TOL
+
+
+@pytest.mark.parametrize("terms", ["p", "q"])
+def test_latent_one_bf16_term_misses_the_bar(terms):
+    """Why the kernel carries more terms: p in one bf16 term (2^-9 of
+    itself), or a float32 q in one, misses 2e-5 of max |output| at
+    deepseek's shape."""
+    args = _deepseek_latent_inputs(exact_q=False)
+    scale = 1.0 / 192 ** 0.5
+    want = tiered_ref.latent_tier_partial_ref(*args, 2048, 64, scale)
+    got = _latent_kernel_emulation(*args, 2048, 64, scale,
+                                   p_terms=1 if terms == "p" else 2,
+                                   q_terms=1 if terms == "q" else 3)
+    assert _latent_err(got, want) > LATENT_TOL
+
+
+def test_served_latent_queries_are_bf16_exact(deepseek, monkeypatch):
+    """The serving path hands the latent kernel bf16 values in its
+    float32 q_lat and q_rope (MLA forms them by bf16 einsums and RoPE),
+    so the kernel's q_lo products are skipped: every decode step of the
+    reduced deepseek, every layer."""
+    _, _, tparams, tokens = deepseek
+    tb = t_build(T_CFG, device="cpu")
+    spec = t_tier_spec(tb, 128, TPolicy.IPS, hot_window=16, page_tokens=8,
+                       group=16)
+    seen = []
+    inner = t_mla.latent_decode_attention
+
+    def spy(q_lat, q_rope, *args, **kw):
+        for q in (q_lat, q_rope):
+            assert q.dtype == torch.float32
+            seen.append(torch.equal(q, q.to(torch.bfloat16).float()))
+        return inner(q_lat, q_rope, *args, **kw)
+    monkeypatch.setattr(t_mla, "latent_decode_attention", spy)
+    cache, logits = tb.prefill(tparams, {"tokens": to_torch(tokens)}, spec)
+    first = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    t_decode_loop(tb, tparams, cache, first, 4, spec, TPolicy.IPS)
+    assert len(seen) == 2 * T_CFG.num_layers * 4 and all(seen)
 
 
 def test_latent_wrapper_takes_the_plain_version_on_the_cpu():
