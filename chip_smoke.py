@@ -82,7 +82,18 @@ then:
    search engine at the `quick` budget (`--search quick`) against the
    reference's recorded run (`tests/data/torch_reference_search.json`:
    survivors, front, rounds, scenario history; scores within rtol 1e-6),
-   no new kernel specialisation after its first round. Phase 2
+   no new kernel specialisation after its first round. Then the
+   evaluation matrix as a user calls it (phase 3d): `driver.eval_matrix`
+   (66 cells: 11 traces x 2 modes x baseline, ips, ips_agc; ONE launch)
+   cell for cell against the matching cells of `BENCH_sweep_paper.json`;
+   `runner.bench_fleet_vs_loop` on the same 66 cells (the fleet's one
+   launch, then a loop of `driver.eval_cell`, one launch a cell: 67
+   launches), both walls and the speedup printed, its fleet held to the
+   same cells and its loop to its fleet (`max_rel_diff` at most 1e-6);
+   `scripts/bench_step_torch.py --traces hm_0,proj_0 --max-ops 32768`
+   into `build/bench_step`, its document checked by the port's
+   `check_step_throughput` with no speedup gate, its geomean printed.
+   Phase 2
    also holds the probe form to its plain version, bit for bit: every
    per-op and K = 32 case with the probe on at 1024 ops a window (8 of
    12 boundaries among the replayed tail pads) and the wear jobs at 256
@@ -109,9 +120,10 @@ then:
    G 8, hd 256) and zamba2-1.2b's (B 4, Hkv 32, G 1, hd 64) over the
    serving dense tier, with dense_len 0, 1, one split's tokens less and
    more one, 1000 and full, in both dequantized forms, within 2e-4;
-   flash in bf16 (the wgmma form, within 1e-2) at gemma-2b's prefill
-   shape (B 4, S 2048, H 8, Hkv 1, hd 256), zamba2's (H 32, Hkv 32,
-   hd 64), S 1000 and 333 (off the 128-row tile) and 17 (below it), and
+   flash in bf16 (the wgmma form, P as three bf16 terms, within 1e-2) at
+   gemma-2b's prefill shape (B 4, S 2048, H 8, Hkv 1, hd 256), zamba2's
+   (H 32, Hkv 32, hd 64), S 1000 and 333 (off the 128-row tile) and 17
+   (below it), and
    in float32 (2e-5); the count of HGMMA instructions in the built flash
    library (`cuobjdump -sass`), which must not be 0. Each kernel's time
    at both path shapes (CUDA events around each launch; for the tiered
@@ -183,17 +195,19 @@ then:
    check or the logits check; the script records both. Each path starts
    with one warm-up prefill, so no timed prefill pays the process's
    set-up;
-9. the MoE paths, as phase 6 — deepseek-v2-lite-16b at full width and
-   depth (27 layers, the first dense; MLA over the int4 latent tier; 64
-   routed experts top-6 and 2 shared) under the four policies, then one
+9. the MoE paths, as phase 6 — deepseek-v2-lite-16b at full width, its
+   depth cut from 27 to DEEPSEEK_LAYERS (the first dense; MLA over the
+   int4 latent tier; 64 routed experts top-6 and 2 shared) under the
+   four policies, then one
    arctic-480b layer at its published widths (128 experts top-2 and the
    dense residual; GQA 56 over 8 heads) under IPS, its weights drawn
    after deepseek's are freed. The plain, floor and fault runs replay
    the kernel run's MoE routes (`Routes`: routing is discontinuous) and
    count the (layer, token) top-k sets their own routing would have
-   chosen otherwise. deepseek launches flash 27 times a prefill (MLA's
-   widths, padded) and `latent_decode` 27 a step, the repack once a fill
-   or event (the latent alone; the RoPE key is a raw channel); arctic
+   chosen otherwise. deepseek launches flash once a layer a prefill
+   (MLA's widths, padded) and `latent_decode` once a layer a step, the
+   repack once a fill or event (the latent alone; the RoPE key is a raw
+   channel); arctic
    flash 1 a prefill and `tiered_decode` 1 a step. The flips are counted
    per MoE layer, with the router's gap between the k-th and (k+1)-th
    expert's probability at the flipped sets and over all sets, and the
@@ -204,7 +218,26 @@ then:
    cache is projected before the prefill attention, whose softmax chunks
    are the floor's only difference): the script fails if it is not, and
    holds that path to the max-based check alone, which must catch its
-   tiered call dropping 32 dense tokens at every step.
+   tiered call dropping 32 dense tokens at every step;
+10. the encoder-decoder, as phase 6 — whisper-tiny at full size (4
+   encoder and 4 decoder layers, 1500 frames drawn with the prompts)
+   under the four policies: flash 4 a prefill (the decoder's causal
+   self-attention; the encoder's non-causal one is plain PyTorch, as in
+   the reference), `tiered_decode` 8 a step (each layer's self tier, then
+   its static int4 cross tier as the dense partial over all 1500
+   frames), the repack once a fill or event and once for the cross tier.
+   Phase 5 holds the cross partial at (B 4, Hkv 6, G 1, hd 64,
+   dense_len = S = 1500, 1499 and 77) to its plain version and times it,
+   and flash at whisper's prefill (H 6, Hkv 6, hd 64). Under IPS the
+   cross tier's call dropping its last 256 frames must fail the rms
+   check at every step;
+11. the VLM, as phase 6 — llava-next-34b (60 layers, d_model 7168, GQA
+   56 over 8 heads) at full width, depth LLAVA_LAYERS, under IPS: 576
+   patch embeddings and 2048 tokens prefilled (2624 positions through
+   flash, which phase 5 holds to its plain version at that shape), 128
+   steps through `tiered_decode` at G 7; the peak memory printed. Its
+   tiered call dropping 32 dense tokens must fail the rms check at every
+   step.
 
 Each phase prints JSON lines, each with the card's name and power
 limit, and any mismatch fails the run. The line
@@ -573,11 +606,24 @@ def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
 # ---------------------------------------------------------------------------
 
 SERVE_ARCHS = ("gemma-2b", "mamba2-370m", "zamba2-1.2b")
-# the MoE paths (phase 9): deepseek-v2-lite at full width and depth under
-# the four policies; one arctic-480b layer at its published widths (35
-# layers, some 470 B parameters, need more than one card) under IPS
-MOE_ARCHS = (("deepseek-v2-lite-16b", None, None),
+# the MoE paths (phase 9): deepseek-v2-lite at full width under the four
+# policies, its depth cut from 27 to DEEPSEEK_LAYERS (the first dense,
+# the rest MoE) to keep the script within its 1200 s: the phase took
+# 139 s at 12 layers and 279-357 s at 27, 9.3-14.5 s a layer, and the
+# script 954 s with it at 12, so 27 would come to some 1,170 s (PERF.md
+# §4); one arctic-480b layer at its published widths (35 layers, some
+# 470 B parameters, need more than one card) under IPS
+DEEPSEEK_LAYERS = 20
+MOE_ARCHS = (("deepseek-v2-lite-16b", DEEPSEEK_LAYERS, None),
              ("arctic-480b", 1, ("IPS",)))
+# the encoder-decoder and VLM paths (phases 10 and 11): whisper-tiny at
+# full size under the four policies; llava-next-34b at full width under
+# IPS, its depth cut from 60 to LLAVA_LAYERS: at 60 (64.05 GiB of bf16
+# weights) the phase took 97.4 s, over its 90 s, and its plain and floor
+# runs brought the card to 77.7 GiB in use; at 48, 77-114 s (PERF.md §4)
+LLAVA_LAYERS = 32
+EXTRA_ARCHS = (("whisper-tiny", None, None),
+               ("llava-next-34b", LLAVA_LAYERS, ("IPS",)))
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 128
 # the floor runs' other summation order: the prefill's attention softmax
 # in chunks of 256 instead of 512, the SSD scan in chunks of 128, not 256
@@ -1153,6 +1199,52 @@ def serve_kernels_vs_plain(cuda) -> dict:
             "timed_shape": (f"B {b}, Hkv {hkv}, G {g}, hd {hd}, S {s_dense}, "
                             f"dense_len {timed_len}, bf16 form"),
             "split_tokens": tokens, "blocks": b * hkv * splits}
+    # -- the same kernel as whisper-tiny's cross-attention: its dense
+    #    partial over the whole static cross tier (B 4, Hkv 6, G 1, hd 64,
+    #    dense_len = S = 1500 frames, no multiple of the page or of a
+    #    split; and S 1499 and 77), both forms; timed at 1500 in bf16
+    b, hkv, g, hd = SERVE_BATCH, 6, 1, 64
+    for frames in (WHISPER_FRAMES, WHISPER_FRAMES - 1, 77):
+        k4, ksc = quantize_rows_ref(randn(b * frames * hkv, hd, scale=2.0,
+                                          dtype=torch.bfloat16), GROUP)
+        v4, vsc = quantize_rows_ref(randn(b * frames * hkv, hd, scale=2.0,
+                                          dtype=torch.bfloat16), GROUP)
+        k4, v4 = (t.reshape(b, frames, hkv, hd // 2) for t in (k4, v4))
+        ksc, vsc = (t.reshape(b, frames, hkv, hd // GROUP)
+                    for t in (ksc, vsc))
+        q = randn(b, hkv, g, hd)
+        for form, deq in (("float32", torch.float32),
+                          ("bf16", torch.bfloat16)):
+            ks, vs = ksc.to(deq), vsc.to(deq)
+            got = tiered.dense_tier_partial(q, k4, ks, v4, vs, frames,
+                                            group=GROUP, deq_dtype=deq)
+            want = dense_tier_partial_ref(q, k4, ks, v4, vs, frames, GROUP,
+                                          deq)
+            for name, a, w in zip(("m", "l", "acc"), got, want):
+                err = max(err, _within(
+                    f"tiered cross tier {form} F {frames} {name}", a, w,
+                    2e-4))
+            cases.append(f"whisper-tiny cross {form} F {frames}")
+        if frames != WHISPER_FRAMES:
+            continue
+        ks, vs = ksc.to(torch.bfloat16), vsc.to(torch.bfloat16)
+
+        def call(q=q, k4=k4, ks=ks, v4=v4, vs=vs):
+            return tiered.dense_tier_partial(q, k4, ks, v4, vs,
+                                             WHISPER_FRAMES, group=GROUP,
+                                             deq_dtype=torch.bfloat16)
+        tokens, splits = tiered.split_plan(frames, b, hkv, g)
+        bnd, by = tiered_bound(b, hkv, g, hd, frames)
+        timed["whisper-tiny cross"] = {
+            "ms": kernel_ms(launchers["tiered_decode"], call),
+            "device_ms": graph_ms(call),
+            "plain_ms": time_ms(lambda: dense_tier_partial_ref(
+                q, k4, ks, v4, vs, WHISPER_FRAMES, GROUP, torch.bfloat16),
+                PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "timed_shape": (f"B {b}, Hkv {hkv}, G {g}, hd {hd}, S {frames}, "
+                            f"dense_len {frames}, bf16 form"),
+            "split_tokens": tokens, "blocks": b * hkv * splits}
     gemma = timed["gemma-2b"]
     out["tiered_decode"] = {
         "name": "tiered_decode", "route": "cuda",
@@ -1161,7 +1253,8 @@ def serve_kernels_vs_plain(cuda) -> dict:
         "replaces": "src/repro/kernels/tiered_attention/kernel.py:37",
         "max_abs_err": err, "library_ms": None, **gemma,
         "zamba2_shape": timed["zamba2-1.2b"],
-        "arctic_shape": timed["arctic-480b"]}
+        "arctic_shape": timed["arctic-480b"],
+        "whisper_cross_shape": timed["whisper-tiny cross"]}
     emit({"phase": "kernel_vs_plain", "kernel": "tiered_decode",
           "cases": cases, "tolerance": 2e-4, **out["tiered_decode"]})
 
@@ -1178,11 +1271,18 @@ def serve_kernels_vs_plain(cuda) -> dict:
     cases = []
     shapes = {"gemma-2b": (SERVE_BATCH, SERVE_PROMPT, 8, 1, 256),
               "zamba2-1.2b": (SERVE_BATCH, SERVE_PROMPT, 32, 32, 64),
-              "arctic-480b": (SERVE_BATCH, SERVE_PROMPT, 56, 8, 128)}
+              "arctic-480b": (SERVE_BATCH, SERVE_PROMPT, 56, 8, 128),
+              # whisper-tiny's decoder prefill; llava-next-34b's 576
+              # patches and 2048 tokens at arctic's heads
+              "whisper-tiny": (SERVE_BATCH, SERVE_PROMPT, 6, 6, 64),
+              "llava-next-34b": (SERVE_BATCH, LLAVA_PATCHES + SERVE_PROMPT,
+                                 56, 8, 128)}
     for b_, s_, h_, hkv_, hd_, dt, tol in (
             shapes["gemma-2b"] + (torch.bfloat16, 1e-2),
             shapes["zamba2-1.2b"] + (torch.bfloat16, 1e-2),
             shapes["arctic-480b"] + (torch.bfloat16, 1e-2),
+            shapes["whisper-tiny"] + (torch.bfloat16, 1e-2),
+            shapes["llava-next-34b"] + (torch.bfloat16, 1e-2),
             (2, 1000, 8, 1, 256, torch.bfloat16, 1e-2),
             (2, 1000, 6, 2, 64, torch.bfloat16, 1e-2),
             (2, 333, 6, 2, 64, torch.bfloat16, 1e-2),
@@ -1231,7 +1331,9 @@ def serve_kernels_vs_plain(cuda) -> dict:
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "sass_hgmma": hgmma, "zamba2_shape": timed["zamba2-1.2b"],
-        "arctic_shape": timed["arctic-480b"], "mla_shape": mla}
+        "arctic_shape": timed["arctic-480b"],
+        "whisper_shape": timed["whisper-tiny"],
+        "llava_shape": timed["llava-next-34b"], "mla_shape": mla}
     emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": cases,
           "tolerance": {"bf16": 1e-2, "float32": 2e-5}, **out["flash_fwd"]})
     return out
@@ -1544,21 +1646,29 @@ def _replaced(*swaps):
             setattr(module, name, value)
 
 
-def plain_versions():
+def plain_versions(keep=None):
     """The serving path with each kernel's wrapper replaced by its plain
     version (`ref.py`) on the same tensors on the card: phases 6 and 8's
     comparison run. The path looks each wrapper up on its module at every
-    call, so this reaches every call site."""
+    call, so this reaches every call site. `keep` names one kernel (a key
+    of `_launchers()`) whose wrapper stays in place: the diagnostic of
+    `scripts/serve_kernel_isolation.py`."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ips_repack import ops as repack
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
-    return _replaced(
-        (flash, "flash_fwd", flash.ref.flash_ref),
-        (repack, "quantize_into", repack.ref.quantize_into_ref),
-        (tiered, "dense_tier_partial", tiered.ref.dense_tier_partial_ref),
-        (tiered, "latent_tier_partial", tiered.ref.latent_tier_partial_ref),
-        (ssd, "ssd_intra", ssd.ref.intra_chunk_ref))
+    swaps = {
+        "flash_fwd": (flash, "flash_fwd", flash.ref.flash_ref),
+        "ips_repack": (repack, "quantize_into",
+                       repack.ref.quantize_into_ref),
+        "tiered_decode": (tiered, "dense_tier_partial",
+                          tiered.ref.dense_tier_partial_ref),
+        "latent_decode": (tiered, "latent_tier_partial",
+                          tiered.ref.latent_tier_partial_ref),
+        "ssd_intra": (ssd, "ssd_intra", ssd.ref.intra_chunk_ref)}
+    if keep is not None and keep not in swaps:
+        raise ValueError(f"plain_versions: no kernel {keep!r}")
+    return _replaced(*[swap for name, swap in swaps.items() if name != keep])
 
 
 class Routes:
@@ -1672,7 +1782,10 @@ def planted_faults(arch):
     dropping 32 dense tokens must be caught by the rms check at every
     step. arctic's one layer, the tiered call: dropping 32 must be caught
     by the max-based check at every step (its floor is 0, so no rms
-    check).
+    check). whisper-tiny, the cross tier's call: dropping its last 256
+    of 1500 frames must be caught by the rms check at every step.
+    llava-next-34b, the tiered call: dropping 32 dense tokens must be
+    caught by the rms check at every step.
     mamba2-370m, the `ssd_intra` call: a strict causal mask (the kernel's
     y less its diagonal term C_i.B_i dt_i x_i, L's diagonal being
     exp(0) = 1) must be caught."""
@@ -1702,9 +1815,25 @@ def planted_faults(arch):
     if arch == "deepseek-v2-lite-16b":
         return [("latent dense_len - 32",
                  short("latent_tier_partial", 32), False, True)]
+    if arch == "whisper-tiny":
+        # the cross tier's call (its tier is F frames long, all dense):
+        # the last CROSS_DROP frames dropped, the self tier's call kept
+        kernel = tiered.dense_tier_partial
+
+        def cross_short(*args, **kw):
+            args = list(args)
+            if args[1].shape[1] == int(args[5]) == WHISPER_FRAMES:
+                args[5] = WHISPER_FRAMES - CROSS_DROP
+            return kernel(*args, **kw)
+        return [(f"cross tier dense_len - {CROSS_DROP}",
+                 _replaced((tiered, "dense_tier_partial", cross_short)),
+                 True, True)]
     if arch == "arctic-480b":
         return [("tiered dense_len - 32",
                  short("dense_tier_partial", 32), "every step", False)]
+    if arch == "llava-next-34b":
+        return [("tiered dense_len - 32",
+                 short("dense_tier_partial", 32), False, True)]
     if arch != "gemma-2b":
         return []
     kernel = tiered.dense_tier_partial
@@ -1718,6 +1847,11 @@ def planted_faults(arch):
             ("tiered float32 dequant",
              _replaced((tiered, "dense_tier_partial", float32_form)), False,
              False)]
+
+
+WHISPER_FRAMES = 1500           # whisper-tiny's encoder frames
+LLAVA_PATCHES = 576             # llava-next-34b's patch embeddings
+CROSS_DROP = 256                # frames the planted cross-tier fault drops
 
 
 def shadow_intra(log):
@@ -1783,7 +1917,7 @@ def _path_setup(cfg, b, prompt):
         setup["intra_shape"] = (b, prompt // min(s.chunk_size, prompt),
                                 min(s.chunk_size, prompt), nh, s.head_dim,
                                 s.d_state)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         setup["slots"] = cfg.num_layers
     elif cfg.family == "hybrid":
         n_macro, _ = hybrid_structure(cfg)
@@ -1808,15 +1942,24 @@ def _path_setup(cfg, b, prompt):
                      chans=((hd, True), (hd, True)), quant_feat=hd,
                      quant_rows=2 * b * hkv, flash_hd=(hd, hd),
                      flash_hkv=hkv)
+    # a VLM's patches take positions before the prompt; an
+    # encoder-decoder's decoder reads its static cross tier of `frames`
+    # once a layer a step (the tiered kernel's dense partial) and
+    # quantizes it once at the prefill (one repack launch)
+    setup["prefix"] = cfg.vlm.num_patches if cfg.vlm is not None else 0
+    setup["frames"] = (cfg.encdec.encoder_seq_len if cfg.encdec is not None
+                       else 0)
     return setup
 
 
-def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
+def serve_main_path(cuda, arch, layers=None, policies=None,
+                    keep=None) -> dict:
     """Phases 6, 8 and 9: `arch` (cut to `layers` when given) served under
     each of `policies` (names; by default every policy, or one for an ssm
     model, which has no KV cache), with the kernels and then
-    teacher-forced with the plain versions, a MoE model's routes too;
-    returns each kernel's main-path launches, time and bound."""
+    teacher-forced with the plain versions (all but `keep`'s, a
+    diagnostic: see `plain_versions`), a MoE model's routes too; returns
+    each kernel's main-path launches, time and bound."""
     import dataclasses
 
     import numpy as np
@@ -1834,6 +1977,8 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
     b, prompt, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
     setup = _path_setup(cfg, b, prompt)
     slots, hkv, hd = setup["slots"], setup["hkv"], setup["hd"]
+    # cache positions at the prefill: a VLM's patches, then the prompt
+    positions, frames = setup["prefix"] + prompt, setup["frames"]
     gen = torch.Generator(device=cuda)
     gen.manual_seed(SERVE_SEED)
     t0 = time.perf_counter()
@@ -1850,7 +1995,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
     launchers = _launchers()
     totals = {name: {"launches": 0, "ms": 0.0, "bound_ms": 0.0}
               for name in launchers}
-    flash_b = (flash_bound(b, prompt, cfg.num_heads, setup["flash_hkv"],
+    flash_b = (flash_bound(b, positions, cfg.num_heads, setup["flash_hkv"],
                            setup["flash_hd"][0], 2, setup["flash_hd"][1])[0]
                if slots else 0.0)
     intra_b = (ssd_intra_bound(*setup["intra_shape"])[0]
@@ -1881,7 +2026,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
     # warm-up: one prefill with the kernels (the counts are zeroed before
     # each counted run), so that no timed prefill pays the process's
     # first cuBLAS and allocator set-up
-    model.prefill(params, batch, make_tier_spec(model, prompt + steps,
+    model.prefill(params, batch, make_tier_spec(model, positions + steps,
                                                 policies[0]))
     torch.cuda.synchronize()
 
@@ -1891,19 +2036,22 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
             model, params, cache, prefill_logits, spec, policy, steps, **kw)
 
     for policy in policies:
-        spec = make_tier_spec(model, prompt + steps, policy)
+        spec = make_tier_spec(model, positions + steps, policy)
         if slots:
-            trace = plan_trace(policy, spec, prompt, steps,
+            trace = plan_trace(policy, spec, positions, steps,
                                setup["per_tok"], setup["chans"],
                                setup["state_bytes"])
         else:
             trace = ssm_trace(prompt, steps, setup["state_bytes"])
         expect = {"flash_fwd": slots if cfg.family != "ssm" else 0,
                   "tiered_decode": 0, "latent_decode": 0,
-                  "ips_repack": int(trace["fill"]) + len(trace["events"]),
+                  "ips_repack": int(trace["fill"]) + len(trace["events"])
+                  + int(frames > 0),
                   "ssd_intra": setup["mamba_layers"]}
         if slots:
-            expect[setup["decode_kernel"]] = slots * steps
+            # the cross tier's partial beside the self tier's
+            expect[setup["decode_kernel"]] = (slots * steps
+                                              * (2 if frames else 1))
 
         # -- with the kernels, timed on the host clock with no CUDA events
         #    recorded: the counts zeroed just before, read just after
@@ -1968,7 +2116,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
         # -- teacher-forced with the plain versions (no kernel launches),
         #    beside the floor; a MoE model's routes replayed from the
         #    kernel run
-        with plain_versions(), replayed("plain"):
+        with plain_versions(keep), replayed("plain"):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             cache, plain_prefill = model.prefill(params, batch, spec)
@@ -1983,6 +2131,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
             step_f = make_serve_step(floor_model, spec, policy)
             metrics, metrics_f = zero_metrics(), zero_metrics()
             agree, limits, floor_rms, err_rms = 0, [], [], 0.0
+            step_rms = []
             over_limit = over_floor_rms = 0.0
             for i in range(steps):
                 use("plain")
@@ -1996,9 +2145,10 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
                 err, floor = max(err, e), max(floor, f)
                 limits.append(lim)
                 floor_rms.append(_rms(lg_f - lg))
-                err_rms = max(err_rms, _rms(logits[i] - lg))
+                step_rms.append(_rms(logits[i] - lg))
+                err_rms = max(err_rms, step_rms[-1])
                 over_limit = max(over_limit, e / lim)
-                over_floor_rms = max(over_floor_rms, _rms(logits[i] - lg)
+                over_floor_rms = max(over_floor_rms, step_rms[-1]
                                      / max(floor_rms[-1], 1e-30))
                 plain_logits[i] = lg
                 chosen = inputs[i + 1] if i + 1 < steps else token
@@ -2024,7 +2174,8 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
             fail(f"{arch} {policy.name}: rms of the logits' error is "
                  f"{over_floor_rms} x the floor's at some step (limit "
                  f"{RMS_LIMIT})")
-        if any(launcher.launches for launcher in launchers.values()):
+        if any(launcher.launches for name, launcher in launchers.items()
+               if name != keep):
             fail(f"{arch} {policy.name}: the plain run launched a kernel")
         if (cache["dense_len"], cache["total_len"]) != (
                 trace["dense_len"], trace["total_len"]):
@@ -2121,12 +2272,18 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
         per_row = slots * setup.get("quant_rows", 0)
         rows = ([per_row * trace["attended"][0]] if trace["fill"] else []
                 ) + [per_row * t for t in trace["events"]]
+        if frames:
+            # the cross tier's K and V, every layer, in one launch
+            rows.append(per_row * frames)
         g = cfg.num_heads // hkv if slots else 1
         decode_b = [
             (latent_bound(b, cfg.num_heads, cfg.mla.kv_lora_rank,
                           cfg.mla.qk_rope_head_dim, d)[0]
              if cfg.mla is not None else tiered_bound(b, hkv, g, hd, d)[0])
             for d in trace["attended"] for _ in range(slots)]
+        if frames:
+            decode_b += [tiered_bound(b, hkv, g, hd, frames)[0]] * (
+                slots * steps)
         bounds = {"flash_fwd": [flash_b] * expect["flash_fwd"],
                   "tiered_decode": decode_b if expect["tiered_decode"]
                   else [],
@@ -2140,7 +2297,8 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
             totals[name]["ms"] += sum(per_launch[name])
             totals[name]["bound_ms"] += sum(bounds[name])
         emit({"phase": "serve", "arch": arch, "policy": policy.name,
-              "batch": b, "prompt": prompt, "steps": steps,
+              "batch": b, "prompt": prompt, "prefix": setup["prefix"],
+              "frames": frames, "steps": steps,
               "tier_spec": {"s_max": spec.s_max,
                             "hot_window": spec.hot_window,
                             "page_tokens": spec.page_tokens,
@@ -2167,6 +2325,8 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
               "logits_floor_rms": max(floor_rms),
               "logits_floor_rms_min": min(floor_rms),
               "logits_floor_rms_zero_steps": zero_floor,
+              "logits_floor_rms_per_step": floor_rms,
+              "logits_rms_err_per_step": step_rms,
               "logits_max_err_over_limit": over_limit,
               "logits_max_rms_over_floor_rms": over_floor_rms,
               "logits_rms_checked": rms_checked,
@@ -2188,7 +2348,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
               "route_flips": routes.counts() if routes is not None
               else None})
     emit({"phase": "serve_summary", "arch": arch, "init_s": init_s,
-          "layers": cfg.num_layers,
+          "layers": cfg.num_layers, "positions": positions,
           "wall_s": time.perf_counter() - t_path,
           "main_path": totals, "planted_faults": faults,
           "path_check": path_check})
@@ -2196,6 +2356,34 @@ def serve_main_path(cuda, arch, layers=None, policies=None) -> dict:
                             "main_path_ms": v["ms"],
                             "main_path_bound_ms": v["bound_ms"]}
                         for n, v in totals.items()}}
+
+
+def _cells_equal(label, got: dict, ref: dict) -> float:
+    """Every cell of `got` (keyed as the reference's results) against the
+    reference's: the counters, WA, the lifetime and host-tier columns
+    exact, the mean latency and the two bucket means within rtol 1e-6;
+    returns the worst relative difference of those three."""
+    import numpy as np
+    worst = 0.0
+    for key, cell in got.items():
+        want = ref.get(key)
+        if want is None:
+            fail(f"{label}: {key} has no reference result")
+        if set(cell) != set(want):
+            fail(f"{label}: {key} reports {sorted(set(cell) ^ set(want))} "
+                 "on one side only")
+        for metric in EXACT + WEAR_EXACT + HOST_EXACT:
+            if metric in want and cell[metric] != want[metric]:
+                fail(f"{label}: {key}: {metric} = {cell[metric]!r}, "
+                     f"reference {want[metric]!r}")
+        for metric in WEAR_CLOSE:
+            if metric not in want:
+                continue
+            a, b = cell[metric], want[metric]
+            if not np.isfinite(a) or abs(a - b) > 1e-6 * abs(b):
+                fail(f"{label}: {key}: {metric} = {a!r}, reference {b!r}")
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    return worst
 
 
 def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
@@ -2234,25 +2422,7 @@ def sweep_path(cfg, n_logical, cuda, grid, ref, cache_dir, smem_cycles,
         fail(f"{grid}: the sweep launched host_tier {tier_launches} times "
              f"for {host_cells} host cells; a grid's host cells are one "
              "launch")
-    worst = 0.0
-    for pt in points:
-        got, want = results[pt], ref.get(pt.key)
-        if want is None:
-            fail(f"{grid}: {pt.key} has no reference result")
-        if set(got) != set(want):
-            fail(f"{grid}: {pt.key} reports {sorted(set(got) ^ set(want))} "
-                 "on one side only")
-        for key in EXACT + WEAR_EXACT + HOST_EXACT:
-            if key in want and got[key] != want[key]:
-                fail(f"{grid}: {pt.key}: {key} = {got[key]!r}, reference "
-                     f"{want[key]!r}")
-        for key in WEAR_CLOSE:
-            if key not in want:
-                continue
-            a, b = got[key], want[key]
-            if not np.isfinite(a) or abs(a - b) > 1e-6 * abs(b):
-                fail(f"{grid}: {pt.key}: {key} = {a!r}, reference {b!r}")
-            worst = max(worst, abs(a - b) / max(abs(b), 1e-30))
+    worst = _cells_equal(grid, {pt.key: results[pt] for pt in points}, ref)
     grid_ms = timings[0]["launch_ms"]
     if grid_ms is None or any(g["kernel_ms"] is None for g in timings):
         fail(f"{grid}: the launch's events or block timers are missing")
@@ -2705,6 +2875,92 @@ def cli_hostcache_run(cache_dir, recorded) -> dict:
             "hostcache": doc["hostcache"]}
 
 
+MATRIX_CELLS = 66               # 11 traces x 2 modes x 3 policies
+BENCH_STEP_ARGS = ("--traces", "hm_0,proj_0", "--max-ops", "32768")
+
+
+def matrix_path(cfg, cuda, bench, cache_dir) -> dict:
+    """The evaluation matrix and its benchmarks, as a user calls them:
+    `driver.eval_matrix` (66 cells, the fleet's ONE `ssd_step` launch)
+    cell for cell against the matching cells of `BENCH_sweep_paper.json`;
+    `runner.bench_fleet_vs_loop` on the same cells (the fleet, then a loop
+    of `driver.eval_cell`, one launch a cell), both walls and the
+    speedup, its fleet held to the same cells and its loop to its fleet
+    (`max_rel_diff` within the mean latency's bar); then
+    `scripts/bench_step_torch.py` (per-op, compressed and packed paths,
+    one cell at a time) into `build/bench_step`, its document checked by
+    the port's `check_step_throughput` with no speedup gate (the
+    reference's 3x floor was set on another machine)."""
+    import torch
+    from repro_torch.core.ssd.driver import eval_matrix
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.runner import bench_fleet_vs_loop
+    from repro_torch.sweep.store import check_step_throughput
+    ref = bench["results"]
+    os.environ["REPRO_TORCH_TRACE_CACHE_DIR"] = cache_dir
+
+    n0 = ssd_step.launches
+    t1 = time.perf_counter()
+    got = eval_matrix(cfg, device=cuda)
+    torch.cuda.synchronize()
+    matrix_wall = time.perf_counter() - t1
+    matrix_launches = ssd_step.launches - n0
+    if len(got) != MATRIX_CELLS or matrix_launches != 1:
+        fail(f"eval_matrix: {len(got)} cells in {matrix_launches} "
+             f"launch(es), not {MATRIX_CELLS} in one")
+    worst = _cells_equal("eval_matrix", got, ref)
+
+    n0 = ssd_step.launches
+    fleet_vs_loop = bench_fleet_vs_loop(cfg, device=cuda)
+    bench_launches = ssd_step.launches - n0
+    if bench_launches != 1 + MATRIX_CELLS:
+        fail(f"bench_fleet_vs_loop launched the kernel {bench_launches} "
+             f"times, not once for the fleet and once a cell")
+    worst = max(worst, _cells_equal("bench_fleet_vs_loop",
+                                    fleet_vs_loop["results"], ref))
+    if fleet_vs_loop["max_rel_diff"] > 1e-6:
+        fail(f"bench_fleet_vs_loop: the loop differs from the fleet by "
+             f"{fleet_vs_loop['max_rel_diff']} (bar 1e-6)")
+    print(f"bench: loop {fleet_vs_loop['loop_wall_s']:.3f} s -> fleet "
+          f"{fleet_vs_loop['fleet_wall_s']:.3f} s (speedup "
+          f"{fleet_vs_loop['speedup']:.2f}x, max rel diff "
+          f"{fleet_vs_loop['max_rel_diff']:.2e})", flush=True)
+
+    out_dir = os.path.join(ROOT, "build", "bench_step")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "bench_step_torch.py"),
+         *BENCH_STEP_ARGS, "--out-dir", out_dir], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    step_wall = time.perf_counter() - t1
+    with open(os.path.join(out_dir, "stdout.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"bench_step_torch.py exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    files = sorted(n for n in os.listdir(out_dir) if n.endswith(".json"))
+    if files != ["BENCH_torch_history.json",
+                 "BENCH_torch_step_throughput.json"]:
+        fail(f"bench_step_torch.py wrote {files}")
+    with open(os.path.join(out_dir, "BENCH_torch_step_throughput.json")) as f:
+        step = check_step_throughput(json.load(f))
+    gm = step["geomean_speedup"]
+    print(f"bench_step: geomean speedup compressed {gm['compressed']:.2f}x, "
+          f"packed {gm['packed']:.2f}x", flush=True)
+    return {"eval_matrix": {"cells": len(got), "wall_s": matrix_wall,
+                            "launches": matrix_launches,
+                            "mean_latency_worst_rel": worst},
+            "fleet_vs_loop": {k: v for k, v in fleet_vs_loop.items()
+                              if k != "results"},
+            "fleet_vs_loop_launches": bench_launches,
+            "bench_step": {"args": list(BENCH_STEP_ARGS), "wall_s": step_wall,
+                           "geomean_speedup": gm, "traces": step["traces"]},
+            "launches": matrix_launches + bench_launches}
+
+
 def search_path(cache_dir) -> dict:
     """The search engine at the `quick` budget on the card, through the
     CLI's entry (`--search quick`, in this process, the kernels' counts
@@ -2788,6 +3044,19 @@ def search_path(cache_dir) -> dict:
             "specialisations": doc["specialisations"]}
 
 
+def _card_line() -> list:
+    """Print the card's name and power limit, once, and keep them for
+    every JSON line."""
+    global CARD
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    CARD = smi[0] if smi else "nvidia-smi: no output"
+    print(CARD, flush=True)
+    return smi
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2815,13 +3084,7 @@ def main() -> int:
     from repro_torch.workloads import build_ops, compress_ops, truncate_trace
 
     # ---- 1. device and build ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
-    global CARD
-    CARD = smi[0] if smi else "nvidia-smi: no output"
+    smi = _card_line()
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -3049,6 +3312,14 @@ def main() -> int:
 
     wall("3c host tier and search")
 
+    # ---- 3d. the evaluation matrix, the fleet against the loop, the
+    # step-throughput script ----
+    t_matrix = time.perf_counter()
+    matrix = matrix_path(cfg, cuda, bench, cache_dir)
+    emit({"phase": "matrix", **matrix,
+          "wall_s": time.perf_counter() - t_matrix})
+    wall("3d matrix and benches")
+
     # ---- 4.-8. the serving paths ----
     emit({"phase": "serve_build",
           "libraries": {name: {"build_s": lib.build_s,
@@ -3074,6 +3345,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         wall(f"9 {arch}")
     emit({"phase": "moe_wall", "s": time.perf_counter() - t_moe})
+
+    # ---- 10.-11. the encoder-decoder (whisper-tiny, full size, the four
+    # policies) and the VLM (llava-next-34b under IPS, full width and
+    # depth unless cut in LLAVA_LAYERS) ----
+    for arch, layers, policies in EXTRA_ARCHS:
+        t_arch = time.perf_counter()
+        by_path[arch] = serve_main_path(cuda, arch, layers, policies)
+        torch.cuda.empty_cache()
+        emit({"phase": "serve_wall", "arch": arch,
+              "s": time.perf_counter() - t_arch})
+        wall(f"10 {arch}")
     emit({"phase": "walls", "s_from_start": walls})
 
     # ---- the kernel table, then the contract's last line ----
@@ -3085,7 +3367,7 @@ def main() -> int:
         # every sweep path's one launch, each counted from 0 (the
         # telemetry phase's among them)
         "launches": sum(s["line"]["launches"] for s in sweeps.values())
-        + tele["launches"],
+        + tele["launches"] + matrix["launches"],
         # ms / plain_ms / bound_ms: the same work — phase 2's eight K = 1
         # launches, which the CPU plain version can also run
         "max_abs_err": max(max_err, wear["max_abs_err"]), "ms": kernel_ms,
@@ -3110,6 +3392,8 @@ def main() -> int:
         "main_paths": {run: {k: s["line"][k] for k in (
             "launches", "kernel_ms", "wall_s", "bound_ms", "bound_by",
             "chain_bound_ms")} for run, s in sweeps.items()},
+        # eval_matrix's one launch and bench_fleet_vs_loop's 1 + 66
+        "matrix_launches": matrix["launches"],
         # the probe form: phase 2's eight K = 1 launches with the probe on,
         # the wear jobs' with it on, the paper grid's one launch with it on
         # (the telemetry phase) and the CLI's overhead check

@@ -1,5 +1,6 @@
 """Tiered KV-cache arena layout (the port of the reference's
-`repro/core/tiercache/layout.py`: the `gqa` and `mla` kinds).
+`repro/core/tiercache/layout.py`: the `gqa`, `mla` and `encdec_self`
+kinds).
 
 Two tiers per cache channel (k, v, or MLA's latent):
 
@@ -15,8 +16,10 @@ a flat dict of tensors with a leading layer dimension, plus the scalars
 `dense_len` / `total_len`, which the port keeps on the host as ints.
 Raw channels (MLA's RoPE key) follow the same dense/hot split without
 quantization, in one buffer: the dense region [0, s_dense) at absolute
-positions, the hot region from s_dense. The encoder-decoder channels
-wait for their slice.
+positions, the hot region from s_dense. An encoder-decoder's
+`encdec_self` kind is `gqa`'s self-attention tiers beside a static int4
+cross tier (`cross_static_zeros`: the encoder's K and V, quantized once
+at the prefill, never appended to and never repacked).
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ import torch
 from repro_torch.kernels.ips_repack import ops as repack_ops
 
 __all__ = ["TierSpec", "QUANT_CHANNELS", "RAW_CHANNELS", "gqa_layer_zeros",
-           "mla_layer_zeros", "split_for_prefill", "fill_quant_channels",
-           "fill_raw_channel"]
+           "mla_layer_zeros", "cross_static_zeros", "split_for_prefill",
+           "fill_quant_channels", "fill_raw_channel"]
 
 
 @dataclass(frozen=True)
@@ -51,10 +54,12 @@ class TierSpec:
 QUANT_CHANNELS = {
     "gqa": (("k4", "k4_sc", "kh"), ("v4", "v4_sc", "vh")),
     "mla": (("c4", "c4_sc", "ch"),),
+    "encdec_self": (("k4", "k4_sc", "kh"), ("v4", "v4_sc", "vh")),
 }
 RAW_CHANNELS = {
     "gqa": (),
     "mla": ("krope",),
+    "encdec_self": (),
 }
 
 
@@ -87,6 +92,20 @@ def mla_layer_zeros(n_slots, b, spec: TierSpec, rank, rope_dim,
             # [s_dense, s_dense + W)
             "krope": z(spec.s_dense + spec.hot_window, rope_dim,
                        torch.bfloat16)}
+
+
+def cross_static_zeros(n_slots, b, f, hkv, hd, group=64,
+                       sc_dtype=torch.bfloat16, device="cuda"):
+    """The static cross tier of `f` encoder frames: packed int4 K and V
+    and their groupwise scales, every frame dense."""
+    def z(feat, dt):
+        return torch.zeros((n_slots, b, f, hkv, feat), dtype=dt,
+                           device=device)
+
+    return {"ck4": z(hd // 2, torch.uint8),
+            "ck4_sc": z(hd // group, sc_dtype),
+            "cv4": z(hd // 2, torch.uint8),
+            "cv4_sc": z(hd // group, sc_dtype)}
 
 
 def split_for_prefill(s: int, spec: TierSpec):

@@ -1,6 +1,8 @@
 """Tiered-cache manager: append, in-place switch (repack), policy ticks
 and traffic metrics (the port of the reference's
-`repro/core/tiercache/manager.py`: the `gqa` and `mla` kinds).
+`repro/core/tiercache/manager.py`: the `gqa`, `mla` and `encdec_self`
+kinds; the last ticks its self-attention tiers as `gqa` does and leaves
+the static cross tier beside them untouched).
 
 Caches are flat dicts of tensors with a leading layer dimension plus the
 watermarks `dense_len` / `total_len`. The reference traces both repack
@@ -115,7 +117,7 @@ def serve_tick(cache, kind, spec: TierSpec, policy: Policy, kv_new,
     its tensors are updated in place. kv_new: tuple of per-channel
     (n_slots, B, 1, ...) new values. Returns (cache', metrics')."""
     if kind not in QUANT_CHANNELS:
-        raise NotImplementedError(f"cache kind {kind!r} waits for its slice")
+        raise ValueError(f"unknown cache kind {kind!r}")
     metrics = dict(zero_metrics() if metrics is None else metrics)
     plan = plan_for(policy, spec.hot_window, spec.page_tokens)
     layers = cache[layers_key]

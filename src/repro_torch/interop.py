@@ -128,20 +128,26 @@ _MOE = {"router": _F32, "w_gate": _W, "w_up": _W, "w_down": _W,
         "shared": _MLP, "dense_residual": _MLP}
 _LAYERS = {"ln1": _W, "ln2": _W, "attn": _ATTN, "mlp": _MLP, "moe": _MOE,
            "ln": _W, "mamba": _MAMBA}
-# the parameter trees of the dense, moe, ssm and hybrid families: leaf
-# name -> the dtypes it may have
+# the parameter trees of the dense, moe, vlm, ssm, hybrid and audio
+# (encoder-decoder) families: leaf name -> the dtypes it may have
 _MODEL_LEAVES = {
     "embed": _W, "final_norm": _W, "unembed": _W,
     "first_dense": _LAYERS, "layers": _LAYERS,
     "macro": {"ln": _W, "mamba": _MAMBA},
     "tail": {"ln": _W, "mamba": _MAMBA},
-    "shared": {"attn": _ATTN, "mlp": _MLP, "ln1": _W, "ln2": _W}}
-# the gqa tiers {k4, k4_sc, v4, v4_sc, kh, vh} and the mla tiers {c4,
-# c4_sc, ch, krope}
+    "shared": {"attn": _ATTN, "mlp": _MLP, "ln1": _W, "ln2": _W},
+    "enc_layers": {"attn": _ATTN, "mlp": _MLP, "ln1": _W, "ln2": _W},
+    "enc_norm": _W,
+    "dec_layers": {"self_attn": _ATTN, "cross_attn": _ATTN, "mlp": _MLP,
+                   "ln1": _W, "lnx": _W, "ln2": _W}}
+# the gqa tiers {k4, k4_sc, v4, v4_sc, kh, vh}, the mla tiers {c4,
+# c4_sc, ch, krope} and the encoder-decoder's static cross tier {ck4,
+# ck4_sc, cv4, cv4_sc}
 _TIER_LEAVES = {"k4": ("uint8",), "v4": ("uint8",), "k4_sc": _W,
                 "v4_sc": _W, "kh": ("bfloat16",), "vh": ("bfloat16",),
                 "c4": ("uint8",), "c4_sc": _W, "ch": ("bfloat16",),
-                "krope": ("bfloat16",)}
+                "krope": ("bfloat16",), "ck4": ("uint8",), "ck4_sc": _W,
+                "cv4": ("uint8",), "cv4_sc": _W}
 # the caches: "layers" (gqa, mla) or "attn" (hybrid) hold the tiers; the
 # Mamba2 states are conv (bf16) and ssm (float32)
 _CACHE_LEAVES = {"layers": _TIER_LEAVES, "attn": _TIER_LEAVES,
@@ -157,8 +163,7 @@ def _tree(name, tree, schema, device):
     for key, x in tree.items():
         path = f"{name}/{key}" if name else key
         if key not in schema:
-            raise ValueError(f"{path}: the port does not hold this leaf "
-                             "(the dense, moe, ssm and hybrid families cross)")
+            raise ValueError(f"{path}: the port does not hold this leaf")
         if isinstance(schema[key], dict):
             out[key] = _tree(path, x, schema[key], device)
         else:
@@ -167,14 +172,16 @@ def _tree(name, tree, schema, device):
 
 
 def model_params_from_jax(tree, *, device="cuda"):
-    """The reference's parameter tree of a dense, moe, ssm or hybrid model
-    (numpy leaves) as the port's tree of tensors on `device`."""
+    """The reference's parameter tree of a dense, moe, vlm, ssm, hybrid
+    or encoder-decoder model (numpy leaves) as the port's tree of tensors
+    on `device`."""
     return _tree("", tree, _MODEL_LEAVES, device)
 
 
 def cache_from_jax(tree, *, device="cuda"):
-    """A reference serving cache (numpy leaves): the tiered gqa or mla
-    cache ({"layers", "dense_len", "total_len"}), the ssm states ({"conv",
+    """A reference serving cache (numpy leaves): the tiered gqa, mla or
+    encdec_self cache ({"layers", "dense_len", "total_len"}; encdec_self's
+    layers hold the static cross tier too), the ssm states ({"conv",
     "ssm", ...}) or the hybrid's ({"attn", "macro_conv", "macro_ssm",
     "tail_conv", "tail_ssm", ...}), as the port's: tensors on `device`,
     the watermarks as ints."""

@@ -43,10 +43,17 @@
 //   rounded q), the causal mask applied before exp2 on the one diagonal
 //   tile of each warpgroup, row max and sum over the four threads of a
 //   row by shuffles.
-// - The one departure from the TPU kernel's arithmetic: P is rounded to
-//   bf16 for the second product, as the flash kernels of PyTorch's SDPA
-//   do; l sums the unrounded P. The 1e-2 tolerance against `flash_ref`
-//   absorbs it.
+// - P reaches the second product in float32, as the TPU kernel and
+//   `flash_ref` keep it: split into three bf16 terms (t1 = bf16(P),
+//   t2 = bf16(P - t1), t3 = P - t1 - t2, each difference exact in
+//   float32), which sum to P exactly, each an m64n(hd)k16 `wgmma` into
+//   the same O; l sums P. One bf16 term (as the flash kernels of
+//   PyTorch's SDPA round it) moved llava-next-34b's logits at 48 and 60
+//   layers 1.3-1.5x further from the plain version's than the plain
+//   version's own summation-order floor; two terms still left 9x the
+//   float32 error. The three terms triple the PV product's tensor-core
+//   work, which the bound above does not count (it counts the
+//   function's operations).
 // Shared memory at hd 256: q 64 KiB + 2 x (K 32 + V 32) KiB = 192 KiB.
 //
 // float32 inputs are not on the serving path and keep the first design,
@@ -230,6 +237,7 @@ constexpr int kRows = 64 * kConsumers;            // query rows a block
 constexpr int kWgThreads = 128 * (kConsumers + 1); // + the producer
 constexpr int kProducerRegs = 24;                   // setmaxnreg: the
 constexpr int kConsumerRegs = 240;                  // producer's to them
+constexpr int kPTerms = 3;                        // bf16 terms of P
 constexpr int kStages = 2;
 
 template <int HD>
@@ -316,11 +324,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          | static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16
          | static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32
          | static_cast<uint64_t>(layout) << 62;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in bits 0-15
-    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D (64 x 64, float32) += A (smem, K-major) * B (smem, K-major)
@@ -603,7 +606,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
             // are multiples of 64, and of 128 when BN is), so every row's max
             // is finite after it
             const bool live = k0 <= qw0 + 63;
-            uint32_t pa[BN / 16][4];
+            // P's fragments, its three bf16 terms
+            uint32_t pt[kPTerms][BN / 16][4];
             mbar_wait(bar_k + 8 * st, ph);
             if (live) {
                 float s[BN / 2];
@@ -674,9 +678,21 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     #pragma unroll
                 for (int kk = 0; kk < BN / 16; ++kk) {
     #pragma unroll
-                    for (int r = 0; r < 4; ++r)
-                        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r],
-                                              s[8 * kk + 2 * r + 1]);
+                    for (int r = 0; r < 4; ++r) {
+                        float x0 = s[8 * kk + 2 * r];
+                        float x1 = s[8 * kk + 2 * r + 1];
+    #pragma unroll
+                        for (int t = 0; t < kPTerms; ++t) {
+                            const __nv_bfloat162 h =
+                                __floats2bfloat162_rn(x0, x1);
+                            const float2 hf = __bfloat1622float2(h);
+                            pt[t][kk][r] =
+                                *reinterpret_cast<const uint32_t*>(&h);
+                            // exact in float32: h is x rounded to nearest
+                            x0 -= hf.x;
+                            x1 -= hf.y;
+                        }
+                    }
                 }
             }
             mbar_wait(bar_v + 8 * st, ph);
@@ -684,10 +700,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 fence_regs(o);
                 wgmma_fence();
     #pragma unroll
-                for (int kk = 0; kk < BN / 16; ++kk)
-                    wgmma_rs(o, pa[kk],
-                             desc(v_src + kk * 16 * ROWB, BN * ROWB, 8 * ROWB,
-                                  T::LAYOUT));
+                for (int kk = 0; kk < BN / 16; ++kk) {
+                    const uint64_t dv = desc(v_src + kk * 16 * ROWB,
+                                             BN * ROWB, 8 * ROWB, T::LAYOUT);
+    #pragma unroll
+                    for (int t = 0; t < kPTerms; ++t)
+                        wgmma_rs(o, pt[t][kk], dv);
+                }
                 wgmma_commit();
                 wgmma_wait_all();
                 fence_regs(o);

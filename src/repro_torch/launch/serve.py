@@ -4,8 +4,10 @@ metrics (WA analogue, stalls). The port of the reference's
 `repro/launch/serve.py`, with the same flags plus `--device` and
 `--seed`; weights and prompts are random, drawn from the seed.
 
-Usage (`--arch` takes a dense, moe, ssm or hybrid config; for an ssm
-model, which has no KV cache, the policy changes nothing):
+Usage (`--arch` takes any config: dense, moe, vlm, ssm, hybrid or the
+encoder-decoder; for an ssm model, which has no KV cache, the policy
+changes nothing; a VLM's patches and an encoder-decoder's frames are
+random embeddings, the stub frontends' outputs):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b
@@ -13,6 +15,11 @@ model, which has no KV cache, the policy changes nothing):
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
+      --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \\
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
       --reduced --device cpu --prompt-len 64 --decode 64 --policy ips_agc
@@ -61,7 +68,10 @@ def main(argv=None):
         cfg = cfg.reduced()
     policy = Policy[args.policy.upper()]
     bundle = build_model(cfg, device=device)
-    spec = make_tier_spec(bundle, args.prompt_len + args.decode, policy,
+    # a VLM's patch embeddings take cache positions before the prompt
+    prefix = cfg.vlm.num_patches if cfg.vlm is not None else 0
+    spec = make_tier_spec(bundle, prefix + args.prompt_len + args.decode,
+                          policy,
                           hot_window=args.hot_window,
                           page_tokens=args.page_tokens,
                           group=min(64, cfg.head_dim))

@@ -4,8 +4,10 @@
 Layouts as in the reference: q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd);
 scores (B, H, Sq, C). KV heads are expanded to the full head count
 virtually. The prefill's causal self-attention (positions 0..S-1) runs
-the `flash_fwd` kernel; the Sq == 1 decode path and every other mask are
-plain PyTorch.
+the `flash_fwd` kernel; the Sq == 1 decode path and every other mask
+(the encoder's non-causal self-attention, the decoder's cross-attention
+over the encoder's frames) are plain PyTorch, as the reference computes
+them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.kernels.flash_attention.ref import (NEG_INF, attention_mask,
 from repro_torch.models.layers import apply_rope, init_dense
 
 __all__ = ["NEG_INF", "init_attention", "attend_chunked", "qkv_project",
-           "out_project", "apply_attention"]
+           "out_project", "apply_attention", "apply_cross_attention"]
 
 
 def init_attention(gen, cfg, dtype=torch.bfloat16, n_stack=None):
@@ -121,3 +123,11 @@ def apply_attention(params, cfg, x, positions, *, causal=True, chunk=512,
                          kv_positions=positions, causal=causal, chunk=chunk,
                          iota=True)
     return out_project(params, out), (k, v)
+
+
+def apply_cross_attention(params, cfg, x, k, v, *, chunk=512):
+    """Cross-attention: q from x, precomputed k/v (no RoPE, non-causal)."""
+    q = _project(x, params["wq"])
+    out = attend_chunked(q, k, v, q_positions=None, kv_positions=None,
+                         causal=False, chunk=chunk)
+    return out_project(params, out)

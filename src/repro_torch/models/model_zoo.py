@@ -1,13 +1,16 @@
 """Model API of the serving path (the port of the reference's
-`repro/models/model_zoo.py`: the dense, moe, ssm and hybrid families).
+`repro/models/model_zoo.py`: every family).
 
 ModelBundle exposes init / prefill / decode / decode-cache builders and
 the tiered-cache kind, so the serve engine is model-agnostic (the loss
 waits for the training slice). The port runs the `dense` family
 (gemma-2b and the other dense configs), `moe` (deepseek-v2-lite-16b with
-MLA attention and the `mla` cache kind, arctic-480b with GQA), `ssm`
-(mamba2-370m) and `hybrid` (zamba2-1.2b); the others raise, naming the
-slice that brings them.
+MLA attention and the `mla` cache kind, arctic-480b with GQA), `vlm`
+(llava-next-34b: the decoder with its patch embeddings prepended), `ssm`
+(mamba2-370m), `hybrid` (zamba2-1.2b) and `audio` (whisper-tiny: the
+encoder-decoder and the `encdec_self` cache kind). Modality frontends
+are stubs, as in the reference: batches carry precomputed frame or
+patch embeddings.
 """
 from __future__ import annotations
 
@@ -18,24 +21,25 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiercache.layout import (QUANT_CHANNELS, TierSpec,
+                                               cross_static_zeros,
                                                fill_quant_channels,
                                                fill_raw_channel,
                                                gqa_layer_zeros,
                                                mla_layer_zeros,
                                                split_for_prefill)
+from repro_torch.kernels.ips_repack import ops as repack_ops
+from repro_torch.models import encdec as encdec_lib
 from repro_torch.models import hybrid as hybrid_lib
 from repro_torch.models import transformer as tx
 
 __all__ = ["ModelBundle", "default_tier_spec", "build_model",
            "make_train_batch"]
 
-_WAITING = {"vlm": "the VLM slice", "audio": "the encoder-decoder slice"}
-
 
 @dataclasses.dataclass
 class ModelBundle:
     cfg: ArchConfig
-    cache_kind: str                     # gqa | mla | ssm | hybrid (encdec_self later)
+    cache_kind: str                     # gqa | mla | encdec_self | ssm | hybrid
     init: Callable                      # generator -> params
     prefill: Callable                   # (params, batch, spec) -> (cache, logits)
     decode: Callable                    # (params, token, cache, spec) -> (logits, kv_new)
@@ -52,6 +56,7 @@ def _tx_bundle(cfg: ArchConfig, moe_dispatch: str, attn_chunk: int,
                device) -> ModelBundle:
     is_mla = cfg.mla is not None
     kind = "mla" if is_mla else "gqa"
+    prefix_key = "patch_embeds" if cfg.vlm is not None else None
 
     def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
         if is_mla:
@@ -66,9 +71,11 @@ def _tx_bundle(cfg: ArchConfig, moe_dispatch: str, attn_chunk: int,
         return {"layers": layers, "total_len": seq_len, "dense_len": w0}
 
     def prefill(params, batch, spec: TierSpec):
-        hidden, _, kvs = tx.lm_hidden(params, cfg, batch["tokens"],
-                                      moe_dispatch=moe_dispatch,
-                                      attn_chunk=attn_chunk, collect_kv=True)
+        hidden, _, kvs = tx.lm_hidden(
+            params, cfg, batch["tokens"],
+            prefix_embeds=batch.get(prefix_key) if prefix_key else None,
+            moe_dispatch=moe_dispatch, attn_chunk=attn_chunk,
+            collect_kv=True)
         b, s = hidden.shape[:2]
         layers = make_decode_cache(b, 0, spec, hidden.device)["layers"]
         if is_mla:
@@ -184,31 +191,88 @@ def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
                        make_decode_cache=make_decode_cache)
 
 
+# ---------------------------------------------------------------------------
+# encoder-decoder family (whisper): the decoder's tiered self-attention
+# cache beside a static int4 cross tier
+# ---------------------------------------------------------------------------
+
+
+def _encdec_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+    def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
+        layers = gqa_layer_zeros(cfg.num_layers, b, spec, cfg.num_kv_heads,
+                                 cfg.head_dim, device=device)
+        layers.update(cross_static_zeros(
+            cfg.num_layers, b, cfg.encdec.encoder_seq_len, cfg.num_kv_heads,
+            cfg.head_dim, spec.group, device=device))
+        w0, _ = split_for_prefill(seq_len, spec)
+        return {"layers": layers, "total_len": seq_len, "dense_len": w0}
+
+    def prefill(params, batch, spec: TierSpec):
+        enc_out = encdec_lib.encode(params, cfg, batch["frames"],
+                                    attn_chunk=attn_chunk)
+        hidden, (kv, (ck, cv)) = encdec_lib.decoder_hidden(
+            params, cfg, batch["tokens"], enc_out, attn_chunk=attn_chunk,
+            collect_kv=True)
+        b, s = batch["tokens"].shape
+        layers = make_decode_cache(b, 0, spec, hidden.device)["layers"]
+        layers, w0 = fill_quant_channels(
+            layers, QUANT_CHANNELS["encdec_self"], kv, spec)
+        # the cross tier, quantized once: K and V of every layer in one
+        # `ips_repack` launch, the scales in bf16 as the reference casts
+        # them
+        repack_ops.quantize_into([(ck, layers["ck4"], layers["ck4_sc"]),
+                                  (cv, layers["cv4"], layers["cv4_sc"])],
+                                 0, spec.group)
+        cache = {"layers": layers, "total_len": s, "dense_len": w0}
+        return cache, _last_logits(params, hidden)
+
+    def decode(params, token, cache, spec=None):
+        g = spec.group if spec is not None else 64
+        return encdec_lib.encdec_decode_step(params, cfg, token, cache,
+                                             quant_group=g)
+
+    return ModelBundle(cfg=cfg, cache_kind="encdec_self",
+                       init=lambda gen: encdec_lib.init_encdec(gen, cfg),
+                       prefill=prefill, decode=decode,
+                       make_decode_cache=make_decode_cache)
+
+
 def build_model(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
                 attn_chunk: int = 512, device="cuda") -> ModelBundle:
     """The bundle of `cfg`; `make_decode_cache` allocates on `device`
     unless told otherwise, and `prefill` beside its inputs. A MoE
     prefill dispatches by `moe_dispatch` (decode always by `gather`)."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return _tx_bundle(cfg, moe_dispatch, attn_chunk,
                           torch.device(device))
     if cfg.family == "ssm":
         return _ssm_bundle(cfg, torch.device(device))
     if cfg.family == "hybrid":
         return _hybrid_bundle(cfg, attn_chunk, torch.device(device))
-    if cfg.family in _WAITING:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} "
-                                  f"waits for {_WAITING[cfg.family]}")
+    if cfg.family == "audio":
+        return _encdec_bundle(cfg, attn_chunk, torch.device(device))
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def make_train_batch(cfg: ArchConfig, batch: int, seq_len: int,
                      generator: torch.Generator) -> Dict[str, Any]:
-    """Synthetic batch of token ids drawn from `generator`, on its
-    device."""
-    if cfg.vlm is not None or cfg.encdec is not None:
-        raise NotImplementedError(f"{cfg.name}: modality inputs wait for "
-                                  "their slices")
-    return {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len),
-                                    generator=generator, dtype=torch.int32,
-                                    device=generator.device)}
+    """Synthetic batch drawn from `generator`, on its device: token ids,
+    and the modality inputs the stub frontends stand for — a VLM's patch
+    embeddings (B, num_patches, d_model), an encoder-decoder's frame
+    embeddings (B, encoder_seq_len, d_model), both bf16."""
+    dev = generator.device
+    out: Dict[str, Any] = {
+        "tokens": torch.randint(0, cfg.vocab_size, (batch, seq_len),
+                                generator=generator, dtype=torch.int32,
+                                device=dev)}
+
+    def normal(rows):
+        return torch.randn((batch, rows, cfg.d_model), generator=generator,
+                           dtype=torch.float32, device=dev).to(
+                               torch.bfloat16)
+
+    if cfg.vlm is not None:
+        out["patch_embeds"] = normal(cfg.vlm.num_patches)
+    if cfg.encdec is not None:
+        out["frames"] = normal(cfg.encdec.encoder_seq_len)
+    return out

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly: the dense and MoE families, GQA or MLA
+"""Decoder-only LM assembly: the dense, MoE and VLM families, GQA or MLA
 attention (the port of the reference's `repro/models/transformer.py`).
+A VLM's patch embeddings are prepended to the tokens' at the prefill.
 
 Per-layer params are stacked along a leading layer axis, as the
 reference's `lax.scan` keeps them; the port walks the layers in a Python
@@ -122,9 +123,11 @@ def _stacks(params):
             for k in ("first_dense", "layers") if k in params]
 
 
-def lm_hidden(params, cfg, tokens, *, moe_dispatch="einsum", attn_chunk=512,
-              collect_kv=False):
-    """tokens (B, S) -> final hidden states.
+def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
+              moe_dispatch="einsum", attn_chunk=512, collect_kv=False):
+    """tokens (B, S_txt) [+ prefix embeddings (B, P, D), a VLM's patches,
+    concatenated before the tokens' embeddings] -> final hidden states
+    over S = P + S_txt positions.
 
     Returns (hidden (B, S, D), aux_loss (float32: the first layers' sum
     plus the rest's, each summed in layer order, as the reference's two
@@ -133,6 +136,8 @@ def lm_hidden(params, cfg, tokens, *, moe_dispatch="einsum", attn_chunk=512,
     RoPE; MLA's (c_kv (L, B, S, r), k_rope (L, B, S, rope_dim))), when
     `collect_kv`, else None."""
     x = embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     kv0, kv1 = [], []

@@ -1,6 +1,6 @@
 """Serving engine: prefill + greedy decode over the IPS tiered KV cache
 (the port of the reference's `repro/serve/engine.py`: the `gqa`, `mla`,
-`ssm` and `hybrid` cache kinds).
+`encdec_self`, `ssm` and `hybrid` cache kinds).
 
 serve_step = model decode + cache maintenance tick (append + policy-driven
 in-place switch). The tick is where the paper's four schemes differ:
@@ -10,7 +10,9 @@ enlarged window. Per-step HBM traffic metrics accumulate beside the cache,
 so the write-amplification analogues are counted, not estimated. An `ssm`
 model has no KV cache: each step rewrites its conv and SSM states, and
 the policy changes nothing. A `hybrid` model ticks the shared attention
-block's tiered cache and adds its macro layers' state bytes.
+block's tiered cache and adds its macro layers' state bytes. An
+encoder-decoder (`encdec_self`) ticks its decoder's self-attention
+tiers; its static cross tier is never appended to or repacked.
 """
 from __future__ import annotations
 
@@ -45,12 +47,12 @@ def make_serve_step(bundle: ModelBundle, spec: TierSpec, policy: Policy):
     """Returns serve_step(params, cache, token, metrics) ->
     (next_token, logits, cache, metrics)."""
     kind = bundle.cache_kind
-    if kind not in ("gqa", "mla", "ssm", "hybrid"):
-        raise NotImplementedError(f"cache kind {kind!r} waits for its slice")
+    if kind not in ("gqa", "mla", "encdec_self", "ssm", "hybrid"):
+        raise ValueError(f"unknown cache kind {kind!r}")
 
     def serve_step(params, cache, token, metrics):
         logits, kv_new = bundle.decode(params, token, cache, spec)
-        if kind in ("gqa", "mla"):
+        if kind in ("gqa", "mla", "encdec_self"):
             cache, metrics = serve_tick(cache, kind, spec, policy, kv_new,
                                         metrics)
         elif kind == "ssm":

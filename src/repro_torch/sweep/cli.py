@@ -25,17 +25,21 @@ simulator and writes `BENCH_torch_<name>.json` into `--out-dir`.
       # successive halving to a Pareto front (latency/WAF/TBW vs declared
       # baselines) and the scenario search: BENCH_torch_search.json
   python -m repro_torch.sweep.cli --search smoke --device cpu --max-ops 256
+  python -m repro_torch.sweep.cli --grid paper --bench      # + the fleet
+      # vs a loop of single cells over the 66-cell matrix: fleet_vs_loop
 
 Port of the reference package's `sweep/cli.py`: the grids, the workload,
 wear and host-cache flags (`--hostcache`, the host-tier table), the
 telemetry probe (`--timeline`, the cliff table,
 `--timeline-overhead-check`, `--chrome-trace`), `--profile`
 (`torch.profiler`), the port's history file (`--history-check`,
-`--no-history`) and the search engine (`--search`, `--search-scenario`);
-the reference's `--bench` (its fleet against a loop of single cells) is
-not ported. Traces come through the port's own compiled-trace cache
-(`$REPRO_TORCH_TRACE_CACHE_DIR`, by default `~/.cache/repro_torch/traces`;
-`--no-trace-cache-disk` keeps it in memory). Every artifact it writes
+`--no-history`), the search engine (`--search`, `--search-scenario`)
+and `--bench` (the evaluation matrix's fleet against a loop of single
+cells, `runner.bench_fleet_vs_loop`: on a card one launch for the fleet
+against one launch a cell). Traces come through the port's own
+compiled-trace cache (`$REPRO_TORCH_TRACE_CACHE_DIR`, by default
+`~/.cache/repro_torch/traces`; `--no-trace-cache-disk` keeps it in
+memory). Every artifact it writes
 goes through `sweep.store` and is named `BENCH_torch_*.json` — the
 history too, `BENCH_torch_history.json` — so it never overwrites a file
 of the reference package. On the CPU the fleet runs the kernel's plain
@@ -142,6 +146,10 @@ def _parse(argv):
                     help="capture a torch.profiler trace of the sweep into "
                     "DIR (a Chrome trace; a no-op without a profiler "
                     "backend)")
+    ap.add_argument("--bench", action="store_true",
+                    help="also wall-clock the fleet against a loop of "
+                    "eval_cell over the evaluation matrix (--max-ops "
+                    "truncates both)")
     ap.add_argument("--name", default=None, help="artifact name: "
                     "BENCH_torch_<name>.json (default: sweep_<grid>)")
     ap.add_argument("--out-dir", default=".",
@@ -265,7 +273,7 @@ def main(argv=None) -> int:
                                           policy_geomeans_ci,
                                           sensitivity_deltas,
                                           throughput_table)
-    from repro_torch.sweep.runner import run_sweep
+    from repro_torch.sweep.runner import bench_fleet_vs_loop, run_sweep
 
     if args.list_policies:
         print(f"{'policy':<10}{'composition':<42}{'baseline':<10}doc")
@@ -298,6 +306,7 @@ def main(argv=None) -> int:
             ("--cache-fracs", args.cache_fracs != "1.0"),
             ("--timeline", args.timeline is not None),
             ("--timeline-overhead-check", args.timeline_overhead_check),
+            ("--bench", args.bench),
             ("--seeds (search scores one seed)", len(seeds) > 1),
         ) if used]
         if conflicts:
@@ -396,6 +405,16 @@ def main(argv=None) -> int:
         _print_ci_table(cis)
         payload["geomeans_ci"] = {f"{m}/{p}": v
                                   for (m, p), v in sorted(cis.items())}
+    if args.bench:
+        print("\nbenchmark: fleet vs looped eval_cell (full matrix) ...")
+        bench = bench_fleet_vs_loop(cfg, max_ops=args.max_ops,
+                                    device=args.device)
+        print(f"  loop {bench['loop_wall_s']:.1f}s -> fleet "
+              f"{bench['fleet_wall_s']:.1f}s  "
+              f"(speedup {bench['speedup']:.2f}x, max rel diff "
+              f"{bench['max_rel_diff']:.2e})")
+        payload["fleet_vs_loop"] = {k: v for k, v in bench.items()
+                                    if k != "results"}
     meta = {"grid": args.grid or "custom", "n_cells": len(points),
             "max_ops": args.max_ops, "scale": scale,
             "device": args.device, "launches": launches}

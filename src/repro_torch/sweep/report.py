@@ -13,16 +13,43 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-__all__ = ["geomean", "normalize_points", "policy_geomeans",
-           "endurance_summary", "hostcache_summary", "sensitivity_deltas",
-           "bootstrap_ci", "policy_geomeans_ci", "search_rounds_table",
-           "search_front_table", "throughput_table"]
+__all__ = ["geomean", "normalize_to_baseline", "normalize_points",
+           "policy_geomeans", "endurance_summary", "hostcache_summary",
+           "sensitivity_deltas", "bootstrap_ci", "policy_geomeans_ci",
+           "search_rounds_table", "search_front_table", "throughput_table"]
 
 
 def geomean(values) -> float:
     vals = np.asarray(list(values), dtype=np.float64)
     vals = np.maximum(vals, 1e-12)
     return float(np.exp(np.mean(np.log(vals))))
+
+
+def _split_key(key: str):
+    """`trace/mode/policy[&quals]` -> (trace, mode, policy, quals)."""
+    base, _, quals = key.partition("&")
+    trace, mode, policy = base.split("/")
+    return trace, mode, policy, quals
+
+
+def normalize_to_baseline(results: Mapping[str, Dict], metric: str
+                          ) -> Dict[str, float]:
+    """Per (workload, mode, qualifiers): metric[policy] / metric[baseline].
+
+    Keys are `trace/mode/policy[&quals]`; a cell normalizes against the
+    baseline cell with identical trace/mode/qualifiers, so e.g. a 0.5x
+    cache-size ips_agc cell divides by the 0.5x cache-size baseline."""
+    out = {}
+    for key, val in results.items():
+        trace, mode, policy, quals = _split_key(key)
+        if policy == "baseline":
+            continue
+        base_key = f"{trace}/{mode}/baseline" + (f"&{quals}" if quals else "")
+        base = results.get(base_key)
+        if base is None:
+            continue
+        out[key] = val[metric] / max(base[metric], 1e-12)
+    return out
 
 
 def normalize_points(results: Mapping, metric: str) -> Dict:

@@ -31,12 +31,16 @@ appended to `timings`.
 `timeline_ops` turns the telemetry probe on for the whole launch (the
 kernel's probe form): each point's per-window series come back through
 `timelines` as the reference's runner returns them.
+
+`run_matrix` is the evaluation matrix in `driver.eval_matrix`'s keys;
+`bench_fleet_vs_loop` times it against a loop of single cells (the
+CLI's `--bench`).
 """
 from __future__ import annotations
 
 import warnings
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,7 +60,7 @@ from repro_torch.sweep.grid import SweepPoint
 from repro_torch.telemetry import timeline as tmod
 from repro_torch.telemetry.spans import span
 
-__all__ = ["run_sweep"]
+__all__ = ["run_sweep", "run_matrix", "bench_fleet_vs_loop"]
 
 
 def _n_logical(cfg) -> int:
@@ -310,3 +314,79 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
             entry["ops_per_s"] = padded_total / max(launch_s, 1e-9)
         timings.append(entry)
     return results
+
+
+def run_matrix(cfg, *, policies: Sequence[str] = ("baseline", "ips",
+                                                  "ips_agc"),
+               modes: Sequence[str] = ("bursty", "daily"),
+               names: Optional[Iterable[str]] = None, seed: int = 0,
+               max_ops: Optional[int] = None,
+               trace_cache: Optional[workloads.TraceCache] = None,
+               device="cuda") -> Dict[str, Dict]:
+    """Fleet-backed evaluation matrix in `driver.eval_matrix` key format
+    (`trace/mode/policy`), the points in the reference's order."""
+    names = tuple(names or workloads.TRACE_NAMES)
+    points = [SweepPoint(trace=n, mode=m, policy=p, seed=seed)
+              for m in modes for n in names for p in policies]
+    res = run_sweep(cfg, points, max_ops=max_ops, trace_cache=trace_cache,
+                    device=device)
+    return {f"{pt.trace}/{pt.mode}/{pt.policy}": v for pt, v in res.items()}
+
+
+def bench_fleet_vs_loop(cfg, *, policies=("baseline", "ips", "ips_agc"),
+                        modes=("bursty", "daily"),
+                        names: Optional[Iterable[str]] = None,
+                        progress=None, max_ops: Optional[int] = None,
+                        device="cuda") -> Dict:
+    """Wall-clock the fleet matrix against a loop of `driver.eval_cell`
+    over identical cells; verifies per-cell metric equivalence.
+
+    On a card the fleet is one `ssd_step` launch for every cell and the
+    loop one launch a cell (`sim.run_trace`); on the CPU both run the
+    kernel's plain version. `max_ops` truncates both sides' traces (a
+    smoke run). Returns a JSON-ready dict (feed to `store.save_bench`)."""
+    from repro_torch.core.ssd.driver import eval_cell
+    names = tuple(names or workloads.TRACE_NAMES)
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+
+    # memory-only cache: the published speedup must be hermetic, not a
+    # function of whatever the disk cache happens to hold from prior runs
+    cache = workloads.TraceCache(use_disk=False)
+    with span("bench.fleet", "bench") as rec:
+        fleet_res = run_matrix(cfg, policies=policies, modes=modes,
+                               names=names, trace_cache=cache,
+                               max_ops=max_ops, device=device)
+        sync()
+    fleet_s = rec["dur_s"]
+
+    with span("bench.loop", "bench") as rec:
+        loop_res = {}
+        for mode in modes:
+            for name in names:
+                for policy in policies:
+                    if progress:
+                        progress(f"loop {name}/{mode}/{policy}")
+                    loop_res[f"{name}/{mode}/{policy}"] = eval_cell(
+                        cfg, name, policy, mode, max_ops=max_ops,
+                        device=device)
+        sync()
+    loop_s = rec["dur_s"]
+
+    max_rel = 0.0
+    for key, ref in loop_res.items():
+        got = fleet_res[key]
+        for metric, rv in ref.items():
+            rel = abs(got[metric] - rv) / max(abs(rv), 1e-9)
+            max_rel = max(max_rel, rel)
+    return {
+        "n_cells": len(loop_res),
+        "policies": list(policies), "modes": list(modes),
+        "names": list(names),
+        "loop_wall_s": round(loop_s, 3),
+        "fleet_wall_s": round(fleet_s, 3),
+        "speedup": round(loop_s / max(fleet_s, 1e-9), 3),
+        "max_rel_diff": max_rel,
+        "trace_cache": cache.stats(),
+        "results": fleet_res,
+    }

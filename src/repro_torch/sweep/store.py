@@ -2,7 +2,10 @@
 disk.
 
 Copy of the reference package's `sweep/store.py` (`save_bench`,
-`load_bench`, `list_benches`), writing only the port's own names: a
+`load_bench`, `list_benches`, and the artifact checks
+`check_step_throughput` and `check_hostcache_sweep`, which accept the
+port's documents and the reference's alike), writing only the port's
+own names: a
 bench named `sweep_paper` lands in `BENCH_torch_sweep_paper.json`, never
 in the reference's `BENCH_sweep_paper.json`. Each file carries enough
 metadata (git SHA, torch and CUDA versions, the device, the config) to
@@ -20,7 +23,7 @@ import time
 from typing import Dict, Optional
 
 __all__ = ["save_bench", "load_bench", "list_benches", "bench_name",
-           "PREFIX"]
+           "check_step_throughput", "check_hostcache_sweep", "PREFIX"]
 
 SCHEMA_VERSION = 1
 PREFIX = "torch_"
@@ -103,6 +106,79 @@ def save_bench(name: str, payload: Dict, *, directory: str = ".",
             pass
         raise
     return path
+
+
+def check_step_throughput(doc: Dict, *, min_speedup: float = 0.0) -> Dict:
+    """Validate a step-throughput document — the port's
+    `BENCH_torch_step_throughput.json` (scripts/bench_step_torch.py) or
+    the reference's `BENCH_step_throughput.json` — and return it.
+    Raises AssertionError on a malformed artifact; `min_speedup`
+    additionally gates the geomean compressed-vs-per-op speedup (the CI
+    throughput floor)."""
+    assert doc.get("meta", {}).get("git_sha") is not None or \
+        "git_sha" in doc.get("meta", {}), "missing meta"
+    assert doc.get("policy") and doc.get("mode"), "missing policy/mode"
+    traces = doc.get("traces")
+    assert traces, "no per-trace rows"
+    for name, row in traces.items():
+        assert {"t_len", "t_trim", "fill"} <= set(row), (name, row.keys())
+        for path in ("per_op", "compressed", "packed"):
+            r = row[path]
+            assert r["warm_s"] > 0 and r["ops_per_s"] > 0, (name, path, r)
+        assert row["speedup_compressed"] > 0, name
+        assert row["speedup_packed"] > 0, name
+    gm = doc.get("geomean_speedup", {})
+    assert {"compressed", "packed"} <= set(gm), gm
+    if min_speedup:
+        assert gm["compressed"] >= min_speedup, (
+            f"step throughput gate: compressed geomean speedup "
+            f"{gm['compressed']:.2f}x < required {min_speedup:.2f}x")
+    return doc
+
+
+def check_hostcache_sweep(doc: Dict) -> Dict:
+    """Validate a `hostcache` grid document — the port's
+    `BENCH_torch_sweep_hostcache.json` or the reference's
+    `BENCH_sweep_hostcache.json` (DESIGN.md §14) — and return it. Raises
+    AssertionError on a malformed artifact:
+
+    * results must carry both host-tier cells (`&...hc=` qualified keys
+      with the host_* columns) and their device-only references;
+    * a `hostcache` summary block with the per-(mode, policy, tag)
+      columns, every entry paired against an off cell (`lat_vs_off` set);
+    * every write-back row must absorb write traffic (device-visible
+      writes strictly below trace writes); daily write-back rows must
+      additionally show a host hit rate above zero. (Bursty mode's
+      sequential-rewrite transform has no address reuse by construction,
+      so bursty hit rates are legitimately zero — absorption there is
+      pure write-allocation.)
+    """
+    results = doc.get("results")
+    assert results, "no results"
+    on = {k: v for k, v in results.items() if "hc=" in k}
+    off = {k: v for k, v in results.items() if "hc=" not in k}
+    assert on and off, "need host-tier cells AND device-only references"
+    host_cols = {"host_hit_rate", "host_dev_write_frac", "host_absorbed",
+                 "host_flush_w", "host_evict_w"}
+    for key, row in on.items():
+        assert host_cols <= set(row), (key, sorted(row))
+    for key, row in off.items():
+        assert not (host_cols & set(row)), (
+            f"device-only cell {key} grew host columns")
+    hc = doc.get("hostcache")
+    assert hc, "missing hostcache summary block"
+    for key, v in hc.items():
+        assert {"host_hit_rate", "host_dev_write_frac", "lat_vs_off",
+                "wa_vs_off", "n"} <= set(v), (key, sorted(v))
+        assert v["lat_vs_off"] is not None, (
+            f"{key}: no device-only reference cell to normalize against")
+        if "/wb" in key:
+            assert v["host_dev_write_frac"] < 1.0, (
+                f"{key}: write-back absorbed no write traffic")
+            if key.startswith("daily/"):
+                assert v["host_hit_rate"] > 0, (
+                    f"{key}: write-back host tier never hit")
+    return doc
 
 
 def load_bench(path: str) -> Dict:

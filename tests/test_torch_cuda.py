@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card:
 `ssd_step`, the serving path's `ips_repack`, `tiered_decode` (and its
-latent form, `latent_decode`) and `flash_fwd` (MLA's padded widths
-among its shapes), and the Mamba2 path's `ssd_intra` (plus the reduced
-serving paths of gemma-2b, mamba2-370m, zamba2, deepseek-v2-lite and
-arctic through them).
+latent form, `latent_decode`; whisper's static cross tier among its
+shapes) and `flash_fwd` (MLA's padded widths, whisper's and llava's
+prefills among its shapes), and the Mamba2 path's `ssd_intra` (plus the
+reduced serving paths of gemma-2b, mamba2-370m, zamba2,
+deepseek-v2-lite, arctic, whisper-tiny and llava-next-34b through
+them).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU
 and `nvcc`, and skips elsewhere. On a machine with a card:
@@ -873,6 +875,47 @@ class TestTieredDecodeKernel:
             assert bool((got[0] == -1e30).all()) and bool((got[1] == 0).all())
             assert bool((got[2] == 0).all())
 
+    @pytest.mark.parametrize("form", ("float32", "bf16"))
+    @pytest.mark.parametrize("frames", (1500, 1499, 77))
+    def test_cross_tier_equals_plain_version(self, cuda, monkeypatch,
+                                             frames, form):
+        """whisper-tiny's static cross tier: the whole tier is dense
+        (dense_len = S = F, 1500 no multiple of the page or of a split),
+        at its decode shape (B 4, Hkv 6, G 1, hd 64, group 64)."""
+        b, hkv, g, hd, group = 4, 6, 1, 64, 64
+        deq = torch.float32 if form == "float32" else torch.bfloat16
+        tier = self._tier(_gen(frames), b, frames, hkv, g, hd, group, deq)
+        tokens, splits = tiered_ops.split_plan(frames, b, hkv, g)
+        assert (splits - 1) * tokens < frames <= splits * tokens
+        want = dense_tier_partial_ref(*tier, frames, group, deq)
+        _refuse_plain(monkeypatch, tiered_ops, "dense_tier_partial_ref")
+        got = tiered_ops.dense_tier_partial(*tier, frames, group=group,
+                                            deq_dtype=deq)
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4,
+                                       msg=name)
+
+    def test_last_split_reads_nothing_past_dense_len(self, cuda):
+        """A tier that ends at dense_len inside a larger buffer whose rows
+        past it are NaN: a load past dense_len would poison the partial
+        (0 * NaN), so the kernel must load nothing there."""
+        b, hkv, g, hd, group, frames = 1, 6, 1, 64, 64, 1500
+        q, k4, ksc, v4, vsc = self._tier(_gen(5), b, frames + 256, hkv, g,
+                                         hd, group, torch.bfloat16)
+        for sc in (ksc, vsc):
+            sc[:, frames:] = float("nan")
+        k4[:, frames:] = 0x88
+        got = tiered_ops.dense_tier_partial(
+            q, k4[:, :frames], ksc[:, :frames], v4[:, :frames],
+            vsc[:, :frames], frames, group=group, deq_dtype=torch.bfloat16)
+        want = dense_tier_partial_ref(
+            q, k4[:, :frames], ksc[:, :frames], v4[:, :frames],
+            vsc[:, :frames], frames, group, torch.bfloat16)
+        for name, a, w in zip(("m", "l", "acc"), got, want):
+            assert bool(torch.isfinite(a).all()), name
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4,
+                                       msg=name)
+
     def test_the_two_forms_differ_by_the_bf16_rounding(self, cuda):
         tier = self._tier(_gen(9), 2, 256, 1, 8, 256, 64, torch.bfloat16)
         f32 = tiered_ops.dense_tier_partial(*tier, 200, group=64)
@@ -915,6 +958,10 @@ class TestTieredDecodeKernel:
 class TestFlashKernel:
     @pytest.mark.parametrize("b,s,h,hkv,hd,dtype,tol", [
         (4, 2048, 8, 1, 256, torch.bfloat16, 1e-2),
+        # whisper-tiny's decoder prefill (H 6, Hkv 6, hd 64), and
+        # llava-next-34b's 576 patches + 2048 tokens at its heads
+        (4, 2048, 6, 6, 64, torch.bfloat16, 1e-2),
+        (4, 2624, 56, 8, 128, torch.bfloat16, 1e-2),
         (1, 512, 8, 1, 256, torch.float32, 2e-5),
         (2, 64, 6, 2, 32, torch.float32, 2e-5),
         (2, 32, 4, 1, 64, torch.float32, 2e-5),
@@ -957,10 +1004,31 @@ class TestFlashKernel:
         out, lse = flash_ops.flash_fwd(q, k, v)
         torch.cuda.synchronize()
         assert flash_ops.LAUNCHER.launches == before + 1
-        # P rounded to bf16 for the second product: 1e-2, as the serving
-        # path's check holds the kernel
+        # bf16 inputs: 1e-2, as the serving path's check holds the kernel
+        # (P in float32: test_wgmma_form_keeps_p_in_float32)
         torch.testing.assert_close(out, want[0], rtol=1e-2, atol=1e-2)
         torch.testing.assert_close(lse, want[1], rtol=1e-2, atol=1e-2)
+
+    @pytest.mark.parametrize("b,s,h,hkv,hd", [(2, 1000, 14, 2, 128),
+                                              (2, 333, 8, 1, 256),
+                                              (2, 600, 6, 6, 64)])
+    def test_wgmma_form_keeps_p_in_float32(self, cuda, monkeypatch,
+                                           b, s, h, hkv, hd):
+        """P reaches the second product as three bf16 terms that sum to
+        it exactly: within 1e-5 of max |output| of the float32 plain
+        version (one bf16 term is some 1e-3 off, two some 2e-6:
+        tests/test_torch_serve_kernels.py emulates each)."""
+        gen = _gen(s * hd + h)
+        q = _randn(gen, b, s, h, hd, dtype=torch.bfloat16)
+        k = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+        v = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+        want = flash_ref(q, k, v, chunk=64)
+        _refuse_plain(monkeypatch, flash_ops, "flash_ref")
+        out, lse = flash_ops.flash_fwd(q, k, v)
+        err = float((out - want[0]).abs().max()) / float(
+            want[0].abs().max())
+        assert err <= 1e-5, err
+        torch.testing.assert_close(lse, want[1], rtol=1e-5, atol=1e-5)
 
     def test_wgmma_form_issues_hgmma(self, cuda):
         flash_ops.flash_fwd(*(torch.zeros((1, 8, 1, 64), device="cuda",
@@ -1298,8 +1366,9 @@ def _serve_on_both(cfg, prompt, steps, policy):
     from repro_torch.serve.engine import make_serve_step, make_tier_spec
     params = build_model(cfg, device="cpu").init(
         torch.Generator().manual_seed(1))
-    tokens = make_train_batch(cfg, 2, prompt,
-                              torch.Generator().manual_seed(0))["tokens"]
+    # tokens, and a VLM's patches or an encoder-decoder's frames
+    batch = make_train_batch(cfg, 2, prompt, torch.Generator().manual_seed(0))
+    prefix = cfg.vlm.num_patches if cfg.vlm is not None else 0
     launchers = {"ssd_intra": ssd_ops.LAUNCHER,
                  "flash_fwd": flash_ops.LAUNCHER,
                  "tiered_decode": tiered_ops.LAUNCHER,
@@ -1309,12 +1378,11 @@ def _serve_on_both(cfg, prompt, steps, policy):
     for dev in ("cuda", "cpu"):
         before = {k: v.launches for k, v in launchers.items()}
         bundle = build_model(cfg, device=dev)
-        spec = make_tier_spec(bundle, prompt + steps, policy, hot_window=16,
-                              page_tokens=8, group=16)
+        spec = make_tier_spec(bundle, prefix + prompt + steps, policy,
+                              hot_window=16, page_tokens=8, group=16)
         p = _to(params, dev)
         with _routes(routes, replay=dev == "cpu"):
-            cache, logits = bundle.prefill(p, {"tokens": tokens.to(dev)},
-                                           spec)
+            cache, logits = bundle.prefill(p, _to(batch, dev), spec)
             step = make_serve_step(bundle, spec, policy)
             metrics = zero_metrics()
             token = torch.argmax(logits, -1).to(torch.int32)[:, None]
@@ -1400,3 +1468,31 @@ def test_moe_serving_paths_on_the_card(cuda, arch):
         other = "tiered_decode" if cfg.mla is not None else "latent_decode"
         assert launches[kernel] == cfg.num_layers * 40
         assert launches[other] == 0
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-34b"])
+def test_encdec_and_vlm_serving_paths_on_the_card(cuda, arch):
+    """whisper-tiny (the encoder-decoder: the decoder's self-attention
+    over its tiers, the cross-attention as the dense partial over the
+    static cross tier) and llava-next-34b (the patch prefix) reduced,
+    served on the card and on the CPU as above under each policy: logits
+    within 2e-2, the counters equal; flash once a decoder layer a
+    prefill, the tiered kernel once a layer a step (twice for the
+    encoder-decoder: its self and cross tiers), the repack's prefill fill
+    plus, for the encoder-decoder, one launch for the cross tier."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tiercache.policy import Policy
+    cfg = get_arch(arch).reduced()
+    per_step = 2 if cfg.encdec is not None else 1
+    for policy in Policy:
+        runs, launches = _serve_on_both(cfg, 24, 40, policy)
+        assert launches["flash_fwd"] == cfg.num_layers
+        assert launches["tiered_decode"] == per_step * cfg.num_layers * 40
+        assert launches["latent_decode"] == launches["ssd_intra"] == 0
+        if cfg.encdec is not None:
+            cache = runs["cuda"]["cache"]["layers"]
+            want = runs["cpu"]["cache"]["layers"]
+            for k in ("ck4", "ck4_sc", "cv4", "cv4_sc"):
+                # quantized from the card's own projections: bf16 drift
+                # may move a few nibbles, not the tier
+                assert (cache[k].cpu() == want[k]).float().mean() > 0.9, k

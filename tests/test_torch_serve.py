@@ -130,12 +130,16 @@ def test_free_running_counters_equal_the_reference(model, policy):
 
 
 def test_other_families_are_refused():
-    """The encoder-decoder and VLM families wait for their slices (the
-    MoE family serves: tests/test_torch_moe.py, tests/test_torch_mla.py)."""
-    for name in ("whisper-tiny", "llava-next-34b"):
+    """Every family the reference serves builds — the encoder-decoder and
+    the VLM too (tests/test_torch_encdec.py, tests/test_torch_vlm.py) —
+    and a family the reference does not know is refused."""
+    import dataclasses
+    for name, kind in (("whisper-tiny", "encdec_self"),
+                       ("llava-next-34b", "gqa")):
         cfg = T_ARCHS[name].reduced()
-        with pytest.raises(NotImplementedError):
-            t_build(cfg, device="cpu")
+        assert t_build(cfg, device="cpu").cache_kind == kind
+        with pytest.raises(ValueError, match="unknown family"):
+            t_build(dataclasses.replace(cfg, family="speech"), device="cpu")
 
 
 def test_launcher_runs_on_the_cpu(capsys):

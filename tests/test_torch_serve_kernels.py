@@ -239,6 +239,89 @@ def test_flash_ref_matches_reference(s, hkv, g, hd, bq, bk):
         _close(ref, lse_t, 2e-5, f"lse vs {label}")
 
 
+def _bf16_terms(p, terms):
+    """p (float32) as `flash_fwd.cu` splits it for its second product:
+    t1 = bf16(p), t2 = bf16(p - t1), ..., each difference in float32."""
+    out, rest = [], p
+    for _ in range(terms):
+        t = rest.bfloat16().float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def _flash_p_terms(q, k, v, terms):
+    """The causal softmax attention as `flash_fwd.cu`'s bf16 form sums it:
+    scores and P in float32, l over P, and P reaching the bf16 V as
+    `terms` bf16 terms (None: float32 P, the plain version's), their
+    products summed in float32. Returns (B, H, S, hd) float32."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    ke = k.float().repeat_interleave(g, dim=2)
+    ve = v.float().repeat_interleave(g, dim=2)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float() / hd ** 0.5, ke)
+    pos = torch.arange(s)
+    sc = torch.where(pos[None, :] <= pos[:, None], sc, float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    pv = p if terms is None else sum(_bf16_terms(p, terms))
+    return torch.einsum("bhqk,bkhd->bhqd", pv, ve) / p.sum(-1)[..., None]
+
+
+def test_three_bf16_terms_sum_to_p_exactly():
+    """P in [2^-100, 1] (exp2 of a non-positive score; a row's largest P
+    is 1): three bf16 terms, each difference exact in float32, sum back
+    to P bit for bit; two do not. Below some 2^-110 the last term falls
+    under bf16's subnormals and P loses at most 2^-133, nothing beside
+    the row's 1."""
+    gen = torch.Generator().manual_seed(7)
+    p = torch.exp2(-100.0 * torch.rand(1 << 16, generator=gen))
+    p = torch.cat([p, torch.tensor([1.0, 0.5, 2.0 ** -100, 0.9999999])])
+    three = _bf16_terms(p, 3)
+    assert torch.equal(three[0] + three[1] + three[2], p)
+    two = _bf16_terms(p, 2)
+    assert not torch.equal(two[0] + two[1], p)
+    tiny = torch.exp2(-126.0 * torch.rand(1 << 12, generator=gen))
+    three = _bf16_terms(tiny, 3)
+    assert float((three[0] + three[1] + three[2] - tiny).abs().max()) \
+        <= 2.0 ** -133
+
+
+# flash at llava-next-34b's heads (G 7, hd 128), gemma-2b's (G 8, hd 256)
+# and whisper-tiny's (G 1, hd 64)
+P_TERM_SHAPES = [(256, 14, 2, 128), (512, 8, 1, 256), (333, 6, 6, 64)]
+
+
+def _p_term_errors(s, h, hkv, hd):
+    gen = torch.Generator().manual_seed(s + hd)
+    q, k, v = (torch.randn((2, s, n, hd), generator=gen).bfloat16()
+               for n in (h, hkv, hkv))
+    want, _ = t_flash_ref(q, k, v, chunk=64)
+    scale = float(want.abs().max())
+    return {terms: float((_flash_p_terms(q, k, v, terms) - want).abs().max())
+            / scale for terms in (None, 1, 2, 3)}
+
+
+@pytest.mark.parametrize("s,h,hkv,hd", P_TERM_SHAPES)
+def test_flash_p_in_three_bf16_terms_is_float32_p(s, h, hkv, hd):
+    """`flash_fwd.cu` hands P to its second product as three bf16 terms:
+    the same error against the plain version as float32 P (the plain
+    version's own, another summation order), some 2e-7 of max |output|
+    on bf16 inputs."""
+    err = _p_term_errors(s, h, hkv, hd)
+    assert err[3] == err[None] <= 1e-6, err
+
+
+@pytest.mark.parametrize("s,h,hkv,hd", P_TERM_SHAPES)
+def test_flash_p_in_fewer_bf16_terms_misses_float32_p(s, h, hkv, hd):
+    """One bf16 term (as the kernel rounded P before) is some 1e-3 of max
+    |output| off, two terms some 2e-6: both over four times float32 P's
+    error. One term put llava-next-34b's logits at 48 and 60 layers
+    1.3-1.5x further from the plain version's than the plain version's
+    own floor, two terms still 1.2-1.32x (PERF.md §6)."""
+    err = _p_term_errors(s, h, hkv, hd)
+    assert err[1] > err[2] > 4 * err[None], err
+
+
 @pytest.mark.parametrize("s", [37, 100])
 def test_flash_takes_a_ragged_length(s):
     """A length that is no multiple of the chunk, which the Pallas kernel

@@ -394,11 +394,16 @@ def test_cache_from_jax_refuses_unknown_leaves():
     got = cache_from_jax(jc, device="cpu")
     _assert_cache(jc, got, "crossed")
     # the mla tiers cross (tests/test_torch_mla.py); the encoder-decoder's
-    # static cross-attention cache waits for its slice, in the layers or
-    # beside them; the Mamba2 states cross, each in its own dtype only
-    with pytest.raises(ValueError, match="ck4"):
+    # static cross-attention cache crosses in the layers, in its own
+    # dtypes, and nowhere beside them (tests/test_torch_encdec.py); the
+    # Mamba2 states cross, each in its own dtype only
+    with pytest.raises(ValueError, match="xk4"):
         cache_from_jax({**jc, "layers": {**jc["layers"],
-                                         "ck4": jc["layers"]["k4"]}},
+                                         "xk4": jc["layers"]["k4"]}},
+                       device="cpu")
+    with pytest.raises(TypeError, match="ck4"):
+        cache_from_jax({**jc, "layers": {**jc["layers"],
+                                         "ck4": jc["layers"]["kh"]}},
                        device="cpu")
     with pytest.raises(ValueError, match="ck4"):
         cache_from_jax({**jc, "ck4": jc["layers"]["k4"]}, device="cpu")
