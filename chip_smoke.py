@@ -17,7 +17,8 @@ then:
    8192-op pad tail, at the paper's full width: 128 planes, 2^16 logical
    pages), in the per-op form (K = 1) and the compressed form (K = 32).
    Every carry leaf and every latency must be equal (tolerance 0: the
-   port is bit-exact). Then one mixed launch of `run_streams`: every
+   port is bit-exact). The plain versions run on the CPU in worker
+   processes started before the build (`PlainRuns`). Then one mixed launch of `run_streams`: every
    composition x both modes x K = 1 and K = 32, each cell its own
    length, held cell by cell to the plain version, bit for bit; and the
    latency of one dependent shared-memory load, from a one-thread
@@ -147,13 +148,14 @@ then:
    at its K and V (1 slot x B 4 x Hkv 8 x hd 128) and at deepseek's
    latent (27 slots x B 4, one headless channel of 512, group 64), bit
    for bit;
-6. the serving path — gemma-2b at full width and depth (random weights
+6. the serving path — gemma-2b at full width, its depth cut to 9 of 18
+   layers (SERVE_ARCHS; random weights
    from a seed), a batch of 4 prompts of 2048 tokens prefilled and 128
    tokens decoded greedily under each of the four cache policies, with
    the engine's tier defaults (hot window 1024, page 256, group 64).
    Each policy runs with the kernels (the counts zeroed just before and
-   read just after; no CUDA events, so its host-clock times are the
-   path's own), again with each launch timed by CUDA events, then
+   read just after; each launch timed by CUDA events, the path by the
+   host clock), then
    teacher-forced on the same tokens with each kernel's wrapper replaced
    by its plain version: logits within 2e-2 of their range at the
    prefill and every step, or within twice the plain versions' own
@@ -162,8 +164,8 @@ then:
    run) at every decode step, at most RMS_LIMIT; `dense_len`,
    `total_len` and the five traffic metrics exact, and equal to a
    closed-form count of the policy's plan; launch counts equal to what
-   the path implies (flash 18 per prefill, tiered 18 per step, repack 1
-   per fill or repack event, K and V together). The event-timed run
+   the path implies (flash 1 per layer a prefill, tiered 1 per layer a
+   step, repack 1 per fill or repack event, K and V together). The run
    follows one event-timed prefill that is not counted (it pays the
    first use of the events around a prefill's launches), and each
    kernel's slowest launch of the counted run is printed beside its
@@ -178,13 +180,13 @@ then:
    the count of HMMA instructions in the built library, which must not
    be 0 (the products run on the tensor cores in 3xTF32); its time, its
    plain version's, its 3xTF32 bound and its float32 CUDA-core bound;
-8. the Mamba2 serving paths, as phase 6 — mamba2-370m at full width and
-   depth (48 layers; no KV cache, so one policy, IPS_AGC, the launcher's
-   default: the policy changes nothing) and zamba2-1.2b (38 layers: 6
-   macro blocks of 6 Mamba2 layers and the shared attention block, then
-   a tail of 2) under the four policies, same batch, prompts and steps.
-   `ssd_intra` launches once per Mamba2 layer a prefill (48; 38), zamba2's
-   shared block flash 6 a prefill and tiered 6 a step. The floor run's
+8. the Mamba2 serving paths, as phase 6 — mamba2-370m at full width,
+   24 of its 48 layers (no KV cache, so one policy, IPS_AGC, the
+   launcher's default: the policy changes nothing) and zamba2-1.2b at 12
+   of its 38 layers (2 of its 6 macro blocks of 6 Mamba2 layers and the
+   shared attention block) under the four policies, same batch, prompts
+   and steps. `ssd_intra` launches once per Mamba2 layer a prefill (24;
+   12), zamba2's shared block flash 2 a prefill and tiered 2 a step. The floor run's
    other summation order is the SSD scan in chunks of 128 (and zamba2's
    attention softmax in chunks of 256). The counters equal the closed
    form with each step's state bytes added after the tick, as the
@@ -237,7 +239,31 @@ then:
    flash, which phase 5 holds to its plain version at that shape), 128
    steps through `tiered_decode` at G 7; the peak memory printed. Its
    tiered call dropping 32 dense tokens must fail the rms check at every
-   step.
+   step;
+12. training — (a) gemma-2b at full size (18 layers, 2.506 B
+   parameters), AdamW, remat, one batch of 2 x 2048 tokens from the
+   port's data pipeline: the loss and every gradient from one state
+   three times, with `flash_fwd` under its autograd Function (18
+   launches forward, 18 more in remat's recompute), with the plain
+   versions on the card, and with the plain versions under another
+   summation order (attention chunks of 256, not 512): rms(kernel -
+   plain) / rms(floor - plain) at most RMS_LIMIT over the whole gradient,
+   over each layer's stacked leaves and over each leaf, the loss within
+   LOGITS_TOL of the plain run's; a forward in which each query drops
+   the 32 keys before its own and an lse raised by log 1.01 (out kept,
+   so only the backward sees it) must fail that check; a forward that
+   drops the sequence's last 32 keys is read only (it moves 32 of 2048
+   query rows, under the floor); then one train step. (b) `launch.train.main` at gemma's
+   full size, 10 steps of 2 x 2048 tokens: the loss finite and falling,
+   ms a step (median of steps 3-10), tokens/s, model FLOPs and their
+   share of the bf16 peak, peak GiB, `flash_fwd`'s launches and event ms
+   a step, the plain flash backward's event ms a step. (c) mamba2-370m
+   at full size (48 layers) as (a) with `ssd_intra` under its Function
+   and a floor of SSD chunks of 128, its strict-mask fault caught; then
+   3 launcher steps and `ssd_intra`'s launches a step. (d) gemma-2b
+   reduced on the card: three steps against two, `save_async`,
+   `restore` into a fresh state and the third step, whose loss must be
+   equal to the bit. `scripts/train_phase.py` runs this phase alone.
 
 Each phase prints JSON lines, each with the card's name and power
 limit, and any mismatch fails the run. The line
@@ -371,13 +397,12 @@ def leaves_equal(label, got, want) -> float:
 MIXED_OPS, MIXED_STEP, MIXED_PAD = 512, 48, 1024
 
 
-def mixed_launch_vs_plain(cfg, n_logical, cuda) -> dict:
-    """Phase 2's mixed launch: every composition (the eight the kernel
+def mixed_jobs(cfg, n_logical):
+    """Phase 2's mixed cells: every composition (the eight the kernel
     specialises) x both modes x the per-op form (K = 1, packed carry)
     and the K = 32 segment form (unpacked), one cell each, each its own
     stream length (512 ops plus 48 a cell, on hm_0 and proj_0 in turn,
-    and a 1,024-op pad tail), in ONE `run_streams` launch; every cell
-    held to its own plain run on the CPU, bit for bit."""
+    and a 1,024-op pad tail). CPU jobs and their labels."""
     import numpy as np
     import torch
     from repro_torch.core.ssd.policies.spec import PolicySpec
@@ -427,19 +452,164 @@ def mixed_launch_vs_plain(cfg, n_logical, cuda) -> dict:
                     n_pad, torch.tensor([pad_t], dtype=torch.float32)))
                 labels.append(f"{getattr(policy, 'composition', policy)}/"
                               f"{mode}/{form}/{n_ops} ops")
+    return jobs, labels
 
+
+def mixed_launch_vs_plain(cfg, n_logical, cuda, plain) -> dict:
+    """Phase 2's mixed launch: the mixed cells in ONE `run_streams`
+    launch, every cell held to its own plain run on the CPU (from
+    `plain`, the `PlainRuns`), bit for bit."""
+    import torch
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+
+    jobs, labels = mixed_jobs(cfg, n_logical)
     before = ssd_step.launches
     got = ssd_step.run_streams(cfg, [on_card(j, cuda) for j in jobs])
     torch.cuda.synchronize()
     if ssd_step.launches != before + 1:
         fail("phase 2: the mixed jobs took more than one launch")
-    for job, res, label in zip(jobs, got, labels):
-        leaves_equal(f"mixed launch {label}", res,
-                     ssd_step.run_streams(cfg, [job])[0])
+    for i, (res, label) in enumerate(zip(got, labels)):
+        leaves_equal(f"mixed launch {label}", res, plain.result("mixed", i)[0])
     return {"cells": len(jobs), "launches": 1, "equal": True,
-            "compositions": len(compositions), "modes": 2,
+            "compositions": len(jobs) // 4, "modes": 2,
             "forms": ["K=1", "K=32"],
             "stream_ops": [int(j.segs["lba"].numel()) for j in jobs]}
+
+
+PLAIN_WORKERS = 4      # processes that run phase 2's plain versions
+
+
+def phase2_cfg():
+    """The SSD of phase 2 and the sweep paths: the paper's, scaled down
+    128 times, and its logical pages."""
+    from repro_torch.configs.ssd_paper import PAPER_SSD
+    cfg = PAPER_SSD.scaled(128)
+    return cfg, min(cfg.total_pages, 1 << 16)
+
+
+def phase2_streams(cfg, n_logical) -> dict:
+    """Phase 2's streams: hm_0 and proj_0, SMOKE_OPS live ops and
+    SMOKE_PAD identical tail pads each (`traces`), in the per-op form
+    (`per_op`, K = 1) and the K = 32 segment form (`seg`), and the pads'
+    arrival time (`pad_t`)."""
+    import numpy as np
+    from repro_torch.workloads import build_ops, compress_ops, truncate_trace
+
+    def padded(name):
+        ops = truncate_trace(build_ops(name, n_logical,
+                                       capacity_pages=cfg.total_pages),
+                             SMOKE_OPS)
+        return {"arrival_ms": np.concatenate(
+                    [ops["arrival_ms"], np.full(SMOKE_PAD,
+                                                ops["arrival_ms"][-1],
+                                                np.float32)]),
+                "lba": np.concatenate([ops["lba"],
+                                       np.zeros(SMOKE_PAD, np.int32)]),
+                "is_write": np.concatenate(
+                    [ops["is_write"], np.full(SMOKE_PAD, -1, np.int8)])}
+
+    traces = [padded(n) for n in ("hm_0", "proj_0")]
+    plans = [compress_ops(t, quantum=1024) for t in traces]
+    per_op = {k: np.stack([t[k][:SMOKE_OPS] for t in traces])
+              .astype(np.float32 if k == "arrival_ms" else np.int32)
+              .reshape(len(traces), SMOKE_OPS, 1) for k in traces[0]}
+    seg = {k: np.stack([p.segs[k] for p in plans]) for k in plans[0].segs}
+    pad_t = np.float32([t["arrival_ms"][SMOKE_OPS] for t in traces])
+    assert all(p.n_pad == SMOKE_PAD and p.pad_t == pt
+               for p, pt in zip(plans, pad_t))
+    return {"traces": traces, "per_op": per_op, "seg": seg, "pad_t": pad_t}
+
+
+def phase2_cases() -> list:
+    """Phase 2's comparisons: (policy, mode, form) for every paper policy,
+    both modes and both forms."""
+    from repro_torch.core.ssd.policies.registry import PAPER_POLICIES
+    return [(policy, mode, form) for policy in PAPER_POLICIES
+            for mode in ("daily", "bursty") for form in ("K=1", "K=32")]
+
+
+def phase2_run(cfg, n_logical, streams, case, dev, window):
+    """One phase-2 comparison run on `dev` (the probe on with a window):
+    (latency, SimState)."""
+    import torch
+    from repro_torch.core.ssd.policies.state import init_state, map_state
+    from repro_torch.core.ssd.sim import default_params
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+
+    policy, mode, form = case
+    arrays = streams["per_op"] if form == "K=1" else streams["seg"]
+    c_cnt = len(streams["traces"])
+    params = map_state(lambda x: torch.stack([x] * c_cnt).to(dev),
+                       default_params(cfg, policy, 0.05, device="cpu"))
+    return ssd_step.run_stream(
+        cfg, policy, {k: torch.from_numpy(v).to(dev)
+                      for k, v in arrays.items()},
+        init_state(cfg, n_logical, packed=True, n_cells=c_cnt, device=dev),
+        closed_loop=(mode == "bursty"), params=params, n_pad=SMOKE_PAD,
+        pad_t=torch.from_numpy(streams["pad_t"]).to(dev), window_ops=window)
+
+
+_WORKER: dict = {}
+
+
+def plain_task(kind: str, i: int):
+    """One of phase 2's plain-version runs on the CPU, in a worker
+    process: comparison `i` with the probe on ("case"), mixed cell `i`
+    ("mixed") or wear job `i` with its probe on ("wear"), its inputs made
+    here as the card's are. Returns the result as `torch.save` bytes and
+    the run's seconds on one thread."""
+    import io
+    import torch
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+
+    w = _WORKER
+    if not w:
+        torch.set_num_threads(1)
+        w["cfg"], w["n_logical"] = phase2_cfg()
+        w["streams"] = phase2_streams(w["cfg"], w["n_logical"])
+    cfg, n_logical, streams = w["cfg"], w["n_logical"], w["streams"]
+    if kind == "mixed" and "mixed" not in w:
+        w["mixed"] = mixed_jobs(cfg, n_logical)[0]
+    if kind == "wear" and "wear" not in w:
+        w["wear"] = wear_jobs(cfg, n_logical, streams["traces"])[0]
+    t0 = time.perf_counter()
+    if kind == "case":
+        res = phase2_run(cfg, n_logical, streams, phase2_cases()[i],
+                         torch.device("cpu"), PROBE_WINDOW)
+    elif kind == "mixed":
+        res = ssd_step.run_streams(cfg, [w["mixed"][i]])[0]
+    else:
+        res = ssd_step.run_streams(
+            cfg, [w["wear"][i]._replace(window_ops=WEAR_PROBE_WINDOW)])[0]
+    s = time.perf_counter() - t0
+    buf = io.BytesIO()
+    torch.save(res, buf)
+    return buf.getvalue(), s
+
+
+class PlainRuns:
+    """Phase 2's plain-version runs, each on one CPU thread in one of
+    PLAIN_WORKERS spawned processes, started with the script so that they
+    run beside the kernels' build. `counts` is ((kind, n), ...) in the
+    order phase 2 reads them; `result(kind, i)` waits for one and returns
+    (result, seconds)."""
+
+    def __init__(self, counts):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        self.pool = ProcessPoolExecutor(
+            PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {(kind, i): self.pool.submit(plain_task, kind, i)
+                        for kind, n in counts for i in range(n)}
+
+    def result(self, kind: str, i: int):
+        import io
+        import torch
+        data, s = self.futures[(kind, i)].result()
+        return torch.load(io.BytesIO(data), weights_only=False), s
+
+    def close(self) -> None:
+        self.pool.shutdown(cancel_futures=True)
 
 
 def on_card(job, cuda):
@@ -488,15 +658,14 @@ def wear_jobs(cfg, n_logical, traces, cells_of=None):
     return jobs, labels
 
 
-def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
+def wear_vs_plain(cfg, n_logical, cuda, traces, plain) -> dict:
     """The kernel's wear form against its plain version: each wear job in
     its own launch (timed by CUDA events) with the probe off and on, then
     all of them in one launch with the probe on; every leaf, the wear
     carry's and the probe's rows (wear peaks included) too, equal. The
     plain version runs once a job, with the probe on (its latencies and
-    carries are the probe-off ones). (Phase 3's sensitivity grid mixes
-    wear and plain cells in its one launch.)"""
-    import time as _time
+    carries are the probe-off ones), in `plain`, the `PlainRuns`. (Phase
+    3's sensitivity grid mixes wear and plain cells in its one launch.)"""
     import torch
     from repro_torch.kernels.ssd_step import ops as ssd_step
 
@@ -504,9 +673,9 @@ def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
     jobs = [j._replace(window_ops=WEAR_PROBE_WINDOW) for j in jobs]
     kernel_ms, probe_ms, plain_s, err, fired, wants = (0.0, 0.0, 0.0, 0.0,
                                                       [], [])
-    for job, label in zip(jobs, labels):
-        # an untimed launch first: the clocks come back up from the plain
-        # version's seconds on the CPU
+    for i, (job, label) in enumerate(zip(jobs, labels)):
+        # an untimed launch first: the clocks come back up from an idle
+        # spell
         ssd_step.run_streams(cfg, [on_card(job._replace(window_ops=None),
                                            cuda)])
         got_off = ssd_step.run_streams(
@@ -518,9 +687,8 @@ def wear_vs_plain(cfg, n_logical, cuda, traces) -> dict:
         torch.cuda.synchronize()
         start, end = ssd_step.events[-1]
         probe_ms += start.elapsed_time(end)
-        t1 = _time.perf_counter()
-        want = ssd_step.run_streams(cfg, [job])[0]
-        plain_s += _time.perf_counter() - t1
+        want, s = plain.result("wear", i)
+        plain_s += s
         wants.append(want)
         if want[1].timeline.wear_peak is None:
             fail(f"{label}: the wear form's probe has no wear peaks")
@@ -605,15 +773,20 @@ def op_cycles(cfg, n_logical, cuda, per_op, pad_t) -> list:
 # the serving path (phases 4-6)
 # ---------------------------------------------------------------------------
 
-SERVE_ARCHS = ("gemma-2b", "mamba2-370m", "zamba2-1.2b")
+# the dense and Mamba2 serving paths (phases 6 and 8) at full width, their
+# depth cut to keep the script near half its 1200 s: the same script ran
+# 753 s on one H100 machine and 1,065 s on another, the serving paths
+# host-bound and some 12 s a layer there (PERF.md §4); zamba2's 12 are
+# two of its macro blocks (6 Mamba2 layers and the shared attention)
+SERVE_ARCHS = (("gemma-2b", 9), ("mamba2-370m", 24), ("zamba2-1.2b", 12))
 # the MoE paths (phase 9): deepseek-v2-lite at full width under the four
 # policies, its depth cut from 27 to DEEPSEEK_LAYERS (the first dense,
 # the rest MoE) to keep the script within its 1200 s: the phase took
-# 139 s at 12 layers and 279-357 s at 27, 9.3-14.5 s a layer, and the
-# script 954 s with it at 12, so 27 would come to some 1,170 s (PERF.md
-# §4); one arctic-480b layer at its published widths (35 layers, some
-# 470 B parameters, need more than one card) under IPS
-DEEPSEEK_LAYERS = 20
+# 9.3-14.5 s a layer, 250 s at 20 layers, and the script 1,068-1,093 s
+# with it at 20 on one H100 and over 1,200 s on another (PERF.md §4);
+# one arctic-480b layer at its published widths (35 layers, some 470 B
+# parameters, need more than one card) under IPS
+DEEPSEEK_LAYERS = 8
 MOE_ARCHS = (("deepseek-v2-lite-16b", DEEPSEEK_LAYERS, None),
              ("arctic-480b", 1, ("IPS",)))
 # the encoder-decoder and VLM paths (phases 10 and 11): whisper-tiny at
@@ -2053,8 +2226,18 @@ def serve_main_path(cuda, arch, layers=None, policies=None,
             expect[setup["decode_kernel"]] = (slots * steps
                                               * (2 if frames else 1))
 
-        # -- with the kernels, timed on the host clock with no CUDA events
-        #    recorded: the counts zeroed just before, read just after
+        # -- with the kernels, each launch timed by CUDA events, the path
+        #    on the host clock; the counts zeroed just before and read just
+        #    after. First one event-timed prefill, not counted, that pays
+        #    whatever the first events around the prefill's launches cost
+        #    (its slowest launch is recorded beside the counted run's)
+        for launcher in launchers.values():
+            launcher.reset()
+            launcher.record = True
+        model.prefill(params, batch, spec)
+        warm_max = {n: max(v) for n, v in
+                    ((n, launcher.ms()) for n, launcher in launchers.items())
+                    if v}
         torch.cuda.reset_peak_memory_stats(cuda)
         for launcher in launchers.values():
             launcher.reset()
@@ -2072,6 +2255,10 @@ def serve_main_path(cuda, arch, layers=None, policies=None,
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t1
         counts = {n: launcher.launches for n, launcher in launchers.items()}
+        per_launch = {n: launcher.ms() for n, launcher in launchers.items()}
+        for launcher in launchers.values():
+            launcher.record = False
+            launcher.reset()
         peak = torch.cuda.max_memory_allocated(cuda)
         if counts != expect:
             fail(f"{arch} {policy.name}: launches {counts}, the path "
@@ -2087,31 +2274,6 @@ def serve_main_path(cuda, arch, layers=None, policies=None,
                 fail(f"{arch} {policy.name}: {k} = {fast_metrics[k]!r}, the "
                      f"plan counts {trace['metrics'][k]!r}")
         del cache
-
-        # -- the same run with each launch timed by CUDA events, the counts
-        #    zeroed just before and read just after; first one event-timed
-        #    prefill, not counted, that pays whatever the first events
-        #    around the prefill's launches cost (its slowest launch is
-        #    recorded beside the counted run's)
-        for launcher in launchers.values():
-            launcher.reset()
-            launcher.record = True
-        model.prefill(params, batch, spec)
-        warm_max = {n: max(v) for n, v in
-                    ((n, launcher.ms()) for n, launcher in launchers.items())
-                    if v}
-        for launcher in launchers.values():
-            launcher.reset()
-        run()
-        timed_counts = {n: launcher.launches
-                        for n, launcher in launchers.items()}
-        per_launch = {n: launcher.ms() for n, launcher in launchers.items()}
-        for launcher in launchers.values():
-            launcher.record = False
-            launcher.reset()
-        if timed_counts != expect:
-            fail(f"{arch} {policy.name}: the timed run launched "
-                 f"{timed_counts}")
 
         # -- teacher-forced with the plain versions (no kernel launches),
         #    beside the floor; a MoE model's routes replayed from the
@@ -3044,6 +3206,461 @@ def search_path(cache_dir) -> dict:
             "specialisations": doc["specialisations"]}
 
 
+# ---------------------------------------------------------------------------
+# training (phase 12)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_SSM_ARCH = "gemma-2b", "mamba2-370m"
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, TRAIN_SSM_STEPS = 10, 3
+TRAIN_SEED = 0
+KEYS_DROPPED = 32               # the planted flash fault: the last keys
+LSE_RAISE = math.log(1.01)      # the planted lse fault, out left as it is
+CKPT_SEQ = 256                  # the checkpoint round trip (gemma reduced)
+
+
+def flash_bwd_bound(b, s, h, hkv, hd, itemsize):
+    """The flash backward's least time: q, k, v, out (float32), dout
+    (float32) and lse read once, dq, dk, dv written once; its five
+    products (the scores again, dP, dV, dQ, dK) over the causal half at
+    the inputs' type."""
+    moved = ((b * s * h * hd + 2 * b * s * hkv * hd) * itemsize * 2
+             + 2 * b * h * s * hd * 4 + b * h * s * 4)
+    ops = 5 * 2 * b * h * s * s * hd // 2
+    return bound_ms(moved, ops, BF16_OPS_PER_S if itemsize == 2
+                    else F32_OPS_PER_S)
+
+
+def train_flops(cfg, b, s) -> dict:
+    """Model FLOPs of one step: 6 N tokens (N the parameters, the tied
+    unembedding's product among them) plus the causal attention's two
+    products, forward and backward (3x the forward); and what remat's
+    recomputed forward adds (2 N tokens plus the attention's forward)."""
+    tokens = b * s
+    n = cfg.param_count()
+    attn_fwd = 0
+    if cfg.num_heads and cfg.family != "ssm":
+        attn_fwd = (cfg.num_layers * 2 * 2 * b * cfg.num_heads
+                    * cfg.head_dim * s * (s + 1) // 2)
+    return {"model": 6 * n * tokens + 3 * attn_fwd,
+            "recompute": 2 * n * tokens + attn_fwd,
+            "params": n, "tokens": tokens}
+
+
+def _leaf_names(params) -> list:
+    """Each leaf's "/"-joined path, in `tree_leaves` order."""
+    from repro_torch.checkpoint.ckpt import flatten
+    return sorted(flatten(params))
+
+
+def _loss_grads(bundle, params, batch):
+    import torch
+    from repro_torch.optim.adamw import tree_leaves
+    loss, _ = bundle.loss(params, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return float(loss.detach()), grads
+
+
+def _sq_diffs(a, b, names):
+    """Per leaf: the sum of squares of a - b, and for the leaves stacked
+    over the layers (under layers/ or first_dense/) the sums per layer
+    (float64 (L,))."""
+    out = []
+    for x, y, name in zip(a, b, names):
+        d = (x.float() - y.float()).square()
+        if name.split("/")[0] in ("layers", "first_dense"):
+            out.append(d.reshape(d.shape[0], -1).sum(1).double().cpu())
+        else:
+            out.append(d.sum().double().reshape(1).cpu())
+    return out
+
+
+def _ratio(err, floor):
+    if floor > 0:
+        return math.sqrt(err / floor)
+    return 0.0 if err == 0 else math.inf
+
+
+def grad_check(run, plain, floor, names) -> dict:
+    """rms(g_run - g_plain) / rms(g_floor - g_plain) at most RMS_LIMIT
+    over the whole gradient, over each layer's stacked leaves (every
+    leaf's slice i) and over each leaf (a stacked leaf over all its
+    layers); the loss within LOGITS_TOL (relative) of the plain run's.
+    Beside it, read only: each leaf's error projected on the gradient,
+    sum((g_run - g_plain) g_plain) / sum(g_plain^2) (a scale error shows
+    there), the floor's likewise."""
+    err = _sq_diffs(run[1], plain[1], names)
+    fl = _sq_diffs(floor[1], plain[1], names)
+    whole = _ratio(sum(float(e.sum()) for e in err),
+                   sum(float(f.sum()) for f in fl))
+    layer_err = sum(e for e, n in zip(err, names)
+                    if n.startswith("layers/"))
+    layer_fl = sum(f for f, n in zip(fl, names) if n.startswith("layers/"))
+    per_layer = [_ratio(e, f) for e, f in zip(layer_err.tolist(),
+                                               layer_fl.tolist())]
+    per_leaf = {n: _ratio(float(e.sum()), float(f.sum()))
+                for n, e, f in zip(names, err, fl)}
+    worst = max(per_leaf, key=per_leaf.get)
+
+    def proj(g, p):
+        return float((g.float() - p.float()).mul(p.float()).sum()) / max(
+            float(p.float().square().sum()), 1e-300)
+    grad_sq = sum(float(g.float().square().sum()) for g in plain[1])
+    loss_err = abs(run[0] - plain[0]) / abs(plain[0])
+    return {"loss": run[0], "loss_rel_err": loss_err,
+            "rms_ratio": whole, "rms_ratio_max_layer": max(per_layer),
+            "rms_ratio_per_layer": per_layer,
+            "rms_ratio_max_leaf": per_leaf[worst], "worst_leaf": worst,
+            "rms_ratio_per_leaf": per_leaf,
+            "projection_per_leaf": {n: proj(g, p) for n, g, p in zip(
+                names, run[1], plain[1])},
+            "floor_projection_per_leaf": {n: proj(g, p) for n, g, p in zip(
+                names, floor[1], plain[1])},
+            # the floor's size against the gradient's own
+            "floor_rms_over_grad_rms": math.sqrt(
+                sum(float(f.sum()) for f in fl) / max(grad_sq, 1e-300)),
+            "passes": (whole <= RMS_LIMIT and max(per_layer) <= RMS_LIMIT
+                       and per_leaf[worst] <= RMS_LIMIT
+                       and loss_err <= LOGITS_TOL)}
+
+
+def _masked_flash(keep):
+    """A plain flash forward (float32, the causal mask and `keep`: a
+    function of the (S, 1) query and (1, S) key positions giving the keys
+    each query keeps) with `flash_fwd`'s signature: a planted fault."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import NEG_INF, expand_kv
+
+    def forward(q, k, v, *, chunk, scale):
+        s = q.shape[1]
+        g = q.shape[2] // k.shape[2]
+        pos = torch.arange(s, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) & keep(pos[:, None],
+                                                     pos[None, :])
+        sc = torch.einsum("bqhd,bchd->bhqc", q.float() * scale,
+                          expand_kv(k, g).float())
+        sc = torch.where(mask, sc, NEG_INF)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(mask, torch.exp(sc - m), 0.0)
+        l = p.sum(dim=-1)
+        out = torch.einsum("bhqc,bchd->bhqd", p,
+                           expand_kv(v, g).float()) / l[..., None]
+        return out, m[..., 0] + torch.log(l)
+    return forward
+
+
+def _flash_faults():
+    """The planted flash faults of phase 12: (name, a replacement of
+    `flash_fwd` as the flash Function calls it, whether the gradient
+    check must catch it)."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    kernel = flash.flash_fwd
+    s = TRAIN_SEQ
+
+    def raised_lse(q, k, v, **kw):
+        out, lse = kernel(q, k, v, **kw)
+        return out, lse + LSE_RAISE
+
+    return [
+        # every query loses the KEYS_DROPPED keys before its own (its own
+        # kept), as the serving fault drops the dense tier's last tokens
+        (f"forward drops each query's last {KEYS_DROPPED} keys (own kept)",
+         _replaced((flash, "flash_fwd", _masked_flash(
+             lambda i, j: (j < i - KEYS_DROPPED) | (j == i)))), True),
+        # the sequence's last keys: only its last KEYS_DROPPED queries
+        # see a change (read only: it stays under the floor)
+        (f"forward drops the sequence's last {KEYS_DROPPED} keys",
+         _replaced((flash, "flash_fwd", _masked_flash(
+             lambda i, j: j < s - KEYS_DROPPED))), False),
+        ("lse raised by log 1.01, out kept",
+         _replaced((flash, "flash_fwd", raised_lse)), True)]
+
+
+def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
+    """Phase 12 (a) and (c): `arch` at full size, one step's loss and
+    gradients from one state on one batch, three times — the kernel run,
+    the plain run (each kernel's plain version on the card), the floor
+    run (the plain versions under another summation order) — and under
+    each planted fault (name, context, whether the check must catch it).
+    `expect` is the kernel's launches (launcher, count) in the kernel
+    run. Then one train step from the state, with the config's
+    optimizer."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import (make_train_state,
+                                              make_train_step)
+
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    bundle = build_model(cfg, device=cuda, remat=True)
+    floor_bundle = build_model(floor_cfg_of(cfg), attn_chunk=FLOOR_ATTN_CHUNK,
+                               device=cuda, remat=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(TRAIN_SEED)
+    state = make_train_state(bundle, gen)
+    batch = make_batch(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=TRAIN_SEED), 0, device=cuda)
+    names = _leaf_names(state.params)
+    launcher, want = expect
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launcher.reset()
+    t1 = time.perf_counter()
+    kernel = _loss_grads(bundle, state.params, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    if launcher.launches != want:
+        fail(f"phase 12 {arch}: the kernel run launched {launcher.kernel} "
+             f"{launcher.launches} times, expected {want}")
+    launches = launcher.launches
+    with plain_versions():
+        t1 = time.perf_counter()
+        plain = _loss_grads(bundle, state.params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        floor = _loss_grads(floor_bundle, state.params, batch)
+    check = grad_check(kernel, plain, floor, names)
+    emit({"phase": "train_check", "arch": arch, "run": "kernel", **check})
+    if not check["passes"]:
+        fail(f"phase 12 {arch}: the kernel run's gradients fail the check: "
+             f"{check['rms_ratio']} / {check['rms_ratio_max_layer']} of "
+             f"{RMS_LIMIT}, loss {check['loss_rel_err']}")
+    caught = []
+    for name, ctx, must_catch in faults:
+        with ctx:
+            bad = _loss_grads(bundle, state.params, batch)
+        fc = grad_check(bad, plain, floor, names)
+        del bad
+        emit({"phase": "train_planted_fault", "arch": arch, "fault": name,
+              "must_catch": must_catch, **fc})
+        if must_catch and fc["passes"]:
+            fail(f"phase 12 {arch}: the planted fault {name!r} passed the "
+                 "gradient check")
+        caught.append({k: fc[k] for k in (
+            "rms_ratio", "rms_ratio_max_layer", "rms_ratio_max_leaf",
+            "worst_leaf", "loss_rel_err", "passes")}
+            | {"fault": name, "must_catch": must_catch})
+    del plain, floor, kernel
+    # one train step (the config's optimizer: gemma's AdamW) from the state
+    _, metrics = make_train_step(bundle)(state, batch)
+    gnorm = float(metrics["grad_norm"])
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        fail(f"phase 12 {arch}: the train step is not finite: {metrics}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state
+    torch.cuda.empty_cache()
+    return {"arch": arch, "layers": cfg.num_layers,
+            "params": cfg.param_count(), "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "init_s": init_s, "kernel_run_s": kernel_s,
+            "plain_run_s": plain_s, "kernel_launches": launches,
+            "check": {k: v for k, v in check.items()
+                      if not k.endswith(("_per_layer", "_per_leaf"))},
+            "faults_caught": caught, "grad_norm": gnorm,
+            "peak_gib": peak, "wall_s": time.perf_counter() - t0}
+
+
+def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
+                 must_fall) -> dict:
+    """Phase 12 (b) and the last part of (c): `launch.train.main` at
+    `arch`'s full size, `steps` steps of TRAIN_BATCH x TRAIN_SEQ tokens,
+    its kernel's launches counted from 0 and event-timed, the flash
+    backward's calls too; the loss finite everywhere and, with
+    `must_fall`, lower at the last step than at the first."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.launch import train as launch_train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for timed in (launcher, flash.BACKWARD):
+        timed.reset()
+        timed.record = True
+    t0 = time.perf_counter()
+    try:
+        out = launch_train.main([
+            "--arch", arch, "--steps", str(steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--device", str(cuda),
+            "--seed", str(TRAIN_SEED), "--log-every", "1"])
+        launches = launcher.launches
+        kernel_ms = launcher.ms()
+        bwd_calls = flash.BACKWARD.calls
+        bwd_ms = flash.BACKWARD.ms()
+    finally:
+        for timed in (launcher, flash.BACKWARD):
+            timed.record = False
+            timed.reset()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 12 {arch}: a loss is not finite: {losses}")
+    if must_fall and not losses[-1] < losses[0]:
+        fail(f"phase 12 {arch}: the loss did not fall: {losses}")
+    cfg = get_arch(arch)
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    timed = out["step_ms"][2:] if len(out["step_ms"]) > 2 else out["step_ms"]
+    step_ms = sorted(timed)[len(timed) // 2]
+    step_s = step_ms / 1e3
+    torch.cuda.empty_cache()
+    return {"arch": arch, "steps": steps, "losses": losses,
+            "step_ms": out["step_ms"], "ms_per_step_median": step_ms,
+            "tokens_per_s": flops["tokens"] / step_s,
+            "model_flops_per_step": flops["model"],
+            "recompute_flops_per_step": flops["recompute"],
+            "model_flops_share_of_bf16_peak": flops["model"] / step_s
+            / BF16_OPS_PER_S,
+            "with_recompute_share_of_bf16_peak": (
+                flops["model"] + flops["recompute"]) / step_s
+            / BF16_OPS_PER_S,
+            "peak_gib": peak, "wall_s": wall,
+            "kernel": launcher.kernel, "launches": launches,
+            "launches_per_step": launches / steps,
+            "kernel_ms_per_step": sum(kernel_ms) / steps,
+            "kernel_ms_per_launch": sum(kernel_ms) / max(len(kernel_ms), 1),
+            "kernel_bound_ms_per_launch": per_launch_bound,
+            "main_path_ms": sum(kernel_ms),
+            "main_path_bound_ms": per_launch_bound * launches,
+            "flash_bwd_calls_per_step": bwd_calls / steps,
+            "flash_bwd_ms_per_step": sum(bwd_ms) / steps}
+
+
+def ckpt_round_trip(cuda) -> dict:
+    """Phase 12 (d): gemma-2b reduced on the card, three steps
+    uninterrupted against two steps, `save_async`, `restore` into a fresh
+    state (drawn from another seed) and the third step: the third loss
+    must be equal to the bit."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.train_step import (make_train_state,
+                                              make_train_step)
+    cfg = get_arch(TRAIN_ARCH).reduced()
+    bundle = build_model(cfg, device=cuda)
+    data = DataConfig(cfg.vocab_size, CKPT_SEQ, TRAIN_BATCH, seed=TRAIN_SEED)
+    batches = [make_batch(data, i, device=cuda) for i in range(3)]
+
+    def state_of(seed):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(seed)
+        return make_train_state(bundle, gen)
+
+    step = make_train_step(bundle)
+    state = state_of(TRAIN_SEED)
+    whole = []
+    for b in batches:
+        state, m = step(state, b)
+        whole.append(float(m["loss"]))
+    path = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(path, ignore_errors=True)
+    state = state_of(TRAIN_SEED)
+    cut = []
+    for b in batches[:2]:
+        state, m = step(state, b)
+        cut.append(float(m["loss"]))
+    t0 = time.perf_counter()
+    ckpt.save_async(path, state, step=2).result()
+    save_s = time.perf_counter() - t0
+    restored, at = ckpt.restore(path, state_of(TRAIN_SEED + 1))
+    equal_state = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(list(ckpt.flatten(state).values())),
+        tree_leaves(list(ckpt.flatten(restored).values()))))
+    restored, m = step(restored, batches[2])
+    resumed = float(m["loss"])
+    exact = (resumed == whole[2] and cut == whole[:2] and at == 2
+             and equal_state)
+    out = {"arch": f"{TRAIN_ARCH} reduced", "seq": CKPT_SEQ,
+           "losses_uninterrupted": whole, "losses_before_cut": cut,
+           "loss_resumed": resumed, "restored_step": at,
+           "state_equal": equal_state, "exact": exact,
+           "shard_bytes": os.path.getsize(
+               os.path.join(path, "shard_00000.msgpack.zst")),
+           "save_s": save_s}
+    if not exact:
+        fail(f"phase 12: the resumed loss {resumed!r} is not the "
+             f"uninterrupted run's {whole[2]!r} (state equal: "
+             f"{equal_state})")
+    return out
+
+
+def training_phase(cuda):
+    """Phase 12: training on the card. Returns (the training paths'
+    kernel counts, as `serve_main_path` returns a serving path's, and
+    each kernel's training figures for its row of the kernel table)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # under remat each layer's kernel launches twice a step: its forward,
+    # then its forward again when the backward recomputes the layer
+    cfg = get_arch(TRAIN_ARCH)
+    gemma = train_runs(cuda, TRAIN_ARCH, lambda cfg: cfg, _flash_faults(),
+                       (flash.LAUNCHER, 2 * cfg.num_layers))
+    emit({"phase": "train_gemma_check", **gemma})
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+             cfg.head_dim, 2)
+    f_bound, _ = flash_bound(*shape)
+    b_bound, _ = flash_bwd_bound(*shape)
+    run = launcher_run(cuda, TRAIN_ARCH, TRAIN_STEPS, flash.LAUNCHER,
+                       f_bound, must_fall=True)
+    run["flash_bwd_bound_ms_per_call"] = b_bound
+    emit({"phase": "train_gemma", **run})
+
+    def ssd_floor(cfg):
+        return dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk_size=FLOOR_SSD_CHUNK))
+    cfg = get_arch(TRAIN_SSM_ARCH)
+    strict = planted_faults(TRAIN_SSM_ARCH)
+    mamba = train_runs(cuda, TRAIN_SSM_ARCH, ssd_floor,
+                       [(name, ctx, True) for name, ctx, *_ in strict],
+                       (ssd.LAUNCHER, 2 * cfg.num_layers))
+    emit({"phase": "train_mamba2_check", **mamba})
+    m, q = cfg.ssm, cfg.ssm.chunk_size
+    i_bound, _ = ssd_intra_bound(TRAIN_BATCH, TRAIN_SEQ // q, q,
+                                 m.num_heads(cfg.d_model), m.head_dim,
+                                 m.d_state)
+    mrun = launcher_run(cuda, TRAIN_SSM_ARCH, TRAIN_SSM_STEPS, ssd.LAUNCHER,
+                        i_bound, must_fall=False)
+    emit({"phase": "train_mamba2", **mrun})
+    ck = ckpt_round_trip(cuda)
+    emit({"phase": "train_ckpt", **ck})
+    wall = time.perf_counter() - t0
+    emit({"phase": "train_wall", "s": wall})
+    print(f"training: gemma-2b {run['ms_per_step_median']:.1f} ms a step, "
+          f"{run['tokens_per_s']:.0f} tok/s, "
+          f"{100 * run['model_flops_share_of_bf16_peak']:.1f}% of bf16 peak, "
+          f"flash bwd {run['flash_bwd_ms_per_step']:.1f} ms a step; "
+          f"phase {wall:.1f} s", flush=True)
+    names = ("ips_repack", "tiered_decode", "latent_decode", "flash_fwd",
+             "ssd_intra")
+
+    def path(r):
+        return {"kernels": {n: ({"launches": r["launches"],
+                                 "main_path_ms": r["main_path_ms"],
+                                 "main_path_bound_ms":
+                                     r["main_path_bound_ms"]}
+                                if n == r["kernel"] else
+                                {"launches": 0, "main_path_ms": 0.0,
+                                 "main_path_bound_ms": 0.0})
+                            for n in names}}
+    figures = {r["kernel"]: {k: r[k] for k in (
+        "arch", "launches_per_step", "kernel_ms_per_step",
+        "kernel_ms_per_launch", "kernel_bound_ms_per_launch",
+        "ms_per_step_median", "flash_bwd_ms_per_step")} for r in (run, mrun)}
+    figures["flash_fwd"]["flash_bwd_bound_ms_per_call"] = b_bound
+    return ({f"train {TRAIN_ARCH}": path(run),
+             f"train {TRAIN_SSM_ARCH}": path(mrun)}, figures)
+
+
 def _card_line() -> list:
     """Print the card's name and power limit, once, and keep them for
     every JSON line."""
@@ -3058,7 +3675,6 @@ def _card_line() -> list:
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3074,14 +3690,17 @@ def main() -> int:
     if not os.path.exists(bench_path):
         fail(f"{bench_path} is missing: run from the root of a checkout")
 
-    from repro_torch.configs.ssd_paper import PAPER_SSD
-    from repro_torch.core.ssd.policies.registry import PAPER_POLICIES
     from repro_torch.kernels._build import build_all
-    from repro_torch.core.ssd.policies.state import init_state, map_state
-    from repro_torch.core.ssd.sim import default_params
     from repro_torch.kernels.host_tier import ops as host_tier
     from repro_torch.kernels.ssd_step import ops as ssd_step
-    from repro_torch.workloads import build_ops, compress_ops, truncate_trace
+
+    # phase 2's plain versions start first, on the CPU beside the build
+    cfg, n_logical = phase2_cfg()
+    streams = phase2_streams(cfg, n_logical)
+    cases = phase2_cases()
+    plain = PlainRuns((
+        ("case", len(cases)), ("mixed", len(mixed_jobs(cfg, n_logical)[0])),
+        ("wear", len(wear_jobs(cfg, n_logical, streams["traces"])[0]))))
 
     # ---- 1. device and build ----
     smi = _card_line()
@@ -3105,96 +3724,52 @@ def main() -> int:
                         "library": os.path.relpath(paths[1], ROOT),
                         **host_tier.LIB.ptxas()}})
 
-    cfg = PAPER_SSD.scaled(128)
-    n_logical = min(cfg.total_pages, 1 << 16)
     cuda = torch.device("cuda", 0)
     torch.set_num_threads(1)       # the plain version runs 0-d tensor ops
 
     wall("1 build")
 
     # ---- 2. kernel vs plain version, same inputs ----
-    def padded(name):
-        ops = truncate_trace(build_ops(name, n_logical,
-                                       capacity_pages=cfg.total_pages),
-                             SMOKE_OPS)
-        return {"arrival_ms": np.concatenate(
-                    [ops["arrival_ms"], np.full(SMOKE_PAD,
-                                                ops["arrival_ms"][-1],
-                                                np.float32)]),
-                "lba": np.concatenate([ops["lba"],
-                                       np.zeros(SMOKE_PAD, np.int32)]),
-                "is_write": np.concatenate(
-                    [ops["is_write"], np.full(SMOKE_PAD, -1, np.int8)])}
-
-    traces = [padded(n) for n in ("hm_0", "proj_0")]
-    plans = [compress_ops(t, quantum=1024) for t in traces]
-    c_cnt = len(traces)
-    per_op = {k: np.stack([t[k][:SMOKE_OPS] for t in traces])
-              .astype(np.float32 if k == "arrival_ms" else np.int32)
-              .reshape(c_cnt, SMOKE_OPS, 1) for k in traces[0]}
-    seg = {k: np.stack([p.segs[k] for p in plans]) for k in plans[0].segs}
-    pad_t = np.float32([t["arrival_ms"][SMOKE_OPS] for t in traces])
-    assert all(p.n_pad == SMOKE_PAD and p.pad_t == pt
-               for p, pt in zip(plans, pad_t))
-
+    per_op, pad_t = streams["per_op"], streams["pad_t"]
+    c_cnt = len(streams["traces"])
     ssd_step.reset()
-    cases, kernel_ms, probe_ms, plain_s, max_err = [], 0.0, 0.0, 0.0, 0.0
-    for policy in PAPER_POLICIES:
-        for mode in ("daily", "bursty"):
-            params = map_state(lambda x: torch.stack([x, x]),
-                               default_params(cfg, policy, 0.05,
-                                              device="cpu"))
-            for form, arrays in (("K=1", per_op), ("K=32", seg)):
-                # on the card the probe off and on, after one untimed
-                # launch that brings the card's clocks back up from the
-                # plain version's seconds on the CPU; the plain version
-                # once, with the probe on (its latencies and carries are
-                # the probe-off ones: tests/test_torch_telemetry.py)
-                res, card_ms = {}, {}
-                for dev, window in ((cuda, None), (cuda, None),
-                                    (cuda, PROBE_WINDOW),
-                                    (torch.device("cpu"), PROBE_WINDOW)):
-                    segs = {k: torch.from_numpy(v).to(dev)
-                            for k, v in arrays.items()}
-                    state0 = init_state(cfg, n_logical, packed=True,
-                                        n_cells=c_cnt, device=dev)
-                    t1 = time.perf_counter()
-                    res[(dev.type, window)] = ssd_step.run_stream(
-                        cfg, policy, segs, state0,
-                        closed_loop=(mode == "bursty"),
-                        params=map_state(lambda x: x.to(dev), params),
-                        n_pad=SMOKE_PAD,
-                        pad_t=torch.from_numpy(pad_t).to(dev),
-                        window_ops=window)
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize()
-                        start, end = ssd_step.events[-1]
-                        card_ms[window] = start.elapsed_time(end)
-                    elif form == "K=1":
-                        plain_s += time.perf_counter() - t1
-                if form == "K=1":
-                    kernel_ms += card_ms[None]
-                    probe_ms += card_ms[PROBE_WINDOW]
-                label = f"{policy}/{mode}/{form}"
-                want = res[("cpu", PROBE_WINDOW)]
-                rows = want[1].timeline
-                if rows is None or rows.snap.shape[1] != -(-(
-                        SMOKE_OPS + SMOKE_PAD) // PROBE_WINDOW):
-                    fail(f"{label}: the plain version's probe rows are "
-                         "missing or mis-shaped")
-                max_err = max(max_err, leaves_equal(
-                    f"{label} probe", res[("cuda", PROBE_WINDOW)], want))
-                max_err = max(max_err, leaves_equal(
-                    f"{label} probe off", res[("cuda", None)],
-                    (want[0], want[1]._replace(timeline=None))))
-                cases.append(label)
-    mixed = mixed_launch_vs_plain(cfg, n_logical, cuda)
+    kernel_ms, probe_ms, plain_s, max_err = 0.0, 0.0, 0.0, 0.0
+    for i, (policy, mode, form) in enumerate(cases):
+        # on the card the probe off and on, after one untimed launch that
+        # brings the card's clocks back up from an idle spell; the plain
+        # version once, in a worker, with the probe on (its latencies and
+        # carries are the probe-off ones: tests/test_torch_telemetry.py)
+        res, card_ms = {}, {}
+        for window in (None, None, PROBE_WINDOW):
+            res[window] = phase2_run(cfg, n_logical, streams,
+                                     (policy, mode, form), cuda, window)
+            torch.cuda.synchronize()
+            start, end = ssd_step.events[-1]
+            card_ms[window] = start.elapsed_time(end)
+        want, want_s = plain.result("case", i)
+        if form == "K=1":
+            kernel_ms += card_ms[None]
+            probe_ms += card_ms[PROBE_WINDOW]
+            plain_s += want_s
+        label = f"{policy}/{mode}/{form}"
+        rows = want[1].timeline
+        if rows is None or rows.snap.shape[1] != -(-(
+                SMOKE_OPS + SMOKE_PAD) // PROBE_WINDOW):
+            fail(f"{label}: the plain version's probe rows are "
+                 "missing or mis-shaped")
+        max_err = max(max_err, leaves_equal(
+            f"{label} probe", res[PROBE_WINDOW], want))
+        max_err = max(max_err, leaves_equal(
+            f"{label} probe off", res[None],
+            (want[0], want[1]._replace(timeline=None))))
+    mixed = mixed_launch_vs_plain(cfg, n_logical, cuda, plain)
     smoke_launches = ssd_step.launches
     if smoke_launches != 3 * len(cases) + 1:
         fail(f"phase 2 launched the kernel {smoke_launches} times for "
              f"{len(cases)} comparisons (a warm-up, probe off and on) and "
              "one mixed launch")
-    wear = wear_vs_plain(cfg, n_logical, cuda, traces)
+    wear = wear_vs_plain(cfg, n_logical, cuda, streams["traces"], plain)
+    plain.close()
     emit({"phase": "wear_vs_plain", **wear})
     probe = ssd_step.smem_chase(1 << 22, cuda)
     emit({"phase": "smem_chase", **probe, "max_sm_mhz": max_sm_mhz})
@@ -3328,12 +3903,13 @@ def main() -> int:
                         for name, lib in serve_libs}})
     kernels = serve_kernels_vs_plain(cuda)
     wall("5 serving kernels vs plain")
-    by_path = {SERVE_ARCHS[0]: serve_main_path(cuda, SERVE_ARCHS[0])}
+    arch, layers = SERVE_ARCHS[0]
+    by_path = {arch: serve_main_path(cuda, arch, layers)}
     torch.cuda.empty_cache()
-    wall("6 gemma-2b")
+    wall(f"6 {arch}")
     kernels["ssd_intra"] = ssd_kernel_vs_plain(cuda)
-    for arch in SERVE_ARCHS[1:]:
-        by_path[arch] = serve_main_path(cuda, arch)
+    for arch, layers in SERVE_ARCHS[1:]:
+        by_path[arch] = serve_main_path(cuda, arch, layers)
         torch.cuda.empty_cache()
         wall(f"8 {arch}")
 
@@ -3356,6 +3932,12 @@ def main() -> int:
         emit({"phase": "serve_wall", "arch": arch,
               "s": time.perf_counter() - t_arch})
         wall(f"10 {arch}")
+
+    # ---- 12. training: gemma-2b and mamba2-370m at full size, their
+    # kernels under autograd, the launcher, a checkpoint round trip ----
+    train_paths, train_figures = training_phase(cuda)
+    by_path.update(train_paths)
+    wall("12 training")
     emit({"phase": "walls", "s_from_start": walls})
 
     # ---- the kernel table, then the contract's last line ----
@@ -3439,6 +4021,8 @@ def main() -> int:
         for key in ("launches", "main_path_ms", "main_path_bound_ms"):
             row[key] = sum(p[key] for p in paths.values())
         row["main_paths"] = paths
+        if name in train_figures:
+            row["training"] = train_figures[name]
         table.append(row)
     emit({"kernels": table}, card=False)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,10 +10,12 @@ module is imported: this package imports on machines without `nvcc`.
 
 `Launcher` is what every wrapper shares around its C call: the launch
 count, the optional CUDA events, the stream, and the raise on a refused
-launch. `check` is the wrappers' argument check.
+launch. `check` is the wrappers' argument check; `kernel_route` their
+device check and `refuse_grad` their refusal to run under autograd.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,8 +30,8 @@ from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["Library", "Launcher", "check", "BUILD_DIR", "BASE_FLAGS",
-           "LINK_FLAGS", "build_all", "nvcc"]
+__all__ = ["Library", "Launcher", "Span", "check", "kernel_route", "refuse_grad",
+           "BUILD_DIR", "BASE_FLAGS", "LINK_FLAGS", "build_all", "nvcc"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
@@ -177,6 +179,43 @@ class Launcher:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
+class Span:
+    """Calls and CUDA-event times of a plain-PyTorch stage that sits
+    beside a kernel on its path (the flash backward beside `flash_fwd`).
+
+    `calls` counts each `with span(device):` since the last `reset()`;
+    with `record` set and a CUDA device, each call is bracketed by CUDA
+    events on the current stream (`events`, `ms()`)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.calls = 0
+        self.record = False
+        self.events: list = []
+
+    def reset(self) -> None:
+        self.calls = 0
+        self.events.clear()
+
+    @contextlib.contextmanager
+    def __call__(self, device):
+        timed = self.record and device.type == "cuda"
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(device))
+        yield
+        if timed:
+            end.record(torch.cuda.current_stream(device))
+            self.events.append((start, end))
+        self.calls += 1
+
+    def ms(self) -> list:
+        """Milliseconds of each recorded call (synchronises)."""
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
 def check(kernel: str, name: str, t, dtypes, shape, device) -> None:
     """Raise unless `t` is a contiguous tensor on `device` with one of
     `dtypes` and the given shape (None in `shape` matches any size)."""
@@ -195,3 +234,44 @@ def check(kernel: str, name: str, t, dtypes, shape, device) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def kernel_route(kernel: str, t) -> bool:
+    """The wrappers' device check: True for a tensor on a CUDA device (the
+    kernel runs), False for one on the CPU (the plain version runs); any
+    other device is refused."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {t.device}")
+    return True
+
+
+def _tensors(x):
+    """The tensors in x: a tensor, or tuples, lists and dicts of them."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raise when autograd is recording and an input requires a gradient
+    (`inputs`: tensors, or tuples, lists and dicts of them).
+
+    A kernel writes its outputs through a raw pointer, so they carry no
+    autograd graph: called on such inputs it would cut every gradient
+    upstream of it without a word. A differentiable path calls the kernel
+    inside its `torch.autograd.Function`, whose forward runs with
+    recording off, so this never fires there."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _tensors(inputs)):
+        raise RuntimeError(
+            f"{kernel}: called on inputs that require a gradient while "
+            "autograd is recording; the kernel's outputs carry no graph, "
+            "so the gradient would stop here. Call it through its "
+            "autograd Function, or under torch.no_grad()")

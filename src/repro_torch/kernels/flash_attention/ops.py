@@ -1,10 +1,21 @@
 """Wrapper of the `flash_fwd` CUDA kernel (`csrc/flash_fwd.cu`): build,
-argument checks, launch, launch count.
+argument checks, launch, launch count; and `FlashAttnFn`, the attention
+under autograd (the port of the reference's `custom_vjp` `_flash`,
+`repro/models/attention.py`).
 
-`flash_attention_fwd(q, k, v)` is the causal self-attention of the
-prefill (positions 0..S-1, any S). For tensors on a CUDA device it
+`flash_fwd(q, k, v)` is the raw kernel: the causal self-attention of
+the prefill (positions 0..S-1, any S). For tensors on a CUDA device it
 launches the kernel or raises; tensors on the CPU go to the plain
-version, `ref.flash_ref`. Nothing falls back.
+version, `ref.flash_ref`. Nothing falls back. Its outputs carry no
+autograd graph, so on the card it refuses inputs that require a
+gradient while autograd records (`_build.refuse_grad`).
+
+`flash_attention` (the prefill's causal mask, through the kernel) and
+`flash_attention_chunks` (any other mask, through `ref.flash_fwd_chunks`)
+are the differentiable entries: both run `FlashAttnFn`, which saves only
+its inputs, the float32 `out` and `lse`, and whose backward is
+`ref.flash_bwd_chunks` (plain PyTorch, as the reference's backward is
+jnp), timed by `BACKWARD` when its `record` is set.
 """
 from __future__ import annotations
 
@@ -14,11 +25,13 @@ import os
 import torch
 
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, Span, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.flash_attention import ref
 
-__all__ = ["flash_fwd", "flash_attention_fwd", "LIB", "LAUNCHER", "reset",
-           "SOURCE"]
+__all__ = ["flash_fwd", "flash_attention_fwd", "FlashAttnFn",
+           "flash_attention", "flash_attention_chunks", "LIB", "LAUNCHER",
+           "BACKWARD", "reset", "SOURCE", "HEAD_DIMS"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_fwd.cu")
@@ -34,11 +47,14 @@ def _bind(lib) -> None:
 
 LIB = Library("flash_fwd", SOURCE, BASE_FLAGS + LINK_FLAGS, _bind)
 LAUNCHER = Launcher(LIB, "flash_fwd")
+BACKWARD = Span("flash_bwd")
 
 
 def reset() -> None:
-    """Zero the launch count and drop the recorded launch events."""
+    """Zero the launch count and the backward's calls, and drop the
+    recorded events."""
     LAUNCHER.reset()
+    BACKWARD.reset()
 
 
 def flash_fwd(q, k, v, *, chunk: int = 256, scale=None):
@@ -52,10 +68,9 @@ def flash_fwd(q, k, v, *, chunk: int = 256, scale=None):
     next width of HEAD_DIMS that holds both (zeros add nothing to a dot
     product), run with the unpadded scale, and the output is cut back
     to hd_v."""
-    if q.device.type == "cpu":
+    if not kernel_route("flash_fwd", q):
         return ref.flash_ref(q, k, v, chunk=chunk, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: no kernel for device {q.device}")
+    refuse_grad("flash_fwd", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_fwd: q must be (B, S, H, hd), k (B, S, "
                          "Hkv, hd) and v (B, S, Hkv, hd_v)")
@@ -91,3 +106,82 @@ def flash_attention_fwd(q, k, v, *, chunk: int = 256, scale=None):
     dtype, lse (B, H, S) float32)."""
     out, lse = flash_fwd(q, k, v, chunk=chunk, scale=scale)
     return out.transpose(1, 2).to(q.dtype), lse
+
+
+class FlashAttnFn(torch.autograd.Function):
+    """Attention with the reference's `_flash` residuals: (q, k, v, the
+    positions and validity, out, lse), out float32 (B, H, Sq, hd_v).
+
+    apply(q, k, v, q_positions, kv_positions, kv_valid, causal, chunk,
+    scale, kernel) -> (out, lse). With `kernel`, the prefill's causal
+    self-attention over positions 0..S-1 (the positions and validity are
+    None): `flash_fwd`, looked up on this module at every call (the
+    kernel on a card, `ref.flash_ref` on the CPU). Otherwise any mask,
+    the KV length a multiple of `chunk`: `ref.flash_fwd_chunks`. The
+    backward is `ref.flash_bwd_chunks` over the same chunks (the kernel's
+    route padded as `ref.iota_inputs` pads it); `lse` takes no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, kv_valid,
+                causal, chunk, scale, kernel):
+        if kernel:
+            out, lse = flash_fwd(q, k, v, chunk=chunk, scale=scale)
+        else:
+            qf = q.to(torch.float32) * scale
+            out, lse = ref.flash_fwd_chunks(q, k, v, qf, q_positions,
+                                            kv_positions, kv_valid, causal,
+                                            chunk)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions, kv_valid,
+                              out, lse)
+        ctx.causal, ctx.chunk, ctx.scale, ctx.kernel = (causal, chunk,
+                                                        scale, kernel)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_pos, kv_pos, kv_valid, out, lse = ctx.saved_tensors
+        chunk, sk = ctx.chunk, k.shape[1]
+        with BACKWARD(q.device):
+            if ctx.kernel:
+                k, v, q_pos, kv_pos, kv_valid, chunk = ref.iota_inputs(
+                    k, v, chunk)
+            qf = q.to(torch.float32) * ctx.scale
+            dq, dk, dv = ref.flash_bwd_chunks(
+                q, k, v, qf, q_pos, kv_pos, kv_valid, ctx.causal, chunk,
+                out, lse, dout, ctx.scale)
+        return (dq, dk[:, :sk], dv[:, :sk], None, None, None, None, None,
+                None, None)
+
+
+def flash_attention(q, k, v, *, chunk: int = 256, scale=None):
+    """The prefill's causal self-attention (positions 0..S-1) under
+    autograd, through the kernel: q (B, S, H, hd), k (B, S, Hkv, hd), v
+    (B, S, Hkv, hd_v). Returns (out (B, H, S, hd_v) float32, lse (B, H,
+    S) float32). On a card, widths the kernel does not take (MLA's q/k
+    192, v 128) are zero-padded to its next width here, before
+    `FlashAttnFn`, and the output cut back after it, so autograd sees
+    the pad."""
+    hd, hd_v = q.shape[-1], v.shape[-1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    if kernel_route("flash_fwd", q):
+        width = next((w for w in HEAD_DIMS if w >= max(hd, hd_v)), None)
+        if width is not None and (width != hd or width != hd_v):
+            q, k, v = (torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                       for t in (q, k, v))
+    out, lse = FlashAttnFn.apply(q, k, v, None, None, None, True, chunk,
+                                 float(scale), True)
+    return (out if out.shape[-1] == hd_v else out[..., :hd_v]), lse
+
+
+def flash_attention_chunks(q, k, v, q_positions, kv_positions, kv_valid,
+                           causal: bool, chunk: int):
+    """Any other mask under autograd (the encoder's non-causal
+    self-attention, the cross-attention): the plain chunked forward, the
+    KV length a multiple of `chunk`, scaled by 1/sqrt(hd). Returns (out
+    (B, H, Sq, hd_v) float32, lse)."""
+    return FlashAttnFn.apply(q, k, v, q_positions, kv_positions, kv_valid,
+                             causal, chunk, 1.0 / (q.shape[-1] ** 0.5),
+                             False)

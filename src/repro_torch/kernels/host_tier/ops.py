@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.hostcache.model import H_CTR, HCState, lines_inv
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.host_tier import ref
 from repro_torch.kernels.host_tier.ref import TierJob, TierOut, n_slots
 
@@ -245,10 +246,9 @@ def tier_pass(jobs: Sequence[TierJob], probe=None) -> list:
                          f"{sorted(map(str, devs))}")
     dev = devs.pop()
     _check_probe(probe, jobs, dev)
-    if dev.type == "cpu":
+    if not kernel_route("host_tier", jobs[0].ops["lba"]):
         return [ref.tier_pass_ref(j) for j in jobs]
-    if dev.type != "cuda":
-        raise ValueError(f"host_tier: no kernel for device {dev}")
+    refuse_grad("host_tier", list(jobs))
     buf = prepare(jobs, dev)
     LAUNCHER.launch("host_tier_launch", (
         buf["desc"].data_ptr(), buf["knobs"].data_ptr(),

@@ -27,7 +27,8 @@ import os
 import torch
 
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.ips_repack import ref
 
 __all__ = ["quantize_into", "quantize_rows", "repack_arena", "arena_smem",
@@ -104,11 +105,10 @@ def quantize_into(channels, start: int, group: int = 64) -> None:
     if not channels:
         return
     src0, packed0, scales0 = channels[0]
-    if src0.device.type == "cpu":
+    if not kernel_route("ips_repack", src0):
         ref.quantize_into_ref(channels, start, group)
         return
-    if src0.device.type != "cuda":
-        raise ValueError(f"ips_repack: no kernel for device {src0.device}")
+    refuse_grad("ips_repack", channels)
     if len(channels) > MAX_CHANNELS:
         raise ValueError(f"ips_repack: {len(channels)} channels, one launch "
                          f"takes at most {MAX_CHANNELS}")
@@ -154,10 +154,9 @@ def quantize_into(channels, start: int, group: int = 64) -> None:
 def quantize_rows(x: torch.Tensor, group: int = 64):
     """x: (N, F) bf16 or float32 -> (packed uint8 (N, F//2), scales
     float32 (N, F//group)), equal bit for bit to the plain version."""
-    if x.device.type == "cpu":
+    if not kernel_route("ips_repack", x):
         return ref.quantize_rows_ref(x, group)
-    if x.device.type != "cuda":
-        raise ValueError(f"ips_repack: no kernel for device {x.device}")
+    refuse_grad("ips_repack", x)
     if x.dim() != 2:
         raise ValueError(f"ips_repack: x must be (N, F), got "
                          f"{tuple(x.shape)}")
@@ -184,11 +183,9 @@ def repack_arena(arena: torch.Tensor, *, tokens: int, feat: int,
     """arena: (pages, page_bytes) uint8 holding `tokens x feat` bf16 per
     page. Densifies every page in place (packed bytes, bf16 scales, stale
     tail kept) and returns `arena` itself."""
-    if arena.device.type == "cpu":
+    if not kernel_route("ips_repack", arena):
         arena.copy_(ref.repack_ref(arena, tokens, feat, group))
         return arena
-    if arena.device.type != "cuda":
-        raise ValueError(f"ips_repack: no kernel for device {arena.device}")
     _check_group(feat, group)
     if arena.dim() != 2:
         raise ValueError(f"ips_repack: arena must be (pages, page_bytes), "

@@ -4,7 +4,12 @@ chunked SSD scan around it (the port of the reference's
 
 `ssd_intra(x, dt, A, B, C)` is the intra-chunk contraction: for tensors
 on a CUDA device it launches the kernel or raises; tensors on the CPU go
-to the plain version, `ref.intra_chunk_ref`. Nothing falls back.
+to the plain version, `ref.intra_chunk_ref`. Nothing falls back. Its
+outputs carry no autograd graph, so on the card it refuses inputs that
+require a gradient while autograd records (`_build.refuse_grad`).
+`SsdIntraFn` is the contraction under autograd: `ssd_intra` forward, and
+the derivative of `ref.intra_chunk_ref` (the function the reference
+differentiates inside its jnp `ssd_chunked`) backward.
 `ssd_chunked_kernel` assembles the whole scan from it and the inter-chunk
 recurrence, which stays plain PyTorch as it stays jnp in the reference;
 the port's Mamba2 block runs its chunked scan through it on every device.
@@ -17,10 +22,11 @@ import os
 import torch
 
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.ssd_scan import ref
 
-__all__ = ["ssd_intra", "ssd_chunked_kernel", "LIB", "LAUNCHER", "reset",
+__all__ = ["ssd_intra", "SsdIntraFn", "ssd_chunked_kernel", "LIB", "LAUNCHER", "reset",
            "SOURCE", "HEAD_DIMS", "STATE_DIMS", "MAX_CHUNK"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
@@ -49,10 +55,9 @@ def ssd_intra(x, dt, A, B, C):
     """x: (Bt, nc, Q, nh, hd); dt: (Bt, nc, Q, nh); A: (nh,); B, C: (Bt,
     nc, Q, N); all float32. Returns (y_intra like x, states (Bt, nc, nh,
     hd, N), cum (Bt, nc, Q, nh)), float32."""
-    if x.device.type == "cpu":
+    if not kernel_route("ssd_intra", x):
         return ref.intra_chunk_ref(x, dt, A, B, C)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_intra: no kernel for device {x.device}")
+    refuse_grad("ssd_intra", x, dt, A, B, C)
     if x.dim() != 5 or B.dim() != 4:
         raise ValueError("ssd_intra: x must be (Bt, nc, Q, nh, hd) and B, C "
                          "(Bt, nc, Q, N)")
@@ -87,6 +92,35 @@ def ssd_intra(x, dt, A, B, C):
     return y, states, cum
 
 
+class SsdIntraFn(torch.autograd.Function):
+    """The intra-chunk contraction under autograd: apply(x, dt, A, B, C)
+    -> (y_intra, states, cum). Forward: `ssd_intra`, looked up on this
+    module at every call (the kernel on a card, the plain version on the
+    CPU); it saves only the inputs. Backward: `ref.intra_chunk_ref`
+    re-run on them under autograd, then `torch.autograd.grad`."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return ssd_intra(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [t for t in inputs if t.requires_grad]
+        if not wrt:
+            return (None,) * len(inputs)
+        with torch.enable_grad():
+            outs = ref.intra_chunk_ref(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None
+                     for t in inputs)
+
+
 def ssd_chunked_kernel(x, dt, A, B, C, chunk: int, h0=None):
     """Chunked SSD scan, the contract of the reference's
     `models.mamba2.ssd_chunked`.
@@ -105,8 +139,8 @@ def ssd_chunked_kernel(x, dt, A, B, C, chunk: int, h0=None):
     dtc = dt.to(torch.float32).reshape(b, nc, q, nh).contiguous()
     Bc = B.to(torch.float32).reshape(b, nc, q, n).contiguous()
     Cc = C.to(torch.float32).reshape(b, nc, q, n).contiguous()
-    y_intra, states, cum = ssd_intra(xf, dtc, A.to(torch.float32).contiguous(),
-                                     Bc, Cc)
+    y_intra, states, cum = SsdIntraFn.apply(
+        xf, dtc, A.to(torch.float32).contiguous(), Bc, Cc)
 
     # inter-chunk recurrence: the state entering each chunk
     chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B, nc, nh)

@@ -46,7 +46,8 @@ from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.state import (CTR, OVERRUN_PAGES,
                                                  SimState)
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.ssd_step import ref
 from repro_torch.telemetry import probe
 from repro_torch.telemetry.probe import ProbeRows
@@ -359,14 +360,13 @@ def run_streams(cfg, jobs: Sequence[StreamJob], *, timer=None) -> list:
             composition_code(resolve_spec(j.policy)), bool(j.closed_loop),
             j.segs["lba"].shape[-1] == 1, j.params.endurance is not None,
             j.window_ops is not None))
-    if dev.type == "cpu":
+    if not kernel_route("ssd_step", jobs[0].segs["lba"]):
         return [ref.run_stream_ref(cfg, resolve_spec(j.policy), j.segs,
                                    j.state0, closed_loop=j.closed_loop,
                                    params=j.params, n_pad=j.n_pad,
                                    pad_t=j.pad_t, window_ops=j.window_ops)
                 for j in jobs]
-    if dev.type != "cuda":
-        raise ValueError(f"ssd_step: no kernel for device {dev}")
+    refuse_grad("ssd_step", list(jobs))
     p = cfg.num_planes
     n_logical = jobs[0].state0.loc.shape[-1]
     if p > 128:

@@ -21,7 +21,8 @@ import os
 import torch
 
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check)
+                                        Library, check, kernel_route,
+                                        refuse_grad)
 from repro_torch.kernels.tiered_attention import ref
 from repro_torch.kernels.tiered_attention.ref import merge_partials
 
@@ -102,11 +103,10 @@ def dense_tier_partial(q, k4, k4_sc, v4, v4_sc, dense_len: int, *,
     hd//group) bf16 or float32, dense_len an int. Returns float32
     (m, l, acc)."""
     dense_len = int(dense_len)
-    if q.device.type == "cpu":
+    if not kernel_route("tiered_decode", q):
         return ref.dense_tier_partial_ref(q, k4, k4_sc, v4, v4_sc, dense_len,
                                           group, deq_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"tiered_decode: no kernel for device {q.device}")
+    refuse_grad("tiered_decode", q, k4, k4_sc, v4, v4_sc)
     if deq_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tiered_decode: deq_dtype {deq_dtype}; the kernel "
                         "has float32 and bf16 forms")
@@ -263,12 +263,10 @@ def latent_tier_partial(q_lat, q_rope, c4, c4_sc, krope, dense_len: int, *,
     dense_len rows the dense tokens. Returns float32 (m (B, H), l (B, H),
     acc (B, H, r)) over tokens [0, dense_len)."""
     dense_len = int(dense_len)
-    if q_lat.device.type == "cpu":
+    if not kernel_route("latent_decode", q_lat):
         return ref.latent_tier_partial_ref(q_lat, q_rope, c4, c4_sc, krope,
                                            dense_len, group, scale)
-    if q_lat.device.type != "cuda":
-        raise ValueError(f"latent_decode: no kernel for device "
-                         f"{q_lat.device}")
+    refuse_grad("latent_decode", q_lat, q_rope, c4, c4_sc, krope)
     latent_check(q_lat, q_rope, c4, c4_sc, krope, dense_len, group)
     # q, latent and RoPE rows go by 16-byte copies: an unaligned view is
     # copied into a fresh buffer first

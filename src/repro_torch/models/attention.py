@@ -1,13 +1,16 @@
 """GQA/MQA attention (the port of the reference's
-`repro/models/attention.py`; the flash backward waits for training).
+`repro/models/attention.py`).
 
 Layouts as in the reference: q (B, Sq, H, hd); k/v (B, Sk, Hkv, hd);
 scores (B, H, Sq, C). KV heads are expanded to the full head count
-virtually. The prefill's causal self-attention (positions 0..S-1) runs
-the `flash_fwd` kernel; the Sq == 1 decode path and every other mask
-(the encoder's non-causal self-attention, the decoder's cross-attention
-over the encoder's frames) are plain PyTorch, as the reference computes
-them outside any Pallas kernel.
+virtually. Every Sq > 1 path goes through the flash Function
+(`kernels/flash_attention/ops.FlashAttnFn`, the reference's `custom_vjp`
+`_flash`): the prefill's causal self-attention (positions 0..S-1) runs
+the `flash_fwd` kernel forward, every other mask (the encoder's
+non-causal self-attention, the decoder's cross-attention over the
+encoder's frames) the plain chunked forward, and both the reference's
+chunked-recomputation backward. The Sq == 1 decode path is plain
+PyTorch, differentiated as it stands, as the reference's is.
 """
 from __future__ import annotations
 
@@ -15,8 +18,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (NEG_INF, attention_mask,
-                                                     expand_kv,
-                                                     flash_fwd_chunks)
+                                                     expand_kv)
 from repro_torch.models.layers import apply_rope, init_dense
 
 __all__ = ["NEG_INF", "init_attention", "attend_chunked", "qkv_project",
@@ -42,7 +44,8 @@ def attend_chunked(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     kv_valid: optional (Sk,) or (B, Sk) bool. `iota` says that q and kv
     positions are both 0..S-1 (the prefill): with `causal` and no
     `kv_valid` that runs the flash kernel (on the CPU, its plain version
-    with this `chunk`). Returns (B, Sq, H, hd_v) in q's dtype."""
+    with this `chunk`). Sq > 1 runs under the flash Function's backward.
+    Returns (B, Sq, H, hd_v) in q's dtype."""
     b, sq, h, hd = q.shape
     hd_v = v.shape[-1]
     g = h // k.shape[2]
@@ -50,12 +53,11 @@ def attend_chunked(q, k, v, *, q_positions, kv_positions, kv_valid=None,
     scale = 1.0 / (hd ** 0.5)
 
     if iota and causal and kv_valid is None and sq == sk and sq > 1:
-        chunk = min(chunk, sk)
-        out, _ = flash_ops.flash_fwd(q, k, v, chunk=chunk)
+        out, _ = flash_ops.flash_attention(q, k, v, chunk=min(chunk, sk))
         return out.transpose(1, 2).reshape(b, sq, h, hd_v).to(q.dtype)
 
-    qf = q.to(torch.float32) * scale
     if sq == 1:
+        qf = q.to(torch.float32) * scale
         ke = expand_kv(k, g).to(torch.float32)
         ve = expand_kv(v, g).to(torch.float32)
         s = torch.einsum("bqhd,bchd->bhqc", qf, ke)
@@ -84,8 +86,9 @@ def attend_chunked(q, k, v, *, q_positions, kv_positions, kv_valid=None,
         if kv_positions is not None:
             kv_positions = torch.cat([kv_positions, kv_positions.new_full(
                 kv_positions.shape[:-1] + (pad,), 2 ** 30)], dim=-1)
-    out, _ = flash_fwd_chunks(q, k, v, qf, q_positions, kv_positions,
-                              kv_valid, causal, chunk)
+    out, _ = flash_ops.flash_attention_chunks(q, k, v, q_positions,
+                                              kv_positions, kv_valid, causal,
+                                              chunk)
     return out.transpose(1, 2).reshape(b, sq, h, hd_v).to(q.dtype)
 
 

@@ -1,11 +1,13 @@
 """Whisper-style encoder-decoder transformer backbone (the port of the
-reference's `repro/models/encdec.py`; the loss waits for training).
+reference's `repro/models/encdec.py`, the loss of training, `encdec_loss`,
+among it).
 
 The audio frontend (mel + conv) is a stub, as in the reference: the model
 consumes precomputed frame embeddings (B, F, d_model). The encoder adds
 fixed sinusoidal positions and uses no RoPE; its self-attention is
-non-causal over every frame and runs in the plain `attend_chunked`, as
-the reference's runs in jnp (the flash kernel is causal only). The
+non-causal over every frame and runs the plain chunked forward of
+`attend_chunked`, as the reference's runs in jnp (the flash kernel is
+causal only). The
 decoder uses RoPE; its prefill self-attention is causal over positions
 0..S-1 and so runs the `flash_fwd` kernel.
 
@@ -26,12 +28,14 @@ import torch
 
 from repro_torch.kernels.tiered_attention import ops as tiered_ops
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
-                                       init_mlp, rms_norm)
+from repro_torch.models.layers import (apply_mlp, checkpointed,
+                                       chunked_softmax_xent, embed,
+                                       init_embedding, init_mlp, rms_norm)
 from repro_torch.models.transformer import gqa_decode_tiered, layer_params
 
 __all__ = ["sinusoidal_positions", "init_encdec", "encode",
-           "decoder_hidden", "cross_decode_attention", "encdec_decode_step"]
+           "decoder_hidden", "encdec_loss", "cross_decode_attention",
+           "encdec_decode_step"]
 
 
 def sinusoidal_positions(length: int, dim: int, dtype=torch.bfloat16,
@@ -83,51 +87,62 @@ def _n(stacked) -> int:
     return stacked["ln1"].shape[0]
 
 
-def encode(params, cfg, frames, *, attn_chunk=512):
-    """frames: (B, F, D) precomputed embeddings -> (B, F, D)."""
+def _enc_layer(lp, cfg, x, positions, attn_chunk):
+    hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _ = attn_lib.apply_attention(lp["attn"], cfg, hn, positions,
+                                    causal=False, chunk=attn_chunk,
+                                    rope=False)
+    x = x + a
+    hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], hn, cfg.act)
+
+
+def encode(params, cfg, frames, *, remat=False, attn_chunk=512):
+    """frames: (B, F, D) precomputed embeddings -> (B, F, D). `remat`
+    checkpoints each layer, as the reference's scan body is."""
     b, f, d = frames.shape
     x = frames + sinusoidal_positions(f, d, frames.dtype,
                                       frames.device)[None]
     positions = torch.arange(f, dtype=torch.int32, device=x.device)
     layers = params["enc_layers"]
+    layer = checkpointed(_enc_layer) if remat else _enc_layer
     for i in range(_n(layers)):
-        lp = layer_params(layers, i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = attn_lib.apply_attention(lp["attn"], cfg, hn, positions,
-                                        causal=False, chunk=attn_chunk,
-                                        rope=False)
-        x = x + a
-        hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], hn, cfg.act)
+        x = layer(layer_params(layers, i), cfg, x, positions, attn_chunk)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def decoder_hidden(params, cfg, tokens, enc_out, *, attn_chunk=512,
-                   collect_kv=False):
+def _dec_layer(lp, cfg, x, enc_out, positions, attn_chunk):
+    """One decoder layer. Returns (x, ((k, v), (ck, cv)))."""
+    hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, kv = attn_lib.apply_attention(lp["self_attn"], cfg, hn, positions,
+                                     causal=True, chunk=attn_chunk)
+    x = x + a
+    hn = rms_norm(x, lp["lnx"], cfg.norm_eps)
+    ck = attn_lib._project(enc_out, lp["cross_attn"]["wk"])
+    cv = attn_lib._project(enc_out, lp["cross_attn"]["wv"])
+    x = x + attn_lib.apply_cross_attention(lp["cross_attn"], cfg, hn, ck, cv,
+                                           chunk=attn_chunk)
+    hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], hn, cfg.act), (kv, (ck, cv))
+
+
+def decoder_hidden(params, cfg, tokens, enc_out, *, remat=False,
+                   attn_chunk=512, collect_kv=False):
     """Teacher-forced decoder pass. Returns (hidden, kvs): kvs is
     ((k, v), (ck, cv)) stacked over the decoder's layers — the
     self-attention's K/V after RoPE (L, B, S, Hkv, hd) and the
     cross-attention's projections of the encoder output (L, B, F, Hkv,
-    hd) — when `collect_kv`, else None."""
+    hd) — when `collect_kv`, else None. `remat` checkpoints each
+    layer."""
     x = embed(params["embed"], tokens)
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     layers = params["dec_layers"]
+    layer = checkpointed(_dec_layer) if remat else _dec_layer
     ks, vs, cks, cvs = [], [], [], []
     for i in range(_n(layers)):
-        lp = layer_params(layers, i)
-        hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, (k, v) = attn_lib.apply_attention(lp["self_attn"], cfg, hn,
-                                             positions, causal=True,
-                                             chunk=attn_chunk)
-        x = x + a
-        hn = rms_norm(x, lp["lnx"], cfg.norm_eps)
-        ck = attn_lib._project(enc_out, lp["cross_attn"]["wk"])
-        cv = attn_lib._project(enc_out, lp["cross_attn"]["wv"])
-        x = x + attn_lib.apply_cross_attention(lp["cross_attn"], cfg, hn,
-                                               ck, cv, chunk=attn_chunk)
-        hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + apply_mlp(lp["mlp"], hn, cfg.act)
+        x, ((k, v), (ck, cv)) = layer(layer_params(layers, i), cfg, x,
+                                      enc_out, positions, attn_chunk)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -137,6 +152,18 @@ def decoder_hidden(params, cfg, tokens, enc_out, *, attn_chunk=512,
     kvs = (((torch.stack(ks), torch.stack(vs)),
             (torch.stack(cks), torch.stack(cvs))) if collect_kv else None)
     return x, kvs
+
+
+def encdec_loss(params, cfg, frames, tokens, *, remat=True, attn_chunk=512):
+    """Next-token loss of the decoder over the encoded frames. Returns
+    (loss, {"loss", "aux_loss" (0)})."""
+    enc_out = encode(params, cfg, frames, remat=remat, attn_chunk=attn_chunk)
+    hidden, _ = decoder_hidden(params, cfg, tokens, enc_out, remat=remat,
+                               attn_chunk=attn_chunk)
+    loss = chunked_softmax_xent(hidden[:, :-1], params["unembed"],
+                                tokens[:, 1:])
+    return loss, {"loss": loss, "aux_loss": torch.zeros(
+        (), dtype=torch.float32, device=hidden.device)}
 
 
 def cross_decode_attention(attn_params, cfg, x, lc, group=64):

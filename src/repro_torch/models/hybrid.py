@@ -1,7 +1,7 @@
 """SSM and hybrid LMs: mamba2-370m (pure SSM) and zamba2 (Mamba2 backbone
 plus a weight-shared attention block every `attn_every` layers); the
-port of the reference's `repro/models/hybrid.py` (the losses wait for
-training).
+port of the reference's `repro/models/hybrid.py`, the losses of training
+(`ssm_lm_loss`, `hybrid_lm_loss`) among it.
 
 Zamba2 structure: `n_macro = L // attn_every` macro blocks, each
 attn_every Mamba2 layers followed by ONE application of the shared
@@ -18,14 +18,16 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
-                                       init_mlp, rms_norm)
+from repro_torch.models.layers import (apply_mlp, checkpointed,
+                                       chunked_softmax_xent, embed,
+                                       init_embedding, init_mlp, rms_norm)
 from repro_torch.models.transformer import (gqa_decode_tiered, layer_params,
                                             unembed_matrix)
 
-__all__ = ["init_ssm_lm", "ssm_lm_hidden", "ssm_lm_decode_step",
-           "ssm_state_shapes", "hybrid_structure", "init_hybrid_lm",
-           "hybrid_lm_hidden", "hybrid_decode_step"]
+__all__ = ["init_ssm_lm", "ssm_lm_hidden", "ssm_lm_loss",
+           "ssm_lm_decode_step", "ssm_state_shapes", "hybrid_structure",
+           "init_hybrid_lm", "hybrid_lm_hidden", "hybrid_lm_loss",
+           "hybrid_decode_step"]
 
 
 # ---------------------------------------------------------------------------
@@ -49,15 +51,27 @@ def _apply_mamba_layer(lp, cfg, x, *, states=None, collect_state=False):
     return x + y, st
 
 
-def _mamba_stack(layers, cfg, x, *, states=None, collect_state=False):
+def _mamba_layer_seq(lp, cfg, x, collect_state):
+    """A full-sequence Mamba layer, its arguments positional (the form
+    `checkpointed` takes)."""
+    return _apply_mamba_layer(lp, cfg, x, collect_state=collect_state)
+
+
+def _mamba_stack(layers, cfg, x, *, states=None, collect_state=False,
+                 remat=False):
     """Walk a stack of Mamba layers (leading axis). `states` is (conv,
-    ssm) stacked the same way for decode. Returns (x, (conv, ssm)
-    stacked, or None)."""
+    ssm) stacked the same way for decode. With `remat`, each layer is
+    checkpointed, as the reference's scan body is. Returns (x, (conv,
+    ssm) stacked, or None)."""
     convs, ssms = [], []
+    seq = checkpointed(_mamba_layer_seq) if remat else _mamba_layer_seq
     for i in range(layers["ln"].shape[0]):
-        st_in = None if states is None else (states[0][i], states[1][i])
-        x, st = _apply_mamba_layer(layer_params(layers, i), cfg, x,
-                                   states=st_in, collect_state=collect_state)
+        lp = layer_params(layers, i)
+        if states is None:
+            x, st = seq(lp, cfg, x, collect_state)
+        else:
+            x, st = _apply_mamba_layer(lp, cfg, x,
+                                       states=(states[0][i], states[1][i]))
         if st is not None:
             convs.append(st[0])
             ssms.append(st[1])
@@ -92,14 +106,29 @@ def init_ssm_lm(gen, cfg, dtype=torch.bfloat16):
     return params
 
 
-def ssm_lm_hidden(params, cfg, tokens, *, collect_state=False):
+def ssm_lm_hidden(params, cfg, tokens, *, remat=False,
+                  collect_state=False):
     """tokens (B, S) -> (hidden (B, S, D), states): states is (conv (L, B,
     d_conv-1, d_xc), ssm (L, B, nh, hd, N) f32) with `collect_state`,
-    else None."""
+    else None. `remat` checkpoints each layer."""
     x = embed(params["embed"], tokens)
     x, states = _mamba_stack(params["layers"], cfg, x,
-                             collect_state=collect_state)
+                             collect_state=collect_state, remat=remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), states
+
+
+def _next_token_loss(params, hidden, tokens):
+    loss = chunked_softmax_xent(hidden[:, :-1], unembed_matrix(params),
+                                tokens[:, 1:])
+    return loss, {"loss": loss, "aux_loss": torch.zeros(
+        (), dtype=torch.float32, device=hidden.device)}
+
+
+def ssm_lm_loss(params, cfg, tokens, *, remat=True):
+    """Next-token loss of the pure SSM LM. Returns (loss, {"loss",
+    "aux_loss" (0)})."""
+    hidden, _ = ssm_lm_hidden(params, cfg, tokens, remat=remat)
+    return _next_token_loss(params, hidden, tokens)
 
 
 def ssm_lm_decode_step(params, cfg, token, states):
@@ -182,24 +211,34 @@ def _apply_shared_block(shared, cfg, x, positions, *, attn_chunk=512):
     return x + apply_mlp(shared["mlp"], h, cfg.act), kv
 
 
-def hybrid_lm_hidden(params, cfg, tokens, *, attn_chunk=512,
+def _macro_block(macro_p, shared, cfg, x, positions, attn_chunk,
+                 collect_state):
+    """attn_every Mamba layers, then the shared attention block."""
+    x, st = _mamba_stack(macro_p, cfg, x, collect_state=collect_state)
+    x, kv = _apply_shared_block(shared, cfg, x, positions,
+                                attn_chunk=attn_chunk)
+    return x, kv, st
+
+
+def hybrid_lm_hidden(params, cfg, tokens, *, remat=False, attn_chunk=512,
                      collect_kv=False, collect_state=False):
     """tokens (B, S) -> hidden (B, S, D) and, as the reference returns
     them: with `collect_state`, (hidden, (kvs, macro_states,
     tail_states)); else (hidden, kvs). kvs is (k, v), each (n_macro, B,
     S, Hkv, hd) after RoPE, when `collect_kv`; macro_states (conv, ssm)
     stacked (n_macro, attn_every, ...); tail_states (tail, ...) or
-    None."""
+    None. `remat` checkpoints each macro block and each tail layer, as
+    the reference's scans do."""
     x = embed(params["embed"], tokens)
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     n_macro = params["macro"]["ln"].shape[0]
     ks, vs, convs, ssms = [], [], [], []
+    macro = checkpointed(_macro_block) if remat else _macro_block
     for m in range(n_macro):
-        x, st = _mamba_stack(layer_params(params["macro"], m), cfg, x,
-                             collect_state=collect_state)
-        x, (k, v) = _apply_shared_block(params["shared"], cfg, x, positions,
-                                        attn_chunk=attn_chunk)
+        x, (k, v), st = macro(layer_params(params["macro"], m),
+                              params["shared"], cfg, x, positions,
+                              attn_chunk, collect_state)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -209,13 +248,22 @@ def hybrid_lm_hidden(params, cfg, tokens, *, attn_chunk=512,
     tail_states = None
     if "tail" in params:
         x, tail_states = _mamba_stack(params["tail"], cfg, x,
-                                      collect_state=collect_state)
+                                      collect_state=collect_state,
+                                      remat=remat)
     hidden = rms_norm(x, params["final_norm"], cfg.norm_eps)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     if collect_state:
         return hidden, (kvs, (torch.stack(convs), torch.stack(ssms)),
                         tail_states)
     return hidden, kvs
+
+
+def hybrid_lm_loss(params, cfg, tokens, *, remat=True, attn_chunk=512):
+    """Next-token loss of the zamba2 hybrid LM. Returns (loss, {"loss",
+    "aux_loss" (0)})."""
+    hidden, _ = hybrid_lm_hidden(params, cfg, tokens, remat=remat,
+                                 attn_chunk=attn_chunk)
+    return _next_token_loss(params, hidden, tokens)
 
 
 def hybrid_decode_step(params, cfg, token, cache, *, quant_group=64):

@@ -1,19 +1,21 @@
-"""Shared model layers: norms, RoPE, MLPs, embeddings (the port of the
-reference's `repro/models/layers.py`; the chunked cross-entropy waits for
-training).
+"""Shared model layers: norms, RoPE, MLPs, embeddings, the chunked
+cross-entropy (the port of the reference's `repro/models/layers.py`), and
+`checkpointed`, the port's form of `jax.checkpoint`.
 
 Params are nested dicts of tensors; every layer is a plain function.
 Compute dtype is the config dtype (bf16) with float32 for normalization
-statistics and RoPE, as in the reference. Weights are drawn from a
-`torch.Generator`, whose device is the parameters' device.
+statistics, RoPE and the loss, as in the reference. Weights are drawn
+from a `torch.Generator`, whose device is the parameters' device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 __all__ = ["init_dense", "rms_norm", "rope_frequencies", "apply_rope",
-           "init_mlp", "apply_mlp", "init_embedding", "embed"]
+           "init_mlp", "apply_mlp", "init_embedding", "embed",
+           "checkpointed", "chunked_softmax_xent"]
 
 
 def _normal(gen, shape, scale, dtype):
@@ -94,3 +96,52 @@ def init_embedding(gen, vocab: int, d_model: int, dtype=torch.bfloat16):
 
 def embed(table, tokens):
     return table[tokens]
+
+
+def checkpointed(fn):
+    """fn under activation checkpointing, the port of `jax.checkpoint`:
+    while autograd records, only fn's inputs are kept and its inside is
+    recomputed in the backward (`torch.utils.checkpoint`, non-reentrant,
+    so fn may take and return nested structures); otherwise fn itself."""
+    def call(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return call
+
+
+def _xent_piece(h_c, unembed, y_c, m_c):
+    logits = (h_c @ unembed).to(torch.float32)               # (B, c, V)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, y_c[..., None].long())[..., 0]
+    nll = (logz - gold) * m_c
+    return nll.sum(), m_c.sum()
+
+
+def chunked_softmax_xent(hidden, unembed, labels, mask=None,
+                         chunk: int = 512):
+    """Cross-entropy without materializing (B, S, V) logits.
+
+    hidden: (B, S, D); unembed: (D, V); labels: (B, S) int; mask: (B, S)
+    float or None. The sequence goes in chunks of `chunk` positions (all
+    rows at once), then the remainder piece, summed in that order; each
+    piece is checkpointed, so the backward holds one piece's (B, chunk,
+    V) float32 logits at a time. Returns the mean over the mask."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    n = s // chunk
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    piece = checkpointed(_xent_piece)
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n)]
+    if s > n * chunk:
+        bounds.append((n * chunk, s))
+    for lo, hi in bounds:
+        l_c, c_c = piece(hidden[:, lo:hi], unembed, labels[:, lo:hi],
+                         mask[:, lo:hi])
+        loss = loss + l_c
+        cnt = cnt + c_c
+    return loss / torch.clamp(cnt, min=1.0)

@@ -1,9 +1,9 @@
 """Model API of the serving path (the port of the reference's
 `repro/models/model_zoo.py`: every family).
 
-ModelBundle exposes init / prefill / decode / decode-cache builders and
-the tiered-cache kind, so the serve engine is model-agnostic (the loss
-waits for the training slice). The port runs the `dense` family
+ModelBundle exposes init / loss / prefill / decode / decode-cache
+builders and the tiered-cache kind, so the serve engine and the train
+step are model-agnostic. The port runs the `dense` family
 (gemma-2b and the other dense configs), `moe` (deepseek-v2-lite-16b with
 MLA attention and the `mla` cache kind, arctic-480b with GQA), `vlm`
 (llava-next-34b: the decoder with its patch embeddings prepended), `ssm`
@@ -41,6 +41,7 @@ class ModelBundle:
     cfg: ArchConfig
     cache_kind: str                     # gqa | mla | encdec_self | ssm | hybrid
     init: Callable                      # generator -> params
+    loss: Callable                      # (params, batch) -> (loss, metrics)
     prefill: Callable                   # (params, batch, spec) -> (cache, logits)
     decode: Callable                    # (params, token, cache, spec) -> (logits, kv_new)
     make_decode_cache: Callable         # (batch, seq_len, spec) -> cache zeros
@@ -53,10 +54,17 @@ def default_tier_spec(seq_len: int, hot_window: int = 1024,
 
 
 def _tx_bundle(cfg: ArchConfig, moe_dispatch: str, attn_chunk: int,
-               device) -> ModelBundle:
+               device, remat) -> ModelBundle:
     is_mla = cfg.mla is not None
     kind = "mla" if is_mla else "gqa"
     prefix_key = "patch_embeds" if cfg.vlm is not None else None
+
+    def loss(params, batch):
+        return tx.lm_loss(params, cfg, batch["tokens"],
+                          prefix_embeds=batch.get(prefix_key)
+                          if prefix_key else None,
+                          moe_dispatch=moe_dispatch, attn_chunk=attn_chunk,
+                          remat=remat)
 
     def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
         if is_mla:
@@ -94,7 +102,7 @@ def _tx_bundle(cfg: ArchConfig, moe_dispatch: str, attn_chunk: int,
         return tx.lm_decode_step(params, cfg, token, cache, quant_group=g)
 
     return ModelBundle(cfg=cfg, cache_kind=kind,
-                       init=lambda gen: tx.init_lm(gen, cfg),
+                       init=lambda gen: tx.init_lm(gen, cfg), loss=loss,
                        prefill=prefill, decode=decode,
                        make_decode_cache=make_decode_cache)
 
@@ -108,7 +116,11 @@ def _last_logits(params, hidden):
 # ---------------------------------------------------------------------------
 
 
-def _ssm_bundle(cfg: ArchConfig, device) -> ModelBundle:
+def _ssm_bundle(cfg: ArchConfig, device, remat) -> ModelBundle:
+    def loss(params, batch):
+        return hybrid_lib.ssm_lm_loss(params, cfg, batch["tokens"],
+                                      remat=remat)
+
     def make_decode_cache(b, seq_len, spec=None, device=device):
         conv, ssm = hybrid_lib.ssm_state_shapes(cfg, b, device)
         return {"conv": conv, "ssm": ssm, "total_len": seq_len,
@@ -128,7 +140,7 @@ def _ssm_bundle(cfg: ArchConfig, device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, cache_kind="ssm",
                        init=lambda gen: hybrid_lib.init_ssm_lm(gen, cfg),
-                       prefill=prefill, decode=decode,
+                       loss=loss, prefill=prefill, decode=decode,
                        make_decode_cache=make_decode_cache)
 
 
@@ -137,7 +149,12 @@ def _ssm_bundle(cfg: ArchConfig, device) -> ModelBundle:
 # ---------------------------------------------------------------------------
 
 
-def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device,
+                   remat) -> ModelBundle:
+    def loss(params, batch):
+        return hybrid_lib.hybrid_lm_loss(params, cfg, batch["tokens"],
+                                         remat=remat, attn_chunk=attn_chunk)
+
     def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
         n_macro, tail = hybrid_lib.hybrid_structure(cfg)
         ae = cfg.hybrid.attn_every
@@ -187,7 +204,7 @@ def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, cache_kind="hybrid",
                        init=lambda gen: hybrid_lib.init_hybrid_lm(gen, cfg),
-                       prefill=prefill, decode=decode,
+                       loss=loss, prefill=prefill, decode=decode,
                        make_decode_cache=make_decode_cache)
 
 
@@ -197,7 +214,13 @@ def _hybrid_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
 # ---------------------------------------------------------------------------
 
 
-def _encdec_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
+def _encdec_bundle(cfg: ArchConfig, attn_chunk: int, device,
+                   remat) -> ModelBundle:
+    def loss(params, batch):
+        return encdec_lib.encdec_loss(params, cfg, batch["frames"],
+                                      batch["tokens"], remat=remat,
+                                      attn_chunk=attn_chunk)
+
     def make_decode_cache(b, seq_len, spec: TierSpec, device=device):
         layers = gqa_layer_zeros(cfg.num_layers, b, spec, cfg.num_kv_heads,
                                  cfg.head_dim, device=device)
@@ -233,24 +256,32 @@ def _encdec_bundle(cfg: ArchConfig, attn_chunk: int, device) -> ModelBundle:
 
     return ModelBundle(cfg=cfg, cache_kind="encdec_self",
                        init=lambda gen: encdec_lib.init_encdec(gen, cfg),
-                       prefill=prefill, decode=decode,
+                       loss=loss, prefill=prefill, decode=decode,
                        make_decode_cache=make_decode_cache)
 
 
 def build_model(cfg: ArchConfig, *, moe_dispatch: str = "einsum",
-                attn_chunk: int = 512, device="cuda") -> ModelBundle:
+                attn_chunk: int = 512, device="cuda",
+                remat=None) -> ModelBundle:
     """The bundle of `cfg`; `make_decode_cache` allocates on `device`
-    unless told otherwise, and `prefill` beside its inputs. A MoE
-    prefill dispatches by `moe_dispatch` (decode always by `gather`)."""
+    unless told otherwise, and `prefill` and `loss` run beside their
+    inputs. A MoE prefill and loss dispatch by `moe_dispatch` (decode
+    always by `gather`). `remat` (False, True or "blocks"; None: the
+    config's) is the loss's activation checkpointing; the prefill runs
+    without it. The reference takes it for the transformer families and
+    uses the config's elsewhere; the port takes it for every family
+    ("blocks" checkpoints the layer whole where a family has no
+    blocks)."""
+    dev = torch.device(device)
+    remat = cfg.remat if remat is None else remat
     if cfg.family in ("dense", "moe", "vlm"):
-        return _tx_bundle(cfg, moe_dispatch, attn_chunk,
-                          torch.device(device))
+        return _tx_bundle(cfg, moe_dispatch, attn_chunk, dev, remat)
     if cfg.family == "ssm":
-        return _ssm_bundle(cfg, torch.device(device))
+        return _ssm_bundle(cfg, dev, remat)
     if cfg.family == "hybrid":
-        return _hybrid_bundle(cfg, attn_chunk, torch.device(device))
+        return _hybrid_bundle(cfg, attn_chunk, dev, remat)
     if cfg.family == "audio":
-        return _encdec_bundle(cfg, attn_chunk, torch.device(device))
+        return _encdec_bundle(cfg, attn_chunk, dev, remat)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

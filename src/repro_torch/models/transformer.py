@@ -9,7 +9,9 @@ loop. A MoE config with `first_k_dense` keeps those leading layers apart
 Decode consumes the tiered KV cache (dense int4 tier + hot bf16 tail):
 GQA through the `tiered_decode` kernel, MLA's latent through its latent
 form, the dequantized tier rounded to bf16 as the reference's serving
-path rounds it; MoE layers dispatch by `gather` at decode.
+path rounds it; MoE layers dispatch by `gather` at decode. `lm_loss`
+is the next-token loss of training, with the reference's remat choices
+(`lm_hidden(remat=)`).
 """
 from __future__ import annotations
 
@@ -19,11 +21,12 @@ from repro_torch.kernels.tiered_attention.ops import tiered_decode_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (apply_mlp, embed, init_embedding,
-                                       init_mlp, rms_norm)
+from repro_torch.models.layers import (apply_mlp, checkpointed,
+                                       chunked_softmax_xent, embed,
+                                       init_embedding, init_mlp, rms_norm)
 
 __all__ = ["init_lm", "unembed_matrix", "embed_tokens", "apply_layer",
-           "lm_hidden", "gqa_decode_tiered", "lm_decode_step",
+           "lm_hidden", "lm_loss", "gqa_decode_tiered", "lm_decode_step",
            "layer_params"]
 
 
@@ -93,41 +96,79 @@ def embed_tokens(params, cfg, tokens):
     return x
 
 
-def apply_layer(params, cfg, x, positions, *, moe_dispatch="einsum",
-                attn_chunk=512):
-    """Full-sequence layer (prefill). Returns (x, aux, kv): kv is (k, v)
-    for GQA, (c_kv, k_rope) for MLA; aux the MoE layer's load-balance
-    loss, float32 0 for a dense FFN."""
+def _attn_block(params, cfg, x, positions, attn_chunk):
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
-        a, kv = mla_lib.apply_mla(params["attn"], cfg, h, positions,
-                                  chunk=attn_chunk)
-    else:
-        a, kv = attn_lib.apply_attention(params["attn"], cfg, h, positions,
-                                         chunk=attn_chunk)
-    x = x + a
+        return mla_lib.apply_mla(params["attn"], cfg, h, positions,
+                                 chunk=attn_chunk)
+    return attn_lib.apply_attention(params["attn"], cfg, h, positions,
+                                    chunk=attn_chunk)
+
+
+def _ffn_block(params, cfg, x, moe_dispatch):
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
     if "moe" in params:
-        f, aux = moe_lib.apply_moe(params["moe"], cfg, h,
-                                   dispatch=moe_dispatch)
-    else:
-        f = apply_mlp(params["mlp"], h, cfg.act)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return moe_lib.apply_moe(params["moe"], cfg, h,
+                                 dispatch=moe_dispatch)
+    f = apply_mlp(params["mlp"], h, cfg.act)
+    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def apply_layer(params, cfg, x, positions, *, moe_dispatch="einsum",
+                attn_chunk=512):
+    """Full-sequence layer (train / prefill). Returns (x, aux, kv): kv is
+    (k, v) for GQA, (c_kv, k_rope) for MLA; aux the MoE layer's
+    load-balance loss, float32 0 for a dense FFN."""
+    a, kv = _attn_block(params, cfg, x, positions, attn_chunk)
+    x = x + a
+    f, aux = _ffn_block(params, cfg, x, moe_dispatch)
     return x + f, aux, kv
 
 
+def _layer_seq(params, cfg, x, positions, moe_dispatch, attn_chunk):
+    """`apply_layer`, its arguments positional (the form `checkpointed`
+    takes)."""
+    return apply_layer(params, cfg, x, positions, moe_dispatch=moe_dispatch,
+                       attn_chunk=attn_chunk)
+
+
+def _layer_blocks(params, cfg, x, positions, moe_dispatch, attn_chunk):
+    """`apply_layer` with the reference's "blocks" remat: the attention
+    block and the FFN block are each checkpointed, so what the backward
+    keeps of the layer is the residual stream at the two block
+    boundaries and each block is recomputed from it."""
+    a, kv = checkpointed(_attn_block)(params, cfg, x, positions, attn_chunk)
+    x = x + a
+    f, aux = checkpointed(_ffn_block)(params, cfg, x, moe_dispatch)
+    return x + f, aux, kv
+
+
+def _layer_fn(remat, first: bool):
+    """The layer as `_remat_wrap` wraps the reference's scan body: False
+    as it is; True checkpointed whole; "blocks" block by block. The
+    first_dense layers are checkpointed whole under any remat, as the
+    reference's `first_body` is."""
+    if not remat:
+        return _layer_seq
+    if remat == "blocks" and not first:
+        return _layer_blocks
+    return checkpointed(_layer_seq)
+
+
 def _stacks(params):
-    """(stacked layer params, count) in the order the layers run:
+    """(name, stacked layer params, count) in the order the layers run:
     first_dense, then layers."""
-    return [(params[k], params[k]["ln1"].shape[0])
+    return [(k, params[k], params[k]["ln1"].shape[0])
             for k in ("first_dense", "layers") if k in params]
 
 
 def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
-              moe_dispatch="einsum", attn_chunk=512, collect_kv=False):
+              moe_dispatch="einsum", attn_chunk=512, remat=False,
+              collect_kv=False):
     """tokens (B, S_txt) [+ prefix embeddings (B, P, D), a VLM's patches,
     concatenated before the tokens' embeddings] -> final hidden states
-    over S = P + S_txt positions.
+    over S = P + S_txt positions. `remat` (False, True or "blocks") is
+    the reference's; the serving prefill runs without it.
 
     Returns (hidden (B, S, D), aux_loss (float32: the first layers' sum
     plus the rest's, each summed in layer order, as the reference's two
@@ -142,12 +183,12 @@ def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     kv0, kv1 = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for stacked, n in _stacks(params):
+    for name, stacked, n in _stacks(params):
+        layer = _layer_fn(remat, name == "first_dense")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n):
-            x, a, kv = apply_layer(layer_params(stacked, i), cfg, x,
-                                   positions, moe_dispatch=moe_dispatch,
-                                   attn_chunk=attn_chunk)
+            x, a, kv = layer(layer_params(stacked, i), cfg, x, positions,
+                             moe_dispatch, attn_chunk)
             aux = aux + a
             if collect_kv:
                 kv0.append(kv[0])
@@ -156,6 +197,26 @@ def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     kvs = (torch.stack(kv0), torch.stack(kv1)) if collect_kv else None
     return x, aux_total, kvs
+
+
+def lm_loss(params, cfg, tokens, *, prefix_embeds=None,
+            moe_dispatch="einsum", attn_chunk=512, remat=True,
+            aux_coef=None):
+    """Next-token loss: token t+1 predicted from the hidden state at
+    P + t (a VLM's P patch positions predict nothing). Returns (total,
+    {"loss", "aux_loss"}): total adds the MoE aux loss weighted by
+    `aux_coef` (default the config's `router_aux_loss_coef`, 0 for a
+    dense model)."""
+    hidden, aux, _ = lm_hidden(params, cfg, tokens,
+                               prefix_embeds=prefix_embeds,
+                               moe_dispatch=moe_dispatch,
+                               attn_chunk=attn_chunk, remat=remat)
+    p = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    h = hidden[:, p: p + tokens.shape[1] - 1]
+    loss = chunked_softmax_xent(h, unembed_matrix(params), tokens[:, 1:])
+    if aux_coef is None:
+        aux_coef = cfg.moe.router_aux_loss_coef if cfg.moe else 0.0
+    return loss + aux_coef * aux, {"loss": loss, "aux_loss": aux}
 
 
 def gqa_decode_tiered(attn_params, cfg, x, positions, lc, dense_len: int,
@@ -187,7 +248,7 @@ def lm_decode_step(params, cfg, token, cache, *, quant_group=64):
                            device=x.device)
     new0, new1 = [], []
     slot = 0
-    for stacked, n in _stacks(params):
+    for _, stacked, n in _stacks(params):
         for i in range(n):
             lp = layer_params(stacked, i)
             lc = layer_params(cache["layers"], slot)

@@ -1496,3 +1496,110 @@ def test_encdec_and_vlm_serving_paths_on_the_card(cuda, arch):
                 # quantized from the card's own projections: bf16 drift
                 # may move a few nibbles, not the tier
                 assert (cache[k].cpu() == want[k]).float().mean() > 0.9, k
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under autograd, and the raw wrappers' refusal
+# ---------------------------------------------------------------------------
+
+
+def _raw_grad_calls():
+    """Each raw serving wrapper called on card tensors, one of which
+    requires a gradient."""
+    def f(*shape, grad=False, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="cuda",
+                           requires_grad=grad)
+
+    def u8(*shape):
+        return torch.zeros(shape, dtype=torch.uint8, device="cuda")
+    return {
+        "flash_fwd": lambda: flash_ops.flash_fwd(
+            f(1, 64, 2, 64, grad=True, dtype=torch.bfloat16),
+            f(1, 64, 1, 64, dtype=torch.bfloat16),
+            f(1, 64, 1, 64, dtype=torch.bfloat16)),
+        "ssd_intra": lambda: ssd_ops.ssd_intra(
+            f(1, 1, 16, 2, 16, grad=True), f(1, 1, 16, 2), f(2),
+            f(1, 1, 16, 16), f(1, 1, 16, 16)),
+        "tiered_decode": lambda: tiered_ops.dense_tier_partial(
+            f(1, 1, 2, 64, grad=True), u8(1, 64, 1, 32), f(1, 64, 1, 1),
+            u8(1, 64, 1, 32), f(1, 64, 1, 1), 64),
+        "latent_decode": lambda: tiered_ops.latent_tier_partial(
+            f(1, 2, 64, grad=True), f(1, 2, 16), u8(1, 64, 32),
+            f(1, 64, 1, dtype=torch.bfloat16),
+            f(1, 64, 16, dtype=torch.bfloat16), 64),
+        "ips_repack": lambda: repack_ops.quantize_rows(f(4, 64, grad=True)),
+    }
+
+
+class TestTrainingOnTheCard:
+    @pytest.mark.parametrize("name", list(_raw_grad_calls()))
+    def test_raw_wrapper_refuses_grad(self, cuda, name):
+        """A raw wrapper on card tensors that require a gradient raises
+        instead of cutting the gradient; nothing is launched."""
+        launchers = {"flash_fwd": flash_ops.LAUNCHER,
+                     "ssd_intra": ssd_ops.LAUNCHER,
+                     "tiered_decode": tiered_ops.LAUNCHER,
+                     "latent_decode": tiered_ops.LATENT_LAUNCHER,
+                     "ips_repack": repack_ops.LAUNCHER}
+        before = launchers[name].launches
+        with pytest.raises(RuntimeError, match="require a gradient"):
+            _raw_grad_calls()[name]()
+        assert launchers[name].launches == before
+
+    def test_flash_function_grads_equal_plain_version(self, cuda,
+                                                      monkeypatch):
+        """gemma-2b's served prefill shape (B 4, S 2048, H 8, Hkv 1, hd
+        256, bf16): (dq, dk, dv) with the kernel's forward against the
+        same Function with the plain forward, within 1e-2 of the largest
+        gradient (bf16, as the serving path's check holds the kernel)."""
+        b, s, h, hkv, hd = 4, 2048, 8, 1, 256
+        gen = _gen(11)
+        inputs = [_randn(gen, b, s, n, hd, dtype=torch.bfloat16)
+                  for n in (h, hkv, hkv)]
+        w = _randn(gen, b, h, s, hd)
+
+        def grads():
+            ts = [t.clone().requires_grad_(True) for t in inputs]
+            out, _ = flash_ops.flash_attention(*ts, chunk=512)
+            return torch.autograd.grad((out * w).sum(), ts)
+        before = flash_ops.LAUNCHER.launches
+        got = grads()
+        torch.cuda.synchronize()
+        assert flash_ops.LAUNCHER.launches == before + 1
+        monkeypatch.setattr(flash_ops, "flash_fwd", flash_ref)
+        want = grads()
+        for name, g, r in zip("qkv", got, want):
+            assert torch.isfinite(g).all(), name
+            scale = float(r.float().abs().max())
+            torch.testing.assert_close(g.float(), r.float(), rtol=0,
+                                       atol=1e-2 * scale)
+
+    def test_ssd_intra_function_grads_equal_plain_version(self, cuda,
+                                                          monkeypatch):
+        """mamba2-370m's served shape (B 4, S 2048, 32 heads of 64, N 128,
+        chunk 256): every input's gradient through the chunked scan with
+        the kernel's forward against the plain forward, within 2e-5 of
+        the largest (the path check's bar)."""
+        b, s, nh, hd, n, q = 4, 2048, 32, 64, 128, 256
+        gen = _gen(12)
+        x = _randn(gen, b, s, nh, hd)
+        dt = 0.05 + 0.5 * torch.rand((b, s, nh), generator=gen,
+                                     device="cuda")
+        a = -(0.5 + torch.rand((nh,), generator=gen, device="cuda"))
+        bb, c = _randn(gen, b, s, n), _randn(gen, b, s, n)
+        wy, wh = _randn(gen, b, s, nh, hd), _randn(gen, b, nh, hd, n)
+
+        def grads():
+            ts = [t.clone().requires_grad_(True) for t in (x, dt, a, bb, c)]
+            y, hf = ssd_ops.ssd_chunked_kernel(*ts, q)
+            return torch.autograd.grad((y * wy).sum() + (hf * wh).sum(), ts)
+        before = ssd_ops.LAUNCHER.launches
+        got = grads()
+        torch.cuda.synchronize()
+        assert ssd_ops.LAUNCHER.launches == before + 1
+        monkeypatch.setattr(ssd_ops, "ssd_intra", ssd_ref.intra_chunk_ref)
+        want = grads()
+        for name, g, r in zip(("x", "dt", "A", "B", "C"), got, want):
+            assert torch.isfinite(g).all(), name
+            torch.testing.assert_close(g, r, rtol=0, atol=2e-5 * float(
+                r.abs().max()))

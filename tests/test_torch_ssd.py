@@ -52,8 +52,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     """`import repro_torch` and every submodule — the serving launcher, the
     kernel packages, the Mamba2 and hybrid models, the telemetry package,
     the sweep store, the host tier, the search engine, the MoE and MLA
-    models among them — and chip_smoke.py pull in no `jax` and no
-    `repro.` module."""
+    models, the training path (optimizers, train step, data pipeline,
+    checkpoints, the training launcher) among them — and chip_smoke.py
+    pull in no `jax` and no `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -72,6 +73,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.search, repro_torch.search.tune\n"
         "import repro_torch.models.moe, repro_torch.models.mla\n"
         "import repro_torch.models.transformer, repro_torch.interop\n"
+        "import repro_torch.optim, repro_torch.optim.compress\n"
+        "import repro_torch.train.train_step, repro_torch.launch.train\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

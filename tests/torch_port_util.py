@@ -232,3 +232,49 @@ def replayed_routes(t_moe, log: list, flips: list):
     if next(it, None) is not None:
         raise AssertionError("the port routed fewer times than the "
                              "reference recorded")
+
+
+@contextlib.contextmanager
+def replayed_routes_differentiable(t_moe, log: list, flips: list):
+    """`replayed_routes` for the gradient: each call of the port's
+    `_routing` routes to the next recorded experts of the reference, but
+    its gate weights are the port's own router probabilities at those
+    experts, renormalised, and its aux loss counts those experts, so the
+    router's gradient flows as in the reference. `flips` as in
+    `replayed_routes`."""
+    import torch.nn.functional as F
+
+    orig = t_moe._routing
+    it = iter(log)
+    flips[:] = [0, 0, 0]
+
+    def replay(router_w, x, m):
+        _, experts, _ = orig(router_w, x, m)
+        _, je = next(it)
+        je = torch.from_numpy(np.array(je, np.int64)).to(experts.device)
+        if je.shape != experts.shape:
+            raise AssertionError(f"route {flips[0]}: recorded "
+                                 f"{tuple(je.shape)}, the port routes "
+                                 f"{tuple(experts.shape)}")
+        differ = (torch.sort(experts, dim=-1).values
+                  != torch.sort(je, dim=-1).values).any(dim=-1)
+        flips[0] += 1
+        flips[1] += differ.numel()
+        flips[2] += int(differ.sum())
+        probs = torch.softmax(x.to(torch.float32) @ router_w, dim=-1)
+        weights = probs.gather(-1, je)
+        weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True),
+                                        min=1e-9)
+        sel = F.one_hot(je, m.num_experts).to(torch.float32)
+        frac = sel.sum(dim=2).mean(dim=(0, 1))
+        aux = m.num_experts * (frac * probs.mean(dim=(0, 1))).sum()
+        return weights, je, aux
+
+    t_moe._routing = replay
+    try:
+        yield
+    finally:
+        t_moe._routing = orig
+    if next(it, None) is not None:
+        raise AssertionError("the port routed fewer times than the "
+                             "reference recorded")
