@@ -263,7 +263,32 @@ then:
    3 launcher steps and `ssd_intra`'s launches a step. (d) gemma-2b
    reduced on the card: three steps against two, `save_async`,
    `restore` into a fresh state and the third step, whose loss must be
-   equal to the bit. `scripts/train_phase.py` runs this phase alone.
+   equal to the bit. `scripts/train_phase.py` runs this phase alone;
+13. distribution — ranks spawned as processes that share the card over
+   gloo (`distributed.group.spawn`), each with its tensors on the card,
+   the sweep kernels built before any rank starts: (a) the paper grid
+   over 4 ranks (102 cells padded to 104, each rank's 26 in one
+   `ssd_step` launch) cell for cell against `BENCH_sweep_paper.json`,
+   and the `quick` search over 2 ranks against
+   `tests/data/torch_reference_search.json`, the walls beside phase 3's;
+   (b) `compressed_psum` over 4 ranks on one gemma-2b layer's gradient
+   leaves at full width (bf16, with a carried float32 residual) against
+   the same function in one process over the stacked ranks — the int32
+   payload sum and the mean scale equal, the output and the residual
+   within 1e-6 of their max — and on a 1-rank NCCL group; (c) gemma-2b's
+   train state (parameters and AdamW moments, full width,
+   DIST_CKPT_LAYERS deep, the embedding cut) saved by 2 ranks under
+   (data 2, model 1),
+   restored by one process and by 4 ranks under (data 2, model 2), every
+   piece equal to the bit to its slice of the global state; (d) each of
+   those ranks' device memory growth equal to the plan's per-device
+   bytes (`launch.dryrun.argument_bytes`) within 512 bytes a tensor.
+   Planted faults that must fail their checks: the 2-rank search again
+   with its ranks' gathers handing back their two parts swapped (the
+   scenario search's members then come back out of order), a
+   `compressed_psum` that
+   rescales with its own scale, a restore that swaps ranks 1 and 2's
+   slices. `scripts/dist_phase.py` runs this phase alone.
 
 Each phase prints JSON lines, each with the card's name and power
 limit, and any mismatch fails the run. The line
@@ -3123,38 +3148,13 @@ def matrix_path(cfg, cuda, bench, cache_dir) -> dict:
             "launches": matrix_launches + bench_launches}
 
 
-def search_path(cache_dir) -> dict:
-    """The search engine at the `quick` budget on the card, through the
-    CLI's entry (`--search quick`, in this process, the kernels' counts
-    zeroed just before and read just after): the survivors, the Pareto
-    front, each round's candidates, survivors, cells, groups and best,
-    and the scenario search's history and flip equal to the reference's
-    recorded run (`tests/data/torch_reference_search.json`), the scores
-    within rtol 1e-6; the rounds after the first need no new kernel
-    specialisation; one ssd_step launch a round and a scenario
-    evaluation."""
-    from repro_torch.kernels.host_tier import ops as host_tier
-    from repro_torch.kernels.ssd_step import ops as ssd_step
-    from repro_torch.sweep.cli import main as cli_main
-
-    with open(os.path.join(ROOT, "tests", "data",
-                           "torch_reference_search.json")) as f:
-        ref = json.load(f)
-    out_dir = os.path.join(ROOT, "build", "cli_search")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.environ["REPRO_TORCH_TRACE_CACHE_DIR"] = cache_dir
-    ssd_step.reset()
-    host_tier.reset()
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
-        rc = cli_main(["--search", "quick", "--no-history", "--out-dir",
-                       out_dir])
-    wall = time.perf_counter() - t1
-    if rc != 0:
-        fail(f"--search quick exited {rc}")
-    launches = ssd_step.launches
-    with open(os.path.join(out_dir, "BENCH_torch_search.json")) as f:
-        doc = json.load(f)
+def check_search(doc, ref, launches) -> float:
+    """A `--search quick` document held to the reference's recorded run:
+    the survivors, the Pareto front, each round's candidates, survivors,
+    cells, groups and best, the scenario search's history and flip equal,
+    the scores within rtol 1e-6, no new kernel specialisation after the
+    first round, one ssd_step launch a round and a scenario evaluation.
+    Returns the worst relative difference of the scores."""
 
     def close(a, b):
         return (a is None and b is None) or (
@@ -3194,6 +3194,43 @@ def search_path(cache_dir) -> dict:
         fail(f"search: {launches} ssd_step launches for "
              f"{len(doc['rounds'])} rounds and {2 + sc_iters} scenario "
              "evaluations")
+    return worst
+
+
+def search_path(cache_dir) -> dict:
+    """The search engine at the `quick` budget on the card, through the
+    CLI's entry (`--search quick`, in this process, the kernels' counts
+    zeroed just before and read just after): the survivors, the Pareto
+    front, each round's candidates, survivors, cells, groups and best,
+    and the scenario search's history and flip equal to the reference's
+    recorded run (`tests/data/torch_reference_search.json`), the scores
+    within rtol 1e-6; the rounds after the first need no new kernel
+    specialisation; one ssd_step launch a round and a scenario
+    evaluation."""
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.sweep.cli import main as cli_main
+
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_reference_search.json")) as f:
+        ref = json.load(f)
+    out_dir = os.path.join(ROOT, "build", "cli_search")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.environ["REPRO_TORCH_TRACE_CACHE_DIR"] = cache_dir
+    ssd_step.reset()
+    host_tier.reset()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = cli_main(["--search", "quick", "--no-history", "--out-dir",
+                       out_dir])
+    wall = time.perf_counter() - t1
+    if rc != 0:
+        fail(f"--search quick exited {rc}")
+    launches = ssd_step.launches
+    with open(os.path.join(out_dir, "BENCH_torch_search.json")) as f:
+        doc = json.load(f)
+    worst = check_search(doc, ref, launches)
+    scen = doc["scenario_search"]
     return {"wall_s": wall, "launches": launches,
             "tier_launches": host_tier.launches,
             "rounds": [{k: r[k] for k in ("round", "candidates",
@@ -3661,6 +3698,517 @@ def training_phase(cuda):
              f"train {TRAIN_SSM_ARCH}": path(mrun)}, figures)
 
 
+# ---------------------------------------------------------------------------
+# distribution (phase 13)
+# ---------------------------------------------------------------------------
+
+# ranks are spawned processes; with one card they share it over gloo
+DIST_SWEEP_RANKS = 4            # the paper grid: 102 cells padded to 104
+DIST_SEARCH_RANKS = 2           # the quick search
+DIST_PSUM_RANKS = 4
+DIST_CKPT_LAYERS = 1            # gemma-2b's depth in (c), at full width;
+#                                 its 256,000 x 2048 embedding is cut from
+#                                 the state: with it (6.3 GB of parameters
+#                                 and AdamW moments) the phase took 228 s
+#                                 of its 120 (PERF.md §6), without it the
+#                                 state is 1.1 GB
+DIST_SEED = 23
+PSUM_RTOL = 1e-6                # of max |output|
+ALLOC_ROUND = 512               # the caching allocator's rounding a tensor
+
+
+def _note(rank, what, t0) -> float:
+    """A rank's progress line on stderr; returns the clock."""
+    now = time.perf_counter()
+    print(f"phase 13 rank {rank}: {what} in {now - t0:.1f} s",
+          file=sys.stderr, flush=True)
+    return now
+
+
+def _bits(t):
+    """A tensor's bits as an integer tensor (bitwise comparisons)."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if t.dtype.is_floating_point:
+        return t.contiguous().view(ints[t.element_size()])
+    return t
+
+
+def _dist_cfg(layers):
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[TRAIN_ARCH], num_layers=layers)
+
+
+def _cut(params):
+    """The parameters of phase 13's checkpoint: all but the embedding."""
+    return {k: v for k, v in params.items() if k != "embed"}
+
+
+def dist_state(layers, device):
+    """gemma-2b's train state at full width and `layers` deep, its
+    embedding cut (`_cut`), drawn from DIST_SEED on `device`: the
+    parameters, and AdamW moments filled with seeded values (zeros would
+    hide a misplaced slice)."""
+    import torch
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.train.train_step import TrainState
+    gen = torch.Generator(device).manual_seed(DIST_SEED)
+    params = _cut(build_model(_dist_cfg(layers), device=device).init(gen))
+    opt = adamw_init(params)
+
+    def draw(p):
+        return torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                           device=device)
+    opt = opt._replace(mu=tree_map(draw, params),
+                       nu=tree_map(lambda p: draw(p).abs(), params),
+                       step=torch.tensor(5, dtype=torch.int32,
+                                         device=device))
+    return TrainState(params, opt, torch.tensor(5, dtype=torch.int32,
+                                                device=device))
+
+
+def dist_specs(mesh, state):
+    """The plan of a train state on `mesh`: the parameters' specs, the
+    optimizer state's (`dryrun.param_specs_like`), the step replicated."""
+    from repro_torch.distributed.sharding import P, param_specs
+    from repro_torch.launch.dryrun import param_specs_like
+    from repro_torch.train.train_step import TrainState
+    return TrainState(param_specs(mesh, state.params),
+                      param_specs_like(state.opt_state, state.params, mesh),
+                      P())
+
+
+def _meta_state(layers):
+    """The train state's stand-ins on meta (`launch.specs`)."""
+    import torch
+    from repro_torch.launch import specs as lspecs
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import TrainState
+    cfg = _dist_cfg(layers)
+    params = _cut(lspecs.params_specs(build_model(cfg, device="meta")))
+    return TrainState(params, lspecs.opt_state_specs(cfg, params),
+                      lspecs.sds((), torch.int32))
+
+
+def _psum_own_scale(grad, residual):
+    """Planted fault: `compressed_psum` rescaling with its own scale in
+    place of the group's mean (its correction term is then zero)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.compress import compress_with_feedback
+    q, scale, err = compress_with_feedback(grad, residual)
+    summed = q.to(torch.int32)
+    dist.all_reduce(summed)
+    return summed.to(torch.float32) * scale / dist.get_world_size(), err
+
+
+def _psum_leaves():
+    """One gemma-2b layer's gradient shapes at full width (its stacked
+    leaves without the layer axis)."""
+    from repro_torch.distributed.sharding import tree_map_path
+    params = _meta_state(1).params
+    out = []
+    tree_map_path(lambda p, x: out.append(("/".join(p), tuple(x.shape[1:])))
+                  if p[0] == "layers" else None, params)
+    return out
+
+
+def psum_check(rank, world, device, psum, group=None) -> dict:
+    """`psum` (compressed_psum or a planted fault, over `group`, of
+    `world` ranks) on this rank's gradients of one gemma-2b layer (bf16)
+    and a carried residual (float32), each drawn per rank from
+    DIST_SEED, against the same function computed in this process over
+    every rank's stacked leaves: the int32 payload sum and the mean
+    scale (`reduce_parts`) equal, the output and the residual within
+    PSUM_RTOL of their max |value|."""
+    import torch
+    from repro_torch.optim import compress
+    leaves = _psum_leaves()
+    worst_out, worst_res, exact_parts, n_el = 0.0, 0.0, True, 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ms = 0.0
+    for li, (name, shape) in enumerate(leaves):
+        grads, res = [], []
+        for r in range(world):
+            gen = torch.Generator(device).manual_seed(
+                DIST_SEED * 1000 + li * 16 + r)
+            grads.append((1e-3 * torch.randn(shape, generator=gen,
+                                              device=device)).to(
+                                                  torch.bfloat16))
+            res.append(1e-5 * torch.randn(shape, generator=gen,
+                                          device=device))
+        n_el += grads[0].numel()
+        torch.cuda.synchronize()
+        ev[0].record()
+        out, err = psum(grads[rank], res[rank])
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms += ev[0].elapsed_time(ev[1])
+        q, scale, _ = compress.compress_with_feedback(grads[rank], res[rank])
+        summed, mean_scale, _ = compress.reduce_parts(q, scale, group)
+        # the one-process reference over the stacked ranks
+        parts = [compress.compress_with_feedback(g, r0)
+                 for g, r0 in zip(grads, res)]
+        payload = torch.stack([p[0].to(torch.int32) for p in parts]).sum(0)
+        total = parts[0][1]
+        for p in parts[1:]:
+            total = total + p[1]
+        mean = total / world
+        corr = None
+        for p in parts:
+            c = compress.dequantize_int8(p[0], p[1]) - p[0].to(
+                torch.float32) * mean
+            corr = c if corr is None else corr + c
+        want = (payload.to(torch.float32) * mean + corr) / float(world)
+        exact_parts &= bool(torch.equal(summed, payload)) and bool(
+            torch.equal(_bits(mean_scale), _bits(mean)))
+        worst_out = max(worst_out, float((out - want).abs().max())
+                        / float(want.abs().max()))
+        worst_res = max(worst_res, float(
+            (err - parts[rank][2]).abs().max()) / max(
+                float(parts[rank][2].abs().max()), 1e-30))
+    return {"leaves": len(leaves), "elements": n_el,
+            "parts_exact": exact_parts, "max_rel_err": worst_out,
+            "residual_max_rel_err": worst_res, "psum_ms": ms,
+            "ok": exact_parts and worst_out <= PSUM_RTOL
+            and worst_res <= PSUM_RTOL}
+
+
+def ckpt_check(rank, mesh, device_mesh, path, layers, fault=False) -> dict:
+    """Restore the checkpoint at `path` onto `device_mesh` under the plan
+    of `mesh`: the device memory the pieces take against the plan's
+    per-device bytes (`dryrun.argument_bytes`), then every piece against
+    the global state's slice at this rank's coordinate, to the bit.
+    `fault` plants a restore that swaps ranks 1 and 2's slices."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.dryrun import argument_bytes
+    target = _meta_state(layers)
+    specs = dist_specs(mesh, target)
+    coords = mesh.coords(rank)
+    real = sharding.local_slices
+    if fault:
+        swap = {tuple(mesh.coords(1).items()): mesh.coords(2),
+                tuple(mesh.coords(2).items()): mesh.coords(1)}
+
+        def swapped(m, spec, shape, at):
+            return real(m, spec, shape, swap.get(tuple(at.items()), at))
+        sharding.local_slices = swapped
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    try:
+        got, step = ckpt.restore(path, target, mesh=device_mesh,
+                                 specs=specs)
+    finally:
+        sharding.local_slices = real
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    growth = torch.cuda.memory_allocated() - before
+    planned = argument_bytes(mesh, [(target, specs)])
+    n_tensors = len(ckpt.flatten(target))
+    want = ckpt.flatten(dist_state(layers, device_mesh.device_type))
+    spec_of = ckpt.flatten(specs)
+    equal = True
+    for key, piece in ckpt.flatten(got).items():
+        w = want[key][real(mesh, spec_of[key], tuple(want[key].shape),
+                           coords)]
+        equal &= bool(torch.equal(_bits(piece.to_local()), _bits(w)))
+    return {"rank": rank, "coords": coords, "step": step,
+            "equal": equal, "memory_growth": growth,
+            "planned_bytes": planned, "tensors": n_tensors,
+            "memory_ok": abs(growth - planned) <= ALLOC_ROUND * n_tensors,
+            "restore_s": restore_s}
+
+
+def dist_rank4(rank, world, cache_dir, ckpt_dir):
+    """The 4-rank half of phase 13, one rank: (a) the paper grid through
+    `run_sweep` (its slice in one launch), (b) `compressed_psum`, its
+    planted fault and a 1-rank NCCL group, (c, d) the checkpoint restored
+    onto (data 2, model 2) and its planted fault."""
+    import functools
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.launch.mesh import MeshSpec, device_mesh
+    from repro_torch.optim.compress import compressed_psum
+    from repro_torch.sweep.grid import named_grid
+    from repro_torch.sweep.runner import run_sweep
+    from repro_torch.workloads import TraceCache
+    cfg, _ = phase2_cfg()
+    ssd_step.reset()
+    timings = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sweep(cfg, named_grid("paper"), device="cuda",
+                    timings=timings, trace_cache=TraceCache(root=cache_dir))
+    torch.cuda.synchronize()
+    _note(rank, "paper grid", t0)
+    sweep = {"wall_s": time.perf_counter() - t0,
+             "launches": ssd_step.launches,
+             "cells": sum(t["cells"] for t in timings if t["rank"] == rank),
+             "kernel_ms": max((t["kernel_ms"] for t in timings
+                               if t["rank"] == rank), default=None),
+             "launch_ms": next((t["launch_ms"] for t in timings
+                                if t["rank"] == rank), None),
+             "results": ({pt.key: v for pt, v in res.items()}
+                         if rank == 0 else None)}
+    device = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    psum = psum_check(rank, world, device, compressed_psum)
+    t0 = _note(rank, "compressed_psum", t0)
+    psum_fault = psum_check(rank, world, device, _psum_own_scale)
+    t0 = _note(rank, "its planted fault", t0)
+    # a 1-rank NCCL group (every rank takes part in making it)
+    nccl = dist.new_group(ranks=[0], backend="nccl")
+    one = None
+    if rank == 0:
+        one = {"backend": dist.get_backend(nccl),
+               **psum_check(0, 1, device, functools.partial(
+                   compressed_psum, group=nccl), group=nccl)}
+    dist.barrier()
+    t0 = _note(rank, "the 1-rank NCCL group", t0)
+    mesh = MeshSpec(("data", "model"), (2, 2))
+    dm = device_mesh(mesh, "cuda")
+    ckpt = ckpt_check(rank, mesh, dm, ckpt_dir, DIST_CKPT_LAYERS)
+    t0 = _note(rank, "restore and check", t0)
+    torch.cuda.empty_cache()
+    ckpt_fault = ckpt_check(rank, mesh, dm, ckpt_dir, DIST_CKPT_LAYERS,
+                            fault=True)
+    _note(rank, "the planted restore", t0)
+    return {"sweep": sweep, "psum": psum, "psum_fault": psum_fault,
+            "nccl_one_rank": one, "ckpt": ckpt, "ckpt_fault": ckpt_fault}
+
+
+def _swapped_gather(fn):
+    """Planted fault: `fn()` with `group.all_gather_objects` handing back
+    ranks 0 and 1's parts swapped, on every rank alike (so the ranks
+    stay in step). Gathers that merge results by key do not see it; the
+    scenario search's, which orders its members by rank, does."""
+    from repro_torch.distributed import group
+    real = group.all_gather_objects
+
+    def swapped(obj, group=None):
+        parts = real(obj, group)
+        parts[0], parts[1] = parts[1], parts[0]
+        return parts
+    group.all_gather_objects = swapped
+    try:
+        return fn()
+    finally:
+        group.all_gather_objects = real
+
+
+def dist_rank2(rank, world, cache_dir, out_dir, fault_dir, ckpt_dir):
+    """The 2-rank half of phase 13, one rank: the train state saved under
+    (data 2, model 1), then the quick search through the CLI's entry,
+    into `out_dir`, and again with the planted gather fault, into
+    `fault_dir`."""
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.launch.mesh import MeshSpec, device_mesh
+    from repro_torch.sweep.cli import main as cli_main
+    t0 = time.perf_counter()
+    mesh = MeshSpec(("data", "model"), (2, 1))
+    dm = device_mesh(mesh, "cuda")
+    state = dist_state(DIST_CKPT_LAYERS, "cuda")
+    sharded = shard_tree(state, dm, dist_specs(mesh, state))
+    del state
+    torch.cuda.synchronize()
+    t0 = _note(rank, "state drawn and sharded", t0)
+    ckpt.save(ckpt_dir, sharded, step=5, level=0)
+    save_s = time.perf_counter() - t0
+    _note(rank, "checkpoint saved", t0)
+    del sharded
+    torch.cuda.empty_cache()
+    os.environ["REPRO_TORCH_TRACE_CACHE_DIR"] = cache_dir
+
+    def search(into):
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            return cli_main(["--search", "quick", "--no-history",
+                             "--out-dir", into])
+    ssd_step.reset()
+    t0 = time.perf_counter()
+    rc = search(out_dir)
+    search_s = _note(rank, "quick search", t0) - t0
+    launches = ssd_step.launches
+    ssd_step.reset()
+    t0 = time.perf_counter()
+    fault_rc = _swapped_gather(lambda: search(fault_dir))
+    _note(rank, "its planted gather fault", t0)
+    return {"save_s": save_s, "search_rc": rc,
+            "search_wall_s": search_s, "search_launches": launches,
+            "fault_rc": fault_rc, "fault_launches": ssd_step.launches,
+            "shard_bytes": os.path.getsize(os.path.join(
+                ckpt_dir, f"shard_{rank:05d}.msgpack.zst"))}
+
+
+def distribution_phase(cuda, one_process=None) -> dict:
+    """Phase 13: the port's distribution on ranks that share the card
+    (gloo; ranks spawned, each with its tensors on the card). Builds the
+    sweep kernels before any rank starts. `one_process`: phase 3's walls
+    ({"paper_wall_s", "search_wall_s"}) to print beside the ranks'."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.distributed import group
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()       # the ranks share this card
+    build_all([ssd_step.LIB, host_tier.LIB])
+    cache_dir = os.path.join(ROOT, "build", "trace_cache")
+    out_dir = os.path.join(ROOT, "build", "dist_search")
+    fault_dir = os.path.join(ROOT, "build", "dist_search_fault")
+    for d in (out_dir, fault_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    with open(os.path.join(ROOT, "BENCH_sweep_paper.json")) as f:
+        bench = json.load(f)
+    with open(os.path.join(ROOT, "tests", "data",
+                           "torch_reference_search.json")) as f:
+        search_ref = json.load(f)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"),
+                                     prefix="dist_ckpt_") as ckpt_dir:
+        t0 = time.perf_counter()
+        two = group.spawn(dist_rank2, DIST_SEARCH_RANKS, cache_dir, out_dir,
+                          fault_dir, ckpt_dir, device="cuda")
+        two_s = _note("parent", "2-rank spawn", t0) - t0
+        # (c) restored by one rank: this process, no group
+        torch.cuda.empty_cache()
+        want = dist_state(DIST_CKPT_LAYERS, cuda)
+        t0 = time.perf_counter()
+        got, step = ckpt.restore(ckpt_dir, want)
+        one_restore_s = _note("parent", "1-rank restore", t0) - t0
+        flat_w, flat_g = ckpt.flatten(want), ckpt.flatten(got)
+        one_equal = step == 5 and all(
+            torch.equal(_bits(flat_g[k]), _bits(flat_w[k])) for k in flat_w)
+        with open(os.path.join(ckpt_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        state_bytes = sum(v.numel() * v.element_size()
+                          for v in flat_w.values())
+        del want, got, flat_w, flat_g
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        four = group.spawn(dist_rank4, DIST_SWEEP_RANKS, cache_dir,
+                           ckpt_dir, device="cuda")
+        four_s = _note("parent", "4-rank spawn", t0) - t0
+    one = four[0]["nccl_one_rank"]
+
+    # (a) the sweeps over ranks
+    paper = four[0]["sweep"]
+    worst = _cells_equal("phase 13 paper over 4 ranks", paper["results"],
+                         bench["results"])
+    if len(paper["results"]) != 102:
+        fail(f"phase 13: the 4-rank paper grid returned "
+             f"{len(paper['results'])} cells")
+    if any(r["sweep"]["launches"] != 1 for r in four):
+        fail("phase 13: a rank ran its paper slice in more than one launch: "
+             f"{[r['sweep']['launches'] for r in four]}")
+    if [r["sweep"]["cells"] for r in four] != [26] * 4:
+        fail("phase 13: the ranks' slices are not 26 cells each")
+    if any(r["search_rc"] for r in two):
+        fail("phase 13: --search quick exited "
+             f"{[r['search_rc'] for r in two]}")
+    with open(os.path.join(out_dir, "BENCH_torch_search.json")) as f:
+        doc = json.load(f)
+    search_worst = max(check_search(doc, search_ref, r["search_launches"])
+                       for r in two)
+    sweeps = {"paper_ranks": DIST_SWEEP_RANKS, "paper_cells": 102,
+              "paper_padded_cells": 104, "paper_max_rel_err": worst,
+              "paper_wall_s": [r["sweep"]["wall_s"] for r in four],
+              "paper_kernel_ms": [r["sweep"]["kernel_ms"] for r in four],
+              "paper_launch_ms": [r["sweep"]["launch_ms"] for r in four],
+              "paper_launches": [r["sweep"]["launches"] for r in four],
+              "search_ranks": DIST_SEARCH_RANKS,
+              "search_wall_s": [r["search_wall_s"] for r in two],
+              "search_launches": [r["search_launches"] for r in two],
+              "search_max_rel_err": search_worst,
+              "one_process": one_process}
+    emit({"phase": "dist_sweeps", **sweeps})
+    # (b) compressed_psum
+    psum = [r["psum"] for r in four]
+    if not all(p["ok"] for p in psum):
+        fail(f"phase 13: compressed_psum over 4 ranks failed its check: "
+             f"{psum}")
+    if not one["ok"] or one["backend"] != "nccl":
+        fail(f"phase 13: the 1-rank NCCL compressed_psum failed: {one}")
+    faults = [{"fault": "psum_own_scale",
+               "caught": not all(r["psum_fault"]["ok"] for r in four),
+               "max_rel_err": max(r["psum_fault"]["max_rel_err"]
+                                  for r in four)}]
+    emit({"phase": "dist_psum", "ranks": DIST_PSUM_RANKS,
+          "leaves": psum[0]["leaves"], "elements": psum[0]["elements"],
+          "parts_exact": all(p["parts_exact"] for p in psum),
+          "max_rel_err": max(p["max_rel_err"] for p in psum),
+          "residual_max_rel_err": max(p["residual_max_rel_err"]
+                                      for p in psum),
+          "psum_ms": [p["psum_ms"] for p in psum], "nccl_one_rank": one})
+    # (c, d) checkpoints
+    ck = [r["ckpt"] for r in four]
+    if not one_equal or manifest["num_shards"] != DIST_SEARCH_RANKS:
+        fail("phase 13: the 2-rank checkpoint did not restore on one rank "
+             "to the bit")
+    if not all(c["equal"] and c["step"] == 5 for c in ck):
+        fail(f"phase 13: a rank's restored pieces differ: {ck}")
+    if not all(c["memory_ok"] for c in ck):
+        fail(f"phase 13: a rank's memory growth is not the plan's bytes: "
+             f"{[(c['memory_growth'], c['planned_bytes']) for c in ck]}")
+    faults.append({"fault": "restore_swaps_ranks_1_2",
+                   "caught": not all(r["ckpt_fault"]["equal"]
+                                     for r in four),
+                   "ranks_failing": [r["ckpt_fault"]["rank"] for r in four
+                                     if not r["ckpt_fault"]["equal"]]})
+    emit({"phase": "dist_ckpt", "layers": DIST_CKPT_LAYERS,
+          "state_bytes": state_bytes, "save_ranks": DIST_SEARCH_RANKS,
+          "save_s": [r["save_s"] for r in two],
+          "shard_bytes": [r["shard_bytes"] for r in two],
+          "one_rank_restore_s": one_restore_s, "one_rank_equal": one_equal,
+          "four_rank": [{k: c[k] for k in (
+              "rank", "coords", "equal", "memory_growth", "planned_bytes",
+              "tensors", "restore_s")} for c in ck]})
+    # the planted gather fault: the 2-rank search again, its ranks'
+    # gathers handing back their two parts swapped
+    if any(r["fault_rc"] for r in two):
+        fail("phase 13: --search quick with the planted gather fault "
+             f"exited {[r['fault_rc'] for r in two]}")
+    with open(os.path.join(fault_dir, "BENCH_torch_search.json")) as f:
+        fault_doc = json.load(f)
+    try:
+        for r in two:
+            check_search(fault_doc, search_ref, r["fault_launches"])
+        gather_caught = False
+    except SystemExit as e:
+        gather_caught = str(e)
+    faults.insert(0, {"fault": "gather_swaps_ranks_0_1",
+                      "caught": bool(gather_caught),
+                      "failed_with": gather_caught or None})
+    for f in faults:
+        emit({"phase": "dist_planted_fault", **f})
+        if not f["caught"]:
+            fail(f"phase 13: the planted fault {f['fault']} passed its check")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "dist_wall", "s": wall, "two_rank_spawn_s": two_s,
+          "four_rank_spawn_s": four_s})
+    print(f"distribution: paper over {DIST_SWEEP_RANKS} ranks "
+          f"{max(sweeps['paper_wall_s']):.2f} s"
+          + (f" (one process {one_process['paper_wall_s']:.2f} s)"
+             if one_process else "")
+          + f", quick search over {DIST_SEARCH_RANKS} ranks "
+          f"{max(sweeps['search_wall_s']):.1f} s"
+          + (f" (one process {one_process['search_wall_s']:.1f} s)"
+             if one_process else "")
+          + f"; phase {wall:.1f} s", flush=True)
+    return {"launches": sum(r["sweep"]["launches"] for r in four)
+            + sum(r["search_launches"] for r in two)}
+
+
 def _card_line() -> list:
     """Print the card's name and power limit, once, and keep them for
     every JSON line."""
@@ -3938,6 +4486,12 @@ def main() -> int:
     train_paths, train_figures = training_phase(cuda)
     by_path.update(train_paths)
     wall("12 training")
+
+    # ---- 13. distribution: ranks sharing the card (gloo) ----
+    dist = distribution_phase(cuda, {
+        "paper_wall_s": sweeps["paper_warm"]["line"]["wall_s"],
+        "search_wall_s": search["wall_s"]})
+    wall("13 distribution")
     emit({"phase": "walls", "s_from_start": walls})
 
     # ---- the kernel table, then the contract's last line ----
@@ -3947,9 +4501,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/ssd_step/csrc/ssd_step.cu",
         "replaces": "src/repro/kernels/ssd_step/kernel.py:46",
         # every sweep path's one launch, each counted from 0 (the
-        # telemetry phase's among them)
+        # telemetry phase's among them), and phase 13's ranks' launches
         "launches": sum(s["line"]["launches"] for s in sweeps.values())
-        + tele["launches"] + matrix["launches"],
+        + tele["launches"] + matrix["launches"] + dist["launches"],
+        "distribution_launches": dist["launches"],
         # ms / plain_ms / bound_ms: the same work — phase 2's eight K = 1
         # launches, which the CPU plain version can also run
         "max_abs_err": max(max_err, wear["max_abs_err"]), "ms": kernel_ms,

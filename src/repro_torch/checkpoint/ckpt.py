@@ -13,14 +13,29 @@ subset (`checkpoint.msgpack`) and compresses with zlib, which the
 reference's reader tells apart from zstd by its first byte (0x78); it
 reads a zstd shard only when the `zstandard` package imports.
 
-`save_async` copies the tree to the host on the calling thread and
-serializes and writes it on a worker thread. One process writes one
-shard; restoring onto another layout of devices (the reference's
-elastic re-shard) waits for the port's distribution slice.
+Several ranks (`torch.distributed`, `distributed.group`): each rank
+writes `shard_{rank:05d}.msgpack.zst` and `num_shards` is the world
+size. Each leaf is written whole, once, by the rank that owns it (the
+leaves dealt out in path order, each to the rank with the fewest bytes
+so far); a sharded leaf (a DTensor) is gathered to its owner first,
+through host memory. No key is in two shard files, so the reference's
+`restore`, which merges the keys of every shard file, reads a W-rank
+checkpoint of the port, and the port reads the reference's.
+
+`restore(..., mesh=, specs=)` is the elastic re-shard: each leaf is
+placed onto the given `DeviceMesh` with its spec
+(`distributed.sharding.shard_tree`'s local slice, no collective), as
+the reference's `device_put` with its shardings places it, whatever
+mesh wrote the checkpoint.
+
+`save_async` copies the tree to the host (and gathers the sharded
+leaves) on the calling thread and serializes and writes it on a worker
+thread.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -28,8 +43,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import msgpack
+from repro_torch.distributed import sharding
 
 try:
     import zstandard as zstd
@@ -38,7 +55,8 @@ except ImportError:
     zstd = None
     HAVE_ZSTD = False
 
-__all__ = ["save", "save_async", "restore", "load_manifest", "flatten"]
+__all__ = ["save", "save_async", "restore", "load_manifest", "flatten",
+           "owners"]
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 _EXEC = ThreadPoolExecutor(max_workers=1)
@@ -72,7 +90,8 @@ def _is_namedtuple(x) -> bool:
 def flatten(tree, prefix: str = "") -> dict:
     """{"/"-joined path: leaf} in `jax.tree_util`'s order: a NamedTuple's
     fields in order, a dict's keys sorted, a list's or tuple's items as
-    "[i]"; None is an empty subtree."""
+    "[i]"; None is an empty subtree; a partition spec (`sharding.P`) is
+    a leaf."""
     def join(key):
         return f"{prefix}/{key}" if prefix else str(key)
 
@@ -88,7 +107,8 @@ def flatten(tree, prefix: str = "") -> dict:
         for k in sorted(tree):
             out.update(flatten(tree[k], join(k)))
         return out
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          sharding.P):
         out = {}
         for i, v in enumerate(tree):
             out.update(flatten(v, join(f"[{i}]")))
@@ -133,38 +153,103 @@ def _unpack_array(d: dict) -> torch.Tensor:
 
 
 def _write(path: str, host: dict, names: dict, step: int,
-           extra: Optional[dict], level: int) -> None:
+           extra: Optional[dict], level: int, shard: tuple) -> None:
+    """Write this rank's shard file; rank 0 also writes the manifest
+    (`shard`: (rank, world, every key of the tree))."""
+    rank, world, keys = shard
     os.makedirs(path, exist_ok=True)
     payload = {k: _pack_array(names[k], host[k]) for k in host}
     blob = zlib.compress(msgpack.packb(payload), min(level, 9))
-    with open(os.path.join(path, "shard_00000.msgpack.zst"), "wb") as f:
+    with open(os.path.join(path, f"shard_{rank:05d}.msgpack.zst"),
+              "wb") as f:
         f.write(blob)
-    manifest = {"step": int(step), "num_shards": 1, "keys": sorted(host),
-                "extra": extra or {}}
-    with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
+    if rank == 0:
+        manifest = {"step": int(step), "num_shards": world,
+                    "keys": sorted(keys), "extra": extra or {}}
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
 
 
-def _snapshot(tree):
+def owners(flat: dict, world: int) -> dict:
+    """{key: rank that writes it}: the leaves in path order, each to the
+    rank with the fewest bytes so far (the lowest such rank on a tie)."""
+    load = [0] * world
+    out = {}
+    for key, leaf in flat.items():
+        r = min(range(world), key=lambda i: (load[i], i))
+        out[key] = r
+        shape = tuple(getattr(leaf, "shape", ()))
+        load[r] += math.prod(shape) * _itemsize(leaf)
+    return out
+
+
+def _itemsize(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.element_size()
+    return np.asarray(leaf).dtype.itemsize
+
+
+def _gathered(leaf, owner: int, rank: int, group) -> Optional[np.ndarray]:
+    """A DTensor leaf assembled whole on its owner (None elsewhere):
+    every rank sends its local piece and the piece's index slices to the
+    owner through host memory (gloo gathers no CUDA tensor)."""
+    mesh = sharding.mesh_spec_of(leaf.device_mesh)
+    spec = sharding.spec_of(leaf)
+    coords = dict(zip(mesh.axis_names, leaf.device_mesh.get_coordinate()))
+    piece = (sharding.local_slices(mesh, spec, tuple(leaf.shape), coords),
+             _host(leaf.to_local()))
+    got = [None] * dist.get_world_size(group) if rank == owner else None
+    dist.gather_object(piece, got, dst=owner, group=group)
+    if rank != owner:
+        return None
+    whole = np.empty(tuple(leaf.shape), dtype=got[0][1].dtype)
+    for index, arr in got:
+        whole[index] = arr
+    return whole
+
+
+def _snapshot(tree, group=None):
+    """(host arrays, dtype names) of the leaves this rank writes, and
+    (rank, world, every key). Sharded leaves are gathered to their owner
+    here, so every rank calls this."""
+    from torch.distributed.tensor import DTensor
     flat = flatten(tree)
-    return ({k: _host(v) for k, v in flat.items()},
-            {k: _dtype_name(v) for k, v in flat.items()})
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
+    rank = dist.get_rank(group) if dist.is_initialized() else 0
+    own = owners(flat, world)
+    host, names = {}, {}
+    for k, v in flat.items():
+        if isinstance(v, DTensor):
+            arr = _gathered(v, own[k], rank, group)
+        else:
+            arr = _host(v) if own[k] == rank else None
+        if arr is not None:
+            host[k], names[k] = arr, _dtype_name(v)
+    return host, names, (rank, world, list(flat))
 
 
 def save(path: str, tree: Any, *, step: int, extra: Optional[dict] = None,
-         level: int = 3) -> None:
-    """Synchronous save of `tree` (NamedTuples, dicts, lists of tensors
-    or arrays) at `step`."""
-    host, names = _snapshot(tree)
-    _write(path, host, names, step, extra, level)
+         level: int = 3, group=None) -> None:
+    """Synchronous save of `tree` (NamedTuples, dicts, lists of tensors,
+    DTensors or arrays) at `step`. In a process group every rank calls
+    it and writes its own shard file; it returns when every shard is
+    written."""
+    host, names, shard = _snapshot(tree, group)
+    _write(path, host, names, step, extra, level, shard)
+    if shard[1] > 1:
+        dist.barrier(group)
 
 
 def save_async(path: str, tree: Any, *, step: int,
-               extra: Optional[dict] = None, level: int = 3) -> Future:
-    """Copy to the host on the calling thread (the tree may change after
-    this returns), serialize and write on a worker thread."""
-    host, names = _snapshot(tree)
-    return _EXEC.submit(_write, path, host, names, step, extra, level)
+               extra: Optional[dict] = None, level: int = 3,
+               group=None) -> Future:
+    """Copy to the host (gathering sharded leaves) on the calling thread
+    (the tree may change after this returns), serialize and write on a
+    worker thread. In a group every rank waits on its own future before
+    another rank reads the checkpoint."""
+    host, names, shard = _snapshot(tree, group)
+    return _EXEC.submit(_write, path, host, names, step, extra, level,
+                        shard)
 
 
 def load_manifest(path: str) -> dict:
@@ -172,46 +257,73 @@ def load_manifest(path: str) -> dict:
         return json.load(f)
 
 
-def _place(leaf: torch.Tensor, like):
+def _place(leaf: torch.Tensor, like, placed=None):
     """A restored leaf as `like` holds its own: a tensor on like's device
-    (requiring a gradient when like does), or a numpy array."""
+    (requiring a gradient when like does) — this rank's DTensor piece of
+    it on the mesh's device when `placed` (its spec, the DeviceMesh) is
+    given —, or a numpy array."""
     if isinstance(like, torch.Tensor):
-        out = leaf.to(like.device)
+        if placed is not None:
+            spec, device_mesh = placed
+            device = torch.device(device_mesh.device_type)
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            out = sharding.shard_leaf(leaf, device_mesh, spec, device)
+        else:
+            out = leaf.to(like.device)
         return out.requires_grad_(True) if like.requires_grad else out
     if leaf.dtype == torch.bfloat16:
         return leaf.view(torch.int16).numpy()
     return leaf.numpy()
 
 
-def _rebuild(target, arrays: dict, prefix: str = ""):
+def _rebuild(target, leaf_of, prefix: str = ""):
     def join(key):
         return f"{prefix}/{key}" if prefix else str(key)
 
     if target is None:
         return None
     if _is_namedtuple(target):
-        return type(target)(*(_rebuild(getattr(target, n), arrays, join(n))
+        return type(target)(*(_rebuild(getattr(target, n), leaf_of, join(n))
                               for n in target._fields))
     if isinstance(target, dict):
-        return {k: _rebuild(v, arrays, join(k)) for k, v in target.items()}
+        return {k: _rebuild(v, leaf_of, join(k)) for k, v in target.items()}
     if isinstance(target, (list, tuple)):
-        return type(target)(_rebuild(v, arrays, join(f"[{i}]"))
+        return type(target)(_rebuild(v, leaf_of, join(f"[{i}]"))
                             for i, v in enumerate(target))
-    return _place(arrays[prefix], target)
+    return leaf_of(prefix, target)
 
 
-def restore(path: str, target: Any):
+def restore(path: str, target: Any, *, mesh=None, specs=None):
     """Restore into the structure of `target`. Returns (tree, step): each
     leaf with the checkpoint's dtype and bits, on the target leaf's
-    device."""
-    blobs = {}
+    device. With `specs` (a spec tree matching `target`) and `mesh` (a
+    `DeviceMesh`), each tensor leaf becomes this rank's DTensor piece of
+    it under its spec, on the mesh's device: the elastic re-shard onto
+    any mesh, whatever mesh or rank count wrote the checkpoint. The
+    shard files are read one at a time, and a leaf's whole array lives
+    on the host only while its piece is cut."""
+    like_of = flatten(target)
+    spec_of = {}
+    if specs is not None:
+        if mesh is None:
+            raise ValueError("restore: specs need the DeviceMesh to place "
+                             "them on (mesh=)")
+        spec_of = flatten(specs)
+    placed = {}
     for fname in sorted(os.listdir(path)):
-        if fname.endswith(".msgpack.zst"):
-            with open(os.path.join(path, fname), "rb") as f:
-                blobs.update(msgpack.unpackb(_decompress(f.read())))
-    arrays = {}
-    for key in flatten(target):
-        if key not in blobs:
-            raise KeyError(f"checkpoint missing key {key!r}")
-        arrays[key] = _unpack_array(blobs[key])
-    return _rebuild(target, arrays), load_manifest(path)["step"]
+        if not fname.endswith(".msgpack.zst"):
+            continue
+        with open(os.path.join(path, fname), "rb") as f:
+            entries = msgpack.unpackb(_decompress(f.read()))
+        for key in [k for k in entries if k in like_of]:
+            arr = _unpack_array(entries.pop(key))
+            placed[key] = _place(arr, like_of[key],
+                                 (spec_of[key], mesh) if key in spec_of
+                                 else None)
+        del entries
+    missing = [k for k in like_of if k not in placed]
+    if missing:
+        raise KeyError(f"checkpoint missing key {missing[0]!r}")
+    return (_rebuild(target, lambda key, _: placed[key]),
+            load_manifest(path)["step"])

@@ -29,6 +29,13 @@ kernel, then each cell's (T*K) device sub-op stream joins the other
 groups' streams in the one `ssd_step` launch, as a per-op stream over
 the whole padded trace (no pad trim, as the reference's tier runs). Its
 final state carries `hostcache`, and with the probe its host windows.
+
+Ranks: inside a `torch.distributed` group (`distributed.group`),
+`shard_cells` gives each rank its contiguous slice of the cell axis —
+the cells carry no cross-cell dependency, so each rank runs its slice in
+its own launch — and `cell_quantum` is the multiple callers pad the cell
+axis to (replaying the last cell) so that the slice divides. Outside a
+group both are the one-rank case.
 """
 from __future__ import annotations
 
@@ -41,12 +48,62 @@ from repro_torch.core.ssd.policies.registry import resolve_spec
 from repro_torch.core.ssd.policies.state import (CellParams, SimState,
                                                  init_state, map_state)
 from repro_torch.core.ssd.sim import flush_cache, summarize
+from repro_torch.distributed import group as dgroup
+from repro_torch.distributed.sharding import flat_paths, tree_map_path
 from repro_torch.kernels.ssd_step import ops as ssd_step
-from repro_torch.telemetry import probe
+from repro_torch.telemetry import probe, spans
 from repro_torch.workloads.compress import TRIM_QUANTUM
 
 __all__ = ["FleetGroup", "stack_params", "stack_ops", "run_fleets",
-           "run_fleet", "flush_fleet", "summarize_fleet"]
+           "run_fleet", "flush_fleet", "summarize_fleet", "shard_cells",
+           "cell_quantum", "shard_skip_count"]
+
+# cumulative count of shard_cells calls that left every rank the whole
+# cell axis because it did not divide the group — a structured signal
+# (with the `fleet.shard_skipped` span event) instead of a fleet that
+# merely looks slow
+_SHARD_SKIPS = 0
+
+
+def shard_skip_count() -> int:
+    """How many fleets ran unsharded this process (the cell axis did not
+    divide the group's size). Nonzero means ranks repeated each other's
+    work: pad the cell axis to a `cell_quantum()` multiple."""
+    return _SHARD_SKIPS
+
+
+def shard_cells(tree, group=None):
+    """This rank's contiguous slice of the leading (cell) axis of every
+    leaf (tensors or numpy arrays, in dicts and NamedTuples): rank r of
+    n takes cells [r C/n, (r+1) C/n).
+
+    No-op outside a group or on one rank. When C does not divide n every
+    rank keeps the whole axis, and the skip is counted
+    (`shard_skip_count`, span event `fleet.shard_skipped`); callers pad
+    the cells instead when they care (sweep.runner, search.scenario)."""
+    n_ranks = dgroup.world_size(group)
+    leaves = list(flat_paths(tree).values())
+    if n_ranks <= 1 or not leaves:
+        return tree
+    n_cells = leaves[0].shape[0]
+    if n_cells % n_ranks != 0:
+        global _SHARD_SKIPS
+        _SHARD_SKIPS += 1
+        spans.event("fleet.shard_skipped", "fleet", n_cells=n_cells,
+                    n_devices=n_ranks, idle_devices=n_ranks - 1)
+        return tree
+    per = n_cells // n_ranks
+    r = dgroup.rank(group)
+    return tree_map_path(lambda _, leaf: leaf[r * per:(r + 1) * per], tree)
+
+
+def cell_quantum() -> int:
+    """Cell-axis padding quantum: the process group's size, so that
+    `shard_cells` divides the axis. Callers pad to a multiple of this,
+    replaying the last real cell, and drop the pad from results. (The
+    reference lcm's it with a shape bucket that keeps XLA's compiled
+    shapes stable; the port's launch compiles nothing per cell count.)"""
+    return dgroup.world_size()
 
 
 class FleetGroup(NamedTuple):

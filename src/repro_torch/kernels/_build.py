@@ -16,6 +16,7 @@ device check and `refuse_grad` their refusal to run under autograd.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -30,7 +31,8 @@ from typing import Callable, Sequence
 
 import torch
 
-__all__ = ["Library", "Launcher", "Span", "check", "kernel_route", "refuse_grad",
+__all__ = ["Library", "Launcher", "Span", "check", "kernel_route",
+           "shapes_only", "refuse_grad",
            "BUILD_DIR", "BASE_FLAGS", "LINK_FLAGS", "build_all", "nvcc"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -236,11 +238,28 @@ def check(kernel: str, name: str, t, dtypes, shape, device) -> None:
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+_SHAPES_ONLY = contextvars.ContextVar("shapes_only", default=False)
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Within it, a wrapper given meta tensors runs its plain version on
+    shapes alone (the dry run's FLOP and byte accounting,
+    `launch.cost_analysis`); outside it a meta tensor is refused."""
+    token = _SHAPES_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _SHAPES_ONLY.reset(token)
+
+
 def kernel_route(kernel: str, t) -> bool:
     """The wrappers' device check: True for a tensor on a CUDA device (the
-    kernel runs), False for one on the CPU (the plain version runs); any
-    other device is refused."""
-    if t.device.type == "cpu":
+    kernel runs), False for one on the CPU (the plain version runs), and
+    for one on the meta device inside `shapes_only()`; any other device
+    is refused."""
+    if t.device.type == "cpu" or (t.device.type == "meta"
+                                  and _SHAPES_ONLY.get()):
         return False
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {t.device}")

@@ -55,6 +55,7 @@ from repro_torch.telemetry.probe import ProbeRows
 __all__ = ["StreamJob", "run_streams", "run_stream", "smem_chase", "reset",
            "launches", "events", "composition_code", "kernel_constants",
            "smem_bytes", "block_smem_bytes", "specialisations",
+           "specialisation_keys",
            "MAX_LANES", "MAX_PAGES", "WEAR_BUCKETS", "TIMER_COLUMNS",
            "SOURCE", "NVCC_FLAGS", "LIB", "LAUNCHER"]
 
@@ -222,6 +223,11 @@ def reset() -> None:
 def specialisations() -> int:
     """Distinct kernel specialisations the process's jobs have needed."""
     return len(_SPECIALISATIONS)
+
+
+def specialisation_keys() -> frozenset:
+    """The specialisations the process's jobs have needed (their keys)."""
+    return frozenset(_SPECIALISATIONS)
 
 
 def __getattr__(name):

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.constraints import constrain_bsd
 from repro_torch.kernels.tiered_attention import ops as tiered_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_mlp, checkpointed,
@@ -101,13 +102,14 @@ def encode(params, cfg, frames, *, remat=False, attn_chunk=512):
     """frames: (B, F, D) precomputed embeddings -> (B, F, D). `remat`
     checkpoints each layer, as the reference's scan body is."""
     b, f, d = frames.shape
-    x = frames + sinusoidal_positions(f, d, frames.dtype,
-                                      frames.device)[None]
+    x = constrain_bsd(frames + sinusoidal_positions(f, d, frames.dtype,
+                                                    frames.device)[None])
     positions = torch.arange(f, dtype=torch.int32, device=x.device)
     layers = params["enc_layers"]
     layer = checkpointed(_enc_layer) if remat else _enc_layer
     for i in range(_n(layers)):
-        x = layer(layer_params(layers, i), cfg, x, positions, attn_chunk)
+        x = layer(layer_params(layers, i), cfg, constrain_bsd(x), positions,
+                  attn_chunk)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -134,15 +136,16 @@ def decoder_hidden(params, cfg, tokens, enc_out, *, remat=False,
     cross-attention's projections of the encoder output (L, B, F, Hkv,
     hd) — when `collect_kv`, else None. `remat` checkpoints each
     layer."""
-    x = embed(params["embed"], tokens)
+    x = constrain_bsd(embed(params["embed"], tokens))
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     layers = params["dec_layers"]
     layer = checkpointed(_dec_layer) if remat else _dec_layer
     ks, vs, cks, cvs = [], [], [], []
     for i in range(_n(layers)):
-        x, ((k, v), (ck, cv)) = layer(layer_params(layers, i), cfg, x,
-                                      enc_out, positions, attn_chunk)
+        x, ((k, v), (ck, cv)) = layer(layer_params(layers, i), cfg,
+                                      constrain_bsd(x), enc_out, positions,
+                                      attn_chunk)
         if collect_kv:
             ks.append(k)
             vs.append(v)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.constraints import constrain_bsd
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (apply_mlp, checkpointed,
@@ -68,7 +69,7 @@ def _mamba_stack(layers, cfg, x, *, states=None, collect_state=False,
     for i in range(layers["ln"].shape[0]):
         lp = layer_params(layers, i)
         if states is None:
-            x, st = seq(lp, cfg, x, collect_state)
+            x, st = seq(lp, cfg, constrain_bsd(x), collect_state)
         else:
             x, st = _apply_mamba_layer(lp, cfg, x,
                                        states=(states[0][i], states[1][i]))
@@ -111,7 +112,7 @@ def ssm_lm_hidden(params, cfg, tokens, *, remat=False,
     """tokens (B, S) -> (hidden (B, S, D), states): states is (conv (L, B,
     d_conv-1, d_xc), ssm (L, B, nh, hd, N) f32) with `collect_state`,
     else None. `remat` checkpoints each layer."""
-    x = embed(params["embed"], tokens)
+    x = constrain_bsd(embed(params["embed"], tokens))
     x, states = _mamba_stack(params["layers"], cfg, x,
                              collect_state=collect_state, remat=remat)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), states
@@ -215,7 +216,7 @@ def _macro_block(macro_p, shared, cfg, x, positions, attn_chunk,
                  collect_state):
     """attn_every Mamba layers, then the shared attention block."""
     x, st = _mamba_stack(macro_p, cfg, x, collect_state=collect_state)
-    x, kv = _apply_shared_block(shared, cfg, x, positions,
+    x, kv = _apply_shared_block(shared, cfg, constrain_bsd(x), positions,
                                 attn_chunk=attn_chunk)
     return x, kv, st
 
@@ -229,7 +230,7 @@ def hybrid_lm_hidden(params, cfg, tokens, *, remat=False, attn_chunk=512,
     stacked (n_macro, attn_every, ...); tail_states (tail, ...) or
     None. `remat` checkpoints each macro block and each tail layer, as
     the reference's scans do."""
-    x = embed(params["embed"], tokens)
+    x = constrain_bsd(embed(params["embed"], tokens))
     s = tokens.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     n_macro = params["macro"]["ln"].shape[0]

@@ -31,6 +31,8 @@ def init_dense(gen, d_in: int, d_out, scale: float = 0.02,
     if n_stack is None:
         return _normal(gen, shape, scale, dtype)
     out = torch.empty((n_stack,) + shape, dtype=dtype, device=gen.device)
+    if out.is_meta:             # shapes alone (launch.specs): no draws
+        return out
     for i in range(n_stack):
         out[i] = _normal(gen, shape, scale, dtype)
     return out

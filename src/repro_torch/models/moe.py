@@ -63,6 +63,8 @@ def _expert_weights(gen, n_stack, e, d_in, d_out, dtype):
     (128, 7168, 4864) would be 17.8 GB)."""
     lead = (e,) if n_stack is None else (n_stack, e)
     out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    if out.is_meta:             # shapes alone (launch.specs): no draws
+        return out
     flat = out.view(-1, d_in, d_out)
     for i in range(flat.shape[0]):
         flat[i] = (0.02 * torch.randn((d_in, d_out), generator=gen,

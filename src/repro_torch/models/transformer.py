@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.constraints import constrain_bsd
 from repro_torch.kernels.tiered_attention.ops import tiered_decode_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mla as mla_lib
@@ -179,6 +180,7 @@ def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
     x = embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain_bsd(x)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     kv0, kv1 = [], []
@@ -187,8 +189,10 @@ def lm_hidden(params, cfg, tokens, *, prefix_embeds=None,
         layer = _layer_fn(remat, name == "first_dense")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(n):
-            x, a, kv = layer(layer_params(stacked, i), cfg, x, positions,
-                             moe_dispatch, attn_chunk)
+            x, a, kv = layer(layer_params(stacked, i), cfg,
+                             constrain_bsd(x), positions, moe_dispatch,
+                             attn_chunk)
+            x = constrain_bsd(x)
             aux = aux + a
             if collect_kv:
                 kv0.append(kv[0])

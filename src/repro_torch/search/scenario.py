@@ -8,7 +8,10 @@ consensus. Each iteration perturbs the incumbent stats into a small
 population, synthesizes every member through `synthesize_stats`, and
 evaluates all of them under both policies in ONE `fleet.run_fleets` call
 (on a card one `ssd_step` launch); every synthesized trace is truncated
-to a fixed op budget, as in the reference.
+to a fixed op budget, as in the reference. In a process group the
+population is padded to a multiple of the ranks (the last member
+replayed) and each rank evaluates its contiguous slice
+(`fleet.shard_cells`); every rank gets every member's scores.
 
 The separation metric is the per-trace latency ratio lat_a / lat_b. The
 MSR reference ratio is computed through the same evaluator on the 11
@@ -44,7 +47,9 @@ def evaluate_stats(cfg, stats_list: Sequence[TraceStats],
     """Latency/WAF of every (stats, policy) pair: one fleet per policy,
     all in one `run_fleets` call.
 
-    Returns {policy: {"lat": (n,), "waf": (n,)}}. `label` keys the
+    Returns {policy: {"lat": (n,), "waf": (n,)}}. In a group of several
+    ranks the cell axis is padded to a multiple of their count and
+    sharded; in one process nothing is padded. `label` keys the
     synthesis RNG stream (with `seed`): a search meant to graduate into
     a registered generator evaluates under that generator's label, so
     the committed scenario is the same realization the search scored."""
@@ -53,6 +58,7 @@ def evaluate_stats(cfg, stats_list: Sequence[TraceStats],
                                              agc_waste_from_stats)
     from repro_torch.core.ssd.policies.registry import get_spec
     from repro_torch.core.ssd.sim import default_params
+    from repro_torch.distributed import group as dgroup
     from repro_torch.workloads import ir
 
     if max_ops > ir.PAD_OPS:
@@ -67,6 +73,13 @@ def evaluate_stats(cfg, stats_list: Sequence[TraceStats],
                                     "search:scenario")
         traces.append(ir.truncate_ops(tr.compile(), max_ops))
         wastes.append(agc_waste_from_stats(st))
+    n = len(traces)
+    sharded = dgroup.world_size() > 1
+    if sharded:
+        pad = (-n) % fleet.cell_quantum()
+        mine = fleet.shard_cells(np.arange(n + pad))
+        traces = [(traces + [traces[-1]] * pad)[i] for i in mine]
+        wastes = [(wastes + [wastes[-1]] * pad)[i] for i in mine]
     ops = fleet.stack_ops(traces, device=device)
     groups = [fleet.FleetGroup(
         policy, ops, fleet.stack_params(
@@ -85,6 +98,10 @@ def evaluate_stats(cfg, stats_list: Sequence[TraceStats],
         out[policy] = {
             "lat": summ["mean_write_latency_ms"].cpu().numpy(),
             "waf": summ["wa_paper"].cpu().numpy()}
+    if sharded:
+        parts = dgroup.all_gather_objects(out)
+        out = {p: {k: np.concatenate([part[p][k] for part in parts])[:n]
+                   for k in ("lat", "waf")} for p in out}
     return out
 
 

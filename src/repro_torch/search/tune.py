@@ -36,6 +36,7 @@ from repro_torch.search.space import Candidate
 from repro_torch.telemetry.spans import span
 
 __all__ = ["SCHEDULES", "TuneResult", "evaluate_candidates", "prune",
+           "specialisations",
            "pareto_front", "successive_halving", "default_score_endurance"]
 
 PRUNE_METRIC = "lat"
@@ -166,9 +167,26 @@ def evaluate_candidates(cfg, candidates: Sequence[Candidate], *,
         scores[cand] = {"lat": geomean(lat), "waf": geomean(waf),
                         "tbw": geomean(tbw) if tbw else None,
                         "n": len(lat)}
-    meta = {"cells": len(points), "groups": len(timings),
+    # one fleet group a (composition, mode, length, wear, host cache);
+    # over several ranks a group's cells may sit on more than one
+    groups = {(t["composition"], t["mode"], t["t_len"], t["endurance"],
+               t["hostcache"]) for t in timings}
+    meta = {"cells": len(points), "groups": len(groups),
             "group_timings": timings}
     return scores, meta
+
+
+def specialisations() -> int:
+    """The kernel specialisations needed so far: this process's, or in a
+    process group the union of every rank's (a group runs each cell of a
+    round once, as one process does, so the union grows as one
+    process's count would). Every rank calls it."""
+    from repro_torch.distributed import group as dgroup
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    keys = ssd_step.specialisation_keys()
+    if dgroup.world_size() > 1:
+        keys = frozenset().union(*dgroup.all_gather_objects(keys))
+    return len(keys)
 
 
 def _prune_key(item: Tuple[Candidate, Dict]):
@@ -220,17 +238,16 @@ def successive_halving(cfg, candidates: Sequence[Candidate],
     see SCHEDULES); each round evaluates the survivors on its budget,
     records {survivors, cells, groups, compiles, wall_s} — `compiles`
     the kernel specialisations the round needed first
-    (`ssd_step.ops.specialisations`) — and keeps `max(min_keep, ceil(n *
+    (`specialisations`) — and keeps `max(min_keep, ceil(n *
     keep_frac))` of them, except after the last round, whose scores feed
     `pareto_front` instead."""
-    from repro_torch.kernels.ssd_step import ops as ssd_step
     survivors = list(dict.fromkeys(candidates))
     rounds_meta: List[Dict] = []
     round_scores: List[Dict[Candidate, Dict]] = []
     scores: Dict[Candidate, Dict] = {}
     for rnd, stage in enumerate(schedule):
         n_in = len(survivors)
-        compiles0 = ssd_step.specialisations()
+        compiles0 = specialisations()
         with span("search.round", "search", round=rnd,
                   candidates=n_in) as rec:
             scores, meta = evaluate_candidates(
@@ -239,7 +256,7 @@ def successive_halving(cfg, candidates: Sequence[Candidate],
                 seed=seed, max_ops=stage.get("max_ops"),
                 trace_cache=trace_cache, score_endurance=score_endurance,
                 progress=progress, device=device)
-            rec["args"]["compiles"] = ssd_step.specialisations() - compiles0
+            rec["args"]["compiles"] = specialisations() - compiles0
         wall_s = rec["dur_s"]
         round_scores.append(scores)
         if rnd < len(schedule) - 1:
@@ -253,7 +270,7 @@ def successive_halving(cfg, candidates: Sequence[Candidate],
             "max_ops": stage.get("max_ops"),
             "candidates": n_in, "survivors": len(survivors),
             "cells": meta["cells"], "groups": meta["groups"],
-            "compiles": ssd_step.specialisations() - compiles0,
+            "compiles": rec["args"]["compiles"],
             "wall_s": round(wall_s, 3),
             "best": best[0].label,
             "best_lat": round(best[1]["lat"], 4)})

@@ -119,6 +119,13 @@ def _parse(argv):
                     "kernel's plain version)")
     ap.add_argument("--max-ops", type=int, default=None,
                     help="truncate traces (smoke runs)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks: N > 1 runs the sweep or the search on N "
+                    "processes of one torch.distributed group, each its "
+                    "slice of the cells, on the local cards (ranks share "
+                    "a card when N exceeds their count; with --device "
+                    "cpu, on the CPU); rank 0 prints and writes. Default "
+                    "1: one process")
     ap.add_argument("--no-trace-cache-disk", action="store_true",
                     help="keep the compiled-trace cache in memory only")
     ap.add_argument("--timeline", nargs="?", const=1024, type=int,
@@ -294,6 +301,22 @@ def main(argv=None) -> int:
         print("error: --device cuda but no CUDA device is available; "
               "pass --device cpu for the plain version", file=sys.stderr)
         return 2
+    if args.devices < 1:
+        print("error: --devices wants 1 or more ranks", file=sys.stderr)
+        return 2
+    if args.devices > 1 and args.bench:
+        print("error: --bench times one process's fleet against its loop; "
+              "drop --devices", file=sys.stderr)
+        return 2
+    from repro_torch.distributed import group as dgroup
+    if args.devices > 1 and dgroup.world_size() == 1:
+        argv = list(argv if argv is not None else sys.argv[1:])
+        return dgroup.spawn(_rank_main, args.devices, argv,
+                            device=args.device)[0]
+    if dgroup.rank() != 0:
+        # rank 0 alone writes the artifacts
+        args.no_save, args.chrome_trace, args.profile = True, None, None
+        args.history_check = False
     seeds = tuple(int(s) for s in args.seeds.split(","))
     if args.search:
         conflicts = [flag for flag, used in (
@@ -584,10 +607,11 @@ def _run_search(args, seed: int) -> int:
     from repro_torch.configs.ssd_paper import PAPER_SSD
     from repro_torch.core.ssd.driver import DEFAULT_SCALE
     from repro_torch.core.ssd.policies.registry import policy_names
-    from repro_torch.kernels.ssd_step import ops as ssd_step
     from repro_torch.search import (SCHEDULES, build_space,
                                     group_candidates, separation_search,
                                     successive_halving)
+    from repro_torch.search.tune import \
+        specialisations as tune_specialisations
     from repro_torch.sweep.report import (search_front_table,
                                           search_rounds_table)
     from repro_torch.sweep.store import save_bench
@@ -619,7 +643,7 @@ def _run_search(args, seed: int) -> int:
           f"{len(rounds)} round(s) on a 1/{scale} drive on {args.device}")
     cache = workloads.TraceCache(use_disk=not args.no_trace_cache_disk)
     tracer = Tracer() if args.chrome_trace else None
-    spec0 = ssd_step.specialisations()
+    spec0 = tune_specialisations()
     with (tracer.activate() if tracer else contextlib.nullcontext()):
         tune = successive_halving(
             cfg, space, rounds, seed=seed, keep_frac=sched["keep_frac"],
@@ -653,7 +677,7 @@ def _run_search(args, seed: int) -> int:
               f"{scen['best_ratio']:.3f}: ranking "
               f"{'FLIPS' if scen['flipped'] else 'does not flip'}")
 
-    specialisations = ssd_step.specialisations() - spec0
+    specialisations = tune_specialisations() - spec0
     payload = {"search": budget, "n_candidates": len(space),
                "space": [c.to_json() for c in space],
                "trace_cache": cache.stats(), "device": args.device,
@@ -678,6 +702,15 @@ def _run_search(args, seed: int) -> int:
             print(f"history: appended {rec['kind']}:{rec['config']} "
                   f"@ {str(rec['git_sha'])[:12]}")
     return 0
+
+
+def _rank_main(rank: int, world: int, argv) -> int:
+    """One rank of `--devices N`: `main` inside the started group, its
+    output kept on rank 0's stdout alone."""
+    if rank == 0:
+        return main(argv)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return main(argv)
 
 
 def _print_sensitivity_table(deltas) -> None:

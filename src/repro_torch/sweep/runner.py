@@ -32,6 +32,14 @@ appended to `timings`.
 kernel's probe form): each point's per-window series come back through
 `timelines` as the reference's runner returns them.
 
+Ranks: inside a `torch.distributed` group of W ranks every rank calls
+`run_sweep` with the same points; the point list is padded to a
+multiple of W (`fleet.cell_quantum()`; the last point replayed),
+each rank runs its contiguous slice (`fleet.shard_cells`) as above — one
+`ssd_step` launch a rank — and the results, gathered as host objects,
+come back on every rank in the points' order with the pads dropped. In
+one process nothing is padded.
+
 `run_matrix` is the evaluation matrix in `driver.eval_matrix`'s keys;
 `bench_fleet_vs_loop` times it against a loop of single cells (the
 CLI's `--bench`).
@@ -54,6 +62,7 @@ from repro_torch.core.ssd.policies.registry import get_spec
 from repro_torch.core.ssd.policies.spec import requires_endurance
 from repro_torch.core.ssd.policies.state import can_pack, map_state
 from repro_torch.core.ssd.sim import default_params
+from repro_torch.distributed import group as dgroup
 from repro_torch.kernels.host_tier import ops as host_tier
 from repro_torch.kernels.ssd_step import ops as ssd_step
 from repro_torch.sweep.grid import SweepPoint
@@ -115,6 +124,12 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
               ) -> Dict[SweepPoint, Dict[str, float]]:
     """Run every sweep point batched; returns {point: metrics}.
 
+    In a process group of W > 1 ranks (every rank calls it with the same
+    points) each rank runs its slice of the points padded to a multiple
+    of W and every rank gets every point's metrics,
+    in the points' order; `timings` then gets every rank's groups, each
+    entry with its `rank`, and `timelines` every point's.
+
     `max_ops` truncates traces (smoke runs). `progress` is an optional
     callable(str) for per-group status lines. `trace_cache` supplies the
     compiled-trace cache (a fresh one, memory and disk, otherwise).
@@ -148,6 +163,40 @@ def run_sweep(cfg, points: Sequence[SweepPoint], *,
     per-window accumulators ({point: numpy timeline dict}, feed to
     `telemetry.timeline.series`). The probe only observes: the results
     are the same with it on."""
+    points = list(points)
+    n_ranks = dgroup.world_size()
+    kw = dict(max_ops=max_ops, device=device, progress=progress,
+              trace_cache=trace_cache, timeline_ops=timeline_ops)
+    if n_ranks == 1 or not points:
+        return _run_points(cfg, points, timelines=timelines,
+                           timings=timings, **kw)
+    pad = (-len(points)) % fleet.cell_quantum()
+    padded = points + [points[-1]] * pad
+    mine = [padded[i] for i in fleet.shard_cells(np.arange(len(padded)))]
+    local_tl = {} if timelines is not None else None
+    local_timings = [] if timings is not None else None
+    res = _run_points(cfg, mine, timelines=local_tl, timings=local_timings,
+                      **kw)
+    merged, merged_tl = {}, {}
+    for r, (r_res, r_tl, r_timings) in enumerate(dgroup.all_gather_objects(
+            (res, local_tl, local_timings))):
+        merged.update(r_res)
+        merged_tl.update(r_tl or {})
+        if timings is not None:
+            timings.extend(dict(t, rank=r) for t in r_timings)
+    if timelines is not None:
+        timelines.update({pt: merged_tl[pt] for pt in points})
+    return {pt: merged[pt] for pt in points}
+
+
+def _run_points(cfg, points: Sequence[SweepPoint], *,
+                max_ops: Optional[int] = None, device="cuda",
+                progress=None, timings: Optional[List[Dict]] = None,
+                trace_cache: Optional[workloads.TraceCache] = None,
+                timeline_ops: Optional[int] = None,
+                timelines: Optional[Dict] = None
+                ) -> Dict[SweepPoint, Dict[str, float]]:
+    """`run_sweep` in this process, on every point given."""
     n_logical = _n_logical(cfg)
     device = torch.device(device)
     cache = (trace_cache if trace_cache is not None

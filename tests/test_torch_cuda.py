@@ -1603,3 +1603,43 @@ class TestTrainingOnTheCard:
             assert torch.isfinite(g).all(), name
             torch.testing.assert_close(g, r, rtol=0, atol=2e-5 * float(
                 r.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# distribution: ranks spawned as processes that share the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.distributed import group as dist_group  # noqa: E402
+
+import torch_dist_util as dist_util  # noqa: E402
+
+
+class TestDistributedOnTheCard:
+    def test_ranks_sharing_the_card(self, cuda, tmp_path):
+        """2 gloo ranks on the one card: compressed_psum within 1e-6 of
+        the one-process computation, the residual equal; a state sharded
+        under (data 2, model 1), saved and restored, every piece on the
+        card equal to its slice; the quick grid's slice one launch a
+        rank, every cell equal to one process's run on the card."""
+        from repro_torch.configs.ssd_paper import PAPER_SSD as cfg0
+        from repro_torch.sweep.grid import named_grid
+        from repro_torch.sweep.runner import run_sweep
+        from repro_torch.workloads import TraceCache
+        ssd_step.LIB.build()
+        got = dist_group.spawn(dist_util.card_ranks, 2, str(tmp_path), 2048,
+                               device="cuda")
+        want = run_sweep(cfg0.scaled(128), named_grid("quick"),
+                         max_ops=2048, device=cuda,
+                         trace_cache=TraceCache(use_disk=False))
+        for r in got:
+            assert r["psum_err"] <= 1e-6 and r["residual_equal"]
+            assert r["pieces_equal"]
+            assert r["launches"] == 1
+            assert r["sweep"] == {pt.key: v for pt, v in want.items()}
+
+    def test_one_rank_nccl_group(self, cuda):
+        """compressed_psum over a 1-rank NCCL group: the one-process
+        answer, to the bit."""
+        got = dist_group.spawn(dist_util.card_nccl, 1, device="cuda")[0]
+        assert got["backend"] == "nccl"
+        assert got["out_equal"] and got["err_equal"]

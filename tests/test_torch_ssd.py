@@ -53,8 +53,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     kernel packages, the Mamba2 and hybrid models, the telemetry package,
     the sweep store, the host tier, the search engine, the MoE and MLA
     models, the training path (optimizers, train step, data pipeline,
-    checkpoints, the training launcher) among them — and chip_smoke.py
-    pull in no `jax` and no `repro.` module."""
+    checkpoints, the training launcher), the distribution and launch
+    modules (process groups, sharding rules, constraints, meshes, specs,
+    the dry run and its cost analysis, the workloads shim) among them —
+    and chip_smoke.py and scripts/dist_phase.py pull in no `jax` and no
+    `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -76,7 +79,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.optim, repro_torch.optim.compress\n"
         "import repro_torch.train.train_step, repro_torch.launch.train\n"
         "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
+        "import repro_torch.distributed.group, repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.constraints, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.cost_analysis, repro_torch.core.ssd.workloads\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import dist_phase\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
