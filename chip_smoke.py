@@ -135,7 +135,7 @@ then:
    (`latent_decode`, MLA's absorbed decode over the int4 latent) at
    deepseek-v2-lite's decode shape (H 16, r 512, p 64, group 64) over the
    serving tier, B 1 and 4, dense_len 0, 1, 15, 17, 255, 1536 and 2048,
-   and H 1, 5 and 16, r 64 to 512, p 16, 32 and 64, groups 2 to 64, q
+   and H 1, 5 and 16, r 32 to 512, p 16, 32 and 64, groups 2 to 64, q
    bf16-exact and float32, within 2e-5 of max |output|; the count of
    HMMA instructions in the built library, which must not be 0; its time
    at B 4 and dense_len 2048 (events and graph) beside its tensor-core
@@ -289,6 +289,35 @@ then:
    `compressed_psum` that
    rescales with its own scale, a restore that swaps ranks 1 and 2's
    slices. `scripts/dist_phase.py` runs this phase alone.
+14. the examples and dev scripts — each `examples/<name>_torch.py`'s and
+   `scripts/smoke_models_torch.py`'s `main` called in this process as a
+   user runs it (on the card by default; the kernels built once), every
+   kernel's count zeroed just before each and read just after, each
+   failing if a kernel of its path did not launch: `ssd_repro_torch.py`
+   (the 88 cells of `driver.eval_matrix` in ONE `ssd_step` launch, each
+   equal to `BENCH_sweep_paper.json`'s), `quickstart_torch.py`,
+   `serve_ips_torch.py` (yi-6b reduced under the four policies),
+   `host_cache_torch.py`, `sweep_fleet_torch.py` (into `build/examples/`,
+   its artifact `BENCH_torch_example_sweep.json`) and
+   `workload_zoo_torch.py --simulate` (its six simulated cells), their
+   printed tables equal to the reference examples' recorded output
+   (`tests/data/torch_reference_examples.json`, written by
+   `scripts/record_torch_reference_examples.py`; `example_table` picks
+   the lines: the simulator's tables, the serving counters, quickstart's
+   SSD and KV lines, whose train line must be finite); `train_lm_torch.py`
+   at the reference docstring's ~100M size (d_model 768, 12 layers, a
+   32,000 vocab, 32 x 512 tokens a step) for TRAIN_LM_STEPS steps with a
+   checkpoint halfway and at the end, then a second call that resumes at
+   the saved step: the loss falling, ms a step, tokens/s, peak GiB,
+   `flash_fwd`'s launches; `smoke_models_torch.py` over every arch,
+   reduced (`flash_fwd` for every family with attention, `tiered_decode`
+   for the `gqa` and `encdec_self` kinds, the latent form at the reduced
+   deepseek's rank 32, `ssd_intra` for mamba2 and zamba2, each counted);
+   then yi-6b and minitron-4b at full width (DENSE_ARCHS: 8 of their 32
+   layers) served under IPS as phase 6 serves gemma-2b: the kernel run
+   against the plain run against the floor, the planted tiered faults
+   caught at every step, peak GiB printed. `scripts/examples_phase.py`
+   runs this phase alone.
 
 Each phase prints JSON lines, each with the card's name and power
 limit, and any mismatch fails the run. The line
@@ -352,6 +381,35 @@ TIER_BASE_OPS = 40
 
 
 CARD = None     # `nvidia-smi --query-gpu=name,power.limit`, once known
+
+
+def example_table(name: str, text: str) -> list:
+    """The lines of an example's printed output that the port must print
+    as the reference does (`examples/<name>.py` against
+    `examples/<name>_torch.py`): the simulator's tables and the serving
+    counters, without the sweep runner's progress lines, the path an
+    artifact was written to or what depends on the weights (quickstart's
+    train line)."""
+    lines = text.splitlines()
+    if name == "sweep_fleet":
+        start = next(i for i, ln in enumerate(lines) if ln.startswith("cell"))
+        return [ln for ln in lines[start:] if not ln.startswith("wrote")]
+    if name == "workload_zoo":
+        if "== one fleet sweep, three workload kinds ==" not in lines:
+            return lines
+        cut = lines.index("== one fleet sweep, three workload kinds ==")
+        # a simulated cell's key holds the fixture's path as the example
+        # built it from its own file: kept from tests/data/ on
+        cells = [ln.split() for ln in lines[cut + 1:]
+                 if " lat=" in ln and "ms wa=" in ln]
+        return lines[:cut + 1] + [" ".join(
+            [key[key.find("tests/data/"):] if "tests/data/" in key else key]
+            + rest) for key, *rest in cells]
+    if name == "quickstart":
+        return [ln for ln in lines if ln.startswith(("[ssd]", "[kv]"))]
+    if name == "train_lm":
+        return [ln for ln in lines if ln.startswith("arch=")]
+    return lines
 
 
 def emit(obj, card: bool = True) -> None:
@@ -1545,7 +1603,8 @@ def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
     the card: deepseek-v2-lite's decode shape (H 16, r 512, p 64, group
     64) over the serving tier at B 1 and 4, dense_len from the empty tier
     through one token, either side of the 16-token k-step, to 2048; H 1,
-    5 and 16, r 64, 128, 192 and 512, p 16, 32 and 64, groups 2, 6, 16,
+    5 and 16, r 32, 64, 96, 128, 192, 480 and 512 (r 32 at the reduced
+    deepseek's H 4, p 16, group 16), p 16, 32 and 64, groups 2, 6, 16,
     32 and 64; q bf16-exact (as the serving path forms it) and float32
     that is not (the kernel's q_lo products); within LATENT_TOL of max
     |output|. Its time at B 4, dense_len 2048 beside its bound, under the
@@ -1582,7 +1641,14 @@ def latent_vs_plain(cuda, gen, s_dense, launcher) -> dict:
             (2, 300, 1, 64, 16, GROUP, False, (1, 17, 299)),
             (3, 100, 5, 192, 16, 6, True, (77,)),
             (1, 70, 16, 64, 64, 2, False, (70,)),
-            (2, 600, 16, 512, 32, 16, False, (599,))):
+            (2, 600, 16, 512, 32, 16, False, (599,)),
+            # r 32 (deepseek-v2-lite reduced: H 4, p 16, group 16): one
+            # warp of latent features, 32 wide; and odd multiples of 32
+            (SERVE_BATCH, s_dense, 4, 32, 16, 16, True,
+             (0, 1, 63, 65, 2048)),
+            (2, 300, 16, 32, 64, 32, False, (299,)),
+            (2, 300, 16, 96, 32, 32, True, (257,)),
+            (2, 300, 8, 480, 64, 32, False, (299,))):
         t = tier(b, s, h, r, p, group, exact)
         for dense_len in lens:
             got = tiered.latent_tier_partial(*t, dense_len, group=group,
@@ -1982,8 +2048,8 @@ def planted_faults(arch):
     by the max-based check at every step (its floor is 0, so no rms
     check). whisper-tiny, the cross tier's call: dropping its last 256
     of 1500 frames must be caught by the rms check at every step.
-    llava-next-34b, the tiered call: dropping 32 dense tokens must be
-    caught by the rms check at every step.
+    llava-next-34b, yi-6b and minitron-4b, the tiered call: dropping 32
+    dense tokens must be caught by the rms check at every step.
     mamba2-370m, the `ssd_intra` call: a strict causal mask (the kernel's
     y less its diagonal term C_i.B_i dt_i x_i, L's diagonal being
     exp(0) = 1) must be caught."""
@@ -2029,7 +2095,7 @@ def planted_faults(arch):
     if arch == "arctic-480b":
         return [("tiered dense_len - 32",
                  short("dense_tier_partial", 32), "every step", False)]
-    if arch == "llava-next-34b":
+    if arch in ("llava-next-34b", "yi-6b", "minitron-4b"):
         return [("tiered dense_len - 32",
                  short("dense_tier_partial", 32), False, True)]
     if arch != "gemma-2b":
@@ -2253,13 +2319,17 @@ def serve_main_path(cuda, arch, layers=None, policies=None,
 
         # -- with the kernels, each launch timed by CUDA events, the path
         #    on the host clock; the counts zeroed just before and read just
-        #    after. First one event-timed prefill, not counted, that pays
-        #    whatever the first events around the prefill's launches cost
-        #    (its slowest launch is recorded beside the counted run's)
+        #    after. First one event-timed prefill and decode step, not
+        #    counted, that pay whatever the first events around their
+        #    launches and each kernel's first launch at the path's shapes
+        #    cost (one run read 257 ms for yi-6b's first counted
+        #    `tiered_decode`, four others under 1 ms); their slowest
+        #    launch is recorded beside the counted run's
         for launcher in launchers.values():
             launcher.reset()
             launcher.record = True
-        model.prefill(params, batch, spec)
+        _decode_run(model, params, *model.prefill(params, batch, spec),
+                    spec, policy, 1)
         warm_max = {n: max(v) for n, v in
                     ((n, launcher.ms()) for n, launcher in launchers.items())
                     if v}
@@ -2504,7 +2574,7 @@ def serve_main_path(cuda, arch, layers=None, policies=None,
               "kernel_ms_total": {n: sum(v) for n, v in per_launch.items()},
               "kernel_max_launch_ms": {
                   n: max(v) if v else None for n, v in per_launch.items()},
-              "warm_prefill_max_launch_ms": warm_max,
+              "warm_max_launch_ms": warm_max,
               "plain_prefill_ms": plain_prefill_ms,
               "logits_max_abs_err": err,
               "logits_floor_max_abs": floor,
@@ -4209,6 +4279,226 @@ def distribution_phase(cuda, one_process=None) -> dict:
             + sum(r["search_launches"] for r in two)}
 
 
+# ---- phase 14: the examples and dev scripts on the card ----
+EXAMPLES_REF = os.path.join("tests", "data", "torch_reference_examples.json")
+# examples/train_lm_torch.py at the reference docstring's ~100M size; its
+# 300 steps cut to TRAIN_LM_STEPS (a checkpoint every TRAIN_LM_STEPS // 2:
+# halfway, and one at the end) and a second call that resumes there and
+# runs to TRAIN_LM_RESUME, to keep the phase within its 120 s
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 32, 512
+TRAIN_LM_ARGS = ("--d-model", "768", "--layers", "12", "--vocab", "32000",
+                 "--batch", str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ),
+                 "--log-every", "20")
+TRAIN_LM_STEPS, TRAIN_LM_RESUME = 60, 80
+# the dense family beyond gemma-2b served as phase 6 serves gemma, under
+# IPS, at full width: yi-6b (silu, untied embeddings, G 8 at hd 128) and
+# minitron-4b (the ungated squared-ReLU FFN, a 256,000 vocab), their depth
+# cut from 32 to 8 layers each to keep phase 14 within its 120 s and the
+# script within 720 s (gemma-2b's 9 layers under four policies take some
+# 62 s on an H100, PERF.md §5). yi-34b's widths are llava-next-34b's
+# language model, which phase 11 serves.
+DENSE_ARCHS = (("yi-6b", 8, ("IPS",)), ("minitron-4b", 8, ("IPS",)))
+# the kernels each part of phase 14 must launch: the kernels on that
+# example's path
+EXAMPLE_PARTS = (
+    ("ssd_repro", "examples/ssd_repro_torch.py", (), ("ssd_step",)),
+    ("quickstart", "examples/quickstart_torch.py", (),
+     ("ssd_step", "flash_fwd", "tiered_decode", "ips_repack")),
+    ("serve_ips", "examples/serve_ips_torch.py", (),
+     ("flash_fwd", "tiered_decode", "ips_repack")),
+    ("host_cache", "examples/host_cache_torch.py", (),
+     ("ssd_step", "host_tier")),
+    ("sweep_fleet", "examples/sweep_fleet_torch.py", (), ("ssd_step",)),
+    ("workload_zoo", "examples/workload_zoo_torch.py", ("--simulate",),
+     ("ssd_step",)),
+)
+
+
+def _all_launchers() -> dict:
+    from repro_torch.kernels.host_tier import ops as host_tier
+    from repro_torch.kernels.ssd_step import ops as ssd_step
+    return {"ssd_step": ssd_step.LAUNCHER, "host_tier": host_tier.LAUNCHER,
+            **_launchers()}
+
+
+def run_script_main(rel_path: str, argv, need=()) -> dict:
+    """`main(argv)` of the script at `rel_path`, in this process (the
+    kernels built once): its stdout captured (and kept under
+    build/examples/), every kernel's launch count zeroed just before and
+    read just after; fails if a kernel of `need` did not launch."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+    stem = os.path.splitext(os.path.basename(rel_path))[0]
+    spec = importlib.util.spec_from_file_location(
+        f"phase14_{stem}", os.path.join(ROOT, rel_path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    launchers = _all_launchers()
+    for launcher in launchers.values():
+        launcher.reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in launchers.items()}
+    text = buf.getvalue()
+    with open(os.path.join(ROOT, "build", "examples", f"{stem}.txt"),
+              "a") as f:
+        f.write(text)
+    missing = [k for k in need if not launches[k]]
+    if missing:
+        fail(f"{rel_path}: {', '.join(missing)} never launched on its path "
+             f"(launches {launches})")
+    return {"text": text, "out": out, "wall_s": wall,
+            "launches": {k: n for k, n in launches.items() if n}}
+
+
+def _same_lines(label, got: list, want: list) -> None:
+    if got != want:
+        diff = [f"  port {a!r}\n  ref  {b!r}" for a, b in zip(got, want)
+                if a != b][:4]
+        fail(f"{label}: its table differs from the reference's "
+             f"({len(got)} vs {len(want)} lines):\n" + "\n".join(diff))
+
+
+def examples_phase(cuda, bench) -> dict:
+    """Phase 14: the examples and dev scripts of the port, each `main`
+    called in this process as a user runs it (on the card by default),
+    each with every kernel's count zeroed just before and read just
+    after, their printed tables held to the reference examples' recorded
+    output (`tests/data/torch_reference_examples.json`, written by
+    `scripts/record_torch_reference_examples.py`); then train_lm at ~100M
+    with a resume, `scripts/smoke_models_torch.py` over every arch, and
+    the dense archs served. Returns the phase's launches by kernel and
+    the dense archs' serving paths."""
+    import numpy as np
+    import torch
+    with open(os.path.join(ROOT, EXAMPLES_REF)) as f:
+        recorded = json.load(f)["examples"]
+    out_dir = os.path.join(ROOT, "build", "examples")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    for name, rel, argv, need in EXAMPLE_PARTS:
+        ref = recorded[name]
+        with contextlib.chdir(out_dir):   # the sweep's artifact lands here
+            run = run_script_main(rel, argv, need)
+        add(run["launches"])
+        want = example_table(name, ref["stdout"])
+        got = example_table(name, run["text"])
+        extra = {}
+        if name == "workload_zoo":
+            # the zoo's table is host numpy (held by the CPU test); the
+            # card's part is the six simulated cells
+            want = [ln for ln in want if " lat=" in ln]
+            got = [ln for ln in got if " lat=" in ln]
+            if len(want) != 6:
+                fail("workload_zoo: the reference recorded "
+                     f"{len(want)} simulated lines, not 6")
+        _same_lines(f"{rel} {' '.join(argv)}".strip(), got, want)
+        if name == "ssd_repro":
+            if len(run["out"]) != 88 or run["launches"].get("ssd_step") != 1:
+                fail(f"{rel}: {len(run['out'])} cells in "
+                     f"{run['launches'].get('ssd_step')} launch(es), not "
+                     "88 in one")
+            extra["worst_rel"] = _cells_equal(rel, run["out"],
+                                              bench["results"])
+        if name == "quickstart":
+            if not (math.isfinite(run["out"]["loss"])
+                    and math.isfinite(run["out"]["grad_norm"])):
+                fail(f"{rel}: the train step's loss or gradient norm is "
+                     "not finite")
+            extra["train"] = {k: run["out"][k] for k in ("loss",
+                                                          "grad_norm")}
+        if name == "sweep_fleet":
+            art = os.path.join(out_dir, "BENCH_torch_example_sweep.json")
+            with open(art) as f:
+                doc = json.load(f)
+            if len(doc["results"]) != 28 or os.path.exists(
+                    os.path.join(out_dir, "BENCH_example_sweep.json")):
+                fail(f"{rel}: its artifact holds {len(doc['results'])} "
+                     "cells, not 28, or the reference's name was written")
+        emit({"phase": "examples", "part": name, "argv": list(argv),
+              "wall_s": run["wall_s"], "launches": run["launches"],
+              "lines_equal": len(want), **extra})
+
+    # train_lm at ~100M: TRAIN_LM_STEPS steps, then a resumed call
+    ckpt = os.path.join(out_dir, "train_lm_ckpt")
+    common = list(TRAIN_LM_ARGS) + ["--ckpt-dir", ckpt, "--ckpt-every",
+                                    str(TRAIN_LM_STEPS // 2)]
+    torch.cuda.reset_peak_memory_stats()
+    first = run_script_main("examples/train_lm_torch.py", common + [
+        "--steps", str(TRAIN_LM_STEPS)], ("flash_fwd",))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    second = run_script_main("examples/train_lm_torch.py", common + [
+        "--steps", str(TRAIN_LM_RESUME)], ("flash_fwd",))
+    add(first["launches"])
+    add(second["launches"])
+    losses = first["out"]["losses"]
+    if len(losses) != TRAIN_LM_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train_lm: {len(losses)} steps, or a loss not finite")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5:
+        fail(f"train_lm: the loss did not fall ({losses[:5]} -> "
+             f"{losses[-5:]})")
+    if second["out"]["start_step"] != TRAIN_LM_STEPS or len(
+            second["out"]["losses"]) != TRAIN_LM_RESUME - TRAIN_LM_STEPS:
+        fail(f"train_lm: the second call started at step "
+             f"{second['out']['start_step']}, not {TRAIN_LM_STEPS}")
+    step_ms = float(np.median(first["out"]["step_ms"][2:]))
+    emit({"phase": "examples", "part": "train_lm", "argv": common,
+          "params": first["out"]["params"], "steps": TRAIN_LM_STEPS,
+          "resumed_at": second["out"]["start_step"],
+          "resumed_steps": len(second["out"]["losses"]),
+          "cut": "the reference docstring's 300 steps cut to "
+                 f"{TRAIN_LM_STEPS} and a resume to {TRAIN_LM_RESUME}, for "
+                 "the phase's time",
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_resumed_last": second["out"]["losses"][-1],
+          "ms_a_step": step_ms,
+          "tokens_per_s": TRAIN_LM_BATCH * TRAIN_LM_SEQ / step_ms * 1e3,
+          "peak_gib": peak, "wall_s": first["wall_s"] + second["wall_s"],
+          "launches": first["launches"],
+          "resumed_launches": second["launches"]})
+
+    smoke = run_script_main("scripts/smoke_models_torch.py", [],
+                            ("flash_fwd", "tiered_decode", "latent_decode",
+                             "ssd_intra", "ips_repack"))
+    add(smoke["launches"])
+    if smoke["out"] != 0:
+        fail("scripts/smoke_models_torch.py failed:\n" + smoke["text"][-2000:])
+    emit({"phase": "examples", "part": "smoke_models",
+          "archs": [ln.split()[1] for ln in smoke["text"].splitlines()
+                    if ln.startswith("OK ")],
+          "wall_s": smoke["wall_s"], "launches": smoke["launches"]})
+    examples_s = time.perf_counter() - t_phase
+
+    paths = {}
+    for arch, layers, policies in DENSE_ARCHS:
+        t_arch = time.perf_counter()
+        paths[arch] = serve_main_path(cuda, arch, layers, policies)
+        torch.cuda.empty_cache()
+        emit({"phase": "serve_wall", "arch": arch,
+              "s": time.perf_counter() - t_arch})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "examples_wall", "s": wall, "examples_s": examples_s,
+          "dense_s": wall - examples_s, "launches": total})
+    print(f"examples: {len(EXAMPLE_PARTS)} examples, train_lm, "
+          f"smoke_models and {len(DENSE_ARCHS)} dense archs in {wall:.1f} s",
+          flush=True)
+    return {"launches": total, "paths": paths}
+
+
 def _card_line() -> list:
     """Print the card's name and power limit, once, and keep them for
     every JSON line."""
@@ -4492,19 +4782,28 @@ def main() -> int:
         "paper_wall_s": sweeps["paper_warm"]["line"]["wall_s"],
         "search_wall_s": search["wall_s"]})
     wall("13 distribution")
+
+    # ---- 14. the examples and dev scripts, and the dense family served
+    examples = examples_phase(cuda, bench)
+    by_path.update(examples["paths"])
+    wall("14 examples")
     emit({"phase": "walls", "s_from_start": walls})
 
     # ---- the kernel table, then the contract's last line ----
     paper = sweeps["paper_warm"]["line"]
+    ex_launches = examples["launches"]
     table = [{
         "name": "ssd_step", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_step/csrc/ssd_step.cu",
         "replaces": "src/repro/kernels/ssd_step/kernel.py:46",
         # every sweep path's one launch, each counted from 0 (the
-        # telemetry phase's among them), and phase 13's ranks' launches
+        # telemetry phase's among them), phase 13's ranks' launches and
+        # phase 14's examples'
         "launches": sum(s["line"]["launches"] for s in sweeps.values())
-        + tele["launches"] + matrix["launches"] + dist["launches"],
+        + tele["launches"] + matrix["launches"] + dist["launches"]
+        + ex_launches.get("ssd_step", 0),
         "distribution_launches": dist["launches"],
+        "examples_launches": ex_launches.get("ssd_step", 0),
         # ms / plain_ms / bound_ms: the same work — phase 2's eight K = 1
         # launches, which the CPU plain version can also run
         "max_abs_err": max(max_err, wear["max_abs_err"]), "ms": kernel_ms,
@@ -4547,7 +4846,9 @@ def main() -> int:
         # no pallas_call: the reference runs its tier inside the composed
         # lax.scan step
         "replaces": "src/repro/hostcache/pipeline.py:55",
-        "launches": hc_line["tier_launches"],
+        "launches": hc_line["tier_launches"]
+        + ex_launches.get("host_tier", 0),
+        "examples_launches": ex_launches.get("host_tier", 0),
         # ms / plain_ms / bound_ms: the same work — the grid's specs x
         # both modes and a device-memory cell, HOST_TIER_OPS ops each
         "max_abs_err": tier["max_abs_err"], "ms": tier["ms"],
@@ -4575,6 +4876,9 @@ def main() -> int:
         row = dict(kernels[name])
         for key in ("launches", "main_path_ms", "main_path_bound_ms"):
             row[key] = sum(p[key] for p in paths.values())
+        # phase 14's examples and scripts (its dense archs are paths)
+        row["examples_launches"] = ex_launches.get(name, 0)
+        row["launches"] += row["examples_launches"]
         row["main_paths"] = paths
         if name in train_figures:
             row["training"] = train_figures[name]

@@ -16,7 +16,8 @@ shows a falling loss.
 
 The draws come from a `torch.Generator` on the CPU, seeded from
 (seed, step, shard), so a batch is the same on every device; it is then
-moved to the caller's device. The reference draws with `jax.random`'s
+moved to the caller's device, the card unless the caller asks for the
+CPU (`device="cpu"`), as every entry point of the port does. The reference draws with `jax.random`'s
 threefry bits, which this cannot reproduce: the two pipelines make
 streams of the same law, not the same tokens.
 """
@@ -57,7 +58,7 @@ def _zipf_probs(vocab: int, exponent: float) -> torch.Tensor:
 
 
 def make_batch(cfg: DataConfig, step, *, shard_index: int = 0,
-               num_shards: int = 1, device="cpu"):
+               num_shards: int = 1, device="cuda"):
     """Returns {tokens: (global_batch / num_shards, seq_len) int32} for
     this shard, on `device`."""
     local = cfg.global_batch // num_shards
@@ -84,7 +85,8 @@ def make_batch(cfg: DataConfig, step, *, shard_index: int = 0,
 
 
 def batch_iterator(cfg: DataConfig, start_step: int = 0, *,
-                   shard_index: int = 0, num_shards: int = 1, device="cpu"):
+                   shard_index: int = 0, num_shards: int = 1,
+                   device="cuda"):
     """(step, batch) from `start_step` on, without end."""
     step = start_step
     while True:

@@ -9,7 +9,9 @@ temporary directory (`init_group`: no TCP, so no network), calls
 every rank has a card of its own, gloo when ranks share a card or run
 on the CPU (NCCL refuses two ranks on one device). A rank's return
 value comes back to the caller through a file in the same directory;
-a rank that raises makes `spawn` raise.
+a rank that raises makes `spawn` raise. `spawn_script` does the same
+for a script's `main(argv)`, which each rank loads from its file, so a
+script loaded by path (not importable by name) starts ranks too.
 
 Outside a group, `world_size()` is 1 and `rank()` 0: the single-process
 paths are the one-rank case.
@@ -24,8 +26,8 @@ from typing import Callable, List, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_group", "spawn", "backend_for", "rank_device",
-           "world_size", "rank", "all_gather_objects"]
+__all__ = ["init_group", "spawn", "spawn_script", "backend_for",
+           "rank_device", "world_size", "rank", "all_gather_objects"]
 
 
 def backend_for(world: int, device: str) -> str:
@@ -80,6 +82,26 @@ def all_gather_objects(obj, group=None) -> list:
     out = [None] * world_size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def spawn_script(path: str, world: int, argv, device: str = "cpu") -> List:
+    """Run the script at `path`'s `main(argv)` on `world` spawned ranks
+    (`spawn`); rank 0 alone prints. Returns the ranks' return values."""
+    return spawn(_script_rank, world, os.path.abspath(path), argv,
+                 device=device)
+
+
+def _script_rank(rank_: int, world: int, path: str, argv):
+    import contextlib
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"_rank_script_{rank_}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    if rank_ == 0:
+        return module.main(argv)
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+        return module.main(argv)
 
 
 def _entry(rank_: int, fn: Callable, world: int, tmp: str, device: str,

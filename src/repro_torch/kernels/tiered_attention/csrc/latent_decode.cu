@@ -53,9 +53,10 @@
 //   tile's space until it is read out; then each next tile into a
 //   two-stage ring while this one computes; rows past dense_len are
 //   zeros.
-// - dequantization: warp w owns latent features [64w, 64w + 64) (r / 64
-//   warps) and dequantizes its slice of each token once, straight to
-//   bf16 by bf16x2 arithmetic (the nibble placed in the mantissa of 128,
+// - dequantization: warp w owns latent features [64w, min(64w + 64, r))
+//   (ceil(r / 64) warps; r a multiple of 32, so the last warp's slice is
+//   64 or 32 wide) and dequantizes its slice of each token once, straight
+//   to bf16 by bf16x2 arithmetic (the nibble placed in the mantissa of 128,
 //   less 136, times the scale: exact, then rounded as the plain version
 //   rounds), into the row-major tile ldmatrix reads. Within each 8
 //   features the tile holds the order 0 4 1 5 2 6 3 7 (the order the
@@ -63,7 +64,7 @@
 //   order and acc is written back in the natural one. No integer
 //   division (multiply-high quotients) and no unrolled copies of the
 //   unit loop: a block runs its code once, so the code's size is time.
-// - scores: warp w multiplies its 64 features (q's terms in registers,
+// - scores: warp w multiplies its features (q's terms in registers,
 //   split once) against the tile's 64 tokens, warps 0 .. p/16 - 1 one
 //   16-wide k-step of RoPE each; the q_lo products are a branch taken
 //   only for a q that is not bf16-exact (predicated, they would still
@@ -72,9 +73,9 @@
 // - softmax: 16 threads a head, 4 tokens a thread; the tile's max, the
 //   rescale factor, p = exp(s - m) and its two bf16 terms into shared
 //   memory.
-// - acc: warp w rescales its 16 x 64 float32 fragment and adds P . C over
-//   the tile's tokens for its 64 features; the block's partial leaves
-//   through shared memory in 16-byte stores, row after row.
+// - acc: warp w rescales its 16 x 64 (or 16 x 32) float32 fragment and
+//   adds P . C over the tile's tokens for its features; the block's
+//   partial leaves through shared memory in 16-byte stores, row after row.
 // With several splits a merge kernel, one block per (128 features, head,
 // batch row), rescales the splits' partials to their common max as
 // `ref.merge_partials` does and sums them in a fixed order. One call of
@@ -92,6 +93,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kHeads = 16;                // one m16 tile
 constexpr int kTile = 64;                 // tokens a tile
 constexpr int kMaxR = 512;                // 8 warps x 64 features
+constexpr int kMinR = 32;                 // one packed 16-byte unit a row
 constexpr float kNegInf = -1e30f;
 
 // shared-memory strides, padded so that ldmatrix's and the 16-byte
@@ -110,9 +112,16 @@ __host__ __device__ constexpr int stage_bytes(int r, int p, int group) {
     return kTile * pk_stride(r) + kTile * rp_stride(p) + sc_bytes(r, group);
 }
 
+// the bf16 latent tile's space, which first holds q (float32, 16 rows of
+// r + 4 and 16 of p + 4): at r 32 and p 64 q is the larger
+__host__ __device__ constexpr int ct_bytes(int r, int p) {
+    return 2 * kTile * c_stride(r) > 4 * kHeads * (r + p + 8)
+               ? 2 * kTile * c_stride(r) : 4 * kHeads * (r + p + 8);
+}
+
 size_t split_smem(int r, int p, int group) {
     return 2 * static_cast<size_t>(stage_bytes(r, p, group))
-           + 2 * kTile * c_stride(r)                  // the bf16 latent tile
+           + ct_bytes(r, p)                           // the bf16 latent tile
            + 4 * kWarps * kHeads * kRedStride         // partial scores
            + 2 * 2 * kHeads * kPStride                // p_hi, p_lo
            + 4 * kHeads;                              // rescale factors
@@ -238,6 +247,10 @@ __device__ __forceinline__ uint4 deq_word(uint32_t x, uint32_t s0,
     return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
+// kOdd: r is an odd multiple of 32, so the last latent warp's slice is 32
+// wide; otherwise every slice is 64 wide and the width checks fold away at
+// compile time (r 512's time stays deepseek's)
+template <bool kOdd>
 __global__ void __launch_bounds__(kThreads, 1)
 latent_split_kernel(const float* __restrict__ q_lat,
                     const float* __restrict__ q_rope,
@@ -253,7 +266,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
     const int STAGE = stage_bytes(r, p, group);
     uint8_t* ring = smem;
     __nv_bfloat16* ct = reinterpret_cast<__nv_bfloat16*>(smem + 2 * STAGE);
-    float* red = reinterpret_cast<float*>(ct + kTile * CS);
+    float* red = reinterpret_cast<float*>(smem + 2 * STAGE + ct_bytes(r, p));
     __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(
         red + kWarps * kHeads * kRedStride);
     __nv_bfloat16* p_lo = p_hi + kHeads * kPStride;
@@ -265,13 +278,16 @@ latent_split_kernel(const float* __restrict__ q_lat,
     const int t_begin = split * split_tokens;
     const int t_end = min(t_begin + split_tokens, dense_len);
     const int n_sc = r / group, half = r / 2;
-    const int nfw = r / 64;                  // warps with latent features
+    const int nfw = (r + 63) / 64;           // warps with latent features
     const int nrw = p / 16;                  // warps with a RoPE k-step
     const int nsw = max(nfw, nrw);           // warps with partial scores
     const bool lat = warp < nfw, rope = warp < nrw;
     const int fw = 64 * warp;                // this warp's first feature
+    const int wf = kOdd ? min(64, r - fw) : 64;  // ... and its width
     const long long row0 = static_cast<long long>(b) * S;
-    const uint32_t cpr_m = quot_magic(r / 32), rpr_m = quot_magic(p / 8);
+    // (r / 32 is 1 at r 32, where the multiply-high does not hold)
+    const uint32_t cpr_m = r > 32 ? quot_magic(r / 32) : 0u;
+    const uint32_t rpr_m = quot_magic(p / 8);
     // a feature's scale is f / group (one a packed word where group % 8
     // is 0)
     const uint32_t grp_m = quot_magic(group);
@@ -283,7 +299,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
         const int valid = min(kTile, t_end - t0);
         const int cpr = half / 16;
         for (int i = tid; i < kTile * cpr; i += kThreads) {
-            const int row = quot(i, cpr_m), c = i - row * cpr;
+            const int row = cpr > 1 ? quot(i, cpr_m) : i, c = i - row * cpr;
             const bool ok = row < valid;
             cp16(base + row * PKS + 16 * c,
                  c4 + (row0 + t0 + (ok ? row : 0)) * half + 16 * c, ok);
@@ -348,7 +364,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
     auto q_lat_at = [&](int kk, int j, int e) {
         const int h = (j & 1) ? g + 8 : g;
         const int f = fw + 16 * kk + 8 * (j >> 1) + t4 + 4 * e;
-        return lat ? qs[h * (r + 4) + f] : 0.0f;
+        return lat && 16 * kk < wf ? qs[h * (r + 4) + f] : 0.0f;
     };
     auto q_rope_at = [&](int j, int e) {
         const int h = (j & 1) ? g + 8 : g;
@@ -408,17 +424,19 @@ latent_split_kernel(const float* __restrict__ q_lat,
             __syncthreads();   // the tile is in; the last tile is consumed
         }
 
-        // ---- dequantize this warp's 64 features of the 64 tokens ----
+        // ---- dequantize this warp's features of the 64 tokens ----
         if (lat) {
             const int lead = static_cast<int>(
                 reinterpret_cast<uintptr_t>(c4_sc + (row0 + t0) * n_sc) & 3);
             const __nv_bfloat16* scs =
                 reinterpret_cast<const __nv_bfloat16*>(sc + lead);
+            // units of 32 features of a token: 2 a token for a 64-wide
+            // slice, 1 for a 32-wide one
+            const int halves = wf / 32;
 #pragma unroll 1
-            for (int k = 0; k < 4; ++k) {
-                const int u = lane + 32 * k;
-                const int row = u >> 1, hf = u & 1;
-                const int f0 = fw + 32 * hf;
+            for (int u = lane; u < kTile * halves; u += 32) {
+                const int row = halves == 2 ? u >> 1 : u;
+                const int f0 = fw + 32 * (halves == 2 ? u & 1 : 0);
                 uint4* dst = reinterpret_cast<uint4*>(ct + row * CS + f0);
                 if (row >= valid) {
 #pragma unroll
@@ -463,6 +481,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
         auto lat_scores = [&](const uint32_t (&a)[4][4]) {
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
+                if (16 * kk >= wf) break;
 #pragma unroll
                 for (int np = 0; np < 4; ++np) {
                     // m0: tokens 16np + 0..7, k 0..7; m1: k 8..15;
@@ -577,6 +596,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
                 ldsm_x4(alo, p_lo + pr * kPStride + pc);
 #pragma unroll
                 for (int jp = 0; jp < 4; ++jp) {
+                    if (16 * jp >= wf) break;
                     // B (transposed): m0 tokens 0..7 of the k-step,
                     // features 16jp + 0..7; m1 tokens 8..15; m2, m3
                     // features + 8
@@ -606,6 +626,7 @@ latent_split_kernel(const float* __restrict__ q_lat,
     if (lat) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
+            if (8 * j >= wf) break;
             // positions 2t, 2t+1 of n-tile j hold features t, t+4
             const int f = fw + 8 * j + t4;
             os[g * OS + f] = acc[j][0];
@@ -717,7 +738,7 @@ extern "C" int latent_tier_partial(
         int H, int r, int p, int group, int dense_len, int split_tokens,
         int nsplit, float scale, void* stream) {
     if (H < 1 || H > kHeads) return -2;
-    if (r < 64 || r > kMaxR || r % 64 != 0) return -3;
+    if (r < kMinR || r > kMaxR || r % 32 != 0) return -3;
     if (p != 16 && p != 32 && p != 64) return -3;
     if (group < 2 || group % 2 != 0 || r % group != 0) return -4;
     if (dense_len < 0 || dense_len > S || S_raw < S) return -5;
@@ -744,15 +765,18 @@ extern "C" int latent_tier_partial(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const bool merge = nsplit > 1;
     const size_t smem = split_smem(r, p, group);
-    static size_t smem_set = 48 * 1024;      // the default limit
-    if (smem > smem_set) {
+    const bool odd = r % 64 != 0;
+    decltype(&latent_split_kernel<false>) split_kernel =
+        odd ? &latent_split_kernel<true> : &latent_split_kernel<false>;
+    static size_t smem_set[2] = {48 * 1024, 48 * 1024};  // the default
+    if (smem > smem_set[odd]) {
         cudaError_t e = cudaFuncSetAttribute(
-            latent_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
-        smem_set = smem;
+        smem_set[odd] = smem;
     }
-    latent_split_kernel<<<dim3(nsplit, B), kThreads, smem, st>>>(
+    split_kernel<<<dim3(nsplit, B), kThreads, smem, st>>>(
         static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
         static_cast<const uint8_t*>(c4),
         static_cast<const __nv_bfloat16*>(c4_sc),

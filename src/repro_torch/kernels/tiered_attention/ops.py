@@ -229,9 +229,9 @@ def latent_check(q_lat, q_rope, c4, c4_sc, krope, dense_len: int,
     if not 1 <= h <= LATENT_MAX_H:
         raise ValueError(f"latent_decode: {h} heads; the kernel takes "
                          f"1..{LATENT_MAX_H}")
-    if r % 64 or not 64 <= r <= LATENT_MAX_R:
+    if r % 32 or not 32 <= r <= LATENT_MAX_R:
         raise ValueError(f"latent_decode: rank {r}; the kernel takes a "
-                         f"multiple of 64 up to {LATENT_MAX_R}")
+                         f"multiple of 32 up to {LATENT_MAX_R}")
     if p not in LATENT_ROPE_DIMS:
         raise ValueError(f"latent_decode: rope dim {p}; the kernel takes "
                          f"{LATENT_ROPE_DIMS}")

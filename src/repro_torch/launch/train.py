@@ -6,10 +6,10 @@ It trains from random weights drawn from `--seed` on the synthetic token
 stream (`data.pipeline`, seeded by `--seed` too); a VLM's patches and an
 encoder-decoder's frames, the stub frontends' outputs, are random
 embeddings drawn per step from the same seed. Checkpoints every
-`--ckpt-every` steps (written on a worker thread) and resumes from the
-latest checkpoint in `--ckpt-dir` by itself: the data pipeline is a pure
-function of the step, so a resumed run replays the batches it would
-have seen.
+`--ckpt-every` steps (written on a worker thread, stored: `CKPT_LEVEL`)
+and resumes from the latest checkpoint in `--ckpt-dir` by itself: the
+data pipeline is a pure function of the step, so a resumed run replays
+the batches it would have seen.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
@@ -36,6 +36,12 @@ from repro_torch.optim.schedules import cosine_with_warmup
 from repro_torch.train.train_step import make_train_state, make_train_step
 
 __all__ = ["main", "parser"]
+
+# the checkpoints' zlib level: 0, stored. The reference writes zstd at
+# level 3, some 400 MB/s; zlib, the port's stand-in (no zstandard on the
+# card's machine), deflates a float state at some 20 MB/s to 93% of its
+# size: a minute a save for a ~150M-parameter AdamW state
+CKPT_LEVEL = 0
 
 
 def parser() -> argparse.ArgumentParser:
@@ -129,7 +135,7 @@ def main(argv=None) -> dict:
         state, start_step = ckpt_lib.restore(args.ckpt_dir, state)
         print(f"resumed from step {start_step}")
 
-    pending = None
+    pending, saved_step = None, None
     losses, step_ms = [], []
     metrics = None
     t0 = time.time()
@@ -151,11 +157,16 @@ def main(argv=None) -> dict:
             if pending is not None:
                 pending.result()
             pending = ckpt_lib.save_async(args.ckpt_dir, state,
-                                          step=step + 1)
+                                          step=step + 1, level=CKPT_LEVEL)
+            saved_step = step + 1
     if pending is not None:
         pending.result()
     if args.ckpt_dir:
-        ckpt_lib.save(args.ckpt_dir, state, step=args.steps)
+        # the reference saves the final state again even when the last
+        # step's checkpoint just wrote it; the port writes it once
+        if saved_step != args.steps:
+            ckpt_lib.save(args.ckpt_dir, state, step=args.steps,
+                          level=CKPT_LEVEL)
         print(f"checkpoint at {args.ckpt_dir}")
     if metrics is not None:
         print(f"final loss {float(metrics['loss']):.4f}")

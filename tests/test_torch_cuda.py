@@ -1295,6 +1295,32 @@ class TestLatentDecodeKernel:
         torch.cuda.synchronize()
         self._close(got, want, f"r {r} p {p} H {h}")
 
+    @pytest.mark.parametrize("b,s,h,r,p,group,dense_len,exact", [
+        (2, 300, 4, 32, 16, 16, 0, True), (2, 300, 4, 32, 16, 16, 1, True),
+        (2, 300, 4, 32, 16, 16, 65, True),
+        (4, 3200, 4, 32, 16, 16, 2048, True),
+        (2, 200, 16, 32, 64, 32, 199, False),
+        (1, 90, 5, 32, 32, 2, 90, False),
+        (2, 300, 16, 96, 32, 32, 257, True),
+        (2, 300, 8, 480, 64, 32, 299, False)])
+    def test_ranks_of_32_equal_plain_version(self, cuda, monkeypatch, b, s,
+                                             h, r, p, group, dense_len,
+                                             exact):
+        """r 32 (deepseek-v2-lite reduced: H 4, p 16, the serving tests'
+        group 16), whose one warp of latent features is 32 wide, and
+        other odd multiples of 32 (a last warp 32 wide beside 64-wide
+        ones)."""
+        tier = self._tier(_gen(r + p + h + dense_len), b, s, h, r, p, group,
+                          exact=exact)
+        want = latent_tier_partial_ref(*tier, dense_len, group, 0.125)
+        _refuse_plain(monkeypatch, tiered_ops, "latent_tier_partial_ref")
+        before = tiered_ops.LATENT_LAUNCHER.launches
+        got = tiered_ops.latent_tier_partial(*tier, dense_len, group=group,
+                                             scale=0.125)
+        torch.cuda.synchronize()
+        assert tiered_ops.LATENT_LAUNCHER.launches == before + 1
+        self._close(got, want, f"r {r} p {p} H {h} dense_len {dense_len}")
+
     def test_refused_launches_raise(self, cuda):
         tier = self._tier(_gen(3), 1, 64, 4, 128, 32, 32)
         before = tiered_ops.LATENT_LAUNCHER.launches
@@ -1302,9 +1328,9 @@ class TestLatentDecodeKernel:
             tiered_ops.latent_tier_partial(*tier, 65, group=32)
         with pytest.raises(ValueError, match="rank"):
             tiered_ops.latent_tier_partial(
-                tier[0][..., :96].contiguous(), tier[1],
-                tier[2][..., :48].contiguous(),
-                tier[3][..., :3].contiguous(), tier[4], 8, group=32)
+                tier[0][..., :80].contiguous(), tier[1],
+                tier[2][..., :40].contiguous(),
+                tier[3][..., :2].contiguous(), tier[4], 8, group=32)
         with pytest.raises(ValueError, match="heads"):
             tiered_ops.latent_tier_partial(
                 torch.zeros((1, 17, 128), device="cuda"),
@@ -1445,22 +1471,15 @@ def test_mamba2_serving_paths_on_the_card(cuda, arch, layers):
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
 def test_moe_serving_paths_on_the_card(cuda, arch):
-    """deepseek-v2-lite (MLA over the int4 latent: the latent form, its
-    rank widened to 128 so that the kernel takes it) and arctic (GQA with
+    """deepseek-v2-lite (MLA over the int4 latent: the latent form at the
+    reduced config's rank 32) and arctic (GQA with
     the dense residual) reduced, served on the card and on the CPU as
     above under each policy, the CPU's MoE routes replayed from the
     card's: logits within 2e-2, the counters equal; flash once a layer a
     prefill, the attention kernel once a layer a step."""
-    import dataclasses
-
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import MLAConfig
     from repro_torch.core.tiercache.policy import Policy
     cfg = get_arch(arch).reduced()
-    if cfg.mla is not None:
-        cfg = dataclasses.replace(cfg, mla=MLAConfig(
-            kv_lora_rank=128, qk_nope_head_dim=32, qk_rope_head_dim=16,
-            v_head_dim=32))
     for policy in Policy:
         _, launches = _serve_on_both(cfg, 24, 40, policy)
         assert launches["flash_fwd"] == cfg.num_layers
@@ -1643,3 +1662,29 @@ class TestDistributedOnTheCard:
         got = dist_group.spawn(dist_util.card_nccl, 1, device="cuda")[0]
         assert got["backend"] == "nccl"
         assert got["out_equal"] and got["err_equal"]
+
+
+# ---------------------------------------------------------------------------
+# the dev scripts on the card
+# ---------------------------------------------------------------------------
+
+
+def test_smoke_models_on_the_card(cuda, capsys):
+    """`scripts/smoke_models_torch.py` over every arch, reduced, on the
+    card (its default): each arch passes with its family's kernels
+    launched — `flash_fwd` with attention, `tiered_decode` for the `gqa`
+    and `encdec_self` kinds, the latent form at the reduced deepseek's
+    rank 32, `ssd_intra` for mamba2 and zamba2."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "smoke_models_torch", os.path.join(root, "scripts",
+                                           "smoke_models_torch.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.main([]) == 0
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("failures: none")
+    assert out.count("OK   ") == len(smoke.ARCHS)
+    assert "'latent_decode'" in out and "'ssd_intra'" in out

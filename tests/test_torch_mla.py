@@ -306,17 +306,18 @@ def _latent_args(b=1, h=4, r=128, p=32, s=40, s_raw=48, group=32):
 
 @pytest.mark.parametrize("kw,dense_len,group,match", [
     ({"h": 0}, 8, 32, "heads"), ({"h": 17}, 8, 32, "heads"),
-    ({"r": 96, "group": 32}, 8, 32, "rank"),
+    ({"r": 80, "group": 16}, 8, 32, "rank"),
     ({"r": 576, "group": 64}, 8, 64, "rank"),
     ({"p": 48}, 8, 32, "rope dim"),
     ({"group": 2}, 8, 3, "group"), ({"group": 64}, 8, 6, "group"),
     ({}, 41, 32, "dense_len"), ({"s_raw": 39}, 8, 32, "krope shorter"),
-    ({"b": 65536, "s": 1, "s_raw": 1, "h": 1}, 1, 32, "batch")])
+    ({"b": 65536, "s": 1, "s_raw": 1, "h": 1}, 1, 32, "batch"),
+    ({"r": 16, "group": 16}, 8, 16, "rank")])
 def test_latent_check_refuses_what_the_kernel_does_not_take(kw, dense_len,
                                                             group, match):
     """The wrapper's checks before a launch, mirroring the C entry's
     return codes: heads outside 1..16 (-2), a rank that is not a multiple
-    of 64 up to 512 or a RoPE width other than 16, 32, 64 (-3), an odd
+    of 32 up to 512 or a RoPE width other than 16, 32, 64 (-3), an odd
     group or one that does not divide the rank (-4), dense_len past the
     tier or a RoPE key shorter than it (-5), more than 65535 batch rows
     (-6); and a tensor of another dtype."""

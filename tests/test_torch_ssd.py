@@ -56,7 +56,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     checkpoints, the training launcher), the distribution and launch
     modules (process groups, sharding rules, constraints, meshes, specs,
     the dry run and its cost analysis, the workloads shim) among them —
-    and chip_smoke.py and scripts/dist_phase.py pull in no `jax` and no
+    and chip_smoke.py, scripts/dist_phase.py, the examples'
+    counterparts (`examples/*_torch.py`), scripts/smoke_models_torch.py,
+    scripts/examples_phase.py, scripts/bench_latent_torch.py and the
+    recorder of the reference examples' tables (which runs them in
+    subprocesses) pull in no `jax` and no
     `repro.` module."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -86,6 +90,15 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import dist_phase\n"
+        "import glob, importlib.util\n"
+        "new = sorted(glob.glob('examples/*_torch.py')) + [\n"
+        "    'scripts/smoke_models_torch.py', 'scripts/examples_phase.py',\n"
+        "    'scripts/bench_latent_torch.py',\n"
+        "    'scripts/record_torch_reference_examples.py']\n"
+        "assert len(new) == 11, new\n"
+        "for i, path in enumerate(new):\n"
+        "    spec = importlib.util.spec_from_file_location(f'new_{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"

@@ -623,7 +623,7 @@ def test_training_reduces_loss():
         total_steps=60))
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
     losses = []
-    for i, batch in batch_iterator(data):
+    for i, batch in batch_iterator(data, device="cpu"):
         if i == 30:
             break
         state, m = step(state, batch)
@@ -640,7 +640,7 @@ def test_train_state_and_metrics():
                for p in tree_leaves(state.params))
     assert state.step.dtype == torch.int32
     before = [p.detach().clone() for p in tree_leaves(state.params)]
-    batch = make_batch(DataConfig(cfg.vocab_size, 32, 2), 0)
+    batch = make_batch(DataConfig(cfg.vocab_size, 32, 2), 0, device="cpu")
     new, metrics = make_train_step(bundle)(state, batch)
     assert set(metrics) == {"loss", "aux_loss", "grad_norm", "lr",
                             "total_loss"}
@@ -662,23 +662,27 @@ def test_train_state_and_metrics():
 
 def test_data_deterministic_and_resumable():
     cfg = DataConfig(vocab_size=100, seq_len=32, global_batch=8)
-    a, b = make_batch(cfg, 7), make_batch(cfg, 7)
+    a = make_batch(cfg, 7, device="cpu")
+    b = make_batch(cfg, 7, device="cpu")
     assert a["tokens"].dtype == torch.int32
     assert a["tokens"].shape == (8, 32)
     assert torch.equal(a["tokens"], b["tokens"])
-    assert not torch.equal(a["tokens"], make_batch(cfg, 8)["tokens"])
+    assert not torch.equal(a["tokens"],
+                           make_batch(cfg, 8, device="cpu")["tokens"])
     assert not torch.equal(a["tokens"], make_batch(
-        dataclasses.replace(cfg, seed=1), 7)["tokens"])
-    it = batch_iterator(cfg, 5)
+        dataclasses.replace(cfg, seed=1), 7, device="cpu")["tokens"])
+    it = batch_iterator(cfg, 5, device="cpu")
     for step in (5, 6, 7):
         got_step, batch = next(it)
         assert got_step == step
-        assert torch.equal(batch["tokens"], make_batch(cfg, step)["tokens"])
+        assert torch.equal(batch["tokens"],
+                           make_batch(cfg, step, device="cpu")["tokens"])
 
 
 def test_data_host_sharding_partitions_batch():
     cfg = DataConfig(vocab_size=100, seq_len=16, global_batch=8)
-    shards = [make_batch(cfg, 3, shard_index=i, num_shards=4)["tokens"]
+    shards = [make_batch(cfg, 3, shard_index=i, num_shards=4,
+                         device="cpu")["tokens"]
               for i in range(4)]
     assert all(s.shape == (2, 16) for s in shards)
     assert not torch.equal(shards[0], shards[1])
@@ -690,11 +694,11 @@ def test_data_learnable_structure():
     unigrams follow the Zipf law: the reference's checks and its
     documented rate."""
     cfg = DataConfig(vocab_size=100, seq_len=128, global_batch=4)
-    toks = make_batch(cfg, 0)["tokens"].numpy()
+    toks = make_batch(cfg, 0, device="cpu")["tokens"].numpy()
     rep = (toks[:, cfg.ngram_repeat:] == toks[:, :-cfg.ngram_repeat])
     assert rep.mean() > 0.3
     big = DataConfig(vocab_size=1000, seq_len=2048, global_batch=8)
-    toks = make_batch(big, 1)["tokens"].numpy()
+    toks = make_batch(big, 1, device="cpu")["tokens"].numpy()
     rate = (toks[:, 8:] == toks[:, :-8]).mean()
     assert 0.48 < rate < 0.56, rate
     # the raw draws of block 0: Zipf(1.1) over the ranks
@@ -704,7 +708,7 @@ def test_data_learnable_structure():
 
 def test_data_batch_is_the_same_on_every_device():
     cfg = DataConfig(vocab_size=256000, seq_len=64, global_batch=2)
-    a = make_batch(cfg, 2)["tokens"]
+    a = make_batch(cfg, 2, device="cpu")["tokens"]
     b = make_batch(cfg, 2, device=torch.device("cpu"))["tokens"]
     assert torch.equal(a, b) and int(a.max()) < 256000 and int(a.min()) >= 0
 
