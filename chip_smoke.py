@@ -102,9 +102,9 @@ then:
    plain version runs with the probe on: it observes only); each case's
    timed launches follow an untimed one, which brings the card's clocks
    back up after the plain version's seconds on the CPU;
-4. build — the serving path's three kernels (`ips_repack`,
-   `tiered_decode`, `flash_fwd`): build seconds, ptxas registers and
-   spills;
+4. build — the serving and training paths' kernels (`ips_repack`,
+   `tiered_decode` and its latent form, `flash_fwd`, `flash_bwd`,
+   `ssd_intra`): build seconds, ptxas registers and spills;
 5. kernel vs plain version at the serving shapes, both on the card, same
    inputs: the repack (`ips_repack`) bit for bit — every bf16 bit pattern
    as x against 512 absmax values (subnormal and all-zero groups among
@@ -240,30 +240,46 @@ then:
    steps through `tiered_decode` at G 7; the peak memory printed. Its
    tiered call dropping 32 dense tokens must fail the rms check at every
    step;
-12. training — (a) gemma-2b at full size (18 layers, 2.506 B
-   parameters), AdamW, remat, one batch of 2 x 2048 tokens from the
-   port's data pipeline: the loss and every gradient from one state
-   three times, with `flash_fwd` under its autograd Function (18
-   launches forward, 18 more in remat's recompute), with the plain
-   versions on the card, and with the plain versions under another
-   summation order (attention chunks of 256, not 512): rms(kernel -
-   plain) / rms(floor - plain) at most RMS_LIMIT over the whole gradient,
-   over each layer's stacked leaves and over each leaf, the loss within
-   LOGITS_TOL of the plain run's; a forward in which each query drops
-   the 32 keys before its own and an lse raised by log 1.01 (out kept,
-   so only the backward sees it) must fail that check; a forward that
-   drops the sequence's last 32 keys is read only (it moves 32 of 2048
-   query rows, under the floor); then one train step. (b) `launch.train.main` at gemma's
-   full size, 10 steps of 2 x 2048 tokens: the loss finite and falling,
-   ms a step (median of steps 3-10), tokens/s, model FLOPs and their
-   share of the bf16 peak, peak GiB, `flash_fwd`'s launches and event ms
-   a step, the plain flash backward's event ms a step. (c) mamba2-370m
-   at full size (48 layers) as (a) with `ssd_intra` under its Function
-   and a floor of SSD chunks of 128, its strict-mask fault caught; then
-   3 launcher steps and `ssd_intra`'s launches a step. (d) gemma-2b
-   reduced on the card: three steps against two, `save_async`,
-   `restore` into a fresh state and the third step, whose loss must be
-   equal to the bit. `scripts/train_phase.py` runs this phase alone;
+12. training — first `flash_bwd` (the flash Function's backward,
+   `csrc/flash_bwd.cu`) against its plain version on the card at the
+   training shapes: gemma-2b's (B 2, S 2048, H 8, Hkv 1, hd 256; dout
+   bf16-exact and float32), train_lm's (B 32, S 512, H 12, Hkv 6, hd
+   64) and MLA's padded widths (H 16, q and k 192, v 128, at 256), dq,
+   dk and dv within 1e-2 of each one's largest; the count of HMMA in the
+   built library; each shape's time a launch by events and by CUDA graph
+   beside the bound and the plain version's, at gemma's with 1, 2 and 3
+   bf16 terms and beside the backward of `scaled_dot_product_attention`
+   (each backend alone, keys and values expanded). (a) gemma-2b at full
+   size (18 layers, 2.506 B parameters), AdamW, remat, one batch of 2 x
+   2048 tokens from the port's data pipeline: the loss and every
+   gradient from one state three times, with `flash_fwd` and
+   `flash_bwd` under their autograd Function (18 forward launches, 18
+   more in remat's recompute, 18 backward), with the plain versions on
+   the card, and with the plain versions under another summation order
+   (attention chunks of 256, not 512): rms(kernel - plain) / rms(floor -
+   plain) at most RMS_LIMIT over the whole gradient, over each layer's
+   stacked leaves and over each leaf, the loss within LOGITS_TOL of the
+   plain run's; read beside it, the backward with its other bf16 term
+   counts; a forward in which each query drops the 32 keys before its
+   own, an lse raised by log 1.01 (out kept, so only the backward sees
+   it), a backward that leaves delta out of dS and one that drops the
+   first head of each GQA group from dk and dv must fail that check; a
+   forward that drops the sequence's last 32 keys is read only (it moves
+   32 of 2048 query rows, under the floor); then one train step, and one
+   more under `torch.profiler` (`step_split`: the device time by kernel
+   and by profiler range, the idle share). (b) `launch.train.main` at
+   gemma's full size, 10 steps of 2 x 2048 tokens: the loss finite and
+   falling, ms a step (median of steps 3-10), tokens/s, model FLOPs and
+   their share of the bf16 peak, peak GiB, `flash_fwd`'s and
+   `flash_bwd`'s launches and event ms a step, the flash Function's
+   backward's event ms a step. (c) mamba2-370m at full size (48 layers)
+   as (a) with `ssd_intra` under its Function and a floor of SSD chunks
+   of 128, its strict-mask fault caught, its profiled step; then 3
+   launcher steps and `ssd_intra`'s launches a step. (d) gemma-2b
+   reduced on the card (through both flash kernels): three steps against
+   two, `save_async`, `restore` into a fresh state and the third step,
+   whose loss must be equal to the bit. `scripts/train_phase.py` runs
+   this phase alone;
 13. distribution — ranks spawned as processes that share the card over
    gloo (`distributed.group.spawn`), each with its tensors on the card,
    the sweep kernels built before any rank starts: (a) the paper grid
@@ -309,7 +325,8 @@ then:
    32,000 vocab, 32 x 512 tokens a step) for TRAIN_LM_STEPS steps with a
    checkpoint halfway and at the end, then a second call that resumes at
    the saved step: the loss falling, ms a step, tokens/s, peak GiB,
-   `flash_fwd`'s launches; `smoke_models_torch.py` over every arch,
+   `flash_fwd`'s and `flash_bwd`'s launches (quickstart's train step
+   launches both too); `smoke_models_torch.py` over every arch,
    reduced (`flash_fwd` for every family with attention, `tiered_decode`
    for the `gqa` and `encdec_self` kinds, the latent form at the reduced
    deepseek's rank 32, `ssd_intra` for mamba2 and zamba2, each counted);
@@ -912,7 +929,7 @@ def serving_libraries():
     from repro_torch.kernels.tiered_attention import ops as tiered
     return [("ips_repack", repack.LIB), ("tiered_decode", tiered.LIB),
             ("latent_decode", tiered.LATENT_LIB), ("flash_fwd", flash.LIB),
-            ("ssd_intra", ssd.LIB)]
+            ("flash_bwd", flash.BWD_LIB), ("ssd_intra", ssd.LIB)]
 
 
 def _launchers():
@@ -1911,18 +1928,19 @@ def _replaced(*swaps):
 
 
 def plain_versions(keep=None):
-    """The serving path with each kernel's wrapper replaced by its plain
-    version (`ref.py`) on the same tensors on the card: phases 6 and 8's
-    comparison run. The path looks each wrapper up on its module at every
-    call, so this reaches every call site. `keep` names one kernel (a key
-    of `_launchers()`) whose wrapper stays in place: the diagnostic of
-    `scripts/serve_kernel_isolation.py`."""
+    """The serving and training paths with each kernel's wrapper replaced
+    by its plain version (`ref.py`) on the same tensors on the card:
+    phases 6, 8 and 12's comparison run. The paths look each wrapper up
+    on its module at every call, so this reaches every call site. `keep`
+    names one kernel (a key of `_launchers()`) whose wrapper stays in
+    place: the diagnostic of `scripts/serve_kernel_isolation.py`."""
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ips_repack import ops as repack
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.tiered_attention import ops as tiered
     swaps = {
         "flash_fwd": (flash, "flash_fwd", flash.ref.flash_ref),
+        "flash_bwd": (flash, "flash_bwd", flash.ref.flash_bwd_ref),
         "ips_repack": (repack, "quantize_into",
                        repack.ref.quantize_into_ref),
         "tiered_decode": (tiered, "dense_tier_partial",
@@ -3326,16 +3344,162 @@ LSE_RAISE = math.log(1.01)      # the planted lse fault, out left as it is
 CKPT_SEQ = 256                  # the checkpoint round trip (gemma reduced)
 
 
-def flash_bwd_bound(b, s, h, hkv, hd, itemsize):
+def flash_bwd_bound(b, s, h, hkv, hd, itemsize, hd_v=None):
     """The flash backward's least time: q, k, v, out (float32), dout
     (float32) and lse read once, dq, dk, dv written once; its five
     products (the scores again, dP, dV, dQ, dK) over the causal half at
-    the inputs' type."""
-    moved = ((b * s * h * hd + 2 * b * s * hkv * hd) * itemsize * 2
-             + 2 * b * h * s * hd * 4 + b * h * s * 4)
-    ops = 5 * 2 * b * h * s * s * hd // 2
+    the inputs' type. At MLA's widths q and k are hd wide, v, out and
+    dout hd_v (no padding counted)."""
+    hd_v = hd if hd_v is None else hd_v
+    moved = ((b * s * h * hd + b * s * hkv * (hd + hd_v)) * itemsize * 2
+             + 2 * b * h * s * hd_v * 4 + b * h * s * 4)
+    ops = 2 * b * h * s * s * (3 * hd + 2 * hd_v) // 2
     return bound_ms(moved, ops, BF16_OPS_PER_S if itemsize == 2
                     else F32_OPS_PER_S)
+
+
+BWD_TOL = 1e-2                  # of each gradient's largest: bf16 outputs
+MEASURED_TERMS = (1, 2, 3)      # the bf16 terms measured at gemma's shape
+
+
+def flash_bwd_vs_plain(cuda) -> dict:
+    """Phase 12's kernel check: `flash_bwd` against its plain version,
+    `ref.flash_bwd_ref`, on the card on the same inputs, at the training
+    shapes: gemma-2b's (B 2, S 2048, H 8, Hkv 1, hd 256), train_lm's
+    (`examples/train_lm_torch.py` at its ~100M flags: B 32, S 512, H 12,
+    Hkv 6, hd 64) and MLA's (deepseek-v2-lite: B 2, S 2048, H = Hkv = 16,
+    q and k 192, v 128, zero-padded to 256, scale 1/sqrt(192)); out and
+    lse from the forward kernel, dout bf16-exact as the bf16 model's is
+    and, at gemma's shape, float32 (its low terms run); dq, dk and dv
+    within BWD_TOL of each one's largest (they are bf16). The count of
+    HMMA instructions in the built library, which must not be 0. At each
+    shape the time a launch by CUDA events and by a CUDA graph, the plain
+    version's, the bound; at gemma's also with 1, 2 and 3 bf16 terms, and
+    the backward of PyTorch's `scaled_dot_product_attention(is_causal)`
+    through autograd (bf16, keys and values expanded to the query heads,
+    each backend alone: the fastest that runs, named), a yardstick the
+    port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
+
+    hmma = flash.BWD_LIB.sass_count("HMMA")
+    if hmma == 0:
+        fail("flash_bwd: the built library issues no HMMA (mma.sync)")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(TRAIN_SEED + 26)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    def inputs(b, s, h, hkv, hd, hd_v, exact=True):
+        q = randn(b, s, h, hd).to(torch.bfloat16)
+        k = randn(b, s, hkv, hd).to(torch.bfloat16)
+        v = randn(b, s, hkv, hd_v).to(torch.bfloat16)
+        dout = randn(b, h, s, hd_v)
+        if exact:
+            dout = dout.to(torch.bfloat16).float()
+        width = next(w for w in flash.HEAD_DIMS if w >= max(hd, hd_v))
+        q, k, v, dout = (F.pad(t, (0, width - t.shape[-1]))
+                         for t in (q, k, v, dout))
+        scale = 1.0 / hd ** 0.5
+        out, lse = flash.flash_fwd(q, k, v, scale=scale)
+        return (q, k, v, out, lse, dout), scale
+
+    lm_heads = TRAIN_LM_D_MODEL // 64
+    shapes = {"gemma-2b": (TRAIN_BATCH, TRAIN_SEQ, 8, 1, 256, 256),
+              "train_lm": (TRAIN_LM_BATCH, TRAIN_LM_SEQ, lm_heads,
+                           lm_heads // 2, 64, 64),
+              "mla": (TRAIN_BATCH, TRAIN_SEQ, 16, 16, 192, 128)}
+    err, timed = 0.0, {}
+    for label, shape in shapes.items():
+        # the timed inputs are the last: dout bf16-exact, as in training
+        for exact in ((False, True) if label == "gemma-2b" else (True,)):
+            args, scale = inputs(*shape, exact=exact)
+            got = flash.flash_bwd(*args, scale=scale)
+            want = flash_bwd_ref(*args, scale=scale, chunk=512)
+            for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                a, w = a.float(), w.float()
+                e = float((a - w).abs().max()) / float(w.abs().max())
+                if not (torch.isfinite(a).all() and e <= BWD_TOL):
+                    kind = "bf16-exact" if exact else "float32"
+                    fail(f"flash_bwd {label} {name} ({kind} dout): {e} of "
+                         f"the largest from the plain version (tolerance "
+                         f"{BWD_TOL})")
+                err = max(err, e)
+        b, s, h, hkv, hd, hd_v = shape
+        width = args[0].shape[-1]
+
+        def call(args=args, scale=scale, terms=flash.BWD_TERMS):
+            return flash.flash_bwd(*args, scale=scale, terms=terms)
+        bnd, by = flash_bwd_bound(b, s, h, hkv, hd, 2, hd_v)
+        timed[label] = {
+            "ms": kernel_ms(flash.BWD_LAUNCHER, call),
+            "graph_ms": graph_ms(call),
+            "plain_ms": time_ms(lambda: flash_bwd_ref(*args, scale=scale,
+                                                      chunk=512),
+                                PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "timed_shape": f"B {b}, S {s}, H {h}, Hkv {hkv}, hd {hd}"
+                           + (f"/{hd_v} padded to {width}"
+                              if width != hd or width != hd_v else "")
+                           + ", bf16"}
+        if label == "gemma-2b":
+            timed[label]["terms_ms"] = {
+                t: kernel_ms(flash.BWD_LAUNCHER, lambda t=t: call(terms=t))
+                for t in MEASURED_TERMS}
+            timed[label]["terms_graph_ms"] = {
+                t: graph_ms(lambda t=t: call(terms=t))
+                for t in MEASURED_TERMS}
+            timed[label].update(sdpa_backward_ms(*args[:3], args[5],
+                                                 h // hkv))
+    row = {"name": "flash_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_bwd.cu",
+           # no pallas_call: the reference differentiates `_flash` with
+           # the jnp `_flash_bwd`
+           "replaces": "src/repro/models/attention.py:180",
+           # of each gradient's largest magnitude
+           "max_abs_err": err, "terms": flash.BWD_TERMS,
+           **timed["gemma-2b"],
+           "sass_hmma": hmma, "train_lm_shape": timed["train_lm"],
+           "mla_shape": timed["mla"]}
+    emit({"phase": "kernel_vs_plain", "kernel": "flash_bwd",
+          "tolerance": BWD_TOL, **row})
+    return row
+
+
+def sdpa_backward_ms(q, k, v, dout, g) -> dict:
+    """The backward of `scaled_dot_product_attention(is_causal=True)`
+    through autograd on q, k, v (B, S, heads, hd) bf16 and the cotangent
+    dout (B, H, S, hd) in bf16, keys and values expanded to the query
+    heads: each backend alone; `library_ms` the fastest that runs. It
+    rounds P and dS to bf16: a yardstick of speed only."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).detach()
+              .requires_grad_(True) for t in (k, v))
+    cot = dout.to(torch.bfloat16)
+    by = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+                by[backend.name] = time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), cot, retain_graph=True), TIMED)
+        except RuntimeError as e:
+            by[backend.name] = f"refused: {str(e).splitlines()[0][:120]}"
+    ran = {n: ms for n, ms in by.items() if isinstance(ms, float)}
+    best = min(ran, key=ran.get) if ran else None
+    return {"library_ms": ran.get(best), "library_backends_ms": by,
+            "library": "torch.autograd.grad of torch.nn.functional."
+                       "scaled_dot_product_attention(is_causal=True), "
+                       f"keys and values expanded, backend {best}"}
 
 
 def train_flops(cfg, b, s) -> dict:
@@ -3483,15 +3647,162 @@ def _flash_faults():
          _replaced((flash, "flash_fwd", raised_lse)), True)]
 
 
-def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
+def _flash_bwd_faults():
+    """The planted flash backward faults of phase 12: (name, a replacement
+    of `flash_bwd` as the flash Function calls it, whether the gradient
+    check must catch it). Each calls the wrapper it replaces (the kernel
+    on a card) on doctored inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash
+    kernel = flash.flash_bwd
+
+    def no_delta(q, k, v, out, lse, dout, **kw):
+        # delta = sum(dout * out) is 0 with out zeroed: dS = P dP
+        return kernel(q, k, v, torch.zeros_like(out), lse, dout, **kw)
+
+    def head_dropped(q, k, v, out, lse, dout, **kw):
+        # the first query head of each KV group adds nothing to dk and dv
+        # (its dout zeroed: P^T dout and dS vanish); dq kept
+        dq, _, _ = kernel(q, k, v, out, lse, dout, **kw)
+        cut = dout.clone()
+        cut[:, ::q.shape[2] // k.shape[2]] = 0
+        _, dk, dv = kernel(q, k, v, out, lse, cut, **kw)
+        return dq, dk, dv
+
+    return [("backward leaves delta out of dS",
+             _replaced((flash, "flash_bwd", no_delta)), True),
+            ("backward drops one head of each GQA group from dk and dv",
+             _replaced((flash, "flash_bwd", head_dropped)), True)]
+
+
+# where a step's device time goes (`step_split`): kernels by name, then
+# by the profiler range whose thread launched them
+SPLIT_GROUPS = ("flash_fwd", "flash_bwd", "ssd_intra",
+                "ssd_intra plain backward", "matrix products", "optimizer",
+                "rest")
+MATMUL_KERNELS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")
+
+
+def step_split(bundle, state, batch, label) -> dict:
+    """One train step under `torch.profiler` (this process only, CPU and
+    CUDA activities), after at least one step of the same shapes: its
+    device time (kernels, copies, sets) in SPLIT_GROUPS — `flash_fwd`,
+    `flash_bwd` and `ssd_intra` by kernel name; `SsdIntraFn`'s plain
+    backward and the optimizer by the profiler range around their calls
+    (`ssd_ops.BACKWARD`'s span; an `optimizer` range put around the
+    optimizer's update here) that holds the launch of each kernel on its
+    thread; cuBLAS's and CUTLASS's kernels by name as matrix products;
+    the rest (each group's five longest kernels named). Beside it the
+    step's host wall (with the profiler on) and the span from its first
+    kernel's start to its last's end, and the device's idle share of
+    each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train import train_step as ts_mod
+
+    real = ts_mod.make_optimizer
+
+    def annotated(name):
+        init, update = real(name)
+
+        def timed_update(*args, **kw):
+            with record_function("optimizer"):
+                return update(*args, **kw)
+        return init, timed_update
+
+    with _replaced((ts_mod, "make_optimizer", annotated)):
+        step = ts_mod.make_train_step(bundle)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(ROOT, "build", "profile_train", f"{label}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    ranges, launched, device = {}, {}, []
+    for e in events:
+        cat = e.get("cat", "")
+        if e.get("ph") != "X":
+            continue
+        if cat == "user_annotation" and e.get("name") in (
+                "optimizer", "ssd_intra_bwd", "flash_bwd"):
+            ranges.setdefault((e["pid"], e["tid"]), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                 e["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launched[corr] = (e["pid"], e["tid"], float(e["ts"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((cat, str(e.get("name", "")), float(e["ts"]),
+                           float(e.get("dur", 0)),
+                           e.get("args", {}).get("correlation")))
+
+    def range_of(corr):
+        if corr not in launched:
+            return None
+        pid, tid, ts = launched[corr]
+        inner = None
+        for a, b, name in ranges.get((pid, tid), ()):
+            if a <= ts <= b and (inner is None or b - a < inner[1] - inner[0]):
+                inner = (a, b, name)
+        return inner and inner[2]
+
+    groups = dict.fromkeys(SPLIT_GROUPS, 0.0)
+    names = {}                  # (group, kernel name) -> ms
+    for cat, name, ts, dur, corr in device:
+        where = range_of(corr)
+        low = name.lower()
+        if "flash_fwd" in name:
+            key = "flash_fwd"
+        elif "flash_bwd" in name:
+            key = "flash_bwd"
+        elif "ssd_intra_kernel" in name:
+            key = "ssd_intra"
+        elif where == "ssd_intra_bwd":
+            key = "ssd_intra plain backward"
+        elif where == "optimizer":
+            key = "optimizer"
+        elif cat == "kernel" and any(m in low for m in MATMUL_KERNELS):
+            key = "matrix products"
+        else:
+            key = "rest"
+        groups[key] += dur / 1e3
+        names[key, name] = names.get((key, name), 0.0) + dur / 1e3
+    busy = sum(groups.values())
+    top = sorted(names.items(), key=lambda kv: -kv[1])
+    span = ((max(ts + dur for _, _, ts, dur, _ in device)
+             - min(ts for _, _, ts, _, _ in device)) / 1e3 if device else 0.0)
+    return {"arch": label, "device_events": len(device),
+            "device_ms": groups, "busy_ms": busy, "wall_ms": wall_ms,
+            "device_span_ms": span,
+            "share_of_busy": {k: v / busy for k, v in groups.items()}
+            if busy else None,
+            # each group's five longest kernels by name, ms
+            "top_kernels": {g: [(n[:80], ms) for (k, n), ms in top
+                                if k == g][:5] for g in SPLIT_GROUPS},
+            "idle_share_of_wall": 1 - busy / wall_ms,
+            "idle_share_of_span": 1 - busy / span if span else None}
+
+
+def train_runs(cuda, arch, floor_cfg_of, faults, expect,
+               variants=()) -> dict:
     """Phase 12 (a) and (c): `arch` at full size, one step's loss and
     gradients from one state on one batch, three times — the kernel run,
     the plain run (each kernel's plain version on the card), the floor
     run (the plain versions under another summation order) — and under
-    each planted fault (name, context, whether the check must catch it).
-    `expect` is the kernel's launches (launcher, count) in the kernel
-    run. Then one train step from the state, with the config's
-    optimizer."""
+    each planted fault (name, context, whether the check must catch it)
+    and each variant (name, context: read only). `expect` lists the
+    kernels' launches (launcher, count) in the kernel run. Then one train
+    step from the state, with the config's optimizer, and one more under
+    the profiler (`step_split`)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -3510,18 +3821,20 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
     batch = make_batch(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
                                   seed=TRAIN_SEED), 0, device=cuda)
     names = _leaf_names(state.params)
-    launcher, want = expect
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    launcher.reset()
+    for launcher, _ in expect:
+        launcher.reset()
     t1 = time.perf_counter()
     kernel = _loss_grads(bundle, state.params, batch)
     torch.cuda.synchronize()
     kernel_s = time.perf_counter() - t1
-    if launcher.launches != want:
-        fail(f"phase 12 {arch}: the kernel run launched {launcher.kernel} "
-             f"{launcher.launches} times, expected {want}")
-    launches = launcher.launches
+    launches = {launcher.kernel: launcher.launches for launcher, _ in expect}
+    for launcher, want in expect:
+        if launcher.launches != want:
+            fail(f"phase 12 {arch}: the kernel run launched "
+                 f"{launcher.kernel} {launcher.launches} times, expected "
+                 f"{want}")
     with plain_versions():
         t1 = time.perf_counter()
         plain = _loss_grads(bundle, state.params, batch)
@@ -3534,6 +3847,16 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
         fail(f"phase 12 {arch}: the kernel run's gradients fail the check: "
              f"{check['rms_ratio']} / {check['rms_ratio_max_layer']} of "
              f"{RMS_LIMIT}, loss {check['loss_rel_err']}")
+    read = []
+    for name, ctx in variants:
+        with ctx:
+            other = _loss_grads(bundle, state.params, batch)
+        vc = grad_check(other, plain, floor, names)
+        del other
+        emit({"phase": "train_variant", "arch": arch, "variant": name, **vc})
+        read.append({k: vc[k] for k in (
+            "rms_ratio", "rms_ratio_max_layer", "rms_ratio_max_leaf",
+            "worst_leaf", "loss_rel_err", "passes")} | {"variant": name})
     caught = []
     for name, ctx, must_catch in faults:
         with ctx:
@@ -3556,6 +3879,8 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         fail(f"phase 12 {arch}: the train step is not finite: {metrics}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = step_split(bundle, state, batch, arch)
+    emit({"phase": "train_step_split", **split})
     del state
     torch.cuda.empty_cache()
     return {"arch": arch, "layers": cfg.num_layers,
@@ -3564,8 +3889,9 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect) -> dict:
             "plain_run_s": plain_s, "kernel_launches": launches,
             "check": {k: v for k, v in check.items()
                       if not k.endswith(("_per_layer", "_per_leaf"))},
-            "faults_caught": caught, "grad_norm": gnorm,
-            "peak_gib": peak, "wall_s": time.perf_counter() - t0}
+            "variants": read, "faults_caught": caught, "grad_norm": gnorm,
+            "peak_gib": peak, "step_split": split,
+            "wall_s": time.perf_counter() - t0}
 
 
 def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
@@ -3581,7 +3907,8 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
     from repro_torch.launch import train as launch_train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for timed in (launcher, flash.BACKWARD):
+    spans = (launcher, flash.BACKWARD, flash.BWD_LAUNCHER)
+    for timed in spans:
         timed.reset()
         timed.record = True
     t0 = time.perf_counter()
@@ -3594,8 +3921,10 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
         kernel_ms = launcher.ms()
         bwd_calls = flash.BACKWARD.calls
         bwd_ms = flash.BACKWARD.ms()
+        bwd_launches = flash.BWD_LAUNCHER.launches
+        bwd_kernel_ms = flash.BWD_LAUNCHER.ms()
     finally:
-        for timed in (launcher, flash.BACKWARD):
+        for timed in spans:
             timed.record = False
             timed.reset()
     wall = time.perf_counter() - t0
@@ -3630,7 +3959,11 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
             "main_path_ms": sum(kernel_ms),
             "main_path_bound_ms": per_launch_bound * launches,
             "flash_bwd_calls_per_step": bwd_calls / steps,
-            "flash_bwd_ms_per_step": sum(bwd_ms) / steps}
+            "flash_bwd_ms_per_step": sum(bwd_ms) / steps,
+            "flash_bwd_launches": bwd_launches,
+            "flash_bwd_kernel_ms_per_step": sum(bwd_kernel_ms) / steps,
+            "flash_bwd_kernel_ms_per_launch": sum(bwd_kernel_ms)
+            / max(len(bwd_kernel_ms), 1)}
 
 
 def ckpt_round_trip(cuda) -> dict:
@@ -3699,6 +4032,7 @@ def training_phase(cuda):
     kernel counts, as `serve_main_path` returns a serving path's, and
     each kernel's training figures for its row of the kernel table)."""
     import dataclasses
+    import functools
 
     import torch
     from repro_torch.configs import get_arch
@@ -3707,11 +4041,20 @@ def training_phase(cuda):
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # under remat each layer's kernel launches twice a step: its forward,
-    # then its forward again when the backward recomputes the layer
+    bwd = flash_bwd_vs_plain(cuda)
+    # under remat each layer's forward kernel launches twice a step: its
+    # forward, then its forward again when the backward recomputes the
+    # layer; the backward kernel once a layer. The gradient check read
+    # with the backward's other bf16 term counts
     cfg = get_arch(TRAIN_ARCH)
-    gemma = train_runs(cuda, TRAIN_ARCH, lambda cfg: cfg, _flash_faults(),
-                       (flash.LAUNCHER, 2 * cfg.num_layers))
+    terms = [(f"flash_bwd in {t} bf16 term(s)",
+              _replaced((flash, "flash_bwd",
+                         functools.partial(flash.flash_bwd, terms=t))))
+             for t in MEASURED_TERMS if t != flash.BWD_TERMS]
+    gemma = train_runs(cuda, TRAIN_ARCH, lambda cfg: cfg,
+                       _flash_faults() + _flash_bwd_faults(),
+                       [(flash.LAUNCHER, 2 * cfg.num_layers),
+                        (flash.BWD_LAUNCHER, cfg.num_layers)], terms)
     emit({"phase": "train_gemma_check", **gemma})
     shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
              cfg.head_dim, 2)
@@ -3720,6 +4063,9 @@ def training_phase(cuda):
     run = launcher_run(cuda, TRAIN_ARCH, TRAIN_STEPS, flash.LAUNCHER,
                        f_bound, must_fall=True)
     run["flash_bwd_bound_ms_per_call"] = b_bound
+    if run["flash_bwd_launches"] != cfg.num_layers * TRAIN_STEPS:
+        fail(f"phase 12 {TRAIN_ARCH}: the launcher launched flash_bwd "
+             f"{run['flash_bwd_launches']} times in {TRAIN_STEPS} steps")
     emit({"phase": "train_gemma", **run})
 
     def ssd_floor(cfg):
@@ -3729,7 +4075,8 @@ def training_phase(cuda):
     strict = planted_faults(TRAIN_SSM_ARCH)
     mamba = train_runs(cuda, TRAIN_SSM_ARCH, ssd_floor,
                        [(name, ctx, True) for name, ctx, *_ in strict],
-                       (ssd.LAUNCHER, 2 * cfg.num_layers))
+                       [(ssd.LAUNCHER, 2 * cfg.num_layers),
+                        (flash.BWD_LAUNCHER, 0)])
     emit({"phase": "train_mamba2_check", **mamba})
     m, q = cfg.ssm, cfg.ssm.chunk_size
     i_bound, _ = ssd_intra_bound(TRAIN_BATCH, TRAIN_SEQ // q, q,
@@ -3745,7 +4092,8 @@ def training_phase(cuda):
     print(f"training: gemma-2b {run['ms_per_step_median']:.1f} ms a step, "
           f"{run['tokens_per_s']:.0f} tok/s, "
           f"{100 * run['model_flops_share_of_bf16_peak']:.1f}% of bf16 peak, "
-          f"flash bwd {run['flash_bwd_ms_per_step']:.1f} ms a step; "
+          f"flash bwd {run['flash_bwd_ms_per_step']:.1f} ms a step "
+          f"({run['flash_bwd_kernel_ms_per_launch']:.3f} ms a launch); "
           f"phase {wall:.1f} s", flush=True)
     names = ("ips_repack", "tiered_decode", "latent_decode", "flash_fwd",
              "ssd_intra")
@@ -3763,7 +4111,29 @@ def training_phase(cuda):
         "arch", "launches_per_step", "kernel_ms_per_step",
         "kernel_ms_per_launch", "kernel_bound_ms_per_launch",
         "ms_per_step_median", "flash_bwd_ms_per_step")} for r in (run, mrun)}
-    figures["flash_fwd"]["flash_bwd_bound_ms_per_call"] = b_bound
+    # the backward kernel's row: its check, and its launches in the gemma
+    # kernel run and the launcher's steps, timed in the latter
+    figures["flash_bwd"] = {
+        **bwd,
+        "launches": gemma["kernel_launches"]["flash_bwd"]
+        + run["flash_bwd_launches"],
+        "main_path_ms": run["flash_bwd_kernel_ms_per_step"] * TRAIN_STEPS,
+        "main_path_bound_ms": b_bound * run["flash_bwd_launches"],
+        "training": {"arch": TRAIN_ARCH,
+                     "launches_per_step": run["flash_bwd_launches"]
+                     / TRAIN_STEPS,
+                     "kernel_ms_per_launch":
+                         run["flash_bwd_kernel_ms_per_launch"],
+                     "backward_span_ms_per_step":
+                         run["flash_bwd_ms_per_step"],
+                     "bound_ms_per_launch": b_bound,
+                     "ms_per_step_median": run["ms_per_step_median"],
+                     "peak_gib": run["peak_gib"]},
+        "grad_check": {"terms": flash.BWD_TERMS,
+                       **{k: gemma["check"][k] for k in (
+                           "rms_ratio", "rms_ratio_max_layer",
+                           "rms_ratio_max_leaf", "loss_rel_err")},
+                       "other_terms": gemma["variants"]}}
     return ({f"train {TRAIN_ARCH}": path(run),
              f"train {TRAIN_SSM_ARCH}": path(mrun)}, figures)
 
@@ -4285,8 +4655,9 @@ EXAMPLES_REF = os.path.join("tests", "data", "torch_reference_examples.json")
 # 300 steps cut to TRAIN_LM_STEPS (a checkpoint every TRAIN_LM_STEPS // 2:
 # halfway, and one at the end) and a second call that resumes there and
 # runs to TRAIN_LM_RESUME, to keep the phase within its 120 s
-TRAIN_LM_BATCH, TRAIN_LM_SEQ = 32, 512
-TRAIN_LM_ARGS = ("--d-model", "768", "--layers", "12", "--vocab", "32000",
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_D_MODEL = 32, 512, 768
+TRAIN_LM_ARGS = ("--d-model", str(TRAIN_LM_D_MODEL), "--layers", "12",
+                 "--vocab", "32000",
                  "--batch", str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ),
                  "--log-every", "20")
 TRAIN_LM_STEPS, TRAIN_LM_RESUME = 60, 80
@@ -4303,7 +4674,7 @@ DENSE_ARCHS = (("yi-6b", 8, ("IPS",)), ("minitron-4b", 8, ("IPS",)))
 EXAMPLE_PARTS = (
     ("ssd_repro", "examples/ssd_repro_torch.py", (), ("ssd_step",)),
     ("quickstart", "examples/quickstart_torch.py", (),
-     ("ssd_step", "flash_fwd", "tiered_decode", "ips_repack")),
+     ("ssd_step", "flash_fwd", "flash_bwd", "tiered_decode", "ips_repack")),
     ("serve_ips", "examples/serve_ips_torch.py", (),
      ("flash_fwd", "tiered_decode", "ips_repack")),
     ("host_cache", "examples/host_cache_torch.py", (),
@@ -4315,10 +4686,11 @@ EXAMPLE_PARTS = (
 
 
 def _all_launchers() -> dict:
+    from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.host_tier import ops as host_tier
     from repro_torch.kernels.ssd_step import ops as ssd_step
     return {"ssd_step": ssd_step.LAUNCHER, "host_tier": host_tier.LAUNCHER,
-            **_launchers()}
+            "flash_bwd": flash.BWD_LAUNCHER, **_launchers()}
 
 
 def run_script_main(rel_path: str, argv, need=()) -> dict:
@@ -4439,10 +4811,10 @@ def examples_phase(cuda, bench) -> dict:
                                     str(TRAIN_LM_STEPS // 2)]
     torch.cuda.reset_peak_memory_stats()
     first = run_script_main("examples/train_lm_torch.py", common + [
-        "--steps", str(TRAIN_LM_STEPS)], ("flash_fwd",))
+        "--steps", str(TRAIN_LM_STEPS)], ("flash_fwd", "flash_bwd"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     second = run_script_main("examples/train_lm_torch.py", common + [
-        "--steps", str(TRAIN_LM_RESUME)], ("flash_fwd",))
+        "--steps", str(TRAIN_LM_RESUME)], ("flash_fwd", "flash_bwd"))
     add(first["launches"])
     add(second["launches"])
     losses = first["out"]["losses"]
@@ -4883,6 +5255,12 @@ def main() -> int:
         if name in train_figures:
             row["training"] = train_figures[name]
         table.append(row)
+    # the training path's backward kernel: phase 12's kernel run and
+    # launcher steps, and phase 14's examples
+    row = dict(train_figures["flash_bwd"])
+    row["examples_launches"] = ex_launches.get("flash_bwd", 0)
+    row["launches"] += row["examples_launches"]
+    table.append(row)
     emit({"kernels": table}, card=False)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -182,12 +182,14 @@ class Launcher:
 
 
 class Span:
-    """Calls and CUDA-event times of a plain-PyTorch stage that sits
-    beside a kernel on its path (the flash backward beside `flash_fwd`).
+    """Calls and CUDA-event times of a stage of a kernel's path (the flash
+    Function's backward, the SSD Function's plain backward).
 
     `calls` counts each `with span(device):` since the last `reset()`;
     with `record` set and a CUDA device, each call is bracketed by CUDA
-    events on the current stream (`events`, `ms()`)."""
+    events on the current stream (`events`, `ms()`). Each call is also a
+    `torch.profiler.record_function` range of the span's name, so a
+    profiler trace can attribute the kernels it launches."""
 
     def __init__(self, name: str):
         self.name = name
@@ -206,7 +208,8 @@ class Span:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record(torch.cuda.current_stream(device))
-        yield
+        with torch.profiler.record_function(self.name):
+            yield
         if timed:
             end.record(torch.cuda.current_stream(device))
             self.events.append((start, end))

@@ -10,15 +10,15 @@ reference's `custom_vjp`: p recomputed chunk by chunk from the saved
 kernel's oracle, as the reference's `repro/kernels/flash_attention/ref.py`:
 causal self-attention with positions 0..S-1, except that a ragged S is
 padded to the chunk (the pads are masked) instead of being cut;
-`iota_inputs` is that padding, which the backward of the kernel's route
-shares.
+`iota_inputs` is that padding; `flash_bwd_ref`, the backward kernel's
+oracle, runs `flash_bwd_chunks` over it.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["NEG_INF", "expand_kv", "attention_mask", "flash_fwd_chunks",
-           "flash_bwd_chunks", "iota_inputs", "flash_ref"]
+           "flash_bwd_chunks", "iota_inputs", "flash_ref", "flash_bwd_ref"]
 
 NEG_INF = -1e30
 
@@ -157,3 +157,16 @@ def flash_ref(q, k, v, *, chunk: int = 256, scale=None):
     qf = q.to(torch.float32) * scale
     k, v, pos, kv_pos, kv_valid, chunk = iota_inputs(k, v, chunk)
     return flash_fwd_chunks(q, k, v, qf, pos, kv_pos, kv_valid, True, chunk)
+
+
+def flash_bwd_ref(q, k, v, out, lse, dout, *, scale: float, chunk: int = 256):
+    """The backward of `flash_ref` from its saved (out, lse) and the
+    cotangent dout (B, H, S, hd_v) float32: `flash_bwd_chunks` over
+    `iota_inputs`' padding, the pads cut from dk and dv. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes."""
+    s = k.shape[1]
+    kp, vp, pos, kv_pos, kv_valid, chunk = iota_inputs(k, v, chunk)
+    qf = q.to(torch.float32) * scale
+    dq, dk, dv = flash_bwd_chunks(q, kp, vp, qf, pos, kv_pos, kv_valid, True,
+                                  chunk, out, lse, dout, scale)
+    return dq, dk[:, :s], dv[:, :s]

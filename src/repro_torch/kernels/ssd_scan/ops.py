@@ -22,12 +22,13 @@ import os
 import torch
 
 from repro_torch.kernels._build import (BASE_FLAGS, LINK_FLAGS, Launcher,
-                                        Library, check, kernel_route,
+                                        Library, Span, check, kernel_route,
                                         refuse_grad)
 from repro_torch.kernels.ssd_scan import ref
 
-__all__ = ["ssd_intra", "SsdIntraFn", "ssd_chunked_kernel", "LIB", "LAUNCHER", "reset",
-           "SOURCE", "HEAD_DIMS", "STATE_DIMS", "MAX_CHUNK"]
+__all__ = ["ssd_intra", "SsdIntraFn", "ssd_chunked_kernel", "LIB", "LAUNCHER",
+           "BACKWARD", "reset", "SOURCE", "HEAD_DIMS", "STATE_DIMS",
+           "MAX_CHUNK"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "ssd_intra.cu")
@@ -44,11 +45,14 @@ def _bind(lib) -> None:
 
 LIB = Library("ssd_intra", SOURCE, BASE_FLAGS + LINK_FLAGS, _bind)
 LAUNCHER = Launcher(LIB, "ssd_intra")
+BACKWARD = Span("ssd_intra_bwd")
 
 
 def reset() -> None:
-    """Zero the launch count and drop the recorded launch events."""
+    """Zero the launch count and the backward's calls, and drop the
+    recorded events."""
     LAUNCHER.reset()
+    BACKWARD.reset()
 
 
 def ssd_intra(x, dt, A, B, C):
@@ -97,7 +101,8 @@ class SsdIntraFn(torch.autograd.Function):
     -> (y_intra, states, cum). Forward: `ssd_intra`, looked up on this
     module at every call (the kernel on a card, the plain version on the
     CPU); it saves only the inputs. Backward: `ref.intra_chunk_ref`
-    re-run on them under autograd, then `torch.autograd.grad`."""
+    re-run on them under autograd, then `torch.autograd.grad`, timed by
+    `BACKWARD` when its `record` is set."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C):
@@ -111,12 +116,13 @@ class SsdIntraFn(torch.autograd.Function):
         wrt = [t for t in inputs if t.requires_grad]
         if not wrt:
             return (None,) * len(inputs)
-        with torch.enable_grad():
-            outs = ref.intra_chunk_ref(*inputs)
-        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
-        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
-                                       [g for _, g in pairs],
-                                       allow_unused=True))
+        with BACKWARD(inputs[0].device):
+            with torch.enable_grad():
+                outs = ref.intra_chunk_ref(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                           [g for _, g in pairs],
+                                           allow_unused=True))
         return tuple(next(got) if t.requires_grad else None
                      for t in inputs)
 

@@ -2,7 +2,8 @@
 `ssd_step`, the serving path's `ips_repack`, `tiered_decode` (and its
 latent form, `latent_decode`; whisper's static cross tier among its
 shapes) and `flash_fwd` (MLA's padded widths, whisper's and llava's
-prefills among its shapes), and the Mamba2 path's `ssd_intra` (plus the
+prefills among its shapes), the training path's `flash_bwd`, and the
+Mamba2 path's `ssd_intra` (plus the
 reduced serving paths of gemma-2b, mamba2-370m, zamba2,
 deepseek-v2-lite, arctic, whisper-tiny and llava-next-34b through
 them).
@@ -651,6 +652,8 @@ def test_host_grid_on_the_card_equals_the_cpu(cuda):
 
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_bwd_ref as flash_ref_bwd)
 from repro_torch.kernels.ips_repack import ops as repack_ops  # noqa: E402
 from repro_torch.kernels.ips_repack.ref import (  # noqa: E402
     page_layout, quantize_into_ref, quantize_rows_ref, repack_ref)
@@ -1085,6 +1088,110 @@ class TestFlashKernel:
         assert flash_ops.LAUNCHER.launches == before
         flash_ops.flash_fwd(q.cuda(), k.cuda(), k.cuda())
         assert flash_ops.LAUNCHER.launches == before + 1
+
+
+def _flash_bwd_inputs(b, s, h, hkv, hd, seed, exact_dout=False):
+    """bf16 q, k, v, the plain forward's out and lse, a float32 dout
+    (bf16-exact, as the bf16 model's is, with `exact_dout`) and the
+    scale."""
+    gen = _gen(seed)
+    q = _randn(gen, b, s, h, hd, dtype=torch.bfloat16)
+    k = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+    v = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
+    out, lse = flash_ref(q, k, v, chunk=64)
+    dout = _randn(gen, b, h, s, hd)
+    if exact_dout:
+        dout = dout.to(torch.bfloat16).float()
+    return q, k, v, out, lse, dout, 1.0 / hd ** 0.5
+
+
+class TestFlashBwdKernel:
+    @pytest.mark.parametrize("s", (1, 63, 64, 65, 2048))
+    @pytest.mark.parametrize("g", (1, 2, 8))
+    @pytest.mark.parametrize("hd", (16, 32, 64, 128, 256))
+    def test_flash_bwd_equals_plain_version(self, cuda, monkeypatch, hd,
+                                            g, s):
+        """dq, dk and dv against `flash_bwd_ref` at every width, GQA groups
+        1, 2 and 8, S below, at and past one 64-row tile and gemma's 2048;
+        dout float32 (its low terms run) at odd S, bf16-exact at even.
+        Both round the float32 gradients to bf16 once: within 1e-2 of the
+        largest, as the serving path's check holds the bf16 kernels (at S
+        1, dq and dk are 0 but for float32 noise: 1e-2 of 1e-2 there)."""
+        b, hkv = 2, 1 if s == 2048 else 2
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(
+            b, s, hkv * g, hkv, hd, hd * s + g, exact_dout=s % 2 == 0)
+        want = flash_ref_bwd(q, k, v, out, lse, dout, scale=scale, chunk=64)
+        _refuse_plain(monkeypatch, flash_ops, "flash_bwd_ref")
+        before = flash_ops.BWD_LAUNCHER.launches
+        got = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        torch.cuda.synchronize()
+        assert flash_ops.BWD_LAUNCHER.launches == before + 1
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(
+                a.float(), w.float(), rtol=1e-2,
+                atol=1e-2 * max(float(w.float().abs().max()), 1e-2),
+                msg=name)
+
+    def test_flash_bwd_takes_a_transposed_dout(self, cuda):
+        """dout as autograd hands it over (a transposed view of a (B, S, H,
+        hd) gradient) gives the contiguous dout's bits."""
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(2, 333, 8, 2, 64,
+                                                           3)
+        view = dout.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not view.is_contiguous()
+        got = flash_ops.flash_bwd(q, k, v, out, lse, view, scale=scale)
+        want = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+
+    def test_flash_bwd_launches_are_equal_to_the_bit(self, cuda):
+        """No atomics: the same inputs give the same bits (the checkpoint
+        resume's loss is held to the bit through this kernel)."""
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(2, 2048, 8, 1, 256,
+                                                           5)
+        first = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        second = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        for a, w in zip(first, second):
+            assert torch.equal(a, w)
+
+    def test_flash_bwd_refuses_what_it_does_not_take(self, cuda):
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(1, 16, 4, 2, 64, 7)
+        before = flash_ops.BWD_LAUNCHER.launches
+        with pytest.raises(TypeError, match="dtype"):
+            flash_ops.flash_bwd(q.float(), k, v, out, lse, dout, scale=scale)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_ops.flash_bwd(q[..., :48].contiguous(),
+                                k[..., :48].contiguous(),
+                                v[..., :48].contiguous(), out[..., :48], lse,
+                                dout[..., :48], scale=scale)
+        with pytest.raises(ValueError, match="KV heads"):
+            flash_ops.flash_bwd(q[:, :, :3].contiguous(), k, v, out[:, :3],
+                                lse[:, :3], dout[:, :3], scale=scale)
+        with pytest.raises(ValueError, match="dout"):
+            flash_ops.flash_bwd(q, k, v, out, lse, dout[:, :, :8],
+                                scale=scale)
+        with pytest.raises(ValueError, match="terms"):
+            flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale,
+                                terms=4)
+        assert flash_ops.BWD_LAUNCHER.launches == before
+
+    def test_flash_bwd_cpu_tensors_take_the_plain_version(self, cuda):
+        q, k, v, out, lse, dout, scale = (
+            t.cpu() if isinstance(t, torch.Tensor) else t
+            for t in _flash_bwd_inputs(1, 24, 2, 1, 32, 9))
+        before = flash_ops.BWD_LAUNCHER.launches
+        dq, _, _ = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        assert dq.device.type == "cpu"
+        assert flash_ops.BWD_LAUNCHER.launches == before
+        flash_ops.flash_bwd(*(t.cuda() for t in (q, k, v, out, lse, dout)),
+                            scale=scale)
+        assert flash_ops.BWD_LAUNCHER.launches == before + 1
+
+    def test_flash_bwd_issues_hmma(self, cuda):
+        flash_ops.BWD_LIB.build()
+        assert flash_ops.BWD_LIB.sass_count("HMMA") > 0
 
 
 def _to(tree, dev):
@@ -1536,6 +1643,11 @@ def _raw_grad_calls():
             f(1, 64, 2, 64, grad=True, dtype=torch.bfloat16),
             f(1, 64, 1, 64, dtype=torch.bfloat16),
             f(1, 64, 1, 64, dtype=torch.bfloat16)),
+        "flash_bwd": lambda: flash_ops.flash_bwd(
+            f(1, 64, 2, 64, grad=True, dtype=torch.bfloat16),
+            f(1, 64, 1, 64, dtype=torch.bfloat16),
+            f(1, 64, 1, 64, dtype=torch.bfloat16), f(1, 2, 64, 64),
+            f(1, 2, 64), f(1, 2, 64, 64), scale=0.125),
         "ssd_intra": lambda: ssd_ops.ssd_intra(
             f(1, 1, 16, 2, 16, grad=True), f(1, 1, 16, 2), f(2),
             f(1, 1, 16, 16), f(1, 1, 16, 16)),
@@ -1556,6 +1668,7 @@ class TestTrainingOnTheCard:
         """A raw wrapper on card tensors that require a gradient raises
         instead of cutting the gradient; nothing is launched."""
         launchers = {"flash_fwd": flash_ops.LAUNCHER,
+                     "flash_bwd": flash_ops.BWD_LAUNCHER,
                      "ssd_intra": ssd_ops.LAUNCHER,
                      "tiered_decode": tiered_ops.LAUNCHER,
                      "latent_decode": tiered_ops.LATENT_LAUNCHER,
@@ -1568,9 +1681,10 @@ class TestTrainingOnTheCard:
     def test_flash_function_grads_equal_plain_version(self, cuda,
                                                       monkeypatch):
         """gemma-2b's served prefill shape (B 4, S 2048, H 8, Hkv 1, hd
-        256, bf16): (dq, dk, dv) with the kernel's forward against the
-        same Function with the plain forward, within 1e-2 of the largest
-        gradient (bf16, as the serving path's check holds the kernel)."""
+        256, bf16): (dq, dk, dv) with the kernels forward and backward
+        against the same Function with the plain versions, within 1e-2 of
+        the largest gradient (bf16, as the serving path's check holds the
+        kernel)."""
         b, s, h, hkv, hd = 4, 2048, 8, 1, 256
         gen = _gen(11)
         inputs = [_randn(gen, b, s, n, hd, dtype=torch.bfloat16)
@@ -1582,10 +1696,13 @@ class TestTrainingOnTheCard:
             out, _ = flash_ops.flash_attention(*ts, chunk=512)
             return torch.autograd.grad((out * w).sum(), ts)
         before = flash_ops.LAUNCHER.launches
+        before_bwd = flash_ops.BWD_LAUNCHER.launches
         got = grads()
         torch.cuda.synchronize()
         assert flash_ops.LAUNCHER.launches == before + 1
+        assert flash_ops.BWD_LAUNCHER.launches == before_bwd + 1
         monkeypatch.setattr(flash_ops, "flash_fwd", flash_ref)
+        monkeypatch.setattr(flash_ops, "flash_bwd", flash_ref_bwd)
         want = grads()
         for name, g, r in zip("qkv", got, want):
             assert torch.isfinite(g).all(), name

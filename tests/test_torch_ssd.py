@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     the dry run and its cost analysis, the workloads shim) among them —
     and chip_smoke.py, scripts/dist_phase.py, the examples'
     counterparts (`examples/*_torch.py`), scripts/smoke_models_torch.py,
-    scripts/examples_phase.py, scripts/bench_latent_torch.py and the
+    scripts/examples_phase.py, scripts/bench_latent_torch.py,
+    scripts/bench_flash_bwd_torch.py and the
     recorder of the reference examples' tables (which runs them in
     subprocesses) pull in no `jax` and no
     `repro.` module."""
@@ -94,8 +95,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "new = sorted(glob.glob('examples/*_torch.py')) + [\n"
         "    'scripts/smoke_models_torch.py', 'scripts/examples_phase.py',\n"
         "    'scripts/bench_latent_torch.py',\n"
+        "    'scripts/bench_flash_bwd_torch.py',\n"
         "    'scripts/record_torch_reference_examples.py']\n"
-        "assert len(new) == 11, new\n"
+        "assert len(new) == 12, new\n"
         "for i, path in enumerate(new):\n"
         "    spec = importlib.util.spec_from_file_location(f'new_{i}', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

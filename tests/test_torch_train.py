@@ -176,9 +176,9 @@ def test_flash_padded_widths_pad_before_the_function(monkeypatch):
     """On the kernel's route, widths it does not take (MLA's: q and k 24
     here, v 16) are padded to its next width before `FlashAttnFn` and
     cut after it: the Function sees 32, autograd the pad, and the
-    gradients are the reference's at the unpadded widths. The kernel's
-    route is taken as on a card, the plain version standing in for the
-    kernel."""
+    gradients are the reference's at the unpadded widths. The kernels'
+    route is taken as on a card, the plain versions standing in for the
+    forward and backward kernels."""
     case = FLASH_CASES[-1]
     q, k, v, w = _flash_inputs(case, seed=2)
     seen = []
@@ -187,10 +187,16 @@ def test_flash_padded_widths_pad_before_the_function(monkeypatch):
         seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
         return flash_ref.flash_ref(q, k, v, chunk=chunk, scale=scale)
 
+    def kernel_bwd(q, k, v, out, lse, dout, *, scale, chunk):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return flash_ref.flash_bwd_ref(q, k, v, out, lse, dout, scale=scale,
+                                       chunk=chunk)
+
     monkeypatch.setattr(flash_ops, "kernel_route", lambda *a: True)
     monkeypatch.setattr(flash_ops, "flash_fwd", kernel)
+    monkeypatch.setattr(flash_ops, "flash_bwd", kernel_bwd)
     got = _t_flash_grads(case, q, k, v, w)
-    assert seen == [(32, 32, 32, pytest.approx(1 / np.sqrt(24)))]
+    assert seen == [(32, 32, 32, pytest.approx(1 / np.sqrt(24)))] * 2
     want = _j_flash_grads(case, q, k, v, w)
     for name, g, r in zip("qkv", got, want):
         assert g.shape == r.shape
