@@ -245,11 +245,13 @@ then:
    training shapes: gemma-2b's (B 2, S 2048, H 8, Hkv 1, hd 256; dout
    bf16-exact and float32), train_lm's (B 32, S 512, H 12, Hkv 6, hd
    64) and MLA's padded widths (H 16, q and k 192, v 128, at 256), dq,
-   dk and dv within 1e-2 of each one's largest; the count of HMMA in the
-   built library; each shape's time a launch by events and by CUDA graph
-   beside the bound and the plain version's, at gemma's with 1, 2 and 3
-   bf16 terms and beside the backward of `scaled_dot_product_attention`
-   (each backend alone, keys and values expanded). (a) gemma-2b at full
+   dk and dv within 1e-2 of each one's largest; the counts of HGMMA (the
+   wgmma form, hd 64 to 256) and HMMA (the mma.sync form, hd 16 and 32)
+   in the built library; each shape's time a launch by events and by
+   CUDA graph beside the bound, the plain version's and the backward of
+   `scaled_dot_product_attention` (each backend alone, keys and values
+   expanded; MLA's at its unpadded widths), at gemma's with 1, 2 and 3
+   bf16 terms and `flash_fwd` beside SDPA's forward. (a) gemma-2b at full
    size (18 layers, 2.506 B parameters), AdamW, remat, one batch of 2 x
    2048 tokens from the port's data pipeline: the loss and every
    gradient from one state three times, with `flash_fwd` and
@@ -3371,22 +3373,29 @@ def flash_bwd_vs_plain(cuda) -> dict:
     q and k 192, v 128, zero-padded to 256, scale 1/sqrt(192)); out and
     lse from the forward kernel, dout bf16-exact as the bf16 model's is
     and, at gemma's shape, float32 (its low terms run); dq, dk and dv
-    within BWD_TOL of each one's largest (they are bf16). The count of
-    HMMA instructions in the built library, which must not be 0. At each
-    shape the time a launch by CUDA events and by a CUDA graph, the plain
-    version's, the bound; at gemma's also with 1, 2 and 3 bf16 terms, and
-    the backward of PyTorch's `scaled_dot_product_attention(is_causal)`
-    through autograd (bf16, keys and values expanded to the query heads,
-    each backend alone: the fastest that runs, named), a yardstick the
-    port never calls."""
+    within BWD_TOL of each one's largest (they are bf16). The counts of
+    HGMMA (wgmma: hd 64, 128, 256) and HMMA (mma.sync: hd 16, 32)
+    instructions in the built library, neither of which may be 0. At
+    each shape the time a launch by CUDA events and by a CUDA graph, the
+    plain version's, the bound, and the backward of PyTorch's
+    `scaled_dot_product_attention(is_causal)` through autograd (bf16,
+    keys and values expanded to the query heads, each backend alone: the
+    fastest that runs, named; at MLA's shape on the unpadded q, k 192
+    and v 128), a yardstick the port never calls; at gemma's also with
+    1, 2 and 3 bf16 terms, and `flash_fwd` at that shape beside SDPA's
+    forward."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.flash_attention.ref import flash_bwd_ref
 
+    hgmma = flash.BWD_LIB.sass_count("HGMMA")
+    if hgmma == 0:
+        fail("flash_bwd: the built library issues no HGMMA (wgmma)")
     hmma = flash.BWD_LIB.sass_count("HMMA")
     if hmma == 0:
-        fail("flash_bwd: the built library issues no HMMA (mma.sync)")
+        fail("flash_bwd: the built library issues no HMMA (mma.sync, hd "
+             "16 and 32)")
     gen = torch.Generator(device=cuda)
     gen.manual_seed(TRAIN_SEED + 26)
 
@@ -3445,6 +3454,10 @@ def flash_bwd_vs_plain(cuda) -> dict:
                            + (f"/{hd_v} padded to {width}"
                               if width != hd or width != hd_v else "")
                            + ", bf16"}
+        q, k, v, dout = (t[..., :w].contiguous() for t, w in
+                         zip((args[0], args[1], args[2], args[5]),
+                             (hd, hd, hd_v, hd_v)))
+        timed[label].update(sdpa_backward_ms(q, k, v, dout, h // hkv))
         if label == "gemma-2b":
             timed[label]["terms_ms"] = {
                 t: kernel_ms(flash.BWD_LAUNCHER, lambda t=t: call(terms=t))
@@ -3452,8 +3465,7 @@ def flash_bwd_vs_plain(cuda) -> dict:
             timed[label]["terms_graph_ms"] = {
                 t: graph_ms(lambda t=t: call(terms=t))
                 for t in MEASURED_TERMS}
-            timed[label].update(sdpa_backward_ms(*args[:3], args[5],
-                                                 h // hkv))
+            timed[label]["flash_fwd"] = flash_fwd_training_ms(q, k, v)
     row = {"name": "flash_bwd", "route": "cuda",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
                      "flash_bwd.cu",
@@ -3463,7 +3475,8 @@ def flash_bwd_vs_plain(cuda) -> dict:
            # of each gradient's largest magnitude
            "max_abs_err": err, "terms": flash.BWD_TERMS,
            **timed["gemma-2b"],
-           "sass_hmma": hmma, "train_lm_shape": timed["train_lm"],
+           "sass_hgmma": hgmma, "sass_hmma": hmma,
+           "train_lm_shape": timed["train_lm"],
            "mla_shape": timed["mla"]}
     emit({"phase": "kernel_vs_plain", "kernel": "flash_bwd",
           "tolerance": BWD_TOL, **row})
@@ -3500,6 +3513,24 @@ def sdpa_backward_ms(q, k, v, dout, g) -> dict:
             "library": "torch.autograd.grad of torch.nn.functional."
                        "scaled_dot_product_attention(is_causal=True), "
                        f"keys and values expanded, backend {best}"}
+
+
+def flash_fwd_training_ms(q, k, v) -> dict:
+    """`flash_fwd` at a training shape (q, k, v (B, S, heads, hd) bf16)
+    by CUDA events and by a CUDA graph, beside the forward of
+    `scaled_dot_product_attention(is_causal=True, enable_gqa=True)` on
+    the same inputs, a yardstick the port never calls."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def call():
+        return flash.flash_fwd(q, k, v)
+    return {"ms": kernel_ms(flash.LAUNCHER, call), "graph_ms": graph_ms(call),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), TIMED),
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True, enable_gqa=True)"}
 
 
 def train_flops(cfg, b, s) -> dict:

@@ -14,9 +14,14 @@ k 192, v 128, zero-padded to 256). Per shape and bf16 term count (1, 2,
 3): the device time of back-to-back launches (a CUDA graph of 20:
 `device_ms`), the mean of CUDA events around each launch (`ms`), the
 operations bound, and the largest difference of dq, dk and dv from the
-plain version over each one's max |value|. The timers, the bound and the
-card's line are `chip_smoke.py`'s. Prints the card's name and power
-limit, then one JSON line per measurement.
+plain version over each one's max |value|. Per shape also the device ms
+a launch of each of its kernels at 3 terms (the prologue, the two
+passes, the group sum) from `torch.profiler`, and the yardstick: the
+backward of PyTorch's `scaled_dot_product_attention(is_causal)` (each
+backend alone, keys and values expanded; MLA's at its unpadded widths),
+and at gemma's shape `flash_fwd` beside SDPA's forward. The timers, the
+bound, the yardsticks and the card's line are `chip_smoke.py`'s. Prints the card's
+name and power limit, then one JSON line per measurement.
 """
 from __future__ import annotations
 
@@ -65,6 +70,11 @@ def main() -> int:
         v = randn(b, s, hkv, hd_v).to(torch.bfloat16)
         dout = randn(b, h, s, hd_v).to(torch.bfloat16).float()
         width = next(w for w in ops.HEAD_DIMS if w >= max(hd, hd_v))
+        lib = {"shape": name, "sdpa_backward": cs.sdpa_backward_ms(
+            q, k, v, dout, h // hkv)}
+        if name == "gemma-2b":
+            lib["flash_fwd"] = cs.flash_fwd_training_ms(q, k, v)
+        emit(lib)
         q, k, v, dout = (F.pad(t, (0, width - t.shape[-1]))
                          for t in (q, k, v, dout))
         scale = 1.0 / hd ** 0.5
@@ -84,7 +94,38 @@ def main() -> int:
                   "ms": cs.kernel_ms(ops.BWD_LAUNCHER, call),
                   "bound_ms": bound, "bound_by": by,
                   "max_err_over_max_abs": err})
+        emit({"shape": name, "split_ms": kernel_split(
+            lambda: ops.flash_bwd(*inputs, scale=scale))})
     return 0
+
+
+def kernel_split(fn, n: int = 10) -> dict:
+    """Device ms a launch of each kernel that `fn` launches, by name: n
+    calls under `torch.profiler` (after one call outside it), each name's
+    time over its own recorded launches (the profiler may drop some)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(ROOT, "build", "bench_flash_bwd_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    ms, count = {}, {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset"):
+            name = str(e.get("name", "")).replace(
+                "(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0][:60]
+            ms[name] = ms.get(name, 0.0) + float(e.get("dur", 0)) / 1e3
+            count[name] = count.get(name, 0) + 1
+    return {name: total / count[name] for name, total in ms.items()}
 
 
 if __name__ == "__main__":

@@ -1189,8 +1189,62 @@ class TestFlashBwdKernel:
                             scale=scale)
         assert flash_ops.BWD_LAUNCHER.launches == before + 1
 
-    def test_flash_bwd_issues_hmma(self, cuda):
+    @pytest.mark.parametrize("exact", (True, False))
+    @pytest.mark.parametrize("terms", (1, 2, 3))
+    @pytest.mark.parametrize("s", (65, 2048))
+    @pytest.mark.parametrize("g", (1, 8))
+    @pytest.mark.parametrize("hd", (64, 256))
+    def test_flash_bwd_terms_equal_plain_version(self, cuda, monkeypatch, hd,
+                                                 g, s, terms, exact):
+        """The wgmma form at the training paths' widths (train_lm's hd 64;
+        gemma's, and MLA's padded, hd 256) with 1, 2 and 3 bf16 terms,
+        dout bf16-exact (its first term alone is read) and float32 (the
+        flag set: its low terms run through the ring): within 1e-2 of
+        each gradient's largest, as above."""
+        b, hkv = 2, 1 if s == 2048 else 2
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(
+            b, s, hkv * g, hkv, hd, hd + s + g + terms, exact_dout=exact)
+        want = flash_ref_bwd(q, k, v, out, lse, dout, scale=scale, chunk=64)
+        _refuse_plain(monkeypatch, flash_ops, "flash_bwd_ref")
+        got = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale,
+                                  terms=terms)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert torch.isfinite(a).all(), name
+            torch.testing.assert_close(
+                a.float(), w.float(), rtol=1e-2,
+                atol=1e-2 * max(float(w.float().abs().max()), 1e-2),
+                msg=name)
+
+    @pytest.mark.parametrize("exact", (True, False))
+    @pytest.mark.parametrize("b,s,h,hkv,hd", [
+        (32, 512, 12, 6, 64),       # train_lm's training shape
+        (8, 2048, 16, 4, 128),
+        (4, 2048, 8, 4, 256)])
+    def test_flash_bwd_sums_the_group_in_the_block(self, cuda, monkeypatch,
+                                                   b, s, h, hkv, hd, exact):
+        """Grids of two or more dK/dV blocks an SM: each block sums its KV
+        head's group itself and writes dk and dv (no partials); within
+        1e-2 of each gradient's largest, two launches equal to the bit."""
+        q, k, v, out, lse, dout, scale = _flash_bwd_inputs(
+            b, s, h, hkv, hd, b + s + hd, exact_dout=exact)
+        want = flash_ref_bwd(q, k, v, out, lse, dout, scale=scale, chunk=256)
+        _refuse_plain(monkeypatch, flash_ops, "flash_bwd_ref")
+        got = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        again = flash_ops.flash_bwd(q, k, v, out, lse, dout, scale=scale)
+        torch.cuda.synchronize()
+        for name, a, w, a2 in zip(("dq", "dk", "dv"), got, want, again):
+            assert torch.equal(a, a2), name
+            torch.testing.assert_close(
+                a.float(), w.float(), rtol=1e-2,
+                atol=1e-2 * max(float(w.float().abs().max()), 1e-2),
+                msg=name)
+
+    def test_flash_bwd_issues_hgmma_and_hmma(self, cuda):
+        """hd 64, 128 and 256 run on wgmma (HGMMA); hd 16 and 32 keep the
+        mma.sync form (HMMA)."""
         flash_ops.BWD_LIB.build()
+        assert flash_ops.BWD_LIB.sass_count("HGMMA") > 0
         assert flash_ops.BWD_LIB.sass_count("HMMA") > 0
 
 
