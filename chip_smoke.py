@@ -104,7 +104,8 @@ then:
    back up after the plain version's seconds on the CPU;
 4. build — the serving and training paths' kernels (`ips_repack`,
    `tiered_decode` and its latent form, `flash_fwd`, `flash_bwd`,
-   `ssd_intra`): build seconds, ptxas registers and spills;
+   `ssd_intra`, `ssd_intra_bwd`): build seconds, ptxas registers and
+   spills;
 5. kernel vs plain version at the serving shapes, both on the card, same
    inputs: the repack (`ips_repack`) bit for bit — every bf16 bit pattern
    as x against 512 absmax values (subnormal and all-zero groups among
@@ -251,7 +252,14 @@ then:
    CUDA graph beside the bound, the plain version's and the backward of
    `scaled_dot_product_attention` (each backend alone, keys and values
    expanded; MLA's at its unpadded widths), at gemma's with 1, 2 and 3
-   bf16 terms and `flash_fwd` beside SDPA's forward. (a) gemma-2b at full
+   bf16 terms and `flash_fwd` beside SDPA's forward. Then
+   `ssd_intra_bwd` (the SSD Function's backward, `csrc/ssd_intra_bwd.cu`)
+   against its plain version at mamba2-370m's and zamba2-1.2b's training
+   shapes and at A = -1, each gradient within SSD_BWD_TOL of its largest,
+   two launches equal to the bit, the HMMA count, each pass's device ms
+   and each instantiation's ptxas registers and spills, its time a launch
+   by events and by CUDA graph beside the bound and the plain version's.
+   (a) gemma-2b at full
    size (18 layers, 2.506 B parameters), AdamW, remat, one batch of 2 x
    2048 tokens from the port's data pipeline: the loss and every
    gradient from one state three times, with `flash_fwd` and
@@ -275,9 +283,15 @@ then:
    their share of the bf16 peak, peak GiB, `flash_fwd`'s and
    `flash_bwd`'s launches and event ms a step, the flash Function's
    backward's event ms a step. (c) mamba2-370m at full size (48 layers)
-   as (a) with `ssd_intra` under its Function and a floor of SSD chunks
-   of 128, its strict-mask fault caught, its profiled step; then 3
-   launcher steps and `ssd_intra`'s launches a step. (d) gemma-2b
+   as (a) with `ssd_intra` and `ssd_intra_bwd` under their Function (96
+   forward launches, 48 backward) and a floor of SSD chunks of 128; a
+   backward path check beside it (one more kernel run, each
+   `ssd_intra_bwd` call held to its plain version at SSD_BWD_TOL,
+   `shadow_intra_bwd`); its strict-mask fault and two backward faults
+   (the decay's gradient dropped, the state term dropped from dB) each
+   caught by the gradient check or the path check, both recorded; its
+   profiled step;
+   then 3 launcher steps and both kernels' launches a step. (d) gemma-2b
    reduced on the card (through both flash kernels): three steps against
    two, `save_async`, `restore` into a fresh state and the third step,
    whose loss must be equal to the bit. `scripts/train_phase.py` runs
@@ -350,6 +364,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -931,7 +946,8 @@ def serving_libraries():
     from repro_torch.kernels.tiered_attention import ops as tiered
     return [("ips_repack", repack.LIB), ("tiered_decode", tiered.LIB),
             ("latent_decode", tiered.LATENT_LIB), ("flash_fwd", flash.LIB),
-            ("flash_bwd", flash.BWD_LIB), ("ssd_intra", ssd.LIB)]
+            ("flash_bwd", flash.BWD_LIB), ("ssd_intra", ssd.LIB),
+            ("ssd_intra_bwd", ssd.BWD_LIB)]
 
 
 def _launchers():
@@ -1092,6 +1108,33 @@ def ssd_intra_bound(bt, nc, q, nh, hd, n):
     element-wise work on the float32 CUDA-core rate, against the bytes.
     Returns (ms, "bytes" or "operations")."""
     moved, products, elementwise = ssd_intra_work(bt, nc, q, nh, hd, n)
+    t_ops = (3 * products / TF32_OPS_PER_S
+             + elementwise / F32_OPS_PER_S) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def ssd_intra_bwd_work(bt, nc, q, nh, hd, n):
+    """(bytes, product FLOPs, element-wise operations) of one
+    `ssd_intra_bwd` call: x, dt, A, B, C, dy, dstates, dcum read once, dx,
+    ddt, dA, dB, dC written once, float32; the causal half of dS = dy x^T
+    and S^T dy per head, of C B^T, dcb B and dcb^T C per chunk, and the
+    full B dst^T and x dst per head; some 10 operations a causal score
+    (the decay, S, P, their sums and dcb's) and 2 hd + 8 a head's row."""
+    tri = q * (q + 1) // 2
+    moved = 4 * (3 * bt * nc * q * nh * hd + bt * nc * nh * hd * n
+                 + 4 * bt * nc * q * n + 3 * bt * nc * q * nh + 2 * nh)
+    products = bt * nc * (nh * (2 * 2 * tri * hd + 2 * 2 * q * hd * n)
+                          + 3 * 2 * tri * n)
+    elementwise = bt * nc * nh * (10 * tri + q * (2 * hd + 8))
+    return moved, products, elementwise
+
+
+def ssd_intra_bwd_bound(bt, nc, q, nh, hd, n):
+    """The backward's least time in 3xTF32, as `ssd_intra_bound` counts
+    the forward's. Returns (ms, "bytes" or "operations")."""
+    moved, products, elementwise = ssd_intra_bwd_work(bt, nc, q, nh, hd, n)
     t_ops = (3 * products / TF32_OPS_PER_S
              + elementwise / F32_OPS_PER_S) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -1949,7 +1992,8 @@ def plain_versions(keep=None):
                           tiered.ref.dense_tier_partial_ref),
         "latent_decode": (tiered, "latent_tier_partial",
                           tiered.ref.latent_tier_partial_ref),
-        "ssd_intra": (ssd, "ssd_intra", ssd.ref.intra_chunk_ref)}
+        "ssd_intra": (ssd, "ssd_intra", ssd.ref.intra_chunk_ref),
+        "ssd_intra_bwd": (ssd, "ssd_intra_bwd", ssd.ref.intra_chunk_bwd_ref)}
     if keep is not None and keep not in swaps:
         raise ValueError(f"plain_versions: no kernel {keep!r}")
     return _replaced(*[swap for name, swap in swaps.items() if name != keep])
@@ -2155,6 +2199,36 @@ def shadow_intra(log):
         return got
 
     return _replaced((ssd, "ssd_intra", call))
+
+
+def shadow_intra_bwd(log):
+    """`ssd_intra_bwd` as the training path calls it, each call held to
+    its plain version on the same inputs: appends, per call, each
+    gradient's max |got - plain| / max |plain| over its SSD_BWD_TOL.
+    Wraps whatever the module holds when entered (the kernel, or a
+    planted fault)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    kernel = ssd.ssd_intra_bwd
+
+    def call(*args):
+        got = kernel(*args)
+        want = ssd.ref.intra_chunk_bwd_ref(*args)
+        log.append({name: float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30) / tol
+                    for (name, tol), g, w in zip(SSD_BWD_TOL.items(), got,
+                                                 want)})
+        return got
+
+    return _replaced((ssd, "ssd_intra_bwd", call))
+
+
+def _path_summary(log) -> dict:
+    """The backward path check of one run: each gradient's worst error
+    over its tolerance across the calls; passes at 1 or less."""
+    worst = {name: max(c[name] for c in log) for name in log[0]} if log else {}
+    top = max(worst.values(), default=math.inf)
+    return {"calls": len(log), "worst_over_tol": worst,
+            "max_over_tol": top, "passes": bool(log) and top <= 1.0}
 
 
 def _rms(x) -> float:
@@ -3483,6 +3557,139 @@ def flash_bwd_vs_plain(cuda) -> dict:
     return row
 
 
+# of each gradient's largest |value|: float32 sums in other orders; dA
+# sums every row of every chunk
+SSD_BWD_TOL = {"dx": 2e-5, "ddt": 2e-5, "dA": 1e-4, "dB": 2e-5, "dC": 2e-5}
+
+
+def _short_kernel_name(mangled: str) -> str:
+    """`ssd_intra_bwd_heads<64,128>` of a mangled entry name."""
+    m = re.search(r"(ssd_intra_bwd_(?:cum|dcb|heads|chunk|finish))"
+                  r"((?:I(?:Li\d+E)+E)?)", mangled)
+    if not m:
+        return mangled[:60]
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ssd_intra_bwd_vs_plain(cuda) -> dict:
+    """Phase 12's second kernel check: `ssd_intra_bwd` against its plain
+    version, `ref.intra_chunk_bwd_ref`, on the card on the same inputs at
+    mamba2-370m's and zamba2-1.2b's training shapes (TRAIN_BATCH x
+    TRAIN_SEQ tokens in chunks of 256) and at mamba2's with A = -1 (the
+    decay exp(+200) unless masked first), each gradient within
+    SSD_BWD_TOL of its largest |value|, every value finite; two launches
+    equal to the bit; the HMMA count of the built library, which must not
+    be 0. At both training shapes the time a launch by CUDA events and by
+    a CUDA graph beside the plain version's and the bound; at mamba2's
+    each of the five passes' device ms from `torch.profiler`, and each
+    instantiation's ptxas registers and spills (when this process built
+    the library). No PyTorch call computes this gradient: no library
+    time."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import intra_chunk_bwd_ref
+
+    hmma = ssd.BWD_LIB.sass_count("HMMA")
+    if hmma == 0:
+        fail("ssd_intra_bwd: the built library issues no HMMA (mma.sync)")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(TRAIN_SEED + 28)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    def inputs(bt, nc, q, nh, hd, n, a):
+        A = (torch.full((nh,), a, device=cuda) if a is not None
+             else -torch.exp(0.3 * randn(nh)))
+        return (randn(bt, nc, q, nh, hd), F.softplus(randn(bt, nc, q, nh)),
+                A, randn(bt, nc, q, n), randn(bt, nc, q, n),
+                randn(bt, nc, q, nh, hd), randn(bt, nc, nh, hd, n),
+                randn(bt, nc, q, nh))
+
+    def shape_of(arch, a=None):
+        cfg = get_arch(arch)
+        m, q = cfg.ssm, cfg.ssm.chunk_size
+        return (TRAIN_BATCH, TRAIN_SEQ // q, q, m.num_heads(cfg.d_model),
+                m.head_dim, m.d_state, a)
+
+    shapes = {"mamba2-370m": shape_of("mamba2-370m"),
+              "zamba2-1.2b": shape_of("zamba2-1.2b"),
+              "stress A=-1": shape_of("mamba2-370m", -1.0)}
+    err, rel, timed, cases = 0.0, {}, {}, []
+    for label, shape in shapes.items():
+        ins = inputs(*shape)
+        got = ssd.ssd_intra_bwd(*ins)
+        want = intra_chunk_bwd_ref(*ins)
+        for (name, tol), g, w in zip(SSD_BWD_TOL.items(), got, want):
+            scale = float(w.abs().max())
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                fail(f"ssd_intra_bwd {label} {name}: {tuple(g.shape)} or "
+                     "non-finite values")
+            e = float((g - w).abs().max())
+            if e > tol * scale:
+                fail(f"ssd_intra_bwd {label} {name}: differs from the "
+                     f"plain version by {e} (tolerance {tol} of {scale})")
+            err = max(err, e)
+            rel[name] = max(rel.get(name, 0.0), e / scale)
+        cases.append(f"{label} {shape[:6]}")
+        if label == "mamba2-370m":
+            again = ssd.ssd_intra_bwd(*ins)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("ssd_intra_bwd: two launches on the same inputs differ")
+        if shape[-1] is None:
+            timed[label] = ins
+    del got, want
+    figures = {}
+    for label, ins in timed.items():
+        def call(ins=ins):
+            return ssd.ssd_intra_bwd(*ins)
+        bnd, by = ssd_intra_bwd_bound(*shapes[label][:6])
+        figures[label] = {
+            "ms": kernel_ms(ssd.BWD_LAUNCHER, call), "graph_ms": graph_ms(call),
+            "plain_ms": time_ms(lambda ins=ins: intra_chunk_bwd_ref(*ins),
+                                PLAIN_TIMED),
+            "bound_ms": bnd, "bound_by": by,
+            "timed_shape": "Bt {}, nc {}, Q {}, nh {}, hd {}, N {}".format(
+                *shapes[label][:6])}
+    ins = timed["mamba2-370m"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMED):
+            ssd.ssd_intra_bwd(*ins)
+        torch.cuda.synchronize()
+    passes = {}
+    for ev in prof.key_averages():
+        m = re.search(r"ssd_intra_bwd_[a-z]+(<[^>]*>)?", ev.key)
+        if m:
+            # each over its own recorded launches: the profiler can drop
+            # some launches' events
+            passes[m.group(0).replace(" ", "")] = (
+                ev.device_time_total / 1e3 / max(ev.count, 1))
+    ssd.BWD_LAUNCHER.reset()
+    ptxas = {_short_kernel_name(k): v
+             for k, v in ssd.BWD_LIB.ptxas_by_kernel().items()}
+    row = {"name": "ssd_intra_bwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_intra_bwd.cu",
+           # no pallas_call: the reference differentiates its jnp
+           # `ssd_chunked`
+           "replaces": "src/repro/models/mamba2.py:67",
+           "max_abs_err": err, "max_err_over_max_abs": rel,
+           **figures["mamba2-370m"], "library_ms": None,
+           "library": "none: no PyTorch call computes the SSD intra-chunk "
+                      "contraction's gradient",
+           "bound": "3xTF32: 3 x the products' FLOPs on the TF32 tensor "
+                    "cores, the element-wise work on the float32 rate",
+           "sass_hmma": hmma, "pass_ms_per_launch": passes,
+           "ptxas_by_kernel": ptxas,
+           "zamba2_shape": figures["zamba2-1.2b"]}
+    emit({"phase": "kernel_vs_plain", "kernel": "ssd_intra_bwd",
+          "cases": cases, "tolerance": SSD_BWD_TOL, **row})
+    return row
+
+
 def sdpa_backward_ms(q, k, v, dout, g) -> dict:
     """The backward of `scaled_dot_product_attention(is_causal=True)`
     through autograd on q, k, v (B, S, heads, hd) bf16 and the cotangent
@@ -3706,9 +3913,44 @@ def _flash_bwd_faults():
              _replaced((flash, "flash_bwd", head_dropped)), True)]
 
 
+def _ssd_bwd_faults():
+    """The planted SSD backward faults of phase 12: (name, a replacement
+    of `ssd_intra_bwd` as the SSD Function calls it, whether the gradient
+    check must catch it). dx, dB and dC come from the wrapper it replaces
+    (the kernel on a card)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    kernel = ssd.ssd_intra_bwd
+
+    def no_decay(x, dt, A, B, C, dy, dstates, dcum):
+        # dcum 0 before the reverse cumsum (da = 0): ddt from the plain
+        # version with cum held constant, dA 0
+        dx, _, _, dB, dC = kernel(x, dt, A, B, C, dy, dstates, dcum)
+        x, dt, A, B, C = (t.detach() for t in (x, dt, A, B, C))
+        cum = ssd.ref.intra_chunk_ref(x, dt, A, B, C)[2]
+        with torch.enable_grad():
+            dtv = dt.requires_grad_(True)
+            outs = ssd.ref.intra_chunk_from_cum(x, dtv, B, C, cum)
+            (ddt,) = torch.autograd.grad(outs, (dtv,), (dy, dstates))
+        return dx, ddt, torch.zeros_like(A), dB, dC
+
+    def no_state_db(x, dt, A, B, C, dy, dstates, dcum):
+        # dB from a second launch with dstates zeroed
+        dx, ddt, dA, _, dC = kernel(x, dt, A, B, C, dy, dstates, dcum)
+        _, _, _, dB, _ = kernel(x, dt, A, B, C, dy,
+                                torch.zeros_like(dstates), dcum)
+        return dx, ddt, dA, dB, dC
+
+    return [("SSD backward drops the decay's gradient (dcum 0 before the "
+             "reverse cumsum)",
+             _replaced((ssd, "ssd_intra_bwd", no_decay)), True),
+            ("SSD backward drops the state term from dB",
+             _replaced((ssd, "ssd_intra_bwd", no_state_db)), True)]
+
+
 # where a step's device time goes (`step_split`): kernels by name, then
 # by the profiler range whose thread launched them
-SPLIT_GROUPS = ("flash_fwd", "flash_bwd", "ssd_intra",
+SPLIT_GROUPS = ("flash_fwd", "flash_bwd", "ssd_intra", "ssd_intra_bwd",
                 "ssd_intra plain backward", "matrix products", "optimizer",
                 "rest")
 MATMUL_KERNELS = ("gemm", "cutlass", "xmma", "cublas", "nvjet", "sm90_")
@@ -3718,8 +3960,9 @@ def step_split(bundle, state, batch, label) -> dict:
     """One train step under `torch.profiler` (this process only, CPU and
     CUDA activities), after at least one step of the same shapes: its
     device time (kernels, copies, sets) in SPLIT_GROUPS — `flash_fwd`,
-    `flash_bwd` and `ssd_intra` by kernel name; `SsdIntraFn`'s plain
-    backward and the optimizer by the profiler range around their calls
+    `flash_bwd`, `ssd_intra_bwd` and `ssd_intra` by kernel name; what else
+    `SsdIntraFn`'s backward runs (all of it with the plain version) and
+    the optimizer by the profiler range around their calls
     (`ssd_ops.BACKWARD`'s span; an `optimizer` range put around the
     optimizer's update here) that holds the launch of each kernel on its
     thread; cuBLAS's and CUTLASS's kernels by name as matrix products;
@@ -3795,6 +4038,8 @@ def step_split(bundle, state, batch, label) -> dict:
             key = "flash_fwd"
         elif "flash_bwd" in name:
             key = "flash_bwd"
+        elif "ssd_intra_bwd" in name:
+            key = "ssd_intra_bwd"
         elif "ssd_intra_kernel" in name:
             key = "ssd_intra"
         elif where == "ssd_intra_bwd":
@@ -3824,16 +4069,19 @@ def step_split(bundle, state, batch, label) -> dict:
 
 
 def train_runs(cuda, arch, floor_cfg_of, faults, expect,
-               variants=()) -> dict:
+               variants=(), path_check=None) -> dict:
     """Phase 12 (a) and (c): `arch` at full size, one step's loss and
     gradients from one state on one batch, three times — the kernel run,
     the plain run (each kernel's plain version on the card), the floor
     run (the plain versions under another summation order) — and under
     each planted fault (name, context, whether the check must catch it)
     and each variant (name, context: read only). `expect` lists the
-    kernels' launches (launcher, count) in the kernel run. Then one train
-    step from the state, with the config's optimizer, and one more under
-    the profiler (`step_split`)."""
+    kernels' launches (launcher, count) in the kernel run. With
+    `path_check` (a context of a log, `shadow_intra_bwd`) one more kernel
+    run holds each backward call to its plain version, which must pass;
+    each fault runs under it too, and is caught when the gradient check
+    or the path check fails. Then one train step from the state, with the
+    config's optimizer, and one more under the profiler (`step_split`)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -3878,6 +4126,17 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect,
         fail(f"phase 12 {arch}: the kernel run's gradients fail the check: "
              f"{check['rms_ratio']} / {check['rms_ratio_max_layer']} of "
              f"{RMS_LIMIT}, loss {check['loss_rel_err']}")
+    path = None
+    if path_check is not None:
+        log = []
+        with path_check(log):
+            _loss_grads(bundle, state.params, batch)
+        path = _path_summary(log)
+        emit({"phase": "train_path_check", "arch": arch, **path})
+        if not path["passes"]:
+            fail(f"phase 12 {arch}: a backward call on the path differs "
+                 f"from its plain version: {path['worst_over_tol']} of its "
+                 "tolerance")
     read = []
     for name, ctx in variants:
         with ctx:
@@ -3890,19 +4149,25 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect,
             "worst_leaf", "loss_rel_err", "passes")} | {"variant": name})
     caught = []
     for name, ctx, must_catch in faults:
-        with ctx:
+        log = []
+        with ctx, (path_check(log) if path_check is not None
+                   else contextlib.nullcontext()):
             bad = _loss_grads(bundle, state.params, batch)
         fc = grad_check(bad, plain, floor, names)
         del bad
+        fp = _path_summary(log) if path_check is not None else None
+        seen = not fc["passes"] or (fp is not None and not fp["passes"])
         emit({"phase": "train_planted_fault", "arch": arch, "fault": name,
-              "must_catch": must_catch, **fc})
-        if must_catch and fc["passes"]:
+              "must_catch": must_catch, "caught": seen, "path_check": fp,
+              **fc})
+        if must_catch and not seen:
             fail(f"phase 12 {arch}: the planted fault {name!r} passed the "
-                 "gradient check")
+                 "gradient check" + (" and the path check" if fp else ""))
         caught.append({k: fc[k] for k in (
             "rms_ratio", "rms_ratio_max_layer", "rms_ratio_max_leaf",
             "worst_leaf", "loss_rel_err", "passes")}
-            | {"fault": name, "must_catch": must_catch})
+            | {"fault": name, "must_catch": must_catch, "caught": seen,
+               "path_check_max_over_tol": fp and fp["max_over_tol"]})
     del plain, floor, kernel
     # one train step (the config's optimizer: gemma's AdamW) from the state
     _, metrics = make_train_step(bundle)(state, batch)
@@ -3920,6 +4185,7 @@ def train_runs(cuda, arch, floor_cfg_of, faults, expect,
             "plain_run_s": plain_s, "kernel_launches": launches,
             "check": {k: v for k, v in check.items()
                       if not k.endswith(("_per_layer", "_per_leaf"))},
+            "path_check": path,
             "variants": read, "faults_caught": caught, "grad_norm": gnorm,
             "peak_gib": peak, "step_split": split,
             "wall_s": time.perf_counter() - t0}
@@ -3929,16 +4195,20 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
                  must_fall) -> dict:
     """Phase 12 (b) and the last part of (c): `launch.train.main` at
     `arch`'s full size, `steps` steps of TRAIN_BATCH x TRAIN_SEQ tokens,
-    its kernel's launches counted from 0 and event-timed, the flash
-    backward's calls too; the loss finite everywhere and, with
-    `must_fall`, lower at the last step than at the first."""
+    its kernel's launches counted from 0 and event-timed, the flash and
+    SSD Functions' backward calls and their kernels' launches too; the
+    loss finite everywhere and, with `must_fall`, lower at the last step
+    than at the first."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.launch import train as launch_train
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    spans = (launcher, flash.BACKWARD, flash.BWD_LAUNCHER)
+    backwards = {"flash_bwd": (flash.BACKWARD, flash.BWD_LAUNCHER),
+                 "ssd_intra_bwd": (ssd.BACKWARD, ssd.BWD_LAUNCHER)}
+    spans = (launcher,) + sum(backwards.values(), ())
     for timed in spans:
         timed.reset()
         timed.record = True
@@ -3950,10 +4220,16 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
             "--seed", str(TRAIN_SEED), "--log-every", "1"])
         launches = launcher.launches
         kernel_ms = launcher.ms()
-        bwd_calls = flash.BACKWARD.calls
-        bwd_ms = flash.BACKWARD.ms()
-        bwd_launches = flash.BWD_LAUNCHER.launches
-        bwd_kernel_ms = flash.BWD_LAUNCHER.ms()
+        bwd = {}
+        for name, (span, bl) in backwards.items():
+            calls, span_ms, bl_ms = span.calls, span.ms(), bl.ms()
+            bwd.update({
+                f"{name}_calls_per_step": calls / steps,
+                f"{name}_ms_per_step": sum(span_ms) / steps,
+                f"{name}_launches": bl.launches,
+                f"{name}_kernel_ms_per_step": sum(bl_ms) / steps,
+                f"{name}_kernel_ms_per_launch": sum(bl_ms)
+                / max(len(bl_ms), 1)})
     finally:
         for timed in spans:
             timed.record = False
@@ -3988,13 +4264,7 @@ def launcher_run(cuda, arch, steps, launcher, per_launch_bound,
             "kernel_ms_per_launch": sum(kernel_ms) / max(len(kernel_ms), 1),
             "kernel_bound_ms_per_launch": per_launch_bound,
             "main_path_ms": sum(kernel_ms),
-            "main_path_bound_ms": per_launch_bound * launches,
-            "flash_bwd_calls_per_step": bwd_calls / steps,
-            "flash_bwd_ms_per_step": sum(bwd_ms) / steps,
-            "flash_bwd_launches": bwd_launches,
-            "flash_bwd_kernel_ms_per_step": sum(bwd_kernel_ms) / steps,
-            "flash_bwd_kernel_ms_per_launch": sum(bwd_kernel_ms)
-            / max(len(bwd_kernel_ms), 1)}
+            "main_path_bound_ms": per_launch_bound * launches, **bwd}
 
 
 def ckpt_round_trip(cuda) -> dict:
@@ -4073,6 +4343,7 @@ def training_phase(cuda):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     bwd = flash_bwd_vs_plain(cuda)
+    ssd_bwd = ssd_intra_bwd_vs_plain(cuda)
     # under remat each layer's forward kernel launches twice a step: its
     # forward, then its forward again when the backward recomputes the
     # layer; the backward kernel once a layer. The gradient check read
@@ -4085,7 +4356,8 @@ def training_phase(cuda):
     gemma = train_runs(cuda, TRAIN_ARCH, lambda cfg: cfg,
                        _flash_faults() + _flash_bwd_faults(),
                        [(flash.LAUNCHER, 2 * cfg.num_layers),
-                        (flash.BWD_LAUNCHER, cfg.num_layers)], terms)
+                        (flash.BWD_LAUNCHER, cfg.num_layers),
+                        (ssd.BWD_LAUNCHER, 0)], terms)
     emit({"phase": "train_gemma_check", **gemma})
     shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
              cfg.head_dim, 2)
@@ -4094,9 +4366,12 @@ def training_phase(cuda):
     run = launcher_run(cuda, TRAIN_ARCH, TRAIN_STEPS, flash.LAUNCHER,
                        f_bound, must_fall=True)
     run["flash_bwd_bound_ms_per_call"] = b_bound
-    if run["flash_bwd_launches"] != cfg.num_layers * TRAIN_STEPS:
+    if (run["flash_bwd_launches"] != cfg.num_layers * TRAIN_STEPS
+            or run["ssd_intra_bwd_launches"] != 0):
         fail(f"phase 12 {TRAIN_ARCH}: the launcher launched flash_bwd "
-             f"{run['flash_bwd_launches']} times in {TRAIN_STEPS} steps")
+             f"{run['flash_bwd_launches']} and ssd_intra_bwd "
+             f"{run['ssd_intra_bwd_launches']} times in {TRAIN_STEPS} "
+             "steps")
     emit({"phase": "train_gemma", **run})
 
     def ssd_floor(cfg):
@@ -4104,17 +4379,29 @@ def training_phase(cuda):
             cfg.ssm, chunk_size=FLOOR_SSD_CHUNK))
     cfg = get_arch(TRAIN_SSM_ARCH)
     strict = planted_faults(TRAIN_SSM_ARCH)
+    # the SSD Function: its forward kernel twice a layer (remat), its
+    # backward kernel once
     mamba = train_runs(cuda, TRAIN_SSM_ARCH, ssd_floor,
-                       [(name, ctx, True) for name, ctx, *_ in strict],
+                       [(name, ctx, True) for name, ctx, *_ in strict]
+                       + _ssd_bwd_faults(),
                        [(ssd.LAUNCHER, 2 * cfg.num_layers),
-                        (flash.BWD_LAUNCHER, 0)])
+                        (ssd.BWD_LAUNCHER, cfg.num_layers),
+                        (flash.BWD_LAUNCHER, 0)],
+                       path_check=shadow_intra_bwd)
     emit({"phase": "train_mamba2_check", **mamba})
     m, q = cfg.ssm, cfg.ssm.chunk_size
-    i_bound, _ = ssd_intra_bound(TRAIN_BATCH, TRAIN_SEQ // q, q,
-                                 m.num_heads(cfg.d_model), m.head_dim,
-                                 m.d_state)
+    ssd_shape = (TRAIN_BATCH, TRAIN_SEQ // q, q, m.num_heads(cfg.d_model),
+                 m.head_dim, m.d_state)
+    i_bound, _ = ssd_intra_bound(*ssd_shape)
+    ib_bound, _ = ssd_intra_bwd_bound(*ssd_shape)
     mrun = launcher_run(cuda, TRAIN_SSM_ARCH, TRAIN_SSM_STEPS, ssd.LAUNCHER,
                         i_bound, must_fall=False)
+    mrun["ssd_intra_bwd_bound_ms_per_call"] = ib_bound
+    if (mrun["ssd_intra_bwd_launches"] != cfg.num_layers * TRAIN_SSM_STEPS
+            or mrun["flash_bwd_launches"] != 0):
+        fail(f"phase 12 {TRAIN_SSM_ARCH}: the launcher launched "
+             f"ssd_intra_bwd {mrun['ssd_intra_bwd_launches']} and flash_bwd "
+             f"{mrun['flash_bwd_launches']} times in {TRAIN_SSM_STEPS} steps")
     emit({"phase": "train_mamba2", **mrun})
     ck = ckpt_round_trip(cuda)
     emit({"phase": "train_ckpt", **ck})
@@ -4125,6 +4412,9 @@ def training_phase(cuda):
           f"{100 * run['model_flops_share_of_bf16_peak']:.1f}% of bf16 peak, "
           f"flash bwd {run['flash_bwd_ms_per_step']:.1f} ms a step "
           f"({run['flash_bwd_kernel_ms_per_launch']:.3f} ms a launch); "
+          f"mamba2-370m {mrun['ms_per_step_median']:.1f} ms a step, ssd bwd "
+          f"{mrun['ssd_intra_bwd_ms_per_step']:.1f} ms a step "
+          f"({mrun['ssd_intra_bwd_kernel_ms_per_launch']:.3f} ms a launch); "
           f"phase {wall:.1f} s", flush=True)
     names = ("ips_repack", "tiered_decode", "latent_decode", "flash_fwd",
              "ssd_intra")
@@ -4141,7 +4431,8 @@ def training_phase(cuda):
     figures = {r["kernel"]: {k: r[k] for k in (
         "arch", "launches_per_step", "kernel_ms_per_step",
         "kernel_ms_per_launch", "kernel_bound_ms_per_launch",
-        "ms_per_step_median", "flash_bwd_ms_per_step")} for r in (run, mrun)}
+        "ms_per_step_median", "flash_bwd_ms_per_step",
+        "ssd_intra_bwd_ms_per_step")} for r in (run, mrun)}
     # the backward kernel's row: its check, and its launches in the gemma
     # kernel run and the launcher's steps, timed in the latter
     figures["flash_bwd"] = {
@@ -4165,6 +4456,31 @@ def training_phase(cuda):
                            "rms_ratio", "rms_ratio_max_layer",
                            "rms_ratio_max_leaf", "loss_rel_err")},
                        "other_terms": gemma["variants"]}}
+    # the SSD backward kernel's row likewise: mamba2's kernel run and its
+    # launcher steps
+    figures["ssd_intra_bwd"] = {
+        **ssd_bwd,
+        "launches": mamba["kernel_launches"]["ssd_intra_bwd"]
+        + mrun["ssd_intra_bwd_launches"],
+        "main_path_ms": mrun["ssd_intra_bwd_kernel_ms_per_step"]
+        * TRAIN_SSM_STEPS,
+        "main_path_bound_ms": ib_bound * mrun["ssd_intra_bwd_launches"],
+        "training": {"arch": TRAIN_SSM_ARCH,
+                     "launches_per_step": mrun["ssd_intra_bwd_launches"]
+                     / TRAIN_SSM_STEPS,
+                     "kernel_ms_per_launch":
+                         mrun["ssd_intra_bwd_kernel_ms_per_launch"],
+                     "backward_span_ms_per_step":
+                         mrun["ssd_intra_bwd_ms_per_step"],
+                     "bound_ms_per_launch": ib_bound,
+                     "ms_per_step_median": mrun["ms_per_step_median"],
+                     "peak_gib": mrun["peak_gib"],
+                     "step_split_ms": mamba["step_split"]["device_ms"]},
+        "grad_check": {k: mamba["check"][k] for k in (
+            "rms_ratio", "rms_ratio_max_layer", "rms_ratio_max_leaf",
+            "loss_rel_err")},
+        "path_check": mamba["path_check"],
+        "faults_caught": mamba["faults_caught"]}
     return ({f"train {TRAIN_ARCH}": path(run),
              f"train {TRAIN_SSM_ARCH}": path(mrun)}, figures)
 
@@ -4720,8 +5036,10 @@ def _all_launchers() -> dict:
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.host_tier import ops as host_tier
     from repro_torch.kernels.ssd_step import ops as ssd_step
+    from repro_torch.kernels.ssd_scan import ops as ssd
     return {"ssd_step": ssd_step.LAUNCHER, "host_tier": host_tier.LAUNCHER,
-            "flash_bwd": flash.BWD_LAUNCHER, **_launchers()}
+            "flash_bwd": flash.BWD_LAUNCHER,
+            "ssd_intra_bwd": ssd.BWD_LAUNCHER, **_launchers()}
 
 
 def run_script_main(rel_path: str, argv, need=()) -> dict:
@@ -5286,12 +5604,13 @@ def main() -> int:
         if name in train_figures:
             row["training"] = train_figures[name]
         table.append(row)
-    # the training path's backward kernel: phase 12's kernel run and
+    # the training path's backward kernels: phase 12's kernel runs and
     # launcher steps, and phase 14's examples
-    row = dict(train_figures["flash_bwd"])
-    row["examples_launches"] = ex_launches.get("flash_bwd", 0)
-    row["launches"] += row["examples_launches"]
-    table.append(row)
+    for name in ("flash_bwd", "ssd_intra_bwd"):
+        row = dict(train_figures[name])
+        row["examples_launches"] = ex_launches.get(name, 0)
+        row["launches"] += row["examples_launches"]
+        table.append(row)
     emit({"kernels": table}, card=False)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,7 @@ def main() -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.ssd_scan import ops as ssd
-    build_all([flash.LIB, flash.BWD_LIB, ssd.LIB])
+    build_all([flash.LIB, flash.BWD_LIB, ssd.LIB, ssd.BWD_LIB])
     cs.training_phase(torch.device("cuda", 0))
     return 0
 

@@ -128,6 +128,29 @@ class Library:
                      default=0)
         return {"ptxas_registers": regs, "ptxas_max_spill_store_bytes": spills}
 
+    def ptxas_by_kernel(self) -> dict:
+        """Per entry function of this process's build (empty if it was
+        cached): its registers and spill store and load bytes, as ptxas
+        reported them; the key is the mangled name."""
+        out, name = {}, None
+        for ln in self.build_log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                name = m.group(1)
+                out[name] = {}
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out[name]["spill_stores"] = int(m.group(1))
+                out[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+        return out
+
 
 def build_all(libraries: Sequence[Library]) -> list:
     """Build several libraries at once, one nvcc each; returns their

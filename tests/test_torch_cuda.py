@@ -2,8 +2,8 @@
 `ssd_step`, the serving path's `ips_repack`, `tiered_decode` (and its
 latent form, `latent_decode`; whisper's static cross tier among its
 shapes) and `flash_fwd` (MLA's padded widths, whisper's and llava's
-prefills among its shapes), the training path's `flash_bwd`, and the
-Mamba2 path's `ssd_intra` (plus the
+prefills among its shapes), the training path's `flash_bwd` and
+`ssd_intra_bwd`, and the Mamba2 path's `ssd_intra` (plus the
 reduced serving paths of gemma-2b, mamba2-370m, zamba2,
 deepseek-v2-lite, arctic, whisper-tiny and llava-next-34b through
 them).
@@ -1394,6 +1394,145 @@ class TestSsdIntraKernel:
         assert ssd_ops.LAUNCHER.launches == before + 1
 
 
+# of each gradient's largest |value|: float32 sums in other orders; dA
+# sums every row of every chunk
+SSD_BWD_TOL = {"dx": 2e-5, "ddt": 2e-5, "dA": 1e-4, "dB": 2e-5, "dC": 2e-5}
+
+
+class TestSsdIntraBwdKernel:
+    """`ssd_intra_bwd` (the backward of the intra-chunk contraction)
+    against its plain version, `ref.intra_chunk_bwd_ref`, on the card:
+    each gradient within SSD_BWD_TOL of its largest |value|."""
+
+    @staticmethod
+    def _inputs(gen, bt, nc, q, nh, hd, n, a=None):
+        ins = TestSsdIntraKernel._inputs(gen, bt, nc, q, nh, hd, n, a)
+        return ins + (_randn(gen, bt, nc, q, nh, hd),
+                      _randn(gen, bt, nc, nh, hd, n),
+                      _randn(gen, bt, nc, q, nh))
+
+    @staticmethod
+    def _check(got, want):
+        for name, g, w in zip(SSD_BWD_TOL, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert bool(torch.isfinite(g).all()), name
+            torch.testing.assert_close(
+                g, w, rtol=0.0,
+                atol=SSD_BWD_TOL[name] * float(w.abs().max()), msg=name)
+
+    def _held(self, monkeypatch, ins):
+        want = ssd_ref.intra_chunk_bwd_ref(*ins)
+        _refuse_plain(monkeypatch, ssd_ops, "intra_chunk_bwd_ref")
+        before = ssd_ops.BWD_LAUNCHER.launches
+        got = ssd_ops.ssd_intra_bwd(*ins)
+        torch.cuda.synchronize()
+        assert ssd_ops.BWD_LAUNCHER.launches == before + 1
+        self._check(got, want)
+        return got
+
+    @pytest.mark.parametrize("n", (16, 32, 64, 128))
+    @pytest.mark.parametrize("hd", (16, 32, 64, 128))
+    def test_every_width_equals_plain_version(self, cuda, monkeypatch, hd,
+                                              n):
+        """Every head width against every state width at a small ragged
+        chunk, five heads (a ragged group of the head pass)."""
+        self._held(monkeypatch,
+                   self._inputs(_gen(hd + n), 1, 2, 40, 5, hd, n))
+
+    @pytest.mark.parametrize("bt,nc,q,nh,hd,n,a", [
+        (2, 3, 1, 3, 64, 128, None),        # a one-row chunk
+        (1, 2, 40, 9, 64, 64, None),
+        (1, 2, 100, 6, 32, 128, None),      # two tiles, the second ragged
+        (1, 2, 256, 8, 128, 128, None),     # hd and N at their largest
+        (2, 8, 256, 32, 64, 128, None),     # mamba2-370m's training shape
+        (2, 8, 256, 64, 64, 64, None),      # zamba2-1.2b's
+        (2, 8, 256, 32, 64, 128, -1.0)],    # exp(+200) unless masked first
+        ids=("q1", "q40", "q100", "q256-wide", "mamba2", "zamba2",
+             "mamba2-A-1"))
+    def test_chunks_equal_plain_version(self, cuda, monkeypatch, bt, nc, q,
+                                        nh, hd, n, a):
+        self._held(monkeypatch,
+                   self._inputs(_gen(q * nh + hd), bt, nc, q, nh, hd, n, a))
+
+    @pytest.mark.parametrize("zeroed", (0, 1, 2),
+                             ids=("dy", "dstates", "dcum"))
+    def test_each_cotangent_zero_equals_plain_version(self, cuda,
+                                                      monkeypatch, zeroed):
+        ins = list(self._inputs(_gen(31 + zeroed), 1, 2, 256, 8, 64, 128))
+        ins[5 + zeroed] = torch.zeros_like(ins[5 + zeroed])
+        self._held(monkeypatch, ins)
+
+    def test_launches_are_equal_to_the_bit(self, cuda):
+        """No atomics: the head and chunk sums are partials added in a
+        fixed order, so the same inputs give the same bits."""
+        ins = self._inputs(_gen(41), 2, 8, 256, 32, 64, 128)
+        first = ssd_ops.ssd_intra_bwd(*ins)
+        second = ssd_ops.ssd_intra_bwd(*ins)
+        for name, a, b in zip(SSD_BWD_TOL, first, second):
+            assert torch.equal(a, b), name
+
+    def test_unaligned_inputs_are_copied_aligned(self, cuda, monkeypatch):
+        """Inputs and cotangents that start off a 16-byte boundary are
+        copied by the wrapper for the kernel's 16-byte tile copies; the C
+        entry itself refuses them (-5)."""
+        ins = self._inputs(_gen(43), 1, 2, 100, 9, 64, 32)
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device="cuda")
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        moved = tuple(shifted(t) if i in (0, 3, 4, 5, 6) else t
+                      for i, t in enumerate(ins))
+        self._held(monkeypatch, moved)
+        outs = [torch.empty_like(t) for t in ins[:5]]
+        work = torch.empty(ssd_ops.BWD_LIB.load().ssd_intra_bwd_work(
+            2, 100, 9, 32), device="cuda")
+        rc = ssd_ops.BWD_LIB.load().ssd_intra_bwd(
+            *(t.data_ptr() for t in moved), *(t.data_ptr() for t in outs),
+            work.data_ptr(), 2, 100, 9, 64, 32,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == -5
+
+    def test_issues_hmma(self, cuda):
+        """The products run on the tensor cores (mma.sync, TF32)."""
+        ssd_ops.ssd_intra_bwd(*self._inputs(_gen(44), 1, 1, 16, 1, 16, 16))
+        assert ssd_ops.BWD_LIB.sass_count("HMMA") > 0
+
+    def test_refused_launches_raise(self, cuda):
+        ins = self._inputs(_gen(45), 1, 2, 32, 4, 64, 32)
+        x, dt, A, B, C, dy, dst, dcum = ins
+        before = ssd_ops.BWD_LAUNCHER.launches
+        with pytest.raises(ValueError, match="head_dim"):
+            ssd_ops.ssd_intra_bwd(x[..., :48].contiguous(), dt, A, B, C,
+                                  dy[..., :48].contiguous(), dst, dcum)
+        with pytest.raises(ValueError, match="d_state"):
+            ssd_ops.ssd_intra_bwd(x, dt, A, B[..., :24].contiguous(),
+                                  C[..., :24].contiguous(), dy, dst, dcum)
+        with pytest.raises(TypeError, match="dtype"):
+            ssd_ops.ssd_intra_bwd(x, dt, A, B, C, dy.to(torch.bfloat16),
+                                  dst, dcum)
+        with pytest.raises(ValueError, match="dstates"):
+            ssd_ops.ssd_intra_bwd(x, dt, A, B, C, dy, dst[..., :16], dcum)
+        with pytest.raises(ValueError, match="chunk"):
+            ssd_ops.ssd_intra_bwd(*self._inputs(_gen(46), 1, 1, 512, 1, 16,
+                                                16))
+        with pytest.raises(RuntimeError, match="require a gradient"):
+            ssd_ops.ssd_intra_bwd(x.clone().requires_grad_(True), dt, A, B,
+                                  C, dy, dst, dcum)
+        assert ssd_ops.BWD_LAUNCHER.launches == before
+
+    def test_cpu_tensors_take_the_plain_version(self, cuda):
+        ins = self._inputs(_gen(47), 1, 2, 32, 2, 32, 16)
+        before = ssd_ops.BWD_LAUNCHER.launches
+        cpu = ssd_ops.ssd_intra_bwd(*(t.cpu() for t in ins))
+        assert cpu[0].device.type == "cpu"
+        assert ssd_ops.BWD_LAUNCHER.launches == before
+        ssd_ops.ssd_intra_bwd(*ins)
+        assert ssd_ops.BWD_LAUNCHER.launches == before + 1
+
+
 class TestLatentDecodeKernel:
     """The latent form (MLA's absorbed decode over the int4 latent): its
     partials within 2e-5 of max |output| of the plain version's, as
@@ -1768,8 +1907,8 @@ class TestTrainingOnTheCard:
                                                           monkeypatch):
         """mamba2-370m's served shape (B 4, S 2048, 32 heads of 64, N 128,
         chunk 256): every input's gradient through the chunked scan with
-        the kernel's forward against the plain forward, within 2e-5 of
-        the largest (the path check's bar)."""
+        the kernels forward and backward against the plain versions,
+        within 2e-5 of the largest (the path check's bar)."""
         b, s, nh, hd, n, q = 4, 2048, 32, 64, 128, 256
         gen = _gen(12)
         x = _randn(gen, b, s, nh, hd)
@@ -1784,10 +1923,14 @@ class TestTrainingOnTheCard:
             y, hf = ssd_ops.ssd_chunked_kernel(*ts, q)
             return torch.autograd.grad((y * wy).sum() + (hf * wh).sum(), ts)
         before = ssd_ops.LAUNCHER.launches
+        before_bwd = ssd_ops.BWD_LAUNCHER.launches
         got = grads()
         torch.cuda.synchronize()
         assert ssd_ops.LAUNCHER.launches == before + 1
+        assert ssd_ops.BWD_LAUNCHER.launches == before_bwd + 1
         monkeypatch.setattr(ssd_ops, "ssd_intra", ssd_ref.intra_chunk_ref)
+        monkeypatch.setattr(ssd_ops, "ssd_intra_bwd",
+                            ssd_ref.intra_chunk_bwd_ref)
         want = grads()
         for name, g, r in zip(("x", "dt", "A", "B", "C"), got, want):
             assert torch.isfinite(g).all(), name
