@@ -256,8 +256,10 @@ then:
    `ssd_intra_bwd` (the SSD Function's backward, `csrc/ssd_intra_bwd.cu`)
    against its plain version at mamba2-370m's and zamba2-1.2b's training
    shapes and at A = -1, each gradient within SSD_BWD_TOL of its largest,
-   two launches equal to the bit, the HMMA count, each pass's device ms
-   and each instantiation's ptxas registers and spills, its time a launch
+   two launches equal to the bit, the HGMMA count (the wgmma head pass at
+   the training widths) and the HMMA count (C B^T, the chunk pass, the
+   other widths' head pass), neither 0, each pass's device ms and each
+   instantiation's ptxas registers and spills, its time a launch
    by events and by CUDA graph beside the bound and the plain version's.
    (a) gemma-2b at full
    size (18 layers, 2.506 B parameters), AdamW, remat, one batch of 2 x
@@ -3563,8 +3565,10 @@ SSD_BWD_TOL = {"dx": 2e-5, "ddt": 2e-5, "dA": 1e-4, "dB": 2e-5, "dC": 2e-5}
 
 
 def _short_kernel_name(mangled: str) -> str:
-    """`ssd_intra_bwd_heads<64,128>` of a mangled entry name."""
-    m = re.search(r"(ssd_intra_bwd_(?:cum|dcb|heads|chunk|finish))"
+    """`ssd_intra_bwd_heads_wg<64,128>` of a mangled entry name: the
+    backward's passes `ssd_intra_bwd_prep`, `_heads` (mma.sync),
+    `_heads_wg` (wgmma) and `_chunk`."""
+    m = re.search(r"(ssd_intra_bwd_(?:prep|heads_wg|heads|chunk))"
                   r"((?:I(?:Li\d+E)+E)?)", mangled)
     if not m:
         return mangled[:60]
@@ -3579,10 +3583,10 @@ def ssd_intra_bwd_vs_plain(cuda) -> dict:
     TRAIN_SEQ tokens in chunks of 256) and at mamba2's with A = -1 (the
     decay exp(+200) unless masked first), each gradient within
     SSD_BWD_TOL of its largest |value|, every value finite; two launches
-    equal to the bit; the HMMA count of the built library, which must not
-    be 0. At both training shapes the time a launch by CUDA events and by
+    equal to the bit; the HGMMA and HMMA counts of the built library,
+    neither of which may be 0. At both training shapes the time a launch by CUDA events and by
     a CUDA graph beside the plain version's and the bound; at mamba2's
-    each of the five passes' device ms from `torch.profiler`, and each
+    each of the three passes' device ms from `torch.profiler`, and each
     instantiation's ptxas registers and spills (when this process built
     the library). No PyTorch call computes this gradient: no library
     time."""
@@ -3593,6 +3597,10 @@ def ssd_intra_bwd_vs_plain(cuda) -> dict:
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.ssd_scan.ref import intra_chunk_bwd_ref
 
+    hgmma = ssd.BWD_LIB.sass_count("HGMMA")
+    if hgmma == 0:
+        fail("ssd_intra_bwd: the built library issues no HGMMA (wgmma, the "
+             "head pass at hd 64, N 64 and 128)")
     hmma = ssd.BWD_LIB.sass_count("HMMA")
     if hmma == 0:
         fail("ssd_intra_bwd: the built library issues no HMMA (mma.sync)")
@@ -3662,7 +3670,7 @@ def ssd_intra_bwd_vs_plain(cuda) -> dict:
         torch.cuda.synchronize()
     passes = {}
     for ev in prof.key_averages():
-        m = re.search(r"ssd_intra_bwd_[a-z]+(<[^>]*>)?", ev.key)
+        m = re.search(r"ssd_intra_bwd_[a-z_]+(<[^>]*>)?", ev.key)
         if m:
             # each over its own recorded launches: the profiler can drop
             # some launches' events
@@ -3682,7 +3690,8 @@ def ssd_intra_bwd_vs_plain(cuda) -> dict:
                       "contraction's gradient",
            "bound": "3xTF32: 3 x the products' FLOPs on the TF32 tensor "
                     "cores, the element-wise work on the float32 rate",
-           "sass_hmma": hmma, "pass_ms_per_launch": passes,
+           "sass_hgmma": hgmma, "sass_hmma": hmma,
+           "pass_ms_per_launch": passes,
            "ptxas_by_kernel": ptxas,
            "zamba2_shape": figures["zamba2-1.2b"]}
     emit({"phase": "kernel_vs_plain", "kernel": "ssd_intra_bwd",

@@ -1446,9 +1446,10 @@ class TestSsdIntraBwdKernel:
         (1, 2, 256, 8, 128, 128, None),     # hd and N at their largest
         (2, 8, 256, 32, 64, 128, None),     # mamba2-370m's training shape
         (2, 8, 256, 64, 64, 64, None),      # zamba2-1.2b's
-        (2, 8, 256, 32, 64, 128, -1.0)],    # exp(+200) unless masked first
+        (2, 8, 256, 32, 64, 128, -1.0),     # exp(+200) unless masked first
+        (1, 2, 256, 33, 64, 128, None)],    # a last group of one head
         ids=("q1", "q40", "q100", "q256-wide", "mamba2", "zamba2",
-             "mamba2-A-1"))
+             "mamba2-A-1", "nh33"))
     def test_chunks_equal_plain_version(self, cuda, monkeypatch, bt, nc, q,
                                         nh, hd, n, a):
         self._held(monkeypatch,
@@ -1496,9 +1497,16 @@ class TestSsdIntraBwdKernel:
         assert rc == -5
 
     def test_issues_hmma(self, cuda):
-        """The products run on the tensor cores (mma.sync, TF32)."""
+        """C B^T, the chunk pass and the head pass at the widths no
+        training path runs use mma.sync (TF32) on the tensor cores."""
         ssd_ops.ssd_intra_bwd(*self._inputs(_gen(44), 1, 1, 16, 1, 16, 16))
         assert ssd_ops.BWD_LIB.sass_count("HMMA") > 0
+
+    def test_issues_hgmma(self, cuda):
+        """The head pass at the training widths (hd 64, N 64 and 128)
+        runs its products on wgmma (TF32)."""
+        ssd_ops.ssd_intra_bwd(*self._inputs(_gen(48), 1, 1, 64, 4, 64, 128))
+        assert ssd_ops.BWD_LIB.sass_count("HGMMA") > 0
 
     def test_refused_launches_raise(self, cuda):
         ins = self._inputs(_gen(45), 1, 2, 32, 4, 64, 32)

@@ -7,10 +7,11 @@ autograd through the port's `ref.intra_chunk_ref`); it is held to
 with random cotangents on all three outputs, made with numpy from seeds,
 at the float32 tolerance of tests/test_torch_train.py: 1e-5 of each
 gradient's largest magnitude. A float32 model of the kernel's own
-decomposition (`csrc/ssd_intra_bwd.cu`: dcb summed over the heads, the
-row sums of P a column tile, the state term of dB a group of heads, the
-reverse cumsum in double) is held to the plain version at the same
-tolerance, so a wrong derivation fails here before the card sees it.
+decomposition (`csrc/ssd_intra_bwd.cu`: dS formed once a head, dcb and
+the state term of dB as partials over groups of heads added in group
+order, the row sums of P a column tile, the reverse cumsum in double) is
+held to the plain version at the same tolerance, so a wrong derivation
+fails here before the card sees it.
 The kernel itself is held to the plain version on the card:
 `-m cuda tests/test_torch_cuda.py -k SsdIntraBwd`.
 """
@@ -35,7 +36,14 @@ import chip_smoke  # noqa: E402  (jax-free; its planted faults)
 
 F32_TOL = 1e-5          # of each gradient's largest magnitude
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
-TILE, GROUP = 64, 4     # the kernel's tile rows and its heads a block
+TILE = 64               # the kernel's tile rows
+GROUP, GROUP_WG = 4, 8  # heads a block of its head pass: mma.sync, wgmma
+WG_WIDTHS = ((64, 64), (64, 128))   # (hd, N) of the wgmma form
+
+
+def group_heads(hd, n):
+    """Heads a group of the kernel's head pass at these widths."""
+    return GROUP_WG if (hd, n) in WG_WIDTHS else GROUP
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -94,15 +102,18 @@ def test_plain_backward_matches_the_reference_vjp(shape):
 
 def kernel_model(x, dt, A, B, C, dy, dst, dcum):
     """The kernel's decomposition in float32 on the CPU: dS = dy x^T per
-    head; dcb = the sum over heads, in order, of dS * dt_j * e; S = cb e
-    dt_j and P = dS * S; dx = w (B dst^T) + S^T dy; dB's state term a sum
-    of partials over groups of GROUP heads; the row sums of P as partials
+    head, formed once, and from it S = cb e dt_j, P = dS * S and dcb's
+    term dS * dt_j * e; dcb the sum, in group order, of each group's
+    partial, its heads' terms added in order (groups of
+    `group_heads(hd, N)`); dx = w (B dst^T) + S^T dy; dB's state term a
+    sum of partials over the same groups; the row sums of P as partials
     over column tiles of TILE, added in order; d_j = (dw_j dt_j)
     exp(cum_end - cum_j), the column tiles' sums of d added to dcum_end;
     da the reverse cumsum of dcum in double; dA = sum of da dt in
     double."""
     bt, nc, q, nh, hd = x.shape
     n = B.shape[-1]
+    group = group_heads(hd, n)
     bc = bt * nc
     x, dy = x.reshape(bc, q, nh, hd), dy.reshape(bc, q, nh, hd)
     dt, dcum = dt.reshape(bc, q, nh), dcum.reshape(bc, q, nh)
@@ -116,8 +127,11 @@ def kernel_model(x, dt, A, B, C, dy, dst, dcum):
     dS = torch.einsum("bihp,bjhp->bijh", dy, x)
     dtj = dt[:, None, :, :]
     dcb = torch.zeros(bc, q, q)
-    for h in range(nh):
-        dcb = dcb + (dS[..., h] * dtj[..., h]) * e[..., h]
+    for g in range(0, nh, group):
+        part = (dS[..., g] * dtj[..., g]) * e[..., g]
+        for h in range(g + 1, min(nh, g + group)):
+            part = part + (dS[..., h] * dtj[..., h]) * e[..., h]
+        dcb = dcb + part
     cbe = cb * e
     P = ((dS * dtj) * cb) * e
     V = torch.einsum("bjn,bhpn->bjhp", B, dst)
@@ -126,9 +140,9 @@ def kernel_model(x, dt, A, B, C, dy, dst, dcum):
     dw = (V * x).sum(-1)
     dx = V * w[..., None] + torch.einsum("bijh,bihp->bjhp", cbe * dtj, dy)
     dbs = torch.zeros(bc, q, n)
-    for g in range(0, nh, GROUP):
+    for g in range(0, nh, group):
         part = torch.zeros(bc, q, n)
-        for h in range(g, min(nh, g + GROUP)):
+        for h in range(g, min(nh, g + group)):
             part = part + torch.einsum("bjp,bpn->bjn",
                                        x[:, :, h] * w[:, :, h, None],
                                        dst[:, h])
@@ -151,8 +165,9 @@ def kernel_model(x, dt, A, B, C, dy, dst, dcum):
 @pytest.mark.parametrize("shape,a", [
     ((2, 2, 40, 3, 16, 32), None),       # one ragged tile, one group
     ((1, 2, 100, 5, 16, 16), None),      # two tiles, a ragged group
-    ((1, 1, 256, 2, 16, 16), -1.0)],     # four tiles; exp(+200) if unmasked
-    ids=("q40", "q100", "q256-A-1"))
+    ((1, 1, 256, 2, 16, 16), -1.0),      # four tiles; exp(+200) if unmasked
+    ((1, 1, 256, 9, 64, 64), None)],     # the wgmma form: a ragged group
+    ids=("q40", "q100", "q256-A-1", "q256-wgmma"))
 def test_kernel_decomposition_matches_the_plain_backward(shape, a):
     """`kernel_model` against `ref.intra_chunk_bwd_ref` on the same
     inputs, within 1e-5 of each gradient's largest: the kernel's algebra,
