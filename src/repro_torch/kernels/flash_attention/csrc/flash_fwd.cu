@@ -2,65 +2,106 @@
 // self-attention with positions 0..S-1.
 //
 // Replaces the TPU kernel `_flash_fwd_kernel` of
-// src/repro/kernels/flash_attention/kernel.py (Pallas, grid (B, H,
-// q blocks, kv blocks), the kv axis sequential with (m, l, acc) in VMEM,
-// blocks past the causal frontier skipped, KV head = h // g in the index
-// map). Same contract: q (B, S, H, hd), k and v (B, S, Hkv, hd), bf16 or
-// float32; out (B, H, S, hd) float32 and lse (B, H, S) float32:
-//   s = (q . k) / sqrt(hd),  masked to key <= query,
+// src/repro/kernels/flash_attention/kernel.py:28 (Pallas, `pallas_call`
+// at :82; grid (B, H, q blocks, kv blocks), the kv axis sequential with
+// (m, l, acc) in VMEM, blocks past the causal frontier skipped, KV head =
+// h // g in the index map). Same contract: q (B, S, H, hd), k (B, S, Hkv,
+// hd), v (B, S, Hkv, hd_v), bf16 or float32; out (B, H, S, hd_v) float32
+// and lse (B, H, S) float32:
+//   s = scale * (q . k),  masked to key <= query,
 //   online softmax over kv tiles,  out = acc / max(l, 1e-30),
 //   lse = m + log(max(l, 1e-30)).
 // Unlike the Pallas kernel it takes any S: the ragged edge is masked here,
 // and query rows past S are not written.
 //
 // Bound on this card: operations. The causal half of the two products is
-// 4*B*H*S^2*hd/2 operations against q, k, v in and out, lse back, some
-// 300 operations a byte at gemma-2b's prefill (B 4, S 2048, H 8, Hkv 1,
-// hd 256): 68.7 GFLOP, 0.0695 ms at the bf16 tensor-core rate.
+// 2*B*H*S^2*(hd + hd_v)/2 operations against q, k, v in and out, lse back,
+// some 300 operations a byte at gemma-2b's prefill (B 4, S 2048, H 8, Hkv
+// 1, hd 256): 68.7 GFLOP, 0.0695 ms at the bf16 tensor-core rate. P enters
+// its product as three bf16 terms (below), so the tensor cores do
+// hd + 3 hd_v units where the function needs hd + hd_v: the least time of
+// this arithmetic is 2x the bound at equal widths (0.139 ms at gemma's),
+// 1.8x at MLA's 192/128.
 //
 // bf16 inputs (the serving path) run on the tensor cores:
-// - A block owns 128 query rows of one (batch, head): two consumer
-//   warpgroups of 64 rows each, and a producer warpgroup whose registers
-//   `setmaxnreg` hands to the consumers (24 and 240 a thread). Blocks are
-//   launched heavy first (the q tile index is the grid's slowest axis,
-//   reversed): late rows see the most keys, and blocks run in no order.
+// - A work item is 128 query rows of one (batch, head). The kernel is
+//   persistent: one block an SM (the grid is min(items, SMs)) walks its
+//   items, heaviest first (the last q tiles: late rows see the most keys;
+//   a block's round r takes item r * grid + its place, the places reversed
+//   in odd rounds). A block is two consumer warpgroups of 64 rows each and
+//   a producer warpgroup whose registers `setmaxnreg` hands to the
+//   consumers (24, the least, and 240 a thread, all that leaves).
 // - One producer thread issues TMA loads (`cp.async.bulk.tensor.4d`,
-//   tensor maps (hd, heads, S, B) built on the host, so rows past S come
-//   back as zeros) of the block's q once and of K and V tiles of BN keys (64 at
-//   hd 256, else 128) into a ring of two stages, each completion counted
-//   on an mbarrier; the consumers release a stage on an `empty` barrier.
-//   Tiles past the causal frontier are never loaded.
-// - A tile lands in shared memory as hd/64 boxes of [rows][64] bf16 with
-//   the 128-byte swizzle (32 and 64 bytes at hd 16 and 32, whose rows are
-//   that wide), the canonical layout `wgmma` reads through a descriptor.
-// - S = Q K^T is `wgmma.mma_async` m64nBNk16 (bf16 in, float32
-//   accumulate) with both operands K-major in shared memory; O += P V is
-//   m64n(hd)k16 with P from registers and V read MN-major through the
-//   transpose bit, so no transposed copy of V is made. O stays in
-//   registers: hd/2 float32 a thread, 128 at hd 256.
-// - The online softmax is float32 in registers: scores scaled by
-//   log2(e)/sqrt(hd) (the scale applied to the float32 scores, never to a
-//   rounded q), the causal mask applied before exp2 on the one diagonal
-//   tile of each warpgroup, row max and sum over the four threads of a
-//   row by shuffles.
+//   tensor maps (hd, heads, S, B) built on the host, rows past S come back
+//   as zeros) of each item's q, once both warpgroups have released the
+//   last item's (a `q empty` barrier), and of K and V tiles of BN keys
+//   into two rings of NS stages each that run on across items, in the
+//   order the consumers take them (K_j, then V_{j-1}); each completion is
+//   counted on a `full` mbarrier, and the consumers release a K tile as
+//   soon as its scores are computed and a V tile once its product is,
+//   each on its own `empty` barrier. So an item's q and first tiles load
+//   while the consumers still write the last item's out (on an H100 the
+//   persistent form ran 2-10% faster than a block an item, the most at
+//   train_lm's and arctic's shapes). Tiles past the causal frontier are
+//   never loaded. A tile lands as boxes of [rows][64] bf16 with the
+//   128-byte swizzle (32 and 64 bytes at hd 16 and 32), the layout
+//   `wgmma` reads through a descriptor.
+// - S = Q K^T is `wgmma` m64nBNk16 (bf16 in, float32 accumulate), K
+//   K-major in shared memory and Q from shared memory too, or, at hd 128
+//   and 192, from registers (loaded once by `ldmatrix`: it spares shared
+//   memory's bandwidth where S's n is 64). O += P V is m64n(hd_v)k16 with P
+//   from registers and V read MN-major through the transpose bit. O stays
+//   in registers.
+// - The online softmax is float32: scores scaled by log2(e) * scale in the
+//   exponent's fused multiply-add, the causal mask on the diagonal tiles
+//   only, row max and sum over the four threads of a row by shuffles, 2^x
+//   on the special-function unit (`ex2.approx.ftz`: a P under 2^-126, the
+//   row's largest being 1, is 0).
 // - P reaches the second product in float32, as the TPU kernel and
-//   `flash_ref` keep it: split into three bf16 terms (t1 = bf16(P),
-//   t2 = bf16(P - t1), t3 = P - t1 - t2, each difference exact in
-//   float32), which sum to P exactly, each an m64n(hd)k16 `wgmma` into
-//   the same O; l sums P. One bf16 term (as the flash kernels of
-//   PyTorch's SDPA round it) moved llava-next-34b's logits at 48 and 60
-//   layers 1.3-1.5x further from the plain version's than the plain
-//   version's own summation-order floor; two terms still left 9x the
-//   float32 error. The three terms triple the PV product's tensor-core
-//   work, which the bound above does not count (it counts the
-//   function's operations).
-// Shared memory at hd 256: q 64 KiB + 2 x (K 32 + V 32) KiB = 192 KiB.
+//   `flash_ref` keep it, as three bf16 terms that sum to it exactly, each
+//   an m64n(hd_v)k16 `wgmma` into the same O, each term rounded to
+//   nearest (`split3`). Terms cut by truncation (bit masks and byte
+//   permutes, no conversion) ran 1-3% faster on an H100 but left out 1.3x
+//   further from the float32 plain version (9.8e-7 of max |out| against
+//   7.3e-7 at gemma-2b's prefill: every term of the same sign), and
+//   gemma-2b's gradient check in training then failed (1.307 of 1.3 on
+//   one leaf). One bf16 term (as the flash kernels of PyTorch's SDPA
+//   round P) moved llava-next-34b's logits at 48 and 60 layers 1.3-1.5x
+//   further from the plain version's than the plain version's own
+//   summation-order floor; two terms still left 9x the float32 error.
+// - The CUDA-core work (mask, max, 2^x, the sum, O's rescale, the split:
+//   some 11 instructions a score) runs beside the tensor cores in two ways.
+//   Between the warpgroups, a ping-pong: named barriers 1 and 2 give each
+//   warpgroup in turn the right to issue its products, so one's softmax
+//   runs while the other's products do. Inside a warpgroup, a turn issues
+//   tile t's S = Q K^T and then tile t-1's three P V products, waits for
+//   S alone (`wgmma.wait_group 1`), runs tile t's softmax while P V runs,
+//   and only then waits for P V, rescales O and splits tile t's P into the
+//   registers P V read. Every warpgroup takes n_kv + 1 turns an item, so
+//   the barriers stay paired where one warpgroup has a tile fewer. Nothing
+//   branches while a product is in flight: ptxas serializes every `wgmma`
+//   of a kernel that does (C7518, C7513 in its report), so the turns are
+//   peeled (the first, the unmasked, the masked, the last), the mask is
+//   selects and the releases predicated instructions. Splitting into a
+//   second set of registers while P V reads the first also serializes.
+// - Registers: S of tile t (BN/2 float32 a thread), P's terms of tile t-1
+//   (3 BN/4) and O (hd_v/2) are live together, so BN is 128 where hd_v
+//   is at most 64 (hd 16, 32, 64: 168, 176, 192 of the 240) and 64 above
+//   (hd 128 and 192/128: 144, with q's fragments 176 and 192; hd 256:
+//   208). ptxas reports no spill in any instantiation.
+// - MLA's prefill (deepseek-v2-lite: q and k 192, v 128) has a form of
+//   its own, <192, 128>: S at k 192, P V at n 128, O 64 float32 a thread,
+//   its own tensor maps, no padding.
+// Shared memory (q, then NS stages of K and of V): hd 256 64 + 2 x (32 +
+// 32) KiB = 192 KiB; hd 128 32 + 3 x (16 + 16) = 128; 192/128 48 + 3 x
+// (24 + 16) = 168; hd 64 16 + 3 x (16 + 16) = 112.
 //
 // float32 inputs are not on the serving path and keep the first design,
 // on the CUDA cores, held to `flash_ref` at 2e-5: one block of 128
 // threads per (q tile of 32 rows, head, batch) walking kv tiles of 32
 // keys up to the causal frontier, q, k and v tiles in shared memory as
-// float32, four threads a query row, each with hd/4 of its accumulator.
+// float32, four threads a query row, each with hd/4 of its accumulator;
+// one width for q, k and v.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,29 +270,43 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: wgmma, TMA and an mbarrier ring
+// bf16 inputs: wgmma, TMA, two mbarrier rings and a ping-pong
 // ---------------------------------------------------------------------------
 
-constexpr int kConsumers = 2;                     // warpgroups of 64 rows
-constexpr int kRows = 64 * kConsumers;            // query rows a block
+constexpr int kConsumers = 2;                      // warpgroups of 64 rows
+constexpr int kRows = 64 * kConsumers;             // query rows a block
 constexpr int kWgThreads = 128 * (kConsumers + 1); // + the producer
-constexpr int kProducerRegs = 24;                   // setmaxnreg: the
-constexpr int kConsumerRegs = 240;                  // producer's to them
-constexpr int kPTerms = 3;                        // bf16 terms of P
-constexpr int kStages = 2;
+constexpr int kProducerRegs = 24;                  // setmaxnreg: the least,
+constexpr int kConsumerRegs = 240;                 // and all that leaves
+constexpr int kPTerms = 3;                         // bf16 terms of P
 
-template <int HD>
+// the wgmma descriptor's layout for a box row of this many bytes: 1 =
+// 128-byte swizzle, 2 = 64, 3 = 32
+constexpr int layout_of(int row_bytes) {
+    return row_bytes == 128 ? 1 : (row_bytes == 64 ? 2 : 3);
+}
+
+// HDQ: the width of q and k; HDV: of v and out
+template <int HDQ, int HDV>
 struct Tile {
-    static constexpr int BN = HD == 256 ? 64 : 128;   // keys a kv tile
-    static constexpr int CH = HD < 64 ? HD : 64;      // columns a box
-    static constexpr int NCH = HD / CH;               // boxes a row
-    static constexpr int ROWB = CH * 2;               // bytes a box row
-    // the wgmma descriptor's layout: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-    static constexpr int LAYOUT = ROWB == 128 ? 1 : (ROWB == 64 ? 2 : 3);
-    static constexpr int Q_BYTES = kRows * HD * 2;
-    static constexpr int KV_BYTES = BN * HD * 2;
+    // keys a kv tile: S (BN/2 float32 a thread), P's terms (3 BN/4) and O
+    // (HDV/2) are live together
+    static constexpr int BN = HDV <= 64 ? 128 : 64;
+    static constexpr int NS = HDQ == 256 ? 2 : 3;     // stages a ring
+    // S's A operand (the warpgroup's q rows) from registers, loaded once,
+    // where they fit beside S, P's terms and O (HDQ/4 a thread: at hd
+    // 128 and 192/128); elsewhere from shared memory
+    static constexpr bool QREGS = HDQ >= 128 && HDQ <= 192;
+    static constexpr int CHQ = HDQ < 64 ? HDQ : 64;   // columns a box
+    static constexpr int CHV = HDV < 64 ? HDV : 64;
+    static constexpr int NCHQ = HDQ / CHQ, NCHV = HDV / CHV;
+    static constexpr int ROWQ = CHQ * 2, ROWV = CHV * 2;  // bytes a box row
+    static constexpr int LAYQ = layout_of(ROWQ), LAYV = layout_of(ROWV);
+    static constexpr int Q_BYTES = kRows * HDQ * 2;
+    static constexpr int K_BYTES = BN * HDQ * 2;
+    static constexpr int V_BYTES = BN * HDV * 2;
     // + 1 KiB to align the base to the 1024-byte swizzle atom
-    static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 1024;
+    static constexpr int SMEM = Q_BYTES + NS * (K_BYTES + V_BYTES) + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -268,9 +323,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                  :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(bar) : "memory");
+// mbar_arrive where pred holds: a predicated instruction, not a branch
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+                 "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+                 :: "r"(bar), "r"(static_cast<uint32_t>(pred)) : "memory");
 }
 
 // returns once the barrier's phase of this parity has completed
@@ -304,8 +361,10 @@ __device__ __forceinline__ void wgmma_commit() {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// returns once at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of accumulator registers
@@ -314,6 +373,65 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// the same for the registers an asynchronous product reads P's terms from
+template <int T, int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[T][K][4]) {
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                asm volatile("" : "+r"(r[t][k][i]) :: "memory");
+}
+
+// named barriers 1 and 2: warpgroup 0's and warpgroup 1's turn to issue
+// its products; both consumer warpgroups (256 threads) take part in each
+__device__ __forceinline__ void turn_wait(int id) {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int id) {
+    asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// turn_pass where pred holds: a predicated instruction, not a branch
+__device__ __forceinline__ void turn_pass_if(int id, bool pred) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %1, 0;\n"
+                 "@p bar.arrive %0, 256;\n}\n"
+                 :: "r"(id), "r"(static_cast<uint32_t>(pred)) : "memory");
+}
+
+// 2^x on the special-function unit; a result under 2^-126 is 0
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// Two float32 scores of one row (columns c and c + 1) as the three bf16x2
+// registers of their terms, each rounded to nearest: t1 = bf16(x), t2 =
+// bf16(x - t1), t3 = bf16(x - t1 - t2), each difference exact in
+// float32. The three sum to x exactly for every float32 x >= 2^-110
+// (checked for every such value in [0, 1]); below, t3 falls under bf16's
+// subnormals and x loses at most 2^-134.
+// tests/test_torch_serve_kernels.py::_bf16_terms is this split on the CPU.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& t1,
+                                       uint32_t& t2, uint32_t& t3) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    float2 f = __bfloat1622float2(h);
+    t1 = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= f.x;
+    x1 -= f.y;
+    h = __floats2bfloat162_rn(x0, x1);
+    f = __bfloat1622float2(h);
+    t2 = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= f.x;
+    x1 -= f.y;
+    h = __floats2bfloat162_rn(x0, x1);
+    t3 = *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // wgmma shared-memory matrix descriptor: start address, leading and
@@ -375,6 +493,61 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, float32) += A (registers, bf16) * B (smem, K-major)
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+}
+
+// D (64 x 128, float32) += A (registers, bf16) * B (smem, K-major)
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
 }
 
 // D (64 x 16, float32) += A (registers, bf16) * B (smem, MN-major: the
@@ -517,37 +690,299 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD>
+// What a consumer warpgroup's turns read. Every address is one of these
+// plus a constant, recomputed where it is used rather than held in a
+// register: the turn at hd 256 keeps 208 of its 240 registers for S, P's
+// terms and O.
+template <int HDQ, int HDV>
+struct Ctx {
+    using T = Tile<HDQ, HDV>;
+    static constexpr int NS = T::NS;
+    uint32_t smem;          // q, then the K ring, then the V ring
+    uint32_t bars;          // q full, q empty, then the rings' barriers
+    int qw0;                // this warpgroup's first row
+    float scale_log2;
+    int base;               // the block's kv tiles before this item's
+
+    __device__ __forceinline__ int wg() const { return threadIdx.x >> 7; }
+    __device__ __forceinline__ uint32_t q_tile() const {
+        return smem + 64 * wg() * T::ROWQ;
+    }
+    // tile t of this item is the block's tile base + t of each ring
+    __device__ __forceinline__ uint32_t k_tile(int t) const {
+        return smem + T::Q_BYTES + ((base + t) % NS) * T::K_BYTES;
+    }
+    __device__ __forceinline__ uint32_t v_tile(int t) const {
+        return smem + T::Q_BYTES + NS * T::K_BYTES
+               + ((base + t) % NS) * T::V_BYTES;
+    }
+    // ring r (0 K full, 1 K empty, 2 V full, 3 V empty): tile t's barrier
+    __device__ __forceinline__ uint32_t bar(int r, int t) const {
+        return bars + 8 * (2 + r * NS + (base + t) % NS);
+    }
+    __device__ __forceinline__ void wait_full(int r, int t) const {
+        mbar_wait(bar(r, t), ((base + t) / NS) & 1);
+    }
+    // the warp's release of tile t's stage on ring r, where pred holds
+    __device__ __forceinline__ void release(int r, int t, bool pred) const {
+        __syncwarp();
+        mbar_arrive_if(bar(r, t), (threadIdx.x & 31) == 0 && pred);
+    }
+    // named barriers 1 and 2: warpgroup 0's and 1's turn
+    __device__ __forceinline__ int mine() const { return 1 + wg(); }
+    __device__ __forceinline__ int theirs() const { return 2 - wg(); }
+    // this thread's first row of the accumulator fragments (the second is
+    // 8 below) and its first column
+    __device__ __forceinline__ int row0() const {
+        return qw0 + 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2);
+    }
+    __device__ __forceinline__ int col() const {
+        return 2 * (threadIdx.x & 3);
+    }
+};
+
+// the online softmax's running max (log2 units) and sum of this thread's
+// two rows (the sum over a quarter of each row)
+struct Rows {
+    float m0, m1, l0, l1;
+};
+
+constexpr int kRingKF = 0, kRingKE = 1, kRingVF = 2, kRingVE = 3;
+
+// The warpgroup's q rows as the A fragments of S's k16 steps (QREGS):
+// ldmatrix from the 128-byte swizzled tile (HDQ >= 64), where the 16-byte
+// chunk j of row r lies at chunk j ^ (r % 8)
+template <int HDQ, int HDV>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[HDQ / 16][4],
+                                       const Ctx<HDQ, HDV>& c) {
+    using T = Tile<HDQ, HDV>;
+    const int lane = threadIdx.x & 31, mi = lane >> 3;
+    // this lane's row of matrix mi: rows 0-7 (mi 0, 2) or 8-15 (1, 3) of
+    // the warp's 16; columns 0-7 (mi 0, 1) or 8-15 (2, 3) of the step
+    const int r = 64 * c.wg() + 16 * ((threadIdx.x >> 5) & 3)
+                  + 8 * (mi & 1) + (lane & 7);
+#pragma unroll
+    for (int kk = 0; kk < HDQ / 16; ++kk) {
+        const int k = kk * 16 + 8 * (mi >> 1);
+        const uint32_t addr = c.smem + (k / 64) * kRows * T::ROWQ
+                              + r * T::ROWQ + ((((k % 64) / 8) ^ (r & 7)) << 4);
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];\n"
+            : "=r"(qf[kk][0]), "=r"(qf[kk][1]), "=r"(qf[kk][2]),
+              "=r"(qf[kk][3])
+            : "r"(addr) : "memory");
+    }
+}
+
+// S = Q K_t^T, one committed group
+template <int HDQ, int HDV>
+__device__ __forceinline__ void issue_s(float (&s)[Tile<HDQ, HDV>::BN / 2],
+                                        const uint32_t (&qf)[HDQ / 16][4],
+                                        const Ctx<HDQ, HDV>& c, int t) {
+    using T = Tile<HDQ, HDV>;
+    const uint32_t k_src = c.k_tile(t);
+    uint32_t q_src = c.q_tile();
+    // computed again at every turn: the compiler would hold Q's
+    // descriptors, which no turn changes, in registers
+    asm volatile("" : "+r"(q_src));
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDQ / 16; ++kk) {
+        const int ch = kk * 16 / T::CHQ;
+        const int off = (kk * 16 % T::CHQ) * 2;
+        const uint64_t dk = desc(k_src + ch * T::BN * T::ROWQ + off, 16,
+                                 8 * T::ROWQ, T::LAYQ);
+        if (T::QREGS)
+            wgmma_rs_k(s, qf[kk], dk, kk > 0);
+        else
+            wgmma_ss(s,
+                     desc(q_src + ch * kRows * T::ROWQ + off, 16,
+                          8 * T::ROWQ, T::LAYQ),
+                     dk, kk > 0);
+    }
+    wgmma_commit();
+}
+
+// O += P_t V_t from P's three terms in pt, one committed group
+template <int HDQ, int HDV>
+__device__ __forceinline__ void issue_pv(
+        float (&o)[HDV / 2],
+        const uint32_t (&pt)[kPTerms][Tile<HDQ, HDV>::BN / 16][4],
+        const Ctx<HDQ, HDV>& c, int t) {
+    using T = Tile<HDQ, HDV>;
+    const uint32_t v_src = c.v_tile(t);
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::BN / 16; ++kk) {
+        const uint64_t dv = desc(v_src + kk * 16 * T::ROWV, T::BN * T::ROWV,
+                                 8 * T::ROWV, T::LAYV);
+#pragma unroll
+        for (int r = 0; r < kPTerms; ++r)
+            wgmma_rs(o, pt[r][kk], dv);
+    }
+    wgmma_commit();
+}
+
+// tile t's online softmax in place (s becomes P); O's corrections in c0
+// and c1. MASKED: the causal mask (a tile with a key past a row of the
+// warpgroup), as selects
+template <int HDQ, int HDV, bool MASKED>
+__device__ __forceinline__ void softmax(float (&s)[Tile<HDQ, HDV>::BN / 2],
+                                        const Ctx<HDQ, HDV>& c, int t,
+                                        Rows& st, float& c0, float& c1) {
+    constexpr int BN = Tile<HDQ, HDV>::BN;
+    if (MASKED) {
+        const int row0 = c.row0(), row1 = row0 + 8;
+        const int k0 = t * BN + c.col();
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+            const int key = k0 + 8 * i;
+            s[4 * i] = key > row0 ? -INFINITY : s[4 * i];
+            s[4 * i + 1] = key + 1 > row0 ? -INFINITY : s[4 * i + 1];
+            s[4 * i + 2] = key > row1 ? -INFINITY : s[4 * i + 2];
+            s[4 * i + 3] = key + 1 > row1 ? -INFINITY : s[4 * i + 3];
+        }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // in log2 units; scale_log2 > 0, so the scaled max is the max of the
+    // scaled scores
+    const float n0 = fmaxf(st.m0, mx0 * c.scale_log2);
+    const float n1 = fmaxf(st.m1, mx1 * c.scale_log2);
+    c0 = ex2(st.m0 - n0);                             // 0 at tile 0
+    c1 = ex2(st.m1 - n1);
+    st.m0 = n0;
+    st.m1 = n1;
+    float la = 0.0f, lb = 0.0f, lc = 0.0f, ld = 0.0f;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+        s[4 * i] = ex2(fmaf(s[4 * i], c.scale_log2, -n0));
+        s[4 * i + 1] = ex2(fmaf(s[4 * i + 1], c.scale_log2, -n0));
+        s[4 * i + 2] = ex2(fmaf(s[4 * i + 2], c.scale_log2, -n1));
+        s[4 * i + 3] = ex2(fmaf(s[4 * i + 3], c.scale_log2, -n1));
+        la += s[4 * i];
+        lb += s[4 * i + 1];
+        lc += s[4 * i + 2];
+        ld += s[4 * i + 3];
+    }
+    st.l0 = st.l0 * c0 + (la + lb);
+    st.l1 = st.l1 * c1 + (lc + ld);
+}
+
+// P's three terms: the S fragments of two n8 blocks are the A fragment of
+// one k16 step (rows row0/row1, keys col, col + 1 and col + 8, + 9)
+template <int BN>
+__device__ __forceinline__ void split(const float (&s)[BN / 2],
+                                      uint32_t (&pt)[kPTerms][BN / 16][4]) {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+            split3(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], pt[0][kk][r],
+                   pt[1][kk][r], pt[2][kk][r]);
+    }
+}
+
+// turn t of 1 .. n_w - 1: S of tile t, then P V of tile t - 1; tile t's
+// softmax runs while P V does. Nothing branches while a product is in
+// flight (ptxas would serialize every wgmma of the kernel): the turns
+// are peeled, the mask is selects and the releases are predicated
+template <int HDQ, int HDV, bool MASKED>
+__device__ __forceinline__ void turn(
+        float (&o)[HDV / 2],
+        uint32_t (&pt)[kPTerms][Tile<HDQ, HDV>::BN / 16][4], Rows& st,
+        const uint32_t (&qf)[HDQ / 16][4], const Ctx<HDQ, HDV>& c, int t) {
+    float s[Tile<HDQ, HDV>::BN / 2];
+    c.wait_full(kRingKF, t);
+    c.wait_full(kRingVF, t - 1);
+    turn_wait(c.mine());
+    issue_s<HDQ, HDV>(s, qf, c, t);
+    issue_pv<HDQ, HDV>(o, pt, c, t - 1);
+    turn_pass(c.theirs());                            // a last turn follows
+    wgmma_wait<1>();                                  // S alone
+    fence_regs(s);
+    c.release(kRingKE, t, true);
+    float c0, c1;
+    softmax<HDQ, HDV, MASKED>(s, c, t, st, c0, c1);
+    wgmma_wait<0>();                                  // P V of tile t - 1
+    fence_regs(o);
+    fence_regs(pt);
+    c.release(kRingVE, t - 1, true);
+#pragma unroll
+    for (int i = 0; i < HDV / 8; ++i) {
+        o[4 * i] *= c0;
+        o[4 * i + 1] *= c0;
+        o[4 * i + 2] *= c1;
+        o[4 * i + 3] *= c1;
+    }
+    split<Tile<HDQ, HDV>::BN>(s, pt);
+}
+
+// A block's work items, heaviest first: the last q tiles, then the head
+// fastest, then the batch. Round r of a block takes item r * grid + its
+// place, the places reversed in odd rounds, so that a block that took a
+// heavy item takes a lighter one next
+struct Item {
+    int h, b, q0;
+};
+
+__device__ __forceinline__ int item_index(int r) {
+    return r * gridDim.x
+           + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+__device__ __forceinline__ Item item_of(int w, int H, int B, int nq) {
+    const int hb = H * B, rest = w % hb;
+    return {rest % H, rest / H, (nq - 1 - w / hb) * kRows};
+}
+
+// Persistent: one block an SM walks its work items; the producer loads an
+// item's q and first tiles while the consumers write the last item's out
+template <int HDQ, int HDV>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                float* __restrict__ out, float* __restrict__ lse, int S,
-                int H, int hkv, float scale_log2) {
-    using T = Tile<HD>;
-    constexpr int BN = T::BN, CH = T::CH, NCH = T::NCH, ROWB = T::ROWB;
+                float* __restrict__ out, float* __restrict__ lse, int B,
+                int S, int H, int hkv, float scale_log2) {
+    using T = Tile<HDQ, HDV>;
+    constexpr int BN = T::BN, NS = T::NS;
     extern __shared__ uint8_t smem_raw[];
-    // q full; K full, V full and empty per stage
-    __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
+    // q full, q empty; a stage each: K full, K empty, V full, V empty
+    __shared__ __align__(8) uint64_t bars[2 + 4 * NS];
     const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;
-    const uint32_t s_kv = s_q + T::Q_BYTES;          // stage st: K, then V
+    const uint32_t s_k = s_q + T::Q_BYTES;        // + stage * K_BYTES
+    const uint32_t s_v = s_k + NS * T::K_BYTES;   // + stage * V_BYTES
     const uint32_t bar_q = smem_u32(&bars[0]);
-    const uint32_t bar_k = smem_u32(&bars[1]);        // + 8 * stage
-    const uint32_t bar_v = smem_u32(&bars[1 + kStages]);
-    const uint32_t bar_e = smem_u32(&bars[1 + 2 * kStages]);
+    const uint32_t bar_qe = bar_q + 8;
+    const uint32_t bar_kf = bar_q + 16;           // + 8 * stage
+    const uint32_t bar_ke = bar_kf + 8 * NS;
+    const uint32_t bar_vf = bar_ke + 8 * NS;
+    const uint32_t bar_ve = bar_vf + 8 * NS;
 
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;   // heavy first
-    const int kvh = h / (H / hkv);
-    const int n_kv = (min(q0 + kRows, S) + BN - 1) / BN;   // causal frontier
+    const int nq = (S + kRows - 1) / kRows;
+    const int n_items = nq * H * B;
     const int tid = threadIdx.x;
 
     if (tid == 0) {
         mbar_init(bar_q, 1);
-        for (int st = 0; st < kStages; ++st) {
-            mbar_init(bar_k + 8 * st, 1);
-            mbar_init(bar_v + 8 * st, 1);
-            mbar_init(bar_e + 8 * st, 4 * kConsumers);   // one a warp
+        mbar_init(bar_qe, 4 * kConsumers);            // one a warp
+        for (int st = 0; st < NS; ++st) {
+            mbar_init(bar_kf + 8 * st, 1);
+            mbar_init(bar_ke + 8 * st, 4 * kConsumers);
+            mbar_init(bar_vf + 8 * st, 1);
+            mbar_init(bar_ve + 8 * st, 4 * kConsumers);
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -560,182 +995,154 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                      :: "n"(kProducerRegs));
         if (tid == 128 * kConsumers) {
-            mbar_expect_tx(bar_q, T::Q_BYTES);
-            for (int c = 0; c < NCH; ++c)
-                tma_load(s_q + c * kRows * ROWB, &tq, bar_q, c * CH, h, q0, b);
-            for (int j = 0; j < n_kv; ++j) {
-                const int st = j % kStages;
-                const uint32_t k_dst = s_kv + st * 2 * T::KV_BYTES;
-                const uint32_t v_dst = k_dst + T::KV_BYTES;
-                // a fresh stage passes (parity 1); then wait for its release
-                mbar_wait(bar_e + 8 * st, ((j / kStages) & 1) ^ 1);
-                mbar_expect_tx(bar_k + 8 * st, T::KV_BYTES);
-                for (int c = 0; c < NCH; ++c)
-                    tma_load(k_dst + c * BN * ROWB, &tk, bar_k + 8 * st,
-                             c * CH, kvh, j * BN, b);
-                mbar_expect_tx(bar_v + 8 * st, T::KV_BYTES);
-                for (int c = 0; c < NCH; ++c)
-                    tma_load(v_dst + c * BN * ROWB, &tv, bar_v + 8 * st,
-                             c * CH, kvh, j * BN, b);
+            int j0 = 0;                       // the block's kv tiles so far
+            for (int r = 0;; ++r) {
+                const int w = item_index(r);
+                if (w >= n_items) break;
+                const Item it = item_of(w, H, B, nq);
+                const int kvh = it.h / (H / hkv);
+                const int n_kv = (min(it.q0 + kRows, S) + BN - 1) / BN;
+                // the q buffer, once both warpgroups are done with the
+                // last item's (a fresh barrier passes parity 1)
+                mbar_wait(bar_qe, (r & 1) ^ 1);
+                mbar_expect_tx(bar_q, T::Q_BYTES);
+                for (int c = 0; c < T::NCHQ; ++c)
+                    tma_load(s_q + c * kRows * T::ROWQ, &tq, bar_q,
+                             c * T::CHQ, it.h, it.q0, it.b);
+                // in the order the consumers take them: K_j, then V_{j-1};
+                // a fresh stage passes its empty barrier (parity 1), a
+                // used one once both warpgroups have released it
+                for (int j = 0; j <= n_kv; ++j) {
+                    if (j < n_kv) {
+                        const int g = j0 + j, st = g % NS;
+                        const uint32_t dst = s_k + st * T::K_BYTES;
+                        mbar_wait(bar_ke + 8 * st, ((g / NS) & 1) ^ 1);
+                        mbar_expect_tx(bar_kf + 8 * st, T::K_BYTES);
+                        for (int c = 0; c < T::NCHQ; ++c)
+                            tma_load(dst + c * BN * T::ROWQ, &tk,
+                                     bar_kf + 8 * st, c * T::CHQ, kvh,
+                                     j * BN, it.b);
+                    }
+                    if (j > 0) {
+                        const int g = j0 + j - 1, st = g % NS;
+                        const uint32_t dst = s_v + st * T::V_BYTES;
+                        mbar_wait(bar_ve + 8 * st, ((g / NS) & 1) ^ 1);
+                        mbar_expect_tx(bar_vf + 8 * st, T::V_BYTES);
+                        for (int c = 0; c < T::NCHV; ++c)
+                            tma_load(dst + c * BN * T::ROWV, &tv,
+                                     bar_vf + 8 * st, c * T::CHV, kvh,
+                                     (j - 1) * BN, it.b);
+                    }
+                }
+                j0 += n_kv;
             }
         }
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                      :: "n"(kConsumerRegs));
-        // a consumer warpgroup: 64 query rows
-        const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-        const int qw0 = q0 + 64 * wg;
-        // this thread's two rows of the accumulator fragments
-        const int row0 = qw0 + 16 * warp + (lane >> 2), row1 = row0 + 8;
-        const int col = 2 * (lane & 3);
-        float o[HD / 2];
+        // a consumer warpgroup: 64 query rows of each item
+        const int wg = tid >> 7;
+        int j0 = 0;                           // the block's kv tiles so far
+        if (wg == 1) turn_pass(1);                    // warpgroup 0 first
+        for (int r = 0;; ++r) {
+            const int w = item_index(r);
+            if (w >= n_items) break;
+            const int q0 = item_of(w, H, B, nq).q0;
+            const int n_kv = (min(q0 + kRows, S) + BN - 1) / BN;
+            const Ctx<HDQ, HDV> c = {s_q, bar_q, q0 + 64 * wg, scale_log2,
+                                     j0};
+            // the kv tiles with a key <= this warpgroup's last row (a tile
+            // fewer than the item's n_kv for warpgroup 0 where BN is 64),
+            // and the first with a key past its first row: the tiles from
+            // there on are masked. Tile 0's first key is <= every row, so
+            // every row's max is finite after it
+            const int n_w = (min(c.qw0 + 64, S) + BN - 1) / BN;
+            const int t_m = (c.qw0 + 1) / BN;
+            float o[HDV / 2];
     #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
-        float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-        const uint32_t q_wg = s_q + 64 * wg * ROWB;
-
-        mbar_wait(bar_q, 0);
-        for (int j = 0; j < n_kv; ++j) {
-            const int st = j % kStages;
-            const uint32_t ph = (j / kStages) & 1;
-            const uint32_t k_src = s_kv + st * 2 * T::KV_BYTES;
-            const uint32_t v_src = k_src + T::KV_BYTES;
-            const int k0 = j * BN;
-            // a tile with no key <= this warpgroup's last row adds nothing; a
-            // live tile has key k0 <= every row of the warpgroup (k0 and qw0
-            // are multiples of 64, and of 128 when BN is), so every row's max
-            // is finite after it
-            const bool live = k0 <= qw0 + 63;
-            // P's fragments, its three bf16 terms
+            for (int i = 0; i < HDV / 2; ++i) o[i] = 0.0f;
+            Rows st = {-INFINITY, -INFINITY, 0.0f, 0.0f};
+            // P's fragments of the tile whose P V is next, its three terms
             uint32_t pt[kPTerms][BN / 16][4];
-            mbar_wait(bar_k + 8 * st, ph);
-            if (live) {
+            uint32_t qf[HDQ / 16][4];                 // where QREGS
+
+            mbar_wait(bar_q, r & 1);
+            if (T::QREGS) load_q<HDQ, HDV>(qf, c);
+            {   // turn 0: S of tile 0 alone (masked: it may hold the
+                // diagonal)
                 float s[BN / 2];
-    #pragma unroll
-                for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
+                c.wait_full(kRingKF, 0);
+                turn_wait(c.mine());
+                issue_s<HDQ, HDV>(s, qf, c, 0);
+                turn_pass(c.theirs());                // n_kv >= 1 follow
+                wgmma_wait<0>();
                 fence_regs(s);
-                wgmma_fence();
-    #pragma unroll
-                for (int kk = 0; kk < HD / 16; ++kk) {
-                    const int c = kk * 16 / CH;
-                    const int off = (kk * 16 % CH) * 2;
-                    wgmma_ss(s,
-                             desc(q_wg + c * kRows * ROWB + off, 16, 8 * ROWB,
-                                  T::LAYOUT),
-                             desc(k_src + c * BN * ROWB + off, 16, 8 * ROWB,
-                                  T::LAYOUT),
-                             kk > 0);
-                }
-                wgmma_commit();
-                wgmma_wait_all();
-                fence_regs(s);
-
-                // scale to log2 units; the causal mask on the diagonal tile
-                const bool diag = k0 + BN - 1 > qw0;
-                float mx0 = m0, mx1 = m1;
-    #pragma unroll
-                for (int i = 0; i < BN / 8; ++i) {
-                    const int key = k0 + 8 * i + col;
-    #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        float x = s[4 * i + e] * scale_log2;
-                        if (diag && key + (e & 1) > (e < 2 ? row0 : row1))
-                            x = -INFINITY;
-                        s[4 * i + e] = x;
-                    }
-                    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
-                    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
-                }
-                mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-                mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-                mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-                mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-                const float c0 = exp2f(m0 - mx0), c1 = exp2f(m1 - mx1);
-                m0 = mx0;
-                m1 = mx1;
-                float ls0 = 0.0f, ls1 = 0.0f;
-    #pragma unroll
-                for (int i = 0; i < BN / 8; ++i) {
-                    s[4 * i] = exp2f(s[4 * i] - m0);
-                    s[4 * i + 1] = exp2f(s[4 * i + 1] - m0);
-                    s[4 * i + 2] = exp2f(s[4 * i + 2] - m1);
-                    s[4 * i + 3] = exp2f(s[4 * i + 3] - m1);
-                    ls0 += s[4 * i] + s[4 * i + 1];
-                    ls1 += s[4 * i + 2] + s[4 * i + 3];
-                }
-                // a quarter of the row each; summed at the end
-                l0 = l0 * c0 + ls0;
-                l1 = l1 * c1 + ls1;
-    #pragma unroll
-                for (int i = 0; i < HD / 8; ++i) {
-                    o[4 * i] *= c0;
-                    o[4 * i + 1] *= c0;
-                    o[4 * i + 2] *= c1;
-                    o[4 * i + 3] *= c1;
-                }
-                // the S fragments of two n8 blocks are the A fragment of one
-                // k16 step: rows row0/row1, keys col, col + 1 and col + 8, + 9
-    #pragma unroll
-                for (int kk = 0; kk < BN / 16; ++kk) {
-    #pragma unroll
-                    for (int r = 0; r < 4; ++r) {
-                        float x0 = s[8 * kk + 2 * r];
-                        float x1 = s[8 * kk + 2 * r + 1];
-    #pragma unroll
-                        for (int t = 0; t < kPTerms; ++t) {
-                            const __nv_bfloat162 h =
-                                __floats2bfloat162_rn(x0, x1);
-                            const float2 hf = __bfloat1622float2(h);
-                            pt[t][kk][r] =
-                                *reinterpret_cast<const uint32_t*>(&h);
-                            // exact in float32: h is x rounded to nearest
-                            x0 -= hf.x;
-                            x1 -= hf.y;
-                        }
-                    }
-                }
+                c.release(kRingKE, 0, true);
+                float c0, c1;
+                softmax<HDQ, HDV, true>(s, c, 0, st, c0, c1);
+                split<BN>(s, pt);
             }
-            mbar_wait(bar_v + 8 * st, ph);
-            if (live) {
+            const int t_mid = max(1, min(t_m, n_w));
+            for (int t = 1; t < t_mid; ++t)
+                turn<HDQ, HDV, false>(o, pt, st, qf, c, t);
+            for (int t = t_mid; t < n_w; ++t)
+                turn<HDQ, HDV, true>(o, pt, st, qf, c, t);
+            {   // turn n_w: P V of the last live tile; q is free. The
+                // block's last turn of warpgroup 1 (its n_w is n_kv)
+                // passes none on
+                const int t = n_w;
+                c.wait_full(kRingVF, t - 1);
+                turn_wait(c.mine());
+                issue_pv<HDQ, HDV>(o, pt, c, t - 1);
+                turn_pass_if(c.theirs(),
+                             wg == 0 || item_index(r + 1) < n_items);
+                __syncwarp();
+                mbar_arrive_if(bar_qe, (tid & 31) == 0);
+                c.release(kRingKE, t, t < n_kv);      // a tile with no key
+                wgmma_wait<0>();                      // for these rows
                 fence_regs(o);
-                wgmma_fence();
-    #pragma unroll
-                for (int kk = 0; kk < BN / 16; ++kk) {
-                    const uint64_t dv = desc(v_src + kk * 16 * ROWB,
-                                             BN * ROWB, 8 * ROWB, T::LAYOUT);
-    #pragma unroll
-                    for (int t = 0; t < kPTerms; ++t)
-                        wgmma_rs(o, pt[t][kk], dv);
-                }
-                wgmma_commit();
-                wgmma_wait_all();
-                fence_regs(o);
+                c.release(kRingVE, t - 1, true);
             }
-            __syncwarp();
-            if (lane == 0) mbar_arrive(bar_e + 8 * st);
-        }
+            // warpgroup 0's turns past its last live tile: the other's
+            // turns go on; the tiles are released unread
+            for (int t = n_w + 1; t <= n_kv; ++t) {
+                turn_wait(c.mine());
+                turn_pass(c.theirs());
+                c.release(kRingKE, t, t < n_kv);
+                c.release(kRingVE, t - 1, true);
+            }
+            j0 += n_kv;
 
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        const float ln2 = 0.6931471805599453f;
-        const long long head = static_cast<long long>(b) * H + h;
+            // the item's head and batch, computed again rather than held
+            // in registers through the turns
+            int rr = r;
+            asm volatile("" : "+r"(rr));
+            const Item it = item_of(item_index(rr), H, B, nq);
+            float l0 = st.l0, l1 = st.l1;
+            l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+            l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+            l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+            const float ln2 = 0.6931471805599453f;
+            const long long head = static_cast<long long>(it.b) * H + it.h;
+            const int row0 = c.row0(), col = c.col();
     #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-            const int row = half ? row1 : row0;
-            if (row >= S) continue;
-            const float l_safe = fmaxf(half ? l1 : l0, 1e-30f);
-            float* dst = out + (head * S + row) * HD + col;
+            for (int half = 0; half < 2; ++half) {
+                const int row = row0 + 8 * half;
+                if (row >= S) continue;
+                const float l_safe = fmaxf(half ? l1 : l0, 1e-30f);
+                float* dst = out + (head * S + row) * HDV + col;
     #pragma unroll
-            for (int i = 0; i < HD / 8; ++i) {
-                float2 v;
-                v.x = o[4 * i + 2 * half] / l_safe;
-                v.y = o[4 * i + 2 * half + 1] / l_safe;
-                *reinterpret_cast<float2*>(dst + 8 * i) = v;
+                for (int i = 0; i < HDV / 8; ++i) {
+                    float2 v;
+                    v.x = o[4 * i + 2 * half] / l_safe;
+                    v.y = o[4 * i + 2 * half + 1] / l_safe;
+                    *reinterpret_cast<float2*>(dst + 8 * i) = v;
+                }
+                if (col == 0)
+                    lse[head * S + row] = (half ? st.m1 : st.m0) * ln2
+                                          + logf(l_safe);
             }
-            if ((lane & 3) == 0)
-                lse[head * S + row] = (half ? m1 : m0) * ln2 + logf(l_safe);
         }
     }
 }
@@ -794,12 +1201,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HDQ, int HDV>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 void* lse, int B, int S, int H, int hkv, float scale,
                 cudaStream_t st) {
-    using T = Tile<HD>;
-    auto kernel = flash_fwd_wgmma<HD>;
+    using T = Tile<HDQ, HDV>;
+    auto kernel = flash_fwd_wgmma<HDQ, HDV>;
     static bool attr_set = false;            // once per instantiation
     if (!attr_set) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -808,44 +1215,70 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
         attr_set = true;
     }
     CUtensorMap tq, tk, tv;
-    if (!make_map(&tq, q, HD, H, S, B, kRows, T::CH)
-        || !make_map(&tk, k, HD, hkv, S, B, T::BN, T::CH)
-        || !make_map(&tv, v, HD, hkv, S, B, T::BN, T::CH))
+    if (!make_map(&tq, q, HDQ, H, S, B, kRows, T::CHQ)
+        || !make_map(&tk, k, HDQ, hkv, S, B, T::BN, T::CHQ)
+        || !make_map(&tv, v, HDV, hkv, S, B, T::BN, T::CHV))
         return -6;
-    const dim3 grid(H, B, (S + kRows - 1) / kRows);
+    const long long items =
+        static_cast<long long>((S + kRows - 1) / kRows) * H * B;
+    if (items >= (1LL << 31)) return -4;
+    static int sms = 0;                      // one block an SM
+    if (sms == 0) {
+        int dev = 0;
+        cudaError_t e = cudaGetDevice(&dev);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int grid = static_cast<int>(items < sms ? items : sms);
     kernel<<<grid, kWgThreads, T::SMEM, st>>>(
-        tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), S, H,
-        hkv, scale * 1.4426950408889634f);
+        tq, tk, tv, static_cast<float*>(out), static_cast<float*>(lse), B, S,
+        H, hkv, scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
-                  void* out, void* lse, int B, int S, int H, int hkv,
-                  float scale, cudaStream_t st) {
+int dispatch_bf16(int hd, int hd_v, const void* q, const void* k,
+                  const void* v, void* out, void* lse, int B, int S, int H,
+                  int hkv, float scale, cudaStream_t st) {
+    // MLA's prefill: q and k 192 wide, v 128
+    if (hd == 192 && hd_v == 128)
+        return launch_bf16<192, 128>(q, k, v, out, lse, B, S, H, hkv, scale,
+                                     st);
+    if (hd_v != hd) return -2;
     switch (hd) {
-        case 16: return launch_bf16<16>(q, k, v, out, lse, B, S, H, hkv, scale, st);
-        case 32: return launch_bf16<32>(q, k, v, out, lse, B, S, H, hkv, scale, st);
-        case 64: return launch_bf16<64>(q, k, v, out, lse, B, S, H, hkv, scale, st);
-        case 128: return launch_bf16<128>(q, k, v, out, lse, B, S, H, hkv, scale, st);
-        case 256: return launch_bf16<256>(q, k, v, out, lse, B, S, H, hkv, scale, st);
+        case 16: return launch_bf16<16, 16>(q, k, v, out, lse, B, S, H, hkv, scale, st);
+        case 32: return launch_bf16<32, 32>(q, k, v, out, lse, B, S, H, hkv, scale, st);
+        case 64: return launch_bf16<64, 64>(q, k, v, out, lse, B, S, H, hkv, scale, st);
+        case 128: return launch_bf16<128, 128>(q, k, v, out, lse, B, S, H, hkv, scale, st);
+        case 256: return launch_bf16<256, 256>(q, k, v, out, lse, B, S, H, hkv, scale, st);
         default: return -2;
     }
 }
 
 }  // namespace
 
+// q (B, S, H, hd), k (B, S, Hkv, hd), v (B, S, Hkv, hd_v): bf16 (is_bf16)
+// at hd = hd_v in 16, 32, 64, 128, 256 or at hd 192, hd_v 128; float32 at
+// hd = hd_v in 16, 32, 64, 128, 256. Returns 0, or -2 (a width it has no
+// form for), -3 (shapes), -4 (a grid too large), -5 (bf16 pointers not
+// 16-byte aligned), -6 (a tensor map refused), or cudaGetLastError.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          int is_bf16, void* out, void* lse, int B, int S,
-                         int H, int hkv, int hd, float scale, void* stream) {
+                         int H, int hkv, int hd, int hd_v, float scale,
+                         void* stream) {
     if (B < 1 || S < 1 || hkv < 1 || H % hkv != 0) return -3;
     if (B > 65535 || H > 65535) return -4;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (!is_bf16)
+    if (!is_bf16) {
+        if (hd_v != hd) return -2;
         return dispatch_hd<float>(hd, q, k, v, out, lse, B, S, H, hkv, scale,
                                   st);
+    }
     // TMA reads from 16-byte aligned addresses
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
          | reinterpret_cast<uintptr_t>(v)) & 15u)
         return -5;
-    return dispatch_bf16(hd, q, k, v, out, lse, B, S, H, hkv, scale, st);
+    return dispatch_bf16(hd, hd_v, q, k, v, out, lse, B, S, H, hkv, scale,
+                         st);
 }

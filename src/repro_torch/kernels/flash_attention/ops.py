@@ -35,12 +35,16 @@ from repro_torch.kernels.flash_attention import ref
 __all__ = ["flash_fwd", "flash_bwd", "flash_attention_fwd", "FlashAttnFn",
            "flash_attention", "flash_attention_chunks", "LIB", "LAUNCHER",
            "BWD_LIB", "BWD_LAUNCHER", "BWD_TERMS", "BACKWARD", "reset",
-           "SOURCE", "BWD_SOURCE", "HEAD_DIMS"]
+           "SOURCE", "BWD_SOURCE", "HEAD_DIMS", "MLA_WIDTHS",
+           "kernel_widths"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCE = os.path.join(_CSRC, "flash_fwd.cu")
 BWD_SOURCE = os.path.join(_CSRC, "flash_bwd.cu")
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# q/k and v widths that the forward's bf16 form takes as they are beside
+# HEAD_DIMS' equal pairs: MLA's prefill (deepseek-v2-lite)
+MLA_WIDTHS = (192, 128)
 # bf16 terms of each float32 operand of the backward's products (P, dS,
 # dout): 3 sum to the float32 value exactly
 BWD_TERMS = 3
@@ -48,7 +52,7 @@ BWD_TERMS = 3
 
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_fwd.argtypes = [p, p, p, i, p, p, i, i, i, i, i,
+    lib.flash_fwd.argtypes = [p, p, p, i, p, p, i, i, i, i, i, i,
                               ctypes.c_float, p]
     lib.flash_fwd.restype = i
 
@@ -75,17 +79,40 @@ def reset() -> None:
     BACKWARD.reset()
 
 
+def kernel_widths(hd: int, hd_v: int, bf16: bool, backward: bool = False):
+    """The (q/k, v) widths the forward kernel runs for q/k width hd and v
+    width hd_v: (hd, hd_v) where it has a form for them (one width of
+    HEAD_DIMS for all three; in bf16 also MLA_WIDTHS, unless the result
+    goes to `flash_bwd`, which has no such form); else both the next
+    width of HEAD_DIMS that holds either (None past the last)."""
+    if hd == hd_v and hd in HEAD_DIMS:
+        return hd, hd_v
+    if bf16 and not backward and (hd, hd_v) == MLA_WIDTHS:
+        return hd, hd_v
+    width = next((w for w in HEAD_DIMS if w >= max(hd, hd_v)), None)
+    return None if width is None else (width, width)
+
+
+def _pad_to(widths, q, k, v):
+    """q, k, v zero-padded to `widths` (q/k, v) in their last dimension
+    (zeros add nothing to a dot product)."""
+    wq, wv = widths
+    pad = torch.nn.functional.pad
+    return (pad(q, (0, wq - q.shape[-1])), pad(k, (0, wq - k.shape[-1])),
+            pad(v, (0, wv - v.shape[-1])))
+
+
 def flash_fwd(q, k, v, *, chunk: int = 256, scale=None):
     """q: (B, S, H, hd); k: (B, S, Hkv, hd); v: (B, S, Hkv, hd_v), bf16 or
     float32, one dtype; scores scaled by `scale` (default 1/sqrt(hd)).
     Returns (out (B, H, S, hd_v) float32, lse (B, H, S) float32). `chunk`
     is the plain version's KV chunk; the kernel tiles by itself.
 
-    The kernel takes one width from HEAD_DIMS for q, k and v. Other
-    widths (MLA's prefill: q and k 192, v 128) are zero-padded to the
-    next width of HEAD_DIMS that holds both (zeros add nothing to a dot
-    product), run with the unpadded scale, and the output is cut back
-    to hd_v."""
+    The kernel takes one width from HEAD_DIMS for q, k and v, and in bf16
+    MLA's prefill widths (q and k 192, v 128) as they are. Other widths
+    are zero-padded to the next width of HEAD_DIMS that holds both
+    (`kernel_widths`), run with the unpadded scale, and the output is cut
+    back to hd_v."""
     if not kernel_route("flash_fwd", q):
         return ref.flash_ref(q, k, v, chunk=chunk, scale=scale)
     refuse_grad("flash_fwd", q, k, v)
@@ -96,8 +123,8 @@ def flash_fwd(q, k, v, *, chunk: int = 256, scale=None):
     hkv, hd_v = k.shape[2], v.shape[3]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
-    width = next((w for w in HEAD_DIMS if w >= max(hd, hd_v)), None)
-    if width is None:
+    widths = kernel_widths(hd, hd_v, q.dtype == torch.bfloat16)
+    if widths is None:
         raise ValueError(f"flash_fwd: head_dim {hd} / {hd_v}; the kernel "
                          f"takes up to {HEAD_DIMS[-1]}")
     if hkv < 1 or h % hkv:
@@ -106,17 +133,17 @@ def flash_fwd(q, k, v, *, chunk: int = 256, scale=None):
     check("flash_fwd", "q", q, dt, (b, s, h, hd), q.device)
     check("flash_fwd", "k", k, (q.dtype,), (b, s, hkv, hd), q.device)
     check("flash_fwd", "v", v, (q.dtype,), (b, s, hkv, hd_v), q.device)
-    if width != hd or width != hd_v:
-        q, k, v = (torch.nn.functional.pad(t, (0, width - t.shape[-1]))
-                   for t in (q, k, v))
-    out = torch.empty((b, h, s, width), dtype=torch.float32, device=q.device)
+    if widths != (hd, hd_v):
+        q, k, v = _pad_to(widths, q, k, v)
+    out = torch.empty((b, h, s, widths[1]), dtype=torch.float32,
+                      device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     LAUNCHER.launch("flash_fwd",
                     (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      int(q.dtype == torch.bfloat16), out.data_ptr(),
-                     lse.data_ptr(), b, s, h, hkv, width, float(scale)),
+                     lse.data_ptr(), b, s, h, hkv, *widths, float(scale)),
                     q.device)
-    return (out if width == hd_v else out[..., :hd_v]), lse
+    return (out if widths[1] == hd_v else out[..., :hd_v]), lse
 
 
 def _aligned(t):
@@ -245,18 +272,22 @@ def flash_attention(q, k, v, *, chunk: int = 256, scale=None):
     """The prefill's causal self-attention (positions 0..S-1) under
     autograd, through the kernel: q (B, S, H, hd), k (B, S, Hkv, hd), v
     (B, S, Hkv, hd_v). Returns (out (B, H, S, hd_v) float32, lse (B, H,
-    S) float32). On a card, widths the kernel does not take (MLA's q/k
-    192, v 128) are zero-padded to its next width here, before
+    S) float32). On a card, where autograd records (grad mode on and an
+    input that requires a gradient), widths `flash_bwd` does not take
+    (MLA's q/k 192, v 128) are zero-padded to its next width here, before
     `FlashAttnFn`, and the output cut back after it, so autograd sees
-    the pad."""
+    the pad; otherwise (the serving prefill) `flash_fwd` runs them in
+    its own form."""
     hd, hd_v = q.shape[-1], v.shape[-1]
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     if kernel_route("flash_fwd", q):
-        width = next((w for w in HEAD_DIMS if w >= max(hd, hd_v)), None)
-        if width is not None and (width != hd or width != hd_v):
-            q, k, v = (torch.nn.functional.pad(t, (0, width - t.shape[-1]))
-                       for t in (q, k, v))
+        records = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
+        widths = kernel_widths(hd, hd_v, q.dtype == torch.bfloat16,
+                               backward=records)
+        if widths is not None and widths != (hd, hd_v):
+            q, k, v = _pad_to(widths, q, k, v)
     out, lse = FlashAttnFn.apply(q, k, v, None, None, None, True, chunk,
                                  float(scale), True)
     return (out if out.shape[-1] == hd_v else out[..., :hd_v]), lse

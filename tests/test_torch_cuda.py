@@ -1012,11 +1012,13 @@ class TestFlashKernel:
         torch.testing.assert_close(out, want[0], rtol=1e-2, atol=1e-2)
         torch.testing.assert_close(lse, want[1], rtol=1e-2, atol=1e-2)
 
-    @pytest.mark.parametrize("b,s,h,hkv,hd", [(2, 1000, 14, 2, 128),
-                                              (2, 333, 8, 1, 256),
-                                              (2, 600, 6, 6, 64)])
+    @pytest.mark.parametrize("b,s,h,hkv,hd,hd_v", [
+        (2, 1000, 14, 2, 128, 128), (2, 333, 8, 1, 256, 256),
+        (2, 600, 6, 6, 64, 64),
+        # MLA's native form (q and k 192, v 128), deepseek-v2-lite's heads
+        (1, 2048, 16, 16, 192, 128), (2, 333, 4, 4, 192, 128)])
     def test_wgmma_form_keeps_p_in_float32(self, cuda, monkeypatch,
-                                           b, s, h, hkv, hd):
+                                           b, s, h, hkv, hd, hd_v):
         """P reaches the second product as three bf16 terms that sum to
         it exactly: within 1e-5 of max |output| of the float32 plain
         version (one bf16 term is some 1e-3 off, two some 2e-6:
@@ -1024,10 +1026,11 @@ class TestFlashKernel:
         gen = _gen(s * hd + h)
         q = _randn(gen, b, s, h, hd, dtype=torch.bfloat16)
         k = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
-        v = _randn(gen, b, s, hkv, hd, dtype=torch.bfloat16)
-        want = flash_ref(q, k, v, chunk=64)
+        v = _randn(gen, b, s, hkv, hd_v, dtype=torch.bfloat16)
+        scale = 1.0 / hd ** 0.5
+        want = flash_ref(q, k, v, chunk=64, scale=scale)
         _refuse_plain(monkeypatch, flash_ops, "flash_ref")
-        out, lse = flash_ops.flash_fwd(q, k, v)
+        out, lse = flash_ops.flash_fwd(q, k, v, scale=scale)
         err = float((out - want[0]).abs().max()) / float(
             want[0].abs().max())
         assert err <= 1e-5, err
@@ -1038,6 +1041,39 @@ class TestFlashKernel:
                                           dtype=torch.bfloat16),) * 3)
         assert flash_ops.LIB.sass_count("HGMMA") > 0
 
+    @pytest.mark.parametrize("hd,hd_v", [(16, 16), (32, 32), (64, 64),
+                                         (128, 128), (256, 256),
+                                         (192, 128)])
+    def test_wgmma_launches_are_equal_to_the_bit(self, cuda, hd, hd_v):
+        """Every bf16 instantiation: no atomics, a fixed order of sums, so
+        two launches on the same inputs give the same bits (S off the
+        128-row tile, GQA 2)."""
+        gen = _gen(hd + hd_v)
+        q = _randn(gen, 2, 1000, 4, hd, dtype=torch.bfloat16)
+        k = _randn(gen, 2, 1000, 2, hd, dtype=torch.bfloat16)
+        v = _randn(gen, 2, 1000, 2, hd_v, dtype=torch.bfloat16)
+        first = flash_ops.flash_fwd(q, k, v)
+        second = flash_ops.flash_fwd(q, k, v)
+        for a, w in zip(first, second):
+            assert torch.equal(a, w)
+
+    def test_wgmma_form_spills_nothing(self, cuda, monkeypatch, tmp_path):
+        """ptxas's report of a fresh build of the library (into a
+        directory of this test's own): no bf16 instantiation spills a
+        register, none is missing, and no `wgmma` is serialized."""
+        from repro_torch.kernels import _build
+        monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+        lib = _build.Library("flash_fwd", flash_ops.SOURCE,
+                             flash_ops.LIB.flags, lambda lib: None)
+        lib.build()
+        report = {name: r for name, r in lib.ptxas_by_kernel().items()
+                  if "flash_fwd_wgmma" in name}
+        assert len(report) == 6, sorted(report)
+        spills = {name: r for name, r in report.items()
+                  if r.get("spill_stores", 0) or r.get("spill_loads", 0)}
+        assert not spills, spills
+        assert "serialized" not in lib.build_log, lib.build_log
+
     @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                            (torch.float32, 2e-5)])
     @pytest.mark.parametrize("s,h,hd,hd_v", [(2048, 16, 192, 128),
@@ -1045,9 +1081,11 @@ class TestFlashKernel:
                                              (17, 2, 40, 40)])
     def test_padded_widths_equal_plain_version(self, cuda, monkeypatch, s,
                                                h, hd, hd_v, dtype, tol):
-        """Widths the kernel has no form for (MLA's prefill: q and k 192,
-        v 128, scale 1/sqrt(192)) run zero-padded to the next form (256)
-        and cut back."""
+        """MLA's prefill widths (q and k 192, v 128, scale 1/sqrt(192)) in
+        bf16 run in the kernel's own form: one launch, out straight from
+        the kernel (no padded copy cut back). Other widths the kernel has
+        no form for, and MLA's in float32, run zero-padded to the next
+        form and cut back."""
         b = 2 if s < 2048 else 1
         gen = _gen(hd * s + h)
         q = _randn(gen, b, s, h, hd, dtype=dtype)
@@ -1061,6 +1099,8 @@ class TestFlashKernel:
         torch.cuda.synchronize()
         assert flash_ops.LAUNCHER.launches == before + 1
         assert out.shape == (b, h, s, hd_v)
+        native = dtype == torch.bfloat16 and (hd, hd_v) == (192, 128)
+        assert out.is_contiguous() == native
         torch.testing.assert_close(out, want[0], rtol=tol, atol=tol)
         torch.testing.assert_close(lse, want[1], rtol=tol, atol=tol)
 

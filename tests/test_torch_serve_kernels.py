@@ -322,6 +322,47 @@ def test_flash_p_in_fewer_bf16_terms_misses_float32_p(s, h, hkv, hd):
     assert err[1] > err[2] > 4 * err[None], err
 
 
+@pytest.mark.parametrize("hd,hd_v,bf16,backward,want", [
+    (64, 64, True, False, (64, 64)), (256, 256, False, True, (256, 256)),
+    # MLA's prefill: its own bf16 form, but padded for flash_bwd (no such
+    # form) and in float32 (the CUDA-core form takes one width)
+    (192, 128, True, False, (192, 128)), (192, 128, True, True, (256, 256)),
+    (192, 128, False, False, (256, 256)),
+    (48, 32, True, False, (64, 64)), (40, 40, True, False, (64, 64)),
+    (300, 300, True, False, None)])
+def test_flash_kernel_widths(hd, hd_v, bf16, backward, want):
+    """The forms the flash kernel runs for q/k and v widths: one width of
+    HEAD_DIMS as it is, MLA's 192/128 in bf16 unless the result goes to
+    the backward, anything else padded to the next width."""
+    assert flash_ops.kernel_widths(hd, hd_v, bf16, backward) == want
+
+
+def test_flash_attention_pads_mla_only_where_autograd_records(monkeypatch):
+    """`flash_attention` on the kernel's route (the device check stubbed,
+    the Function recorded): MLA's widths reach `FlashAttnFn` as they are
+    where nothing records a gradient (the serving prefill) and padded to
+    256 where autograd records (training: `flash_bwd` has no 192/128
+    form); out comes back hd_v wide either way."""
+    seen = []
+
+    def fake_apply(q, k, v, *rest):
+        seen.append((q.shape[-1], k.shape[-1], v.shape[-1]))
+        b, s, h = q.shape[:3]
+        out = torch.zeros((b, h, s, v.shape[-1])) + v.sum() * 0
+        return out, torch.zeros((b, h, s))
+    monkeypatch.setattr(flash_ops, "kernel_route", lambda *a: True)
+    monkeypatch.setattr(flash_ops.FlashAttnFn, "apply", fake_apply)
+    gen = torch.Generator().manual_seed(3)
+    q, k = (torch.randn((1, 8, 2, 192), generator=gen).bfloat16()
+            for _ in range(2))
+    v = torch.randn((1, 8, 2, 128), generator=gen).bfloat16()
+    with torch.no_grad():
+        out, _ = flash_ops.flash_attention(q, k, v)
+    assert seen[-1] == (192, 192, 128) and out.shape[-1] == 128
+    out, _ = flash_ops.flash_attention(q, k, v.requires_grad_())
+    assert seen[-1] == (256, 256, 256) and out.shape[-1] == 128
+
+
 @pytest.mark.parametrize("s", [37, 100])
 def test_flash_takes_a_ragged_length(s):
     """A length that is no multiple of the chunk, which the Pallas kernel
